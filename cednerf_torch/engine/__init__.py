@@ -1,0 +1,1 @@
+"""See the package docstring; module names mirror cednerf_tpu."""
