@@ -266,7 +266,7 @@ bool feat_ok(int n_feat) { return n_feat == 1 || n_feat == 2 || n_feat == 4; }
 
 extern "C" {
 
-const char* brick_error_string(int code) {
+const char* cednerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,7 +1,20 @@
-"""Pinhole ray generation (host-side numpy), copied from
-cednerf_tpu/datasets/rays.py::pinhole_rays."""
+"""Pose and pinhole ray helpers (host-side numpy), copied from
+cednerf_tpu/datasets/rays.py (`normalize`, `viewmatrix`, `pinhole_rays`)."""
 
 import numpy as np
+
+
+def normalize(v):
+    return v / np.linalg.norm(v)
+
+
+def viewmatrix(z, up, pos):
+    """Camera-to-world [3, 4] from a look direction and an up vector
+    (reference datasets/utils.py:23-28)."""
+    vec2 = normalize(z)
+    vec0 = normalize(np.cross(up, vec2))
+    vec1 = normalize(np.cross(vec2, vec0))
+    return np.stack([-vec0, vec1, vec2, pos], axis=1)
 
 
 def pinhole_rays(x, y, K, c2w, opengl_camera: bool):

@@ -1,7 +1,14 @@
-"""Evaluation rendering — port of the serving half of
-cednerf_tpu/engine/renderer.py: the segment-compacted eval renderer
+"""Rendering — port of cednerf_tpu/engine/renderer.py: the packed, budgeted
+train renderer (`compact_select`, `pack_budget_samples`, `render_packed`,
+`render_rays_budget_packed`), the segment-compacted eval renderer
 (`make_eval_render_fn_seg`), the `make_eval_render_fn` dispatch and the
 `render_image` host loop.
+
+Train path: the [R, M] candidate lattice is compacted to a fixed budget of
+sample slots (kernel K4 on CUDA, ops/compact_kernels.py), each ray's
+samples forming one contiguous segment; the field runs on the budget and
+the compositing scans run on the packed buffer (ops/segments.py). Channel
+scans are laid out [C, B] and run along the contiguous dim.
 
 The JAX renderer is one jitted program whose pass loop is a
 `lax.while_loop`. Here the loop is a Python loop on the host: each pass is a
@@ -18,14 +25,267 @@ that is then dropped.
 """
 
 import math
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..ops.occupancy import (OccGridState, coarse_lookup, occupancy_lookup,
-                             pooled_binaries, ray_aabb_intersect)
+from ..ops import compact_kernels as ck
+from ..ops.compact_kernels import compact_select_rayfold  # noqa: F401
+from ..ops.occupancy import (OccGridState, RayCandidates, coarse_lookup,
+                             occupancy_lookup, pooled_binaries,
+                             ray_aabb_intersect)
+from ..ops.segments import segment_broadcast
+from ..utils.math import exclusive_cumsum
 from .config import SceneConfig
+
+
+class PackedSamples(NamedTuple):
+    """A budgeted, ray-major packed sample batch ready for the field.
+
+    Per slot ([budget]): pos [B, 3], dirs [B, 3], ts [B], t_starts [B],
+    dts [B], valid [B] bool (False: padding), ray [B] (owning ray). Per ray
+    ([R]): starts/counts (each ray's contiguous segment), complete (no valid
+    sample of the ray was dropped). n_valid: the valid-sample demand before
+    the budget cut."""
+
+    pos: torch.Tensor
+    dirs: torch.Tensor
+    ts: torch.Tensor
+    t_starts: torch.Tensor
+    dts: torch.Tensor
+    valid: torch.Tensor
+    ray: torch.Tensor
+    starts: torch.Tensor
+    counts: torch.Tensor
+    complete: torch.Tensor
+    n_valid: torch.Tensor
+
+
+class RenderResult(NamedTuple):
+    rgb: torch.Tensor        # [R, 3]
+    opacity: torch.Tensor    # [R, 1]
+    depth: torch.Tensor      # [R, 1]
+    n_samples: torch.Tensor  # scalar: valid rendered samples
+    extras: dict
+
+
+def compact_select(valid: torch.Tensor, budget: int, n_blocks: int = 1):
+    """Select up to `budget` valid candidates in flat (ray-major) order, in
+    `n_blocks` contiguous ray blocks compacted to budget / n_blocks each.
+
+    valid [R, M] bool -> (sel [budget] int32, ascending per block, R*M in
+    unused slots; kept [R, M] bool; rank [R, M] int32, each kept
+    candidate's slot). The plain form of the JAX function (one cumsum per
+    block and a scatter of the unique destinations); the multi-block
+    layout serves the CPU. Slots past a block's budget are written into a
+    dropped spare column (JAX's mode="drop")."""
+    r, m = valid.shape
+    n = r * m
+    if r % n_blocks or budget % n_blocks:
+        raise ValueError(f"compact_select: {r} rays / budget {budget} do not "
+                         f"split into {n_blocks} blocks")
+    nb, bb = n // n_blocks, budget // n_blocks
+    flat = valid.reshape(n_blocks, nb)
+    dest = torch.cumsum(flat.to(torch.int64), dim=1) - 1
+    write = flat & (dest < bb)
+    col = torch.where(write, dest, torch.full_like(dest, bb))
+    src = torch.arange(nb, device=valid.device).expand(n_blocks, nb)
+    sel_b = torch.full((n_blocks, bb + 1), nb, dtype=torch.int64,
+                       device=valid.device).scatter_(1, col, src)[:, :bb]
+    blk = torch.arange(n_blocks, device=valid.device)[:, None]
+    sel = torch.where(sel_b < nb, sel_b + blk * nb, torch.full_like(sel_b, n))
+    rank = dest + blk * bb
+    return (sel.reshape(-1).to(torch.int32), write.reshape(r, m),
+            rank.reshape(r, m).to(torch.int32))
+
+
+def _compact_sel_kept(valid: torch.Tensor, budget: int, n_blocks: int,
+                      impl: str):
+    """compact_select minus its rank output. Every single-block impl of the
+    JAX dispatch ("rayfold", "xla", "pallas") returns the same bits, so one
+    block always takes K4 (ops/compact_kernels.py): the kernel on CUDA, its
+    plain version on the CPU; `impl` is kept for the JAX signature. Several
+    blocks (the ray-parallel layout) run the plain compact_select on the CPU
+    and raise on CUDA until the ray-parallel slice of the port."""
+    if n_blocks == 1:
+        return ck.compact_select_kernel(valid, budget)
+    if valid.is_cuda:
+        raise NotImplementedError(
+            "compact_blocks > 1 (the multi-device compaction layout) comes "
+            "with the ray-parallel slice of the port")
+    sel, kept, _ = compact_select(valid, budget, n_blocks=n_blocks)
+    return sel, kept
+
+
+def _ray_info(origins, viewdirs, timestamps):
+    """[R, 7] per-ray slot-gather source: origin | viewdir | timestamp."""
+    r = origins.shape[0]
+    ts = timestamps.reshape(-1)[:r].expand(r)
+    return torch.cat([origins, viewdirs, ts[:, None]], dim=-1)
+
+
+def _block_starts(counts, budget: int, n_blocks: int):
+    """Per-ray packed-buffer segment starts from per-ray counts [R]: an
+    exclusive cumsum per block plus the block's base, clamped to the budget
+    (block overflow can push starts past the block; those rays are
+    incomplete)."""
+    r = counts.shape[0]
+    rb, bb = r // n_blocks, budget // n_blocks
+    cb = counts.reshape(n_blocks, rb).to(torch.int64)
+    base = torch.arange(n_blocks, device=counts.device)[:, None] * bb
+    starts = (torch.cumsum(cb, dim=1) - cb + base).reshape(-1)
+    return torch.clamp(starts, max=budget)
+
+
+def pack_budget_samples(origins, viewdirs, cand: RayCandidates, timestamps,
+                        *, budget: int, n_blocks: int = 1,
+                        ray_complete: Optional[torch.Tensor] = None,
+                        compact_impl: str = "xla",
+                        assembly_impl: str = "gather",
+                        uniform_dt: Optional[float] = None) -> PackedSamples:
+    """Cross-ray compaction of a dense candidate lattice into PackedSamples.
+
+    assembly_impl "cumsum" broadcasts the per-ray columns to their slots
+    with segment_broadcast, "gather" takes them by the owning ray. With
+    uniform_dt (cone_angle == 0, unpacked lattice) a slot's t comes from
+    its ray's broadcast t_min plus its lattice column times dt; rays with no
+    kept sample get t_min 0, so that an AABB-miss ray's huge slab t_min
+    cannot shift the telescoped values of later rays."""
+    r, m = cand.valid.shape
+    n = r * m
+    sel, kept = _compact_sel_kept(cand.valid, budget, n_blocks, compact_impl)
+    sel = sel.to(torch.int64)
+    sel_valid = sel < n
+    sel_c = torch.clamp(sel, max=n - 1)
+    ray = sel_c // m
+    counts = kept.sum(dim=-1).to(torch.int32)                      # [R]
+    starts = _block_starts(counts, budget, n_blocks)
+    cols = _ray_info(origins, viewdirs, timestamps)
+    if assembly_impl == "cumsum":
+        if uniform_dt is not None:
+            tmin = torch.where(counts > 0, cand.t_starts[:, 0],
+                               torch.zeros_like(cand.t_starts[:, 0]))
+            cols = torch.cat([cols, tmin[:, None]], dim=-1)
+        ri = segment_broadcast(cols, starts, budget, n_blocks)
+    else:
+        ri = cols[ray]
+    o, d, ts = ri[:, 0:3], ri[:, 3:6], ri[:, 6]
+    if assembly_impl == "cumsum" and uniform_dt is not None:
+        j = (sel_c % m).to(torch.float32)
+        t0s_p = ri[:, 7] + j * uniform_dt
+        dts_p = torch.full((budget,), uniform_dt, dtype=torch.float32,
+                           device=origins.device)
+    else:
+        t0s_p = cand.t_starts.reshape(-1)[sel_c]
+        dts_p = cand.dts.reshape(-1)[sel_c]
+    pos = o + d * (t0s_p + 0.5 * dts_p)[:, None]
+    complete = torch.logical_not(
+        torch.any(cand.valid & torch.logical_not(kept), dim=-1))
+    if ray_complete is not None:
+        complete = complete & ray_complete
+    if cand.covered is not None:
+        complete = complete & cand.covered
+    return PackedSamples(pos=pos, dirs=d, ts=ts, t_starts=t0s_p, dts=dts_p,
+                         valid=sel_valid, ray=ray, starts=starts,
+                         counts=counts, complete=complete,
+                         n_valid=cand.valid.sum())
+
+
+def render_packed(field, ps: PackedSamples, render_bkgd,
+                  occ_mean: Optional[torch.Tensor] = None, *, budget: int,
+                  alpha_thre: float = 0.0, train: bool = True,
+                  n_blocks: int = 1,
+                  assembly_impl: str = "gather") -> RenderResult:
+    """Field evaluation + packed compositing on a PackedSamples batch.
+
+    Per-ray exclusive transmittance prefixes are the global exclusive
+    cumsum minus each ray's base prefix (a gather at segment starts,
+    broadcast to the slots); per-ray sums are boundary differences of one
+    exclusive cumsum of the [5, B] channels (w*rgb, w, w*t_mid). The
+    exponent is clamped at 0 so that a block's invalid tail slots, whose
+    base lies after them, cannot produce inf * 0. extras carries the
+    per-slot fields (suffix _p) and ray/starts/counts for ops/losses.py.
+    The field's parameters are the module's own (`field` is a
+    DNGPRadianceField), where the JAX function takes a params tree."""
+    ray, starts, counts = ps.ray, ps.starts, ps.counts
+    t0s_p, dts_p = ps.t_starts, ps.dts
+    rgb_c, res_c = field(ps.pos, ps.ts[:, None], ps.dirs,
+                         return_internal=train)
+    sigmas_p = res_c["density"].float().reshape(-1)
+    rgbs_p = rgb_c.float()
+    valid_p = ps.valid
+    if alpha_thre > 0:
+        thre = alpha_thre if occ_mean is None else torch.clamp(
+            occ_mean, max=alpha_thre)
+        alpha_raw = 1.0 - torch.exp(-sigmas_p.detach() * dts_p)
+        valid_p = valid_p & (alpha_raw > thre)
+    vf = valid_p.float()
+
+    sdelta_p = sigmas_p * dts_p * vf
+    excl_sd = exclusive_cumsum(sdelta_p, dim=0)                   # [B]
+    base_sd = torch.cat([excl_sd, sdelta_p.sum().reshape(1)])[starts]
+    if assembly_impl == "cumsum":
+        base_b = segment_broadcast(base_sd, starts, budget, n_blocks)
+    else:
+        base_b = base_sd[ray]
+    trans_p = torch.exp(-torch.clamp(excl_sd - base_b, min=0.0))
+    alphas_p = 1.0 - torch.exp(-sdelta_p)
+    weights_p = trans_p * alphas_p * vf
+
+    t_mid_p = t0s_p + 0.5 * dts_p
+    chans = torch.cat([(weights_p[:, None] * rgbs_p).t(), weights_p[None],
+                       (weights_p * t_mid_p)[None]], dim=0)       # [5, B]
+    zx = torch.cat([chans.new_zeros(5, 1), torch.cumsum(chans, dim=1)],
+                   dim=1)
+    lo = zx[:, starts]
+    hi = zx[:, torch.clamp(starts + counts, max=budget)]
+    sums = (hi - lo).t()                                          # [R, 5]
+    rgb = sums[:, 0:3]
+    opacity = sums[:, 3:4]
+    depth = sums[:, 4:5] / torch.clamp(opacity, min=1.1920929e-07)
+    if render_bkgd is not None:
+        rgb = rgb + render_bkgd * (1.0 - opacity)
+
+    extras = {
+        "packed": True, "weights_p": weights_p, "trans_p": trans_p,
+        "sigmas_p": sigmas_p, "rgbs_p": rgbs_p, "t_starts_p": t0s_p,
+        "dts_p": dts_p, "valid_p": vf, "ray": ray, "starts": starts,
+        "counts": counts, "complete": ps.complete.float(),
+        "n_valid": ps.n_valid,
+    }
+    internal = res_c.get("internal") if train else None
+    if internal is not None:
+        if "latent_losses" in internal:
+            extras["latent_p"] = internal["latent_losses"].mean(-1).float()
+        if "weight_losses" in internal:
+            from ..models.field import huber
+            wl = huber(internal["weight_losses"].float()[:, 0], trans_p)
+            extras["weight_loss_p"] = wl * internal["selector"].float()
+    return RenderResult(rgb=rgb, opacity=opacity, depth=depth,
+                        n_samples=vf.sum(), extras=extras)
+
+
+def render_rays_budget_packed(field, origins, viewdirs, cand: RayCandidates,
+                              timestamps, render_bkgd,
+                              occ_mean: Optional[torch.Tensor] = None, *,
+                              budget: int, alpha_thre: float = 0.0,
+                              train: bool = True, n_blocks: int = 1,
+                              ray_complete: Optional[torch.Tensor] = None,
+                              compact_impl: str = "xla",
+                              assembly_impl: str = "gather",
+                              uniform_dt: Optional[float] = None
+                              ) -> RenderResult:
+    """pack_budget_samples + render_packed on a dense candidate lattice (the
+    budgeted packed-compositing train path)."""
+    ps = pack_budget_samples(
+        origins, viewdirs, cand, timestamps, budget=budget,
+        n_blocks=n_blocks, ray_complete=ray_complete,
+        compact_impl=compact_impl, assembly_impl=assembly_impl,
+        uniform_dt=uniform_dt)
+    return render_packed(field, ps, render_bkgd, occ_mean, budget=budget,
+                         alpha_thre=alpha_thre, train=train,
+                         n_blocks=n_blocks, assembly_impl=assembly_impl)
 
 
 def _seg_dilate(cfg: SceneConfig, seg: int, pool: int) -> int:

@@ -8,9 +8,10 @@ MLPs keep fp32 parameters and compute in bf16. Parameter names follow the
 flax tree (`motion_mlp.hidden_0.weight` <- `motion_mlp/hidden_0/kernel`,
 transposed), so bridge.py moves weights across unchanged.
 
-This slice is the serving forward: `return_internal=True` (the loss
-internals), `hash4motion` and grid types other than "hash3d" raise until
-the training and secondary-encoder slices.
+`return_internal=True` adds the loss internals of the train step (move,
+selector, the feat-prediction and weight-prediction heads' outputs);
+`hash4motion` and grid types other than "hash3d" raise until the
+secondary-encoder slices.
 """
 
 import math
@@ -30,6 +31,15 @@ DEFAULT_MOVING_STEP = 1.0 / 4096.0  # model.py:26
 
 # flax's lecun_normal: truncated normal at +-2 std, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
+
+
+def huber(pred, target, delta: float = 1.0):
+    """Elementwise Huber loss (torch F.huber_loss, reduction='none'), in the
+    JAX package's form."""
+    d = pred - target
+    abs_d = d.abs()
+    return torch.where(abs_d < delta, 0.5 * d * d,
+                       delta * (abs_d - 0.5 * delta))
 
 
 class MLP(nn.Module):
@@ -209,11 +219,8 @@ class DNGPRadianceField(nn.Module):
 
     def query_density(self, x, t, return_feat: bool = False,
                       return_internal: bool = False, skip_move: bool = False):
-        """Density (+ geometry features) at (x [N, 3], t [N, 1])."""
-        if return_internal:
-            raise NotImplementedError(
-                "return_internal (the loss internals) comes with the "
-                "training slice of the port")
+        """Density (+ geometry features / aux-loss internals) at (x [N, 3],
+        t [N, 1]). Reference model.py:367-445."""
         x = x.reshape(-1, 3).float()
         t = t.reshape(-1, 1).float()
         if skip_move:
@@ -228,12 +235,15 @@ class DNGPRadianceField(nn.Module):
 
         time_encode = None
         if self.use_time_embedding:
+            # computed under no_grad in the reference (model.py:387): a
+            # constant input to the MLPs
             if self.use_time_attenuation:
-                move_norm = torch.linalg.norm(move, dim=-1, keepdim=True)
+                move_norm = torch.linalg.norm(move.detach(), dim=-1,
+                                              keepdim=True)
                 time_encode = sinusoidal_encode_with_exp(t, move_norm, 0, 4)
             else:
                 time_encode = sinusoidal_encode(t, 0, 4)
-            time_encode = time_encode.to(hash_feat.dtype)
+            time_encode = time_encode.detach().to(hash_feat.dtype)
 
         if time_encode is not None and self.time_inject_before_sigma:
             cat_feat = torch.cat([hash_feat, time_encode], dim=-1)
@@ -255,6 +265,21 @@ class DNGPRadianceField(nn.Module):
                                                     dim=-1)
             else:
                 results["base_mlp_out"] = geo_feat
+        if return_internal:
+            internal = {"move": move, "selector": selector}
+            if self.use_feat_predict or self.use_weight_predict:
+                temp_feat = sinusoidal_encode(torch.cat([x_move, t], dim=-1),
+                                              0, 4)
+                if self.use_feat_predict:
+                    # the target hash_feat is not detached (as in JAX): the
+                    # loss trains the tables toward the prediction as well
+                    predict = self.mlp_feat_prediction(temp_feat).float()
+                    internal["latent_losses"] = huber(
+                        predict, hash_feat.float()) * selector[:, None]
+                if self.use_weight_predict:
+                    internal["weight_losses"] = self.mlp_weight_prediction(
+                        temp_feat).float()
+            results["internal"] = internal
         return results
 
     def query_rgb(self, directions, embedding):

@@ -12,11 +12,22 @@ through bridge.py unchanged:
   * HASHED levels keep `bricks_{l}` [rows, 64F] and hash the brick
     coordinate with the xor primes in uint32 arithmetic.
 
-This slice ports the forward of the 3D brick row layout. On CUDA it runs the
-hand-written K5 kernel (ops/encode_kernels.py, in-kernel row gather), or K1
-with a torch row gather when `interp_impl == "interp"`. On the CPU it runs
-the plain version. The backward, 4D keyframe levels and the cell/cellz
-layouts arrive with later slices and raise NotImplementedError here.
+The port has the 3D brick row layout, forward and backward, as one
+torch.autograd.Function per route (ops/encode_kernels.py holds the kernels):
+
+  * the default: forward K5 (in-kernel row gather), backward K6, which
+    re-gathers the rows from the saved flat bf16 table;
+  * `interp_impl == "interp"`: forward K1 on rows gathered by torch,
+    backward K2 on those saved rows (JAX's non-remat residuals);
+  * on the CPU, the plain versions of the same kernels.
+
+The kernels return the gradient of the flat [sum R_l, 64F] table; dense
+levels get their `grid_{l}` gradient from autograd through
+`_materialize_dense_bricks` (overlapping brick corners sum), as JAX gets
+it from XLA autodiff. The table gradient is summed in f32 whatever
+`grad_accum_dtype` says; "bfloat16" rounds the finished sum to bf16 once
+before it is cast to the table's dtype. 4D keyframe levels and the
+cell/cellz layouts arrive with later slices and raise NotImplementedError.
 """
 
 import dataclasses
@@ -36,10 +47,11 @@ _U32 = 0xFFFFFFFF
 class BrickGridSpec:
     """Static config for the brick-layout grid (fields as in the JAX spec).
 
-    interp_impl in the port: "interp" takes K1 (torch row gather + the
-    interpolation kernel), "plain" asks for the plain version (CPU only),
-    and every other value ("xla", the JAX default, "pallas", "dma") takes
-    the K5 kernel, the port's CUDA default."""
+    interp_impl in the port: "interp" takes K1 forward and K2 backward
+    (torch row gather + the interpolation kernels), "plain" asks for the
+    plain versions (CPU only), and every other value ("xla", the JAX
+    default, "pallas", "dma") takes K5 forward and K6 backward, the port's
+    CUDA default."""
 
     n_levels: int = 16
     n_features: int = 2
@@ -185,15 +197,88 @@ def level_tables(params: Dict[str, torch.Tensor], spec: BrickGridSpec):
     return tables
 
 
+def _flat_table(tables, dtype) -> torch.Tensor:
+    """The level tables concatenated in order, cast to `dtype`."""
+    flat = torch.empty((sum(t.shape[0] for t in tables), tables[0].shape[1]),
+                       dtype=dtype, device=tables[0].device)
+    off = 0
+    for table in tables:
+        flat[off:off + table.shape[0]].copy_(table)
+        off += table.shape[0]
+    return flat
+
+
+def _table_grads(d_flat, geom, dtypes):
+    """Kernel output [sum R_l, 64F] f32 -> one gradient per level table."""
+    if geom.accum_bf16:
+        d_flat = d_flat.to(torch.bfloat16)
+    return tuple(d.to(dt) for d, dt in
+                 zip(d_flat.split(list(geom.level_rows)), dtypes))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Geom:
+    scales: Tuple[float, ...]
+    nbs: Tuple[int, ...]
+    level_rows: Tuple[int, ...]
+    n_feat: int
+    compute_dtype: torch.dtype
+    accum_bf16: bool
+
+
+class _BrickEncode(torch.autograd.Function):
+    """Two kernel routes. `interp=False`: forward K5 (fused_encode_fwd) on
+    the flat table, backward K6 (fused_encode_bwd) re-gathering from it.
+    `interp=True`: forward K1 (interp_fwd) on [L, N, 64F] rows gathered
+    here, backward K2 (interp_bwd_fused) on the same saved rows."""
+
+    @staticmethod
+    def forward(ctx, x, rows, geom, interp, *tables):
+        if interp:
+            src = torch.empty((len(tables), x.shape[0], tables[0].shape[1]),
+                              dtype=geom.compute_dtype, device=x.device)
+            for lvl, table in enumerate(tables):
+                torch.index_select(table.to(geom.compute_dtype), 0,
+                                   rows[lvl].long(), out=src[lvl])
+            out = ek.interp_fwd(x, src, geom.scales, geom.nbs, geom.n_feat,
+                                out_dtype=geom.compute_dtype)
+        else:
+            src = _flat_table(tables, geom.compute_dtype)
+            out = ek.fused_encode_fwd(x, src, rows, geom.scales, geom.nbs,
+                                      geom.level_rows, geom.n_feat,
+                                      out_dtype=geom.compute_dtype)
+        ctx.save_for_backward(x, rows, src)
+        ctx.geom, ctx.interp = geom, interp
+        ctx.dtypes = [t.dtype for t in tables]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, rows, src = ctx.saved_tensors
+        geom = ctx.geom
+        g = g.to(src.dtype).contiguous()
+        if ctx.interp:
+            d_flat, d_x = ek.interp_bwd_fused(
+                x, g, src, rows, geom.scales, geom.nbs, geom.level_rows,
+                geom.n_feat)
+        else:
+            d_flat, d_x = ek.fused_encode_bwd(
+                x, g, rows, src, geom.scales, geom.nbs, geom.level_rows,
+                geom.n_feat)
+        return (d_x, None, None, None,
+                *_table_grads(d_flat, geom, ctx.dtypes))
+
+
 def brick_encode(x: torch.Tensor, params: Dict[str, torch.Tensor],
                  spec: BrickGridSpec, t: Optional[torch.Tensor] = None,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Multiresolution brick-grid encoding, forward only.
+    """Multiresolution brick-grid encoding, differentiable in x and in every
+    table of `params`.
 
     x: [N, 3] unit-cube positions; params from BrickGridSpec.init_params.
     Returns [N, n_levels * n_features] in compute_dtype. The tables are cast
     to compute_dtype before the gather, as in the JAX encoder; the lane math
-    and the sum run in f32. On CUDA the compute dtype must be bfloat16 (the
+    and the sums run in f32. On CUDA the compute dtype must be bfloat16 (the
     kernels read bf16 rows)."""
     if spec.time_keyframes:
         raise NotImplementedError(
@@ -203,11 +288,9 @@ def brick_encode(x: torch.Tensor, params: Dict[str, torch.Tensor],
         raise NotImplementedError(
             f"brick_encode: row_layout={spec.row_layout!r} comes with a later "
             "slice of the port; this slice has the 'brick' layout")
-    if torch.is_grad_enabled() and (
-            x.requires_grad or any(p.requires_grad for p in params.values())):
-        raise NotImplementedError(
-            "brick_encode: the backward (kernels K2, K3, K6) comes with the "
-            "training slice; call the forward under torch.no_grad()")
+    if spec.grad_accum_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"brick_encode: grad_accum_dtype "
+                         f"{spec.grad_accum_dtype!r} is not float32/bfloat16")
     if x.is_cuda:
         if spec.interp_impl == "plain":
             raise ValueError("brick_encode: the plain version was requested "
@@ -217,29 +300,17 @@ def brick_encode(x: torch.Tensor, params: Dict[str, torch.Tensor],
                 "brick_encode: the CUDA kernels read bf16 rows; "
                 f"compute_dtype={compute_dtype} runs only on the CPU")
     x = x.float().contiguous()
-    n, f = x.shape[0], spec.n_features
     layouts = spec.level_layout()
     scales = spec.level_scales()
-    nbs = [lay["n_bricks_axis"] for lay in layouts]
-    level_rows = [lay["rows"] for lay in layouts]
-    rows = torch.stack([
-        _level_geom(x, scales[lvl], nbs[lvl], lay["hashed"], lay["rows"])[0]
-        for lvl, lay in enumerate(layouts)])                     # [L, N]
-    tables = level_tables(params, spec)
-
-    if spec.interp_impl == "interp":
-        feats = torch.empty((len(layouts), n, spec.row_width),
-                            dtype=compute_dtype, device=x.device)
-        for lvl, table in enumerate(tables):
-            torch.index_select(table.to(compute_dtype), 0, rows[lvl].long(),
-                               out=feats[lvl])
-        return ek.interp_fwd(x, feats, scales, nbs, f, out_dtype=compute_dtype)
-
-    flat = torch.empty((sum(level_rows), spec.row_width), dtype=compute_dtype,
-                       device=x.device)
-    off = 0
-    for table in tables:
-        flat[off:off + table.shape[0]].copy_(table)
-        off += table.shape[0]
-    return ek.fused_encode_fwd(x, flat, rows, scales, nbs, level_rows, f,
-                               out_dtype=compute_dtype)
+    geom = _Geom(scales=tuple(scales),
+                 nbs=tuple(lay["n_bricks_axis"] for lay in layouts),
+                 level_rows=tuple(lay["rows"] for lay in layouts),
+                 n_feat=spec.n_features, compute_dtype=compute_dtype,
+                 accum_bf16=spec.grad_accum_dtype == "bfloat16")
+    with torch.no_grad():
+        rows = torch.stack([
+            _level_geom(x, scales[lvl], geom.nbs[lvl], lay["hashed"],
+                        lay["rows"])[0]
+            for lvl, lay in enumerate(layouts)])                 # [L, N]
+    return _BrickEncode.apply(x, rows, geom, spec.interp_impl == "interp",
+                              *level_tables(params, spec))

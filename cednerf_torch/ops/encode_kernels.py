@@ -1,4 +1,5 @@
-"""Brick-encoder forward kernels K1 and K5, and their plain versions.
+"""Brick-encoder kernels K1, K5 (forward) and K6, K2 (backward), and their
+plain versions.
 
   * `interp_fwd` (K1) — trilinear interpolation of pre-gathered brick rows,
     all levels in one launch. Replaces cednerf_tpu/ops/pallas_encoder.py
@@ -6,13 +7,20 @@
   * `fused_encode_fwd` (K5) — the same with the row gather inside the kernel.
     Replaces cednerf_tpu/ops/pallas_fused.py `_build_fused_fwd` /
     `fused_encode_fwd`. It is the CUDA route of `brick_encode`.
+  * `fused_encode_bwd` (K6) — K5's backward: table and position gradients,
+    re-gathering the rows from the table. Replaces pallas_fused.py
+    `_build_fused_bwd` / `fused_encode_bwd` (one level per call there, all
+    levels in one launch here).
+  * `interp_bwd_fused` (K2) — K1's backward, given the gathered rows.
+    Replaces pallas_encoder.py `_build_bwd_fused` / `interp_bwd_fused`.
 
-Both kernels live in csrc/brick_encode_fwd.cu. nvcc builds it for sm_90a the
-first time a kernel is called (or `build()` is), into cednerf_torch/_build/,
-and the library is bound through ctypes. A wrapper given CPU tensors runs
-the plain version, the same function written in plain PyTorch (gather,
-compare-built lane weights, multiply, sum); given CUDA tensors it launches
-the kernel or raises. Nothing falls back.
+The forward kernels live in csrc/brick_encode_fwd.cu and the backward ones
+in csrc/brick_encode_bwd.cu, each built by nvcc for sm_90a the first time
+one of its kernels is called (ops/cuda_build.py) and bound through ctypes.
+A wrapper given CPU tensors runs the plain version, the same function
+written in plain PyTorch (gather, compare-built lane weights, multiply, sum,
+index_add); given CUDA tensors it launches the kernel or raises. Nothing
+falls back.
 
 `launches` counts kernel launches per wrapper and `plain_cuda_calls` counts
 plain-version calls on CUDA tensors (which only a kernel-versus-plain check
@@ -20,31 +28,23 @@ makes), so a run can show which route the main path took.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from .cuda_build import KernelLibrary
+
 BRICK_CELLS = 3          # cells per brick edge
 BRICK_CORNERS = 4        # corners per brick edge
 CORNERS_PER_BRICK = 64   # 4^3
-MAX_LEVELS = 16          # kMaxLevels in the CUDA source
+MAX_LEVELS = 16          # kMaxLevels in the CUDA sources
 KERNEL_FEATURES = (1, 2, 4)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "brick_encode_fwd.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-launches = {"interp_fwd": 0, "fused_encode_fwd": 0}
-plain_cuda_calls = {"interp_fwd": 0, "fused_encode_fwd": 0}
+_NAMES = ("interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
+          "interp_bwd_fused")
+launches = dict.fromkeys(_NAMES, 0)
+plain_cuda_calls = dict.fromkeys(_NAMES, 0)
 
 
 def reset_counts():
@@ -56,75 +56,27 @@ def reset_counts():
 # --------------------------------------------------------------------- #
 # Build and binding
 
-
-class _KernelLibrary:
-    """The nvcc-built shared library, compiled and loaded on first use."""
-
-    def __init__(self):
-        self._lib = None
-        self._lock = threading.Lock()
-        self.build_seconds = None
-        self.build_log = ""
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load(self._build())
-            return self._lib
-
-    def _build(self) -> str:
-        with open(SOURCE, "rb") as fh:
-            src = fh.read()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = os.path.join(BUILD_DIR, f"libbrick_encode_fwd_{tag[:16]}.so")
-        if os.path.exists(so):
-            self.build_seconds = 0.0
-            return so
-        nvcc = shutil.which("nvcc") or os.path.join(
-            os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-        if not os.path.exists(nvcc):
-            raise RuntimeError(f"nvcc not found (looked for {nvcc})")
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                f"{self.build_log}")
-        os.replace(tmp, so)
-        return so
-
-    @staticmethod
-    def _load(path: str):
-        lib = ctypes.CDLL(path)
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.brick_fused_encode_fwd.argtypes = [p, p, p, i32, i64, i32, p, p,
-                                               p, p, i32, p]
-        lib.brick_fused_encode_fwd.restype = i32
-        lib.brick_interp_fwd.argtypes = [p, p, i32, i64, i32, p, p, p, i32, p]
-        lib.brick_interp_fwd.restype = i32
-        lib.brick_error_string.argtypes = [i32]
-        lib.brick_error_string.restype = ctypes.c_char_p
-        return lib
+_P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-_LIBRARY = _KernelLibrary()
+def _bind_fwd(lib):
+    lib.brick_fused_encode_fwd.argtypes = [_P, _P, _P, _I32, _I64, _I32, _P,
+                                           _P, _P, _P, _I32, _P]
+    lib.brick_fused_encode_fwd.restype = _I32
+    lib.brick_interp_fwd.argtypes = [_P, _P, _I32, _I64, _I32, _P, _P, _P,
+                                     _I32, _P]
+    lib.brick_interp_fwd.restype = _I32
 
 
-def build():
-    """Build (if needed) and load the kernels; returns (seconds, nvcc log)."""
-    _LIBRARY.get()
-    return _LIBRARY.build_seconds, _LIBRARY.build_log
+def _bind_bwd(lib):
+    for fn in (lib.brick_fused_encode_bwd, lib.brick_interp_bwd_fused):
+        fn.argtypes = [_P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P,
+                       _P]
+        fn.restype = _I32
 
 
-def _check(lib, rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(
-            f"{name}: CUDA error {rc} ({lib.brick_error_string(rc).decode()})")
+_FWD = KernelLibrary("brick_encode_fwd", _bind_fwd)
+_BWD = KernelLibrary("brick_encode_bwd", _bind_bwd)
 
 
 def _level_arrays(scales, nbs, level_rows=None):
@@ -230,6 +182,77 @@ def fused_encode_fwd_plain(x, table, rows, scales: Sequence[float],
     return torch.cat(outs, dim=-1).to(out_dtype)
 
 
+def _bwd_rows(vals, x, g, scale, nb, n_feat):
+    """One level's backward from its rows [N, 64F] and cotangent g [N, F]:
+    (update rows [N, 64F] f32 = w * g, d_x [N, 3] f32 scaled and
+    edge-gated). The products are taken in the kernels' order: w = wx *
+    (wy * wz), and d w / d frac_a = +-(the other two axes' weights)."""
+    cell_raw, _, intra, frac = cell_geom(x, scale, nb)
+    hi = nb * BRICK_CELLS - 1
+    ok = ((cell_raw >= 0) & (cell_raw <= hi)).float()
+    corner = torch.arange(CORNERS_PER_BRICK * n_feat,
+                          device=x.device) // n_feat
+    ws, dws = [], []
+    for a in range(3):
+        k = (corner // BRICK_CORNERS ** (2 - a)) % BRICK_CORNERS
+        ia, fa = intra[:, a:a + 1], frac[:, a:a + 1]
+        lo, up = k == ia, k == ia + 1
+        zero = torch.zeros_like(fa)
+        ws.append(torch.where(lo, 1.0 - fa, torch.where(up, fa, zero)))
+        dws.append(up.float() - lo.float())
+    gout = g.float().repeat(1, CORNERS_PER_BRICK)          # lane c*F+f: g[f]
+    upd = (ws[0] * (ws[1] * ws[2])) * gout
+    h = vals.float() * gout
+    d = [(h * (dws[0] * (ws[1] * ws[2]))).sum(-1),
+         (h * (dws[1] * (ws[0] * ws[2]))).sum(-1),
+         (h * (dws[2] * (ws[0] * ws[1]))).sum(-1)]
+    d_x = torch.stack(d, dim=-1) * ok * float(np.float32(scale))
+    return upd, d_x
+
+
+def _encode_bwd_plain(x, g, rows, level_vals, level_rows, scales, nbs,
+                      n_feat):
+    d_table = torch.zeros((sum(level_rows), CORNERS_PER_BRICK * n_feat),
+                          dtype=torch.float32, device=x.device)
+    d_x = torch.zeros((x.shape[0], 3), dtype=torch.float32, device=x.device)
+    off = 0
+    for lvl in range(len(scales)):
+        r = rows[lvl].long().clamp(0, level_rows[lvl] - 1)
+        upd, dx = _bwd_rows(level_vals(lvl, off, r), x,
+                            g[:, lvl * n_feat:(lvl + 1) * n_feat],
+                            scales[lvl], nbs[lvl], n_feat)
+        d_table[off:off + level_rows[lvl]].index_add_(0, r, upd)
+        d_x += dx
+        off += level_rows[lvl]
+    return d_table, d_x
+
+
+def fused_encode_bwd_plain(x, g, rows, table, scales: Sequence[float],
+                           nbs: Sequence[int], level_rows: Sequence[int],
+                           n_feat: int):
+    """Plain K6: (d_table [sum R_l, 64F] f32, d_x [N, 3] f32) for the
+    cotangent g [N, L*F] of fused_encode_fwd(x, table, rows, ...)."""
+    if x.is_cuda:
+        plain_cuda_calls["fused_encode_bwd"] += 1
+    return _encode_bwd_plain(
+        x, g, rows,
+        lambda lvl, off, r: table[off:off + level_rows[lvl]].index_select(
+            0, r),
+        level_rows, scales, nbs, n_feat)
+
+
+def interp_bwd_fused_plain(x, g, feats, rows, scales: Sequence[float],
+                           nbs: Sequence[int], level_rows: Sequence[int],
+                           n_feat: int):
+    """Plain K2: as fused_encode_bwd_plain, from the gathered rows
+    feats [L, N, 64F] that interp_fwd read (rows [L, N] place the table
+    gradient)."""
+    if x.is_cuda:
+        plain_cuda_calls["interp_bwd_fused"] += 1
+    return _encode_bwd_plain(x, g, rows, lambda lvl, off, r: feats[lvl],
+                             level_rows, scales, nbs, n_feat)
+
+
 # --------------------------------------------------------------------- #
 # Wrappers: plain version on CPU tensors, kernel on CUDA tensors
 
@@ -249,13 +272,13 @@ def interp_fwd(x, feats, scales: Sequence[float], nbs: Sequence[int],
     out = torch.empty((n, L * n_feat), dtype=out_dtype, device=x.device)
     if n == 0:
         return out
-    lib = _LIBRARY.get()
+    lib = _FWD.get()
     sc, nb, _ = _level_arrays(scales, nbs)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.brick_interp_fwd(x.data_ptr(), feats.data_ptr(), L, n, n_feat,
                               sc, nb, out.data_ptr(),
                               int(out_dtype == torch.float32), stream)
-    _check(lib, rc, "interp_fwd")
+    _FWD.check(rc, "interp_fwd")
     launches["interp_fwd"] += 1
     return out
 
@@ -284,13 +307,89 @@ def fused_encode_fwd(x, table, rows, scales: Sequence[float],
     out = torch.empty((n, L * n_feat), dtype=out_dtype, device=x.device)
     if n == 0:
         return out
-    lib = _LIBRARY.get()
+    lib = _FWD.get()
     sc, nb, lr = _level_arrays(scales, nbs, level_rows)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.brick_fused_encode_fwd(rows.data_ptr(), x.data_ptr(),
                                     table.data_ptr(), L, n, n_feat, sc, nb,
                                     lr, out.data_ptr(),
                                     int(out_dtype == torch.float32), stream)
-    _check(lib, rc, "fused_encode_fwd")
+    _FWD.check(rc, "fused_encode_fwd")
     launches["fused_encode_fwd"] += 1
     return out
+
+
+def _check_bwd_inputs(name, x, g, rows, src, src_shape, level_rows, n_feat):
+    L = len(level_rows)
+    n = x.shape[0]
+    if n_feat not in KERNEL_FEATURES:
+        raise ValueError(f"{name}: kernel takes n_feat in {KERNEL_FEATURES}")
+    if (x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3
+            or not x.is_contiguous()):
+        raise ValueError(f"{name}: x must be contiguous float32 [N, 3]")
+    if (g.dtype != torch.bfloat16 or tuple(g.shape) != (n, L * n_feat)
+            or not g.is_contiguous()):
+        raise ValueError(f"{name}: g must be contiguous bfloat16 "
+                         f"[{n}, {L * n_feat}]")
+    if (rows.dtype != torch.int32 or tuple(rows.shape) != (L, n)
+            or not rows.is_contiguous()):
+        raise ValueError(f"{name}: rows must be contiguous int32 [{L}, {n}]")
+    if (src.dtype != torch.bfloat16 or tuple(src.shape) != src_shape
+            or not src.is_contiguous() or src.data_ptr() % 16):
+        raise ValueError(f"{name}: brick rows must be contiguous, 16-byte "
+                         f"aligned bfloat16 {src_shape}")
+    if not all(t.device == x.device for t in (g, rows, src)):
+        raise ValueError(f"{name}: inputs on different devices")
+
+
+def _launch_bwd(fn, name, x, g, rows, src, scales, nbs, level_rows, n_feat):
+    n, L = x.shape[0], len(scales)
+    d_table = torch.zeros((sum(level_rows), CORNERS_PER_BRICK * n_feat),
+                          dtype=torch.float32, device=x.device)
+    d_x = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return d_table, d_x
+    lib = _BWD.get()
+    sc, nb, lr = _level_arrays(scales, nbs, level_rows)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(lib, fn)(x.data_ptr(), g.data_ptr(), rows.data_ptr(),
+                          src.data_ptr(), L, n, n_feat, sc, nb, lr,
+                          d_table.data_ptr(), d_x.data_ptr(), stream)
+    _BWD.check(rc, name)
+    launches[name] += 1
+    return d_table, d_x
+
+
+def fused_encode_bwd(x, g, rows, table, scales: Sequence[float],
+                     nbs: Sequence[int], level_rows: Sequence[int],
+                     n_feat: int):
+    """K6: the backward of fused_encode_fwd. x [N, 3] f32, g [N, L*F]
+    cotangent, rows [L, N] int32, table [sum R_l, 64F] -> (d_table
+    [sum R_l, 64F] f32, d_x [N, 3] f32, summed over levels, scaled and
+    edge-gated). On CUDA, g and table must be bfloat16 (the forward's
+    dtypes); the table gradient is summed with f32 atomics."""
+    if not x.is_cuda:
+        return fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
+                                      level_rows, n_feat)
+    _check_bwd_inputs("fused_encode_bwd", x, g, rows, table,
+                      (sum(level_rows), CORNERS_PER_BRICK * n_feat),
+                      level_rows, n_feat)
+    return _launch_bwd("brick_fused_encode_bwd", "fused_encode_bwd", x, g,
+                       rows, table, scales, nbs, level_rows, n_feat)
+
+
+def interp_bwd_fused(x, g, feats, rows, scales: Sequence[float],
+                     nbs: Sequence[int], level_rows: Sequence[int],
+                     n_feat: int):
+    """K2: the backward of interp_fwd. feats [L, N, 64F] are the rows the
+    forward read; rows [L, N] int32 place their gradient in the flat
+    [sum R_l, 64F] table gradient. Returns (d_table f32, d_x [N, 3] f32)
+    as fused_encode_bwd does."""
+    if not x.is_cuda:
+        return interp_bwd_fused_plain(x, g, feats, rows, scales, nbs,
+                                      level_rows, n_feat)
+    _check_bwd_inputs("interp_bwd_fused", x, g, rows, feats,
+                      (len(level_rows), x.shape[0],
+                       CORNERS_PER_BRICK * n_feat), level_rows, n_feat)
+    return _launch_bwd("brick_interp_bwd_fused", "interp_bwd_fused", x, g,
+                       rows, feats, scales, nbs, level_rows, n_feat)

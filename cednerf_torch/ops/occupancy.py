@@ -1,13 +1,15 @@
 """Multi-level occupancy grid — port of cednerf_tpu/ops/occupancy.py.
 
-This slice holds what serving needs: the grid state, its EMA update (run
-once over all cells to fill a grid for a field), the ray/AABB slab test and
-the fine and pooled-coarse occupancy lookups of the segment eval renderer.
-Semantics are nerfacc's, as in the JAX package: nested AABB levels (level i
-is the ROI scaled by 2^i), occs[cell] <- max(occs * ema_decay, new) with
-binaries = occs > min(mean(occs), occ_thre), lookups against the finest
-level containing the point. The marching and training-side functions come
-with the training slice.
+Holds the grid state, its EMA update (all cells during the occupancy
+warmup, a sampled quarter afterwards), the ray/AABB slab test, the fine and
+pooled-coarse occupancy lookups of the segment eval renderer, and the dense
+candidate lattice of the packed train step (`march_candidates`). Semantics
+are nerfacc's, as in the JAX package: nested AABB levels (level i is the ROI
+scaled by 2^i), occs[cell] <- max(occs * ema_decay, new) with binaries =
+occs > min(mean(occs), occ_thre), lookups against the finest level
+containing the point, uniform steps with cone-angle growth and a per-ray
+stratified start jitter. Empty-space skipping (`advance_t_min`) comes with
+the scanned train path.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -198,3 +200,88 @@ def coarse_lookup(state: OccGridState, coarse: torch.Tensor,
                   pos: torch.Tensor) -> torch.Tensor:
     """occupancy_lookup against a pooled_binaries grid: [..., 3] -> bool."""
     return _lookup(state, coarse, pos)
+
+
+class RayCandidates(NamedTuple):
+    """Dense (uncompacted) marching candidates, all [n_rays, n_steps]:
+    t_starts, dts, valid (bool); covered [n_rays] bool or None (None: every
+    ray's lattice covered its whole span)."""
+
+    t_starts: torch.Tensor
+    dts: torch.Tensor
+    valid: torch.Tensor
+    covered: Optional[torch.Tensor] = None
+
+    @property
+    def t_ends(self):
+        return self.t_starts + self.dts
+
+
+def _jitter_of(n_rays: int, like: torch.Tensor, jitter=None,
+               generator: Optional[torch.Generator] = None):
+    if jitter is not None:
+        return jitter.reshape(n_rays).to(device=like.device,
+                                         dtype=torch.float32)
+    if generator is not None:
+        return torch.rand(n_rays, device=like.device, generator=generator)
+    return None
+
+
+def march_t_lattice(state: OccGridState, origins: torch.Tensor,
+                    viewdirs: torch.Tensor, *, near_plane: float,
+                    far_plane: float, render_step_size: float,
+                    cone_angle: float = 0.0, max_march_steps: int = 1024,
+                    jitter: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None):
+    """The candidate t lattice without occupancy: (t0 [R, M], dt [R, M],
+    t_max [R]). Each ray starts at its outermost-AABB entry, pushed forward
+    by jitter[r] * render_step_size: `jitter` [R] in [0, 1) as given, else
+    drawn from `generator`, else none (the JAX stratified_key)."""
+    n_rays = origins.shape[0]
+    t_min, t_max = ray_aabb_intersect(origins, viewdirs, state.aabbs[-1])
+    t_min = torch.clamp(t_min, min=near_plane)
+    t_max = torch.clamp(t_max, max=far_plane)
+    u = _jitter_of(n_rays, origins, jitter, generator)
+    if u is not None:
+        t_min = t_min + u * render_step_size
+    if cone_angle == 0.0:
+        steps = torch.arange(max_march_steps, dtype=torch.float32,
+                             device=origins.device)
+        t0 = t_min[:, None] + steps[None, :] * render_step_size
+        return t0, torch.full_like(t0, render_step_size), t_max
+    ts, ds = [], []
+    t = t_min
+    for _ in range(max_march_steps):   # the JAX lax.scan, one step per op
+        d = torch.clamp(t * cone_angle, min=render_step_size)
+        ts.append(t)
+        ds.append(d)
+        t = t + d
+    return torch.stack(ts, dim=1), torch.stack(ds, dim=1), t_max
+
+
+def march_candidates(state: OccGridState, origins: torch.Tensor,
+                     viewdirs: torch.Tensor, *, near_plane: float,
+                     far_plane: float, render_step_size: float,
+                     cone_angle: float = 0.0, max_march_steps: int = 1024,
+                     jitter: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
+                     probe_steps: int = 0) -> RayCandidates:
+    """All marching candidates of the [R, max_march_steps] lattice, valid
+    where t0 < t_max and the finest grid level containing the interval's
+    midpoint is occupied (nerfacc's estimator.sampling as a fixed-shape
+    lattice). No compaction happens here.
+
+    probe_steps > 0 (empty-space skipping through advance_t_min) belongs to
+    the scanned train path and raises until that slice of the port."""
+    if probe_steps > max_march_steps and cone_angle == 0.0:
+        raise NotImplementedError(
+            "march_candidates: probe_steps > 0 (advance_t_min) comes with "
+            "the scanned train-path slice of the port")
+    t0, dt, t_max = march_t_lattice(
+        state, origins, viewdirs, near_plane=near_plane, far_plane=far_plane,
+        render_step_size=render_step_size, cone_angle=cone_angle,
+        max_march_steps=max_march_steps, jitter=jitter, generator=generator)
+    t_mid = t0 + dt / 2.0
+    pos = origins[:, None, :] + viewdirs[:, None, :] * t_mid[..., None]
+    valid = (t0 < t_max[:, None]) & occupancy_lookup(state, pos)
+    return RayCandidates(t_starts=t0, dts=dt, valid=valid)

@@ -1,7 +1,8 @@
-"""Measurement helpers shared by chip_smoke.py and profile_serving.py: the
-card's name, CUDA-event timing, the viewer's default orbit camera, an
-occupancy grid filled for a field, and hash tables drawn at a scale that
-the MLPs feel."""
+"""Measurement helpers shared by chip_smoke.py, profile_serving.py and
+profile_training.py: the card's name, CUDA-event timing, the viewer's
+default orbit camera, an occupancy grid filled for a field, hash tables
+drawn at a scale that the MLPs feel, the train step's flags, and a
+profiler table of device time by kernel."""
 
 import math
 import subprocess
@@ -10,6 +11,11 @@ import numpy as np
 import torch
 
 from ..ops.occupancy import create_occ_grid, update_occ_grid
+
+# the published D-NeRF train flags -te -ta -f -ae -df -d (ModelFlags kwargs)
+TRAIN_FLAGS = dict(use_time_embedding=True, use_time_attenuation=True,
+                   use_feat_predict=True, acc_entropy_loss=True,
+                   use_div_offsets=True, distortion_loss=True)
 
 
 def card_name() -> str:
@@ -79,3 +85,21 @@ def load_uniform_tables(fields, seed: int, bound: float):
         for f in fields:
             for name, t in f.hash_encoder.tables().items():
                 t.copy_(torch.from_numpy(draws[name]))
+
+
+def device_time_by_kernel(prof):
+    """(rows, total ms) from a torch.profiler run: one row (name, calls,
+    device ms) per CUDA kernel, largest first. Operator rows (aten::...)
+    repeat their kernels' time and are left out, and so are annotations on
+    the device timeline (named "Optimizer.step#Adam.step" and the like),
+    which span kernels already counted."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = sorted(((e.key, e.count, dev_us(e) / 1e3)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and dev_us(e) > 0 and "#" not in e.key),
+                  key=lambda r: -r[2])
+    return rows, sum(r[2] for r in rows)

@@ -1,35 +1,45 @@
 #!/usr/bin/env python3
 """Chip smoke test of cednerf_torch, the PyTorch / CUDA port, on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed 0]
 
 Phases, each of which must pass (nothing is caught and carried on):
 
   1. device: needs CUDA (exits 1 without it, printing no result); prints
      the card's name and power limit as nvidia-smi reports them;
-  2. build: nvcc builds the brick-encoder kernels from the checkout;
+  2. build: nvcc builds the port's three CUDA sources from the checkout,
+     one nvcc per source, all started together;
   3. kernels: K1 (interp_fwd) and K5 (fused_encode_fwd) against their plain
-     PyTorch versions on the card, at one full seg-eval pass
-     (eval_chunk_seg 32768 x budget_per_ray 64 = 2,097,152 samples) and at
-     a ragged N, on the full-width D-NeRF field's tables; times each with
-     CUDA events;
+     PyTorch versions at one full seg-eval pass (eval_chunk_seg 32768 x
+     budget_per_ray 64 = 2,097,152 samples) and at a ragged N; K6
+     (fused_encode_bwd) and K2 (interp_bwd_fused) at one train step's
+     262,144 samples and at a ragged N, all 8 levels, tables of +-8; K4
+     (compact_select) bit-exact on [256, 1024] and [16000, 1024] lattices
+     (the warmup and top ray buckets) at occupancy 1.0 and ~0.1, budget
+     262,144. Each is timed with CUDA events beside its bound;
   4. reference: a small frame rendered on the card (kernel route) and on
-     the CPU (plain route) from the same weights and grid must agree; both
-     fields get the same uniform(-2, 2) tables, and the served field's
-     frame (tables of +-1e-4, features ~0) must differ from it by far
-     more than the tolerance, so a wrong encoder would fail the check;
+     the CPU (plain route) from the same weights and grid must agree (see
+     reference_phase for why the check can fail);
   5. serving: ViewerServer on 127.0.0.1 answers /, /snap and five /render
      requests from the D-NeRF field at full width (dnerf_config with
      -te -ta -f -df: L8 F4, dst resolution 1024, 2^21 hashmap, 16384-row
      cap, brick layout; random weights from --seed), every frame a finite
-     PNG. Four requests take the default K5 route (400x400 at 128 samples
-     for t in {0, 0.5, 1}, one of them depth, and 800x800 at 256), one more
-     400x400 request goes through a second server whose field takes the K1
-     route (interp_impl="interp"). Launch counters are zeroed just before
-     the requests and read just after: each kernel must have launched and
-     the plain versions must not have run on CUDA.
+     PNG; four on the K5 route, one on K1 (interp_impl="interp"). Launch
+     counters are zeroed just before the requests and read just after;
+  6. reference step: one train step of a shrunken config on the card (both
+     kernel routes) and on the CPU (plain versions), from the same weights,
+     occupancy grid, ray batch and march jitter: loss and every gradient
+     must agree (see reference_step_phase);
+  7. training: Trainer.run_step on the full-width field (dnerf_config,
+     -te -ta -f -ae -df -d) over BallCloudScene for TRAIN_STEPS steps on
+     the default route (the 256-step all-cells occupancy warmup and sampled
+     updates after it), then INTERP_STEPS steps on the K1/K2 route. Every
+     loss must be finite and the last 8 default steps' mean PSNR above the
+     first 8's; counters zeroed before each route and read after it: K5, K6
+     and K4 on the default steps, K1, K2 and K4 on the interp steps, no
+     plain version on CUDA in either.
 
-Prints one JSON line per kernel, then the `kernels` line, then as its last
+Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
 """
 
@@ -49,6 +59,28 @@ F32_RTOL, F32_ATOL = 1e-5, 1e-9
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM, f32 outside the tensor cores
 REF_TABLE_BOUND = 8.0          # hash tables of the reference phase's fields
+# K6/K2 against their plain versions: the table gradient is summed with f32
+# atomics in another order than the plain index_add (up to ~1,200 adds per
+# address on the coarse dense level at 262,144 samples), so each level's
+# table gradient is held to 1e-4 of that level's largest entry; d_x is
+# summed in a fixed order on both sides, 1e-5 of its largest entry.
+BWD_TABLE_FRAC, BWD_DX_FRAC = 1e-4, 1e-5
+# the reference step's shrunken config (tests/test_torch_train.py's)
+SMALL = dict(target_sample_batch_size=4096, grid_resolution=16,
+             render_step_size=2e-2, max_march_steps=128,
+             hash_dst_resolution=128, log2_hashmap_size=14,
+             max_table_rows=512, hash_n_levels=4,
+             grad_accum_dtype="float32")
+# reference step, card vs CPU: each parameter's gradient L2 error relative
+# to its norm, and the loss's relative error. The sound readings on an H100
+# are 0.0034 (motion MLP, where cuBLAS's and the CPU's bf16 GEMMs round
+# differently) and 2.4e-6; on the CPU, one level's position gradient
+# scaled by 1.02 reads 0.0094 and by 1.05 0.0184, one dropped table-gradient
+# corner 0.31, and one level's features scaled by 1.01 move the loss 7.4e-4.
+STEP_GRAD_REL, STEP_LOSS_RTOL = 0.01, 1e-4
+# the training phase: 512 default-route steps (the 256-step all-cells
+# occupancy warmup, then 64 sampled updates), then 8 on the K1/K2 route
+TRAIN_STEPS, INTERP_STEPS = 512, 8
 
 
 def log(msg):
@@ -121,7 +153,7 @@ def kernel_phase(field, n_main, n_ragged, seed):
                     in_b = rows.numel() * 4 + x.numel() * 4 \
                         + table.numel() * 2
                 else:
-                    in_b = x.numel() * 4 + feats.numel() * 2
+                    in_b = x.numel() * 4 + _corner_bytes(n, L, F)
                 t_bytes = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
                 # the interpolation needs 8 corners x F multiply-adds per
                 # (sample, level)
@@ -305,6 +337,306 @@ def serving_phase(field, field_k1, occ, cfg):
     return frames, launches
 
 
+def _corner_bytes(n, L, F):
+    """The bytes of gathered brick rows that K1 and K2 must read: the 8
+    corners of a (sample, level) lie on 4 lines of the 4^3 brick, each 4
+    corners x F bf16 (8F bytes, one 32-byte DRAM sector at F = 4), and the
+    other 56 corners of the 64F row are never read."""
+    return n * L * 4 * 8 * F
+
+
+def _frac_err(got, want):
+    """max |got - want| / max |want|."""
+    scale = want.abs().max().item()
+    return (got - want).abs().max().item() / max(scale, 1e-30)
+
+
+def backward_kernel_phase(field, n_main, n_ragged, seed):
+    """K6 and K2 against their plain versions on the full-width field's
+    levels, tables uniform(-8, 8), at one train step's sample count and at
+    a ragged one. One bf16 cotangent row in eight is zero (unused budget
+    slots carry zero)."""
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops.brick_grid import _level_geom
+    from cednerf_torch.utils.bench import cuda_ms
+
+    spec = field.hash_encoder.bspec
+    lay = spec.level_layout()
+    scales = spec.level_scales()
+    nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    L, F = spec.n_levels, spec.n_features
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = ((torch.rand((sum(level_rows), 64 * F), device="cuda",
+                         generator=gen) * 2 - 1) * REF_TABLE_BOUND
+             ).to(torch.bfloat16)
+    offs = [0]
+    for r in level_rows:
+        offs.append(offs[-1] + r)
+    results = {}
+    for n in (n_main, n_ragged):
+        x = torch.rand((n, 3), device="cuda", generator=gen)
+        g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
+             ).to(torch.bfloat16)
+        g[::8] = 0
+        rows = torch.stack([
+            _level_geom(x, scales[l], nbs[l], lay[l]["hashed"],
+                        level_rows[l])[0] for l in range(L)]).contiguous()
+        feats = torch.stack([table[offs[l]:offs[l + 1]].index_select(
+            0, rows[l].long()) for l in range(L)]).contiguous()
+        want_t, want_x = ek.fused_encode_bwd_plain(x, g, rows, table, scales,
+                                                   nbs, level_rows, F)
+        calls = {
+            "fused_encode_bwd": (
+                lambda: ek.fused_encode_bwd(x, g, rows, table, scales, nbs,
+                                            level_rows, F),
+                lambda: ek.fused_encode_bwd_plain(x, g, rows, table, scales,
+                                                  nbs, level_rows, F)),
+            "interp_bwd_fused": (
+                lambda: ek.interp_bwd_fused(x, g, feats, rows, scales, nbs,
+                                            level_rows, F),
+                lambda: ek.interp_bwd_fused_plain(x, g, feats, rows, scales,
+                                                  nbs, level_rows, F)),
+        }
+        for name, (kern, plain) in calls.items():
+            d_t, d_x = kern()
+            torch.cuda.synchronize()
+            errs = [_frac_err(d_t[offs[l]:offs[l + 1]],
+                              want_t[offs[l]:offs[l + 1]]) for l in range(L)]
+            err_x = _frac_err(d_x, want_x)
+            if max(errs) > BWD_TABLE_FRAC or err_x > BWD_DX_FRAC:
+                raise AssertionError(
+                    f"{name} N={n}: table errors per level {errs} (limit "
+                    f"{BWD_TABLE_FRAC}), d_x {err_x} (limit {BWD_DX_FRAC})")
+            rec = {"name": name, "n": n, "levels": L, "n_feat": F,
+                   "max_abs_err": max((d_t - want_t).abs().max().item(),
+                                      (d_x - want_x).abs().max().item()),
+                   "table_err_frac_per_level": errs, "dx_err_frac": err_x,
+                   "d_table_max": want_t.abs().max().item()}
+            if n == n_main:
+                rec["ms"] = cuda_ms(kern, 20)
+                rec["plain_ms"] = cuda_ms(plain, 3)
+                src_b = (table.numel() * 2 if name == "fused_encode_bwd"
+                         else _corner_bytes(n, L, F))
+                in_b = x.numel() * 4 + g.numel() * 2 + rows.numel() * 4 \
+                    + src_b
+                out_b = want_t.numel() * 4 + want_x.numel() * 4
+                t_bytes = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
+                # per (sample, level): 8 corners x F multiply-adds for the
+                # table gradient and F for the position gradient's dot
+                t_ops = n * L * 8 * F * 2 * 2 / F32_FLOPS * 1e3
+                rec["bound_ms"] = max(t_bytes, t_ops)
+                rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                # the kernel's own traffic: 8 corners x F bf16 read and
+                # 8 x F f32 atomics per (sample, level)
+                rec["corner_bytes"] = n * L * 8 * F * (2 + 4)
+                results[name] = rec
+            log(json.dumps({"kernel_check": rec}))
+        del feats, want_t, want_x
+        torch.cuda.empty_cache()
+    return results
+
+
+def compact_kernel_phase(budget, seed):
+    """K4 bit-exact against its plain version on the warmup and top ray
+    buckets' lattices at occupancy 1.0 and ~0.1; times the top bucket at
+    ~0.1 (a carved steady-state grid) beside torch.nonzero."""
+    import torch
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.utils.bench import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    main = None
+    for rays in (256, 16000):
+        for occ in (1.0, 0.1):
+            valid = torch.rand((rays, 1024), device="cuda",
+                               generator=gen) < occ
+            sel, kept = ck.compact_select_kernel(valid, budget)
+            want = ck.compact_select_rayfold(valid, budget)
+            torch.cuda.synchronize()
+            if not (torch.equal(sel, want[0]) and torch.equal(kept, want[1])):
+                raise AssertionError(f"compact_select {rays}x1024 occ {occ}: "
+                                     "differs from its plain version")
+            rec = {"name": "compact_select", "lattice": [rays, 1024],
+                   "occupancy": occ, "budget": budget, "max_abs_err": 0,
+                   "n_valid": int(valid.sum().item()),
+                   "n_selected": int(kept.sum().item())}
+            if rays == 16000 and occ == 0.1:
+                rec["ms"] = cuda_ms(
+                    lambda: ck.compact_select_kernel(valid, budget), 20)
+                rec["plain_ms"] = cuda_ms(
+                    lambda: ck.compact_select_rayfold(valid, budget), 3)
+                flat = valid.reshape(-1)
+                rec["library_ms"] = cuda_ms(lambda: torch.nonzero(flat), 20)
+                n = valid.numel()
+                # read the lattice once, write kept and sel once; the work
+                # is a few integer operations per candidate
+                t_bytes = (2 * n + 4 * budget) / HBM_BYTES_PER_S * 1e3
+                t_ops = 4 * n / F32_FLOPS * 1e3
+                rec["bound_ms"] = max(t_bytes, t_ops)
+                rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                main = rec
+            log(json.dumps({"kernel_check": rec}))
+    return main
+
+
+def reference_step_phase(seed):
+    """One train step of the shrunken config (SMALL) on the card, through
+    each kernel route, and on the CPU through the plain versions: the same
+    weights (tables uniform(-1, 1), so that the MLPs feel them), occupancy
+    grid (30% of cells, numpy), ray batch (BallScene) and march jitter.
+    n_valid must match, the loss within STEP_LOSS_RTOL, and each
+    parameter's gradient within STEP_GRAD_REL of its L2 norm, the
+    limits set out beside them (between the sound reading and a fault's).
+    A backward kernel that dropped a corner, a level or the position
+    gradient would move the table or motion-MLP gradients far past that."""
+    import numpy as np
+    import torch
+    from cednerf_torch.bridge import occ_from_numpy
+    from cednerf_torch.datasets.procedural import BallScene
+    from cednerf_torch.engine import train as tt
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.ops.occupancy import create_occ_grid
+    from cednerf_torch.utils.bench import TRAIN_FLAGS, load_uniform_tables
+
+    cfg = dataclasses.replace(dnerf_config(), **SMALL)
+    flags = ModelFlags(**TRAIN_FLAGS)
+    rng = np.random.default_rng(seed)
+    res = cfg.grid_resolution
+    bins = rng.uniform(size=(1, res, res, res)) < 0.3
+    occs = np.where(bins, 0.5, 0.0).astype(np.float32).reshape(1, -1)
+    aabbs = create_occ_grid(cfg.aabb, res, 1, device="cpu").aabbs.numpy()
+    batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
+    jitter = rng.uniform(size=128).astype(np.float32)
+    runs = {}
+    for route, dev in (("plain", "cpu"), ("xla", "cuda"), ("interp", "cuda")):
+        c = dataclasses.replace(cfg, interp_impl=route)
+        f = build_field(c, flags, device=dev, seed=seed)
+        load_uniform_tables([f], seed, 1.0)
+        state = tt.create_train_state(f, c, device=dev)
+        state.occ = occ_from_numpy(occs, bins, aabbs, device=dev)
+        loss, aux = tt._make_loss_fn(c, flags, c.sample_budget)(
+            state, {k: torch.as_tensor(np.asarray(v)).to(dev)
+                    for k, v in batch.items()},
+            jitter=torch.from_numpy(jitter).to(dev))
+        runs[route] = (loss.item(), {k: v.item() for k, v in aux.items()},
+                       {n: p.grad.detach().float().cpu()
+                        for n, p in f.named_parameters()})
+    loss0, aux0, g0 = runs["plain"]
+    rec = {"cpu_loss": loss0, "n_valid": aux0["n_valid"],
+           "complete_frac": aux0["complete_frac"]}
+    for route in ("xla", "interp"):
+        loss, aux, grads = runs[route]
+        rels = {n: ((grads[n] - g0[n]).norm() / g0[n].norm()).item()
+                for n in g0 if g0[n].norm() > 0}
+        worst = max(rels, key=rels.get)
+        rec[route] = {"loss": loss, "loss_rel_err": abs(loss - loss0) / loss0,
+                      "n_valid": aux["n_valid"],
+                      "worst_grad": worst, "worst_grad_rel_err": rels[worst],
+                      "encoder_grad_rel_err": {
+                          n: rels[n] for n in rels if "hash_encoder" in n}}
+        if aux["n_valid"] != aux0["n_valid"]:
+            raise AssertionError(f"reference step ({route}): n_valid "
+                                 f"{aux['n_valid']} != {aux0['n_valid']}")
+        if abs(loss - loss0) > STEP_LOSS_RTOL * abs(loss0):
+            raise AssertionError(f"reference step ({route}): loss {loss} vs "
+                                 f"{loss0}")
+        if rels[worst] > STEP_GRAD_REL:
+            raise AssertionError(f"reference step ({route}): gradient of "
+                                 f"{worst} off by {rels[worst]}: {rec}")
+    return rec
+
+
+def training_phase(cfg, flags, seed, steps=TRAIN_STEPS,
+                   interp_steps=INTERP_STEPS):
+    """Trainer.run_step at full width: `steps` default-route steps, then
+    `interp_steps` on the K1/K2 route, with launch counts per route."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.procedural import BallCloudScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.ops import encode_kernels as ek
+
+    field = build_field(cfg, flags, device="cuda", seed=seed)
+    trainer = Trainer(field, cfg, flags, BallCloudScene(seed=seed),
+                      seed=seed, device="cuda")
+
+    def drive(n, label):
+        ek.reset_counts()
+        ck.reset_counts()
+        recs = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            occ_step = trainer.step % cfg.occ_update_interval == 0
+            m = trainer.run_step()
+            torch.cuda.synchronize()
+            m["ms"] = (time.perf_counter() - t0) * 1e3
+            m["occ_update"] = occ_step
+            if not np.isfinite(m["loss"]):
+                raise AssertionError(f"{label} step {trainer.step}: loss "
+                                     f"{m['loss']}")
+            recs.append(m)
+        counts = {**ek.launches, **ck.launches}
+        plain = {**ek.plain_cuda_calls, **ck.plain_cuda_calls}
+        if any(plain.values()):
+            raise AssertionError(f"{label}: plain versions ran on CUDA: "
+                                 f"{plain}")
+        return recs, counts
+
+    recs, counts = drive(steps, "default route")
+    for k in ("fused_encode_fwd", "fused_encode_bwd", "compact_select"):
+        if counts[k] == 0:
+            raise AssertionError(f"default route: {k} never launched: "
+                                 f"{counts}")
+    if counts["interp_fwd"] or counts["interp_bwd_fused"]:
+        raise AssertionError(f"default route took K1/K2: {counts}")
+    psnr = [r["psnr"] for r in recs]
+    first, last = float(np.mean(psnr[:8])), float(np.mean(psnr[-8:]))
+    if not last > first:
+        raise AssertionError(f"PSNR did not rise: first 8 {first}, last 8 "
+                             f"{last}")
+    steady = [r for r in recs[cfg.occ_warmup_steps:] if not r["occ_update"]]
+    warm = [r for r in recs[:cfg.occ_warmup_steps] if not r["occ_update"]]
+    step_ms = float(np.median([r["ms"] for r in steady or recs]))
+    summary = {
+        "steps": steps, "psnr_first8": first, "psnr_last8": last,
+        "median_ms_per_step": step_ms,
+        "median_ms_per_warmup_step": float(np.median(
+            [r["ms"] for r in warm])) if warm else None,
+        "occ_update_step_ms": float(np.median(
+            [r["ms"] for r in recs if r["occ_update"]])),
+        "budget_slots_per_s": cfg.sample_budget / step_ms * 1e3,
+        "valid_samples_per_s": float(np.median(
+            [r["n_samples"] / r["ms"] * 1e3 for r in steady or recs])),
+        "last": {k: recs[-1][k] for k in ("num_rays", "n_valid", "n_samples",
+                                          "complete_frac", "loss", "psnr")},
+        "buckets_visited": sorted({r["num_rays"] for r in recs}),
+        "launches": counts}
+    for i in sorted({0, 7, cfg.occ_warmup_steps - 1, steps - 1}):
+        if i < len(recs):
+            log(json.dumps({"train_step": i, **recs[i]}))
+
+    spec = field.hash_encoder.bspec
+    field.hash_encoder.bspec = dataclasses.replace(spec, interp_impl="interp")
+    irecs, icounts = drive(interp_steps, "interp route")
+    for k in ("interp_fwd", "interp_bwd_fused", "compact_select"):
+        if icounts[k] == 0:
+            raise AssertionError(f"interp route: {k} never launched: "
+                                 f"{icounts}")
+    if icounts["fused_encode_fwd"] or icounts["fused_encode_bwd"]:
+        raise AssertionError(f"interp route took K5/K6: {icounts}")
+    summary["interp"] = {
+        "steps": interp_steps, "launches": icounts,
+        "median_ms_per_step": float(np.median([r["ms"] for r in irecs])),
+        "psnr": [r["psnr"] for r in irecs]}
+    return summary
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -317,9 +649,11 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags, dnerf_config
-    from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.utils.bench import card_name, fill_occupancy
+    from cednerf_torch.ops.cuda_build import build_all
+    from cednerf_torch.utils.bench import (TRAIN_FLAGS, card_name,
+                                           fill_occupancy)
 
+    t_start = time.perf_counter()
     log(card_name())
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -327,12 +661,13 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    build_s, build_log = ek.build()
-    log(f"build: {build_s:.2f} s nvcc, {time.perf_counter() - t0:.2f} s "
-        "with load")
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+    builds = build_all()
+    log(f"build: {time.perf_counter() - t0:.2f} s for "
+        + ", ".join(f"{k} (nvcc {v[0]:.2f} s)" for k, v in builds.items()))
+    for stem, (_, build_log) in builds.items():
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {stem}: " + line.strip())
 
     cfg = dnerf_config()
     flags = ModelFlags(use_time_embedding=True, use_time_attenuation=True,
@@ -345,6 +680,10 @@ def main(argv=None):
 
     n_main = cfg.eval_chunk_seg * 64   # one full seg-eval pass
     kern = kernel_phase(field, n_main, 1_000_003, args.seed)
+    kern.update(backward_kernel_phase(field, cfg.sample_budget, 100_003,
+                                      args.seed))
+    kern["compact_select"] = compact_kernel_phase(cfg.sample_budget,
+                                                  args.seed)
 
     t0 = time.perf_counter()
     occ = fill_occupancy(field, cfg, args.seed, "cuda")
@@ -356,22 +695,43 @@ def main(argv=None):
     ref = reference_phase(field, occ, cfg, flags, args.seed)
     log(json.dumps({"reference": ref}))
 
-    frames, launches = serving_phase(field, field_k1, occ, cfg)
+    frames, serve_launches = serving_phase(field, field_k1, occ, cfg)
+    del field, field_k1, occ
+    torch.cuda.empty_cache()
+
+    log(json.dumps({"reference_step": reference_step_phase(args.seed)}))
+
+    train = training_phase(cfg, ModelFlags(**TRAIN_FLAGS), args.seed)
+    log(json.dumps({"training": train}))
 
     replaces = {
         "fused_encode_fwd": "cednerf_tpu/ops/pallas_fused.py:138",
         "interp_fwd": "cednerf_tpu/ops/pallas_encoder.py:136",
+        "fused_encode_bwd": "cednerf_tpu/ops/pallas_fused.py:244",
+        "interp_bwd_fused": "cednerf_tpu/ops/pallas_encoder.py:307",
+        "compact_select": "cednerf_tpu/ops/pallas_compact.py:47",
+    }
+    sources = {
+        "fused_encode_fwd": "cednerf_torch/csrc/brick_encode_fwd.cu",
+        "interp_fwd": "cednerf_torch/csrc/brick_encode_fwd.cu",
+        "fused_encode_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
+        "interp_bwd_fused": "cednerf_torch/csrc/brick_encode_bwd.cu",
+        "compact_select": "cednerf_torch/csrc/compact_select.cu",
     }
     line = []
-    for name in ("fused_encode_fwd", "interp_fwd"):
+    for name in replaces:
         r = kern[name]
+        by_path = {"serve": serve_launches.get(name, 0),
+                   "train": train["launches"].get(name, 0),
+                   "train_interp": train["interp"]["launches"].get(name, 0)}
         line.append({
-            "name": name, "route": "cuda",
-            "source": "cednerf_torch/csrc/brick_encode_fwd.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None})
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,13 +41,15 @@ def main(argv=None):
     from cednerf_torch.engine.config import ModelFlags, dnerf_config
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops.brick_grid import _level_geom, level_tables
-    from cednerf_torch.utils.bench import (card_name, cuda_ms, fill_occupancy,
-                                           orbit_c2w)
+    from cednerf_torch.ops.cuda_build import build_all
+    from cednerf_torch.utils.bench import (card_name, cuda_ms,
+                                           device_time_by_kernel,
+                                           fill_occupancy, orbit_c2w)
     from cednerf_torch.viewer.server import ViewerServer
 
     card = card_name()
     print(card, flush=True)
-    ek.build()
+    build_all()
     cfg = dnerf_config()
     flags = ModelFlags(use_time_embedding=True, use_time_attenuation=True,
                        use_feat_predict=True, use_div_offsets=True)
@@ -105,16 +107,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         prof_frame_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # kernel rows only: an operator row (aten::...) repeats its kernels' time
-    rows_ = sorted(((e.key, e.count, dev_us(e) / 1e3) for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and dev_us(e) > 0), key=lambda r: -r[2])
-    device_ms = sum(r[2] for r in rows_)
+    rows_, device_ms = device_time_by_kernel(prof)
     passes = server.last_frame["passes_per_chunk"]
     print(json.dumps({"frame": {
         "width": 400, "max_samples": 128, "frame_ms": plain_frame_ms,

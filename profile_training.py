@@ -1,0 +1,189 @@
+#!/usr/bin/env python3
+"""Where a train step's time goes on the card (cednerf_torch, one GPU).
+
+    python3 profile_training.py [--seed 0] [--steps 288] [--profile-steps 8]
+                                [--out results/profile_training]
+
+The configuration of chip_smoke.py's training phase: dnerf_config() with
+-te -ta -f -ae -df -d (L8 F4, dst resolution 1024, 2^21 hashmap, 16384-row
+cap, budget 262,144 samples, 1024 march steps, 128^3 occupancy), random
+weights from --seed, BallCloudScene. Then:
+
+  1. --steps steps of Trainer.run_step (by default past the 256-step
+     all-cells occupancy warmup, so that the grid has carved and the ray
+     bucket has adapted), ms per step on the host clock;
+  2. --profile-steps further steps under torch.profiler: device time by
+     kernel, the sum of device time against the steps' wall time (the
+     device's busy share; the profiler's own host overhead lowers it, so
+     step 1's unprofiled ms beside the device ms is the fairer ratio),
+     kernel launches per step, the host-side operators by CPU time, and
+     the share of the port's kernels (K5/K6/K4, or K1/K2/K4 with
+     --interp);
+  3. components at the last step's shapes, CUDA events: the field forward
+     and forward+backward at the budget, K6 and K4 alone.
+
+Prints JSON lines; writes the profiler's table under --out.
+"""
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=288)
+    ap.add_argument("--profile-steps", type=int, default=8)
+    ap.add_argument("--interp", action="store_true",
+                    help="take the K1/K2 route (interp_impl='interp')")
+    ap.add_argument("--out", default="results/profile_training")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_training: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cednerf_torch.datasets.procedural import BallCloudScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops.brick_grid import _level_geom
+    from cednerf_torch.ops.cuda_build import build_all
+    from cednerf_torch.utils.bench import (TRAIN_FLAGS, card_name, cuda_ms,
+                                           device_time_by_kernel)
+
+    card = card_name()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()
+    cfg = dnerf_config()
+    if args.interp:
+        cfg = dataclasses.replace(cfg, interp_impl="interp")
+    field = build_field(cfg, ModelFlags(**TRAIN_FLAGS), device="cuda",
+                        seed=args.seed)
+    trainer = Trainer(field, cfg, ModelFlags(**TRAIN_FLAGS),
+                      BallCloudScene(seed=args.seed), seed=args.seed,
+                      device="cuda")
+
+    # 1. steps on the host clock
+    ms = []
+    for _ in range(args.steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.run_step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    tail = ms[cfg.occ_warmup_steps:] or ms
+    print(json.dumps({"steps": {
+        "n": args.steps, "median_ms": float(np.median(ms)),
+        "median_ms_after_warmup": float(np.median(tail)),
+        "last": m}}), flush=True)
+
+    # 2. steady steps under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    ek.reset_counts()
+    ck.reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recs = [trainer.run_step() for _ in range(args.profile_steps)]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows, device_ms = device_time_by_kernel(prof)
+    ours = [r for r in rows if any(k in r[0] for k in (
+        "fused_encode", "interp_fwd", "encode_bwd", "count_kernel",
+        "scan_tiles", "select_kernel", "fill_kernel"))]
+    cpu_ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     key=lambda e: -e.self_cpu_time_total)
+    print(json.dumps({"profile": {
+        "steps": args.profile_steps, "wall_ms_per_step":
+        wall_ms / args.profile_steps,
+        "device_ms_per_step": device_ms / args.profile_steps,
+        "device_busy_share": device_ms / wall_ms,
+        "unprofiled_busy_share": device_ms / args.profile_steps
+        / float(np.median(tail)),
+        "kernel_launches_per_step":
+        sum(r[1] for r in rows) / args.profile_steps,
+        "port_kernels_ms_per_step":
+        sum(r[2] for r in ours) / args.profile_steps,
+        "launches": {**ek.launches, **ck.launches},
+        "num_rays": [r["num_rays"] for r in recs],
+        "n_samples": [r["n_samples"] for r in recs],
+        "n_valid": [r["n_valid"] for r in recs]}}), flush=True)
+    for key, count, dms in rows[:25]:
+        print(json.dumps({"kernel": key[:90], "calls": count,
+                          "device_ms_per_step": dms / args.profile_steps,
+                          "share": dms / device_ms if device_ms else None}),
+              flush=True)
+    for e in cpu_ops[:12]:
+        print(json.dumps({"host_op": e.key[:60], "calls": e.count,
+                          "self_cpu_ms_per_step": e.self_cpu_time_total
+                          / 1e3 / args.profile_steps}), flush=True)
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "key_averages.txt"), "w") as fh:
+        fh.write(card + "\n")
+        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                           row_limit=80))
+        fh.write("\n")
+        fh.write(prof.key_averages().table(sort_by="self_cpu_time_total",
+                                           row_limit=40))
+
+    # 3. components at the budget
+    n = cfg.sample_budget
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    lo = torch.tensor(cfg.aabb[:3], device="cuda")
+    hi = torch.tensor(cfg.aabb[3:], device="cuda")
+    pos = lo + (hi - lo) * torch.rand((n, 3), device="cuda", generator=gen)
+    t = torch.rand((n, 1), device="cuda", generator=gen)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((n, 3), device="cuda", generator=gen), dim=-1)
+
+    def fwd_bwd():
+        rgb, res = field(pos, t, dirs, return_internal=True)
+        (rgb.sum() + res["density"].sum()
+         + res["internal"]["latent_losses"].sum()).backward()
+
+    spec = field.hash_encoder.bspec
+    lay = spec.level_layout()
+    scales = spec.level_scales()
+    nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    xn = torch.rand((n, 3), device="cuda", generator=gen)
+    rows = torch.stack([_level_geom(xn, scales[i], nbs[i], l["hashed"],
+                                    l["rows"])[0]
+                        for i, l in enumerate(lay)]).contiguous()
+    table = torch.zeros((sum(level_rows), spec.row_width),
+                        dtype=torch.bfloat16, device="cuda")
+    g = torch.randn((n, spec.output_dim), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    valid = torch.rand((m["num_rays"], cfg.max_march_steps), device="cuda",
+                       generator=gen) < m["n_valid"] / (
+                           m["num_rays"] * cfg.max_march_steps)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: field(pos, t, dirs), 10)
+    comp = {
+        "n": n, "field_forward_ms": fwd_ms,
+        "field_forward_backward_ms": cuda_ms(fwd_bwd, 10),
+        "k6_ms": cuda_ms(lambda: ek.fused_encode_bwd(
+            xn, g, rows, table, scales, nbs, level_rows, spec.n_features),
+            10),
+        "k4_ms": cuda_ms(lambda: ck.compact_select_kernel(
+            valid, cfg.sample_budget), 10),
+        "k4_lattice": list(valid.shape)}
+    print(json.dumps({"components": comp}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -146,8 +146,9 @@ def test_brick_encode_unported_options_raise():
         with pytest.raises(NotImplementedError, match="keyframe"):
             tbg.brick_encode(x, params, dataclasses.replace(
                 spec, time_keyframes=4), t=torch.rand(8, 1))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tbg.brick_encode(x.requires_grad_(), params, spec)
+    with pytest.raises(ValueError, match="grad_accum_dtype"):
+        tbg.brick_encode(x, params, dataclasses.replace(
+            spec, grad_accum_dtype="float16"))
     with torch.no_grad():
         out = tbg.brick_encode(x.detach(), params,
                                dataclasses.replace(spec, interp_impl="plain"))

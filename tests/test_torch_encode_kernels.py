@@ -160,7 +160,20 @@ def test_wrappers_on_cpu_take_the_plain_version():
                               [l["rows"] for l in lay], 2)
     feats = torch.stack([table[:l["rows"]][:0] for l in lay])
     out1 = ek.interp_fwd(xt[:0], feats, scales, nbs, 2)
+    rows_t = torch.from_numpy(rows)
+    g = torch.ones((64, 8), dtype=torch.bfloat16)
+    level_rows = [l["rows"] for l in lay]
+    d_t, d_x = ek.fused_encode_bwd(xt, g, rows_t, table, scales, nbs,
+                                   level_rows, 2)
+    feats = torch.stack([table[sum(level_rows[:i]):][rows_t[i].long()]
+                         for i in range(len(lay))])
+    d_t1, _ = ek.interp_bwd_fused(xt, g, feats, rows_t, scales, nbs,
+                                  level_rows, 2)
     assert out.shape == (64, 8) and out.dtype == torch.bfloat16
     assert out1.shape == (0, 8)
-    assert ek.launches == {"interp_fwd": 0, "fused_encode_fwd": 0}
-    assert ek.plain_cuda_calls == {"interp_fwd": 0, "fused_encode_fwd": 0}
+    assert d_t.shape == (sum(level_rows), 128) and d_x.shape == (64, 3)
+    torch.testing.assert_close(d_t1, d_t)
+    names = {"interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
+             "interp_bwd_fused"}
+    assert ek.launches == dict.fromkeys(names, 0)
+    assert ek.plain_cuda_calls == dict.fromkeys(names, 0)

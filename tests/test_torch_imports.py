@@ -1,6 +1,6 @@
-"""Import hygiene of the port: no file of cednerf_torch, and neither
-chip_smoke.py nor profile_serving.py, imports jax, flax or the JAX package
-(cednerf_tpu)."""
+"""Import hygiene of the port: no file of cednerf_torch, and none of
+chip_smoke.py, profile_serving.py and profile_training.py, imports jax,
+flax or the JAX package (cednerf_tpu)."""
 
 import ast
 import pathlib
@@ -10,7 +10,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cednerf_tpu"}
 FILES = sorted((ROOT / "cednerf_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_serving.py"]
+    ROOT / "chip_smoke.py", ROOT / "profile_serving.py",
+    ROOT / "profile_training.py"]
 
 
 def _imported_roots(path):
@@ -29,8 +30,12 @@ def _imported_roots(path):
 
 
 def test_port_files_exist():
-    assert len(FILES) > 15
-    assert (ROOT / "cednerf_torch" / "csrc" / "brick_encode_fwd.cu").exists()
+    assert len(FILES) > 25
+    for name in ("brick_encode_fwd", "brick_encode_bwd", "compact_select"):
+        assert (ROOT / "cednerf_torch" / "csrc" / f"{name}.cu").exists()
+    for mod in ("engine/train.py", "ops/losses.py", "ops/segments.py",
+                "ops/compact_kernels.py", "datasets/procedural.py"):
+        assert (ROOT / "cednerf_torch" / mod).exists()
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)

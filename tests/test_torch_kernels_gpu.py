@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 and K5 against their plain versions, on the card.
+"""The CUDA kernels K1, K5, K6, K2 and K4 against their plain versions, on
+the card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither jax nor the JAX package, so it runs on a machine that has only the
@@ -7,7 +8,10 @@ port's dependencies; there, skip the suite's JAX conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: f32 output rtol 1e-5, atol 1e-9 (summation order only, at the
-+-1e-4 table scale); bf16 output one bf16 rounding, rtol 2^-7.
++-1e-4 table scale); bf16 output one bf16 rounding, rtol 2^-7. Backward
+kernels (K6, K2): their f32 atomics add in another order than the plain
+version's index_add, so each gradient is held to 1e-5 of its largest entry
+(plus rtol 1e-5). K4 (compaction) is integer work: bit-exact.
 """
 
 import numpy as np
@@ -15,6 +19,7 @@ import pytest
 import torch
 
 from cednerf_torch.ops import brick_grid as tbg
+from cednerf_torch.ops import compact_kernels as ck
 from cednerf_torch.ops import encode_kernels as ek
 
 pytestmark = pytest.mark.gpu
@@ -91,3 +96,51 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
               spec.init_params(torch.Generator().manual_seed(0)).items()}
     with torch.no_grad(), pytest.raises(ValueError, match="plain"):
         tbg.brick_encode(x, params, spec)
+
+
+def _close_to_scale(got, want):
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale + 1e-30)
+
+
+@pytest.mark.parametrize("n_feat,n,levels", [(4, 1001, 8), (2, 4099, 16),
+                                             (1, 33, 3), (4, 20000, 4)])
+def test_backward_kernels_match_plain(n_feat, n, levels):
+    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        3, n_feat, n, levels)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    g = (torch.randn((n, levels * n_feat), device="cuda", generator=gen)
+         ).to(torch.bfloat16)
+    g[::7] = 0          # unused budget slots carry a zero cotangent
+    want_t, want_x = ek.fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
+                                               level_rows, n_feat)
+    k6 = ek.fused_encode_bwd(x, g, rows, table, scales, nbs, level_rows,
+                             n_feat)
+    k2 = ek.interp_bwd_fused(x, g, feats, rows, scales, nbs, level_rows,
+                             n_feat)
+    torch.cuda.synchronize()
+    for d_table, d_x in (k6, k2):
+        assert d_table.dtype == torch.float32 and d_x.dtype == torch.float32
+        _close_to_scale(d_table, want_t)
+        _close_to_scale(d_x, want_x)
+    k2_plain = ek.interp_bwd_fused_plain(x, g, feats, rows, scales, nbs,
+                                         level_rows, n_feat)
+    _close_to_scale(k2_plain[0], want_t)
+    _close_to_scale(k2_plain[1], want_x)
+
+
+@pytest.mark.parametrize("r,m,budget,p", [
+    (64, 128, 2048, 0.3), (32, 256, 1024, 0.9), (24, 97, 512, 0.5),
+    (7, 3, 100, 1.0), (256, 1024, 262144, 1.0), (300, 1024, 262144, 0.1),
+    (16, 1024, 4096, 0.0), (1000, 1000, 1, 0.5)])
+def test_compact_kernel_bit_exact(r, m, budget, p):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(r + m)
+    valid = torch.rand((r, m), device="cuda", generator=gen) < p
+    want = ck.compact_select_rayfold(valid, budget)
+    got = ck.compact_select_kernel(valid, budget)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
