@@ -4,8 +4,10 @@ The port's own copy of `cednerf_tpu/engine/config.py` (`ModelFlags`,
 `SceneConfig`, `dnerf_config`), kept field-for-field identical so that a
 preset means the same run in both packages
 (tests/test_torch_field.py::test_config_copy_matches_jax holds the two side
-by side). This slice reads the serving fields; the training fields are
-carried so that presets stay whole.
+by side). The port reads the serving and the packed-train-step fields
+(`grid_type` "hash3d" and "hash4d"); the fields of paths still to port
+(the scanned train loop, segment marching, the cell layouts, multi-device
+compaction) are carried so that presets stay whole.
 """
 
 import dataclasses
@@ -55,9 +57,11 @@ class SceneConfig:
     hash_n_levels: int = 8
     hash_n_features: int = 4
     # Encoder implementation knobs (see BrickGridSpec in ops/brick_grid.py).
-    # The serving forward reads interp_impl ("interp" takes kernel K1, every
-    # other value K5), max_table_rows, fine_table_rows, fine_from_level and
-    # row_layout; the others drive the backward and arrive with training.
+    # The 3D encoder reads interp_impl ("interp" takes kernels K1/K2, every
+    # other value K5/K6), max_table_rows, fine_table_rows, fine_from_level
+    # and row_layout; grad_accum_dtype rounds the f32 table gradient once;
+    # the 4D encoder's table gradient takes kernel K3 for every
+    # scatter_impl; remat_feats and cell_rows_cap arrive with later slices.
     grad_accum_dtype: str = "bfloat16"  # table-gradient accumulator dtype
     scatter_impl: str = "xla"           # table-gradient scatter route
     interp_impl: str = "xla"

@@ -9,9 +9,10 @@ flax tree (`motion_mlp.hidden_0.weight` <- `motion_mlp/hidden_0/kernel`,
 transposed), so bridge.py moves weights across unchanged.
 
 `return_internal=True` adds the loss internals of the train step (move,
-selector, the feat-prediction and weight-prediction heads' outputs);
-`hash4motion` and grid types other than "hash3d" raise until the
-secondary-encoder slices.
+selector, the feat-prediction and weight-prediction heads' outputs).
+`grid_type` "hash3d" (the motion-warped 3D brick grid) and "hash4d" (the
+same grid with `time_keyframes` keyframes per table row, queried at (xn, t))
+are ported; "triplane" and `hash4motion` raise until their slices.
 """
 
 import math
@@ -147,10 +148,10 @@ class DNGPRadianceField(nn.Module):
                  remat_feats: bool = False, row_layout: str = "brick",
                  cell_rows_cap: int = 524288, density_clamp: float = 0.0):
         super().__init__()
-        if grid_type != "hash3d":
+        if grid_type not in ("hash3d", "hash4d"):
             raise NotImplementedError(
                 f"grid_type={grid_type!r} comes with a later slice of the "
-                "port; this slice serves 'hash3d'")
+                "port; 'hash3d' and 'hash4d' are ported")
         if hash4motion:
             raise NotImplementedError(
                 "hash4motion comes with a later slice of the port")
@@ -165,10 +166,12 @@ class DNGPRadianceField(nn.Module):
         self.use_weight_predict = use_weight_predict
         self.use_viewdirs = use_viewdirs
         self.density_clamp = density_clamp
+        self.grid_type = grid_type
         self.hash_spec = HashGridSpec(
             n_levels=n_levels, n_features=n_features_per_level,
             base_res=base_resolution, max_res=dst_resolution,
-            log2_hashmap_size=log2_hashmap_size, time_keyframes=0,
+            log2_hashmap_size=log2_hashmap_size,
+            time_keyframes=time_keyframes if grid_type == "hash4d" else 0,
             grad_accum_dtype=grad_accum_dtype, scatter_impl=scatter_impl,
             interp_impl=interp_impl, max_table_rows=max_table_rows,
             fine_table_rows=fine_table_rows, fine_from_level=fine_from_level,
@@ -231,7 +234,10 @@ class DNGPRadianceField(nn.Module):
         aabb_min, aabb_max = self._aabb(x)
         xn = (x_move - aabb_min) / (aabb_max - aabb_min)
         selector = torch.all((xn > 0.0) & (xn < 1.0), dim=-1)
-        hash_feat = self.hash_encoder(xn)
+        if self.grid_type == "hash4d":
+            hash_feat = self.hash_encoder(xn, t)
+        else:
+            hash_feat = self.hash_encoder(xn)
 
         time_encode = None
         if self.use_time_embedding:

@@ -26,17 +26,32 @@ levels get their `grid_{l}` gradient from autograd through
 `_materialize_dense_bricks` (overlapping brick corners sum), as JAX gets
 it from XLA autodiff. The table gradient is summed in f32 whatever
 `grad_accum_dtype` says; "bfloat16" rounds the finished sum to bf16 once
-before it is cast to the table's dtype. 4D keyframe levels and the
-cell/cellz layouts arrive with later slices and raise NotImplementedError.
+before it is cast to the table's dtype.
+
+4D keyframe levels (`time_keyframes` K > 0, grid_type "hash4d"; port of
+`_make_level_encode_4d`): each level's table is viewed as [(rows*K), 64F]
+with row r*K + k holding keyframe k of brick row r, and the features are
+lerp(row[lo], row[lo + 1], t_frac) inside the spatial interpolation. One
+torch.autograd.Function per level. Its forward is plain PyTorch on the 8
+corners of the sample's cell (the JAX forward is XLA code, no Pallas
+kernel), in f32 on values gathered in the compute dtype. Its backward
+builds the keyframe-split update rows (w * g * (1 - t_frac) for keyframe
+lo, w * g * t_frac for lo + 1) in one [2N, 64F] f32 buffer and sends them
+through K3 (ops/scatter_kernels.py) on CUDA, for every `scatter_impl`, or
+its plain index_add on the CPU; plus the edge-gated d_x and
+d_t = sum(w * (hi - lo) * g) * (K - 1) when t needs a gradient. The cell
+layouts, 3D and 4D, arrive with later slices and raise NotImplementedError.
 """
 
 import dataclasses
 import math
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import encode_kernels as ek
+from . import scatter_kernels as sk
 from .encode_kernels import BRICK_CELLS, CORNERS_PER_BRICK
 from .hash_grid import _PRIMES, level_resolution, level_scale
 
@@ -269,21 +284,191 @@ class _BrickEncode(torch.autograd.Function):
                 *_table_grads(d_flat, geom, ctx.dtypes))
 
 
+def keyframe_tables(params: Dict[str, torch.Tensor],
+                    spec: BrickGridSpec) -> List[torch.Tensor]:
+    """Per-level [(rows*K), 64F] keyframe views of a 4D spec's tables: row
+    r*K + k is keyframe k of brick row r. Hashed levels store `bricks_{l}`
+    [rows, K*64F] keyframe-major (a view); dense levels materialize
+    `grid_{l}` [n, n, n, K*F] into corner-major [nb^3, 64, K, F] bricks
+    and move the keyframe axis ahead of the corners, as JAX does."""
+    k, f = spec.keyframes, spec.n_features
+    tables = []
+    for lvl, lay in enumerate(spec.level_layout()):
+        if lay["hashed"]:
+            table = params[f"bricks_{lvl}"]
+        else:
+            table = _materialize_dense_bricks(params[f"grid_{lvl}"],
+                                              lay["n_bricks_axis"])
+            table = table.reshape(-1, CORNERS_PER_BRICK, k, f).permute(
+                0, 2, 1, 3)
+        tables.append(table.reshape(-1, spec.row_width))
+    return tables
+
+
+def _time_geom(t: torch.Tensor, keyframes: int):
+    """(idx_lo [N] int64, t_frac [N] f32), as the JAX encoder computes
+    them: t_scaled = t * (K - 1) rounded to f32, idx_lo = clip(floor, 0,
+    K - 2), t_frac = t_scaled - idx_lo (XLA does not contract these under
+    jit: the rounded t_scaled also feeds the floor). At t = 1, idx_lo =
+    K - 2 and t_frac = 1."""
+    ts = t.reshape(-1).float() * float(keyframes - 1)
+    lo = torch.floor(ts).clamp(0, keyframes - 2)
+    return lo.to(torch.int64), ts - lo
+
+
+@dataclasses.dataclass(frozen=True)
+class _KeyLevel:
+    scale: float
+    nb: int
+    hashed: bool
+    n_rows: int
+    n_feat: int
+    keyframes: int
+    compute_dtype: torch.dtype
+    accum_bf16: bool
+
+
+# a corner's F values in the compute dtype, moved as one machine word
+_WORDS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _gather_corners(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [R, F] (contiguous), idx [...] int64 -> [..., F].
+
+    Where a corner's F values fill one 2-, 4- or 8-byte word (bf16 at F = 4:
+    8 bytes) the gather is a 1-D index_select of words: on CUDA, index_select
+    of a 2-D tensor with 16-byte or narrower rows launches one block per
+    index, which at a train step's 2 x 8 x 262,144 corners per level costs
+    milliseconds where the bytes cost microseconds."""
+    f = table.shape[1]
+    word = _WORDS.get(f * table.element_size())
+    if word is None:
+        out = table.index_select(0, idx.reshape(-1))
+    else:
+        out = table.view(word).reshape(-1).index_select(
+            0, idx.reshape(-1)).view(table.dtype)
+    return out.view(*idx.shape, f)
+
+
+def _corner_bits(device) -> torch.Tensor:
+    """[3, 8] int64: bit a of corner j = 4*bx + 2*by + bz (bx, by, bz)."""
+    j = torch.arange(8, device=device)
+    return torch.stack([(j >> 2) & 1, (j >> 1) & 1, j & 1])
+
+
+def _keyframe_feats(lohi, t_frac, dtype):
+    """lerp of the two keyframes' corner values lohi [2, N, 8, F] in f32,
+    with t_frac and 1 - t_frac rounded to the compute dtype as JAX rounds
+    them."""
+    tfc = t_frac.to(dtype).float()[:, None, None]
+    one_m = (1.0 - tfc).to(dtype).float()
+    return lohi[0].float() * one_m + lohi[1].float() * tfc
+
+
+class _KeyframeLevelEncode(torch.autograd.Function):
+    """One 4D level: (flat [(rows*K), 64F], x [N, 3], t [N, 1]) -> [N, F],
+    given the time geometry (idx_lo, t_frac) that every level shares.
+
+    Forward: the cell's 8 corners (j = 4*bx + 2*by + bz) of keyframes lo and
+    lo + 1, one gather of [2, N, 8, F] in the compute dtype, the lerp and the
+    trilinear sum; the corner values and the geometry are saved for the
+    backward (under no_grad the node, and with it what it saved, is dropped
+    when the forward returns). Backward: K3 on the keyframe-split update
+    rows, d_x and d_t."""
+
+    @staticmethod
+    def forward(ctx, flat, x, t, idx_lo, t_frac, lv: _KeyLevel):
+        rows, intra, frac, ok = _level_geom(x, lv.scale, lv.nb, lv.hashed,
+                                            lv.n_rows)
+        bits = _corner_bits(x.device)                                 # [3, 8]
+        corner = ((intra[:, :, None] + bits)
+                  * (4 ** (2 - torch.arange(3, device=x.device)))[:, None]
+                  ).sum(1)                                            # [N, 8]
+        w3 = torch.where(bits == 1, frac[:, :, None],
+                         1.0 - frac[:, :, None])                   # [N, 3, 8]
+        w = (w3[:, 0] * w3[:, 1]) * w3[:, 2]
+        lo_row = rows.long() * lv.keyframes + idx_lo
+        base = lo_row[:, None] * CORNERS_PER_BRICK + corner
+        lohi = _gather_corners(
+            flat.to(lv.compute_dtype).reshape(-1, lv.n_feat),
+            torch.stack([base, base + CORNERS_PER_BRICK]))    # [2, N, 8, F]
+        out = (_keyframe_feats(lohi, t_frac, lv.compute_dtype)
+               * w[:, :, None]).sum(1)
+        ctx.save_for_backward(lo_row, corner, w3, w, ok, t_frac, lohi)
+        ctx.lv, ctx.flat_dtype, ctx.t_shape = lv, flat.dtype, t.shape
+        return out.to(lv.compute_dtype)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        lo_row, corner, w3, w, ok, t_frac, lohi = ctx.saved_tensors
+        lv = ctx.lv
+        g = g_out.float()
+        n, f = g.shape
+        d_flat = d_x = d_t = None
+        if ctx.needs_input_grad[0]:
+            upd = w[:, :, None] * g[:, None, :]                   # [N, 8, F]
+            tf = t_frac[:, None, None]
+            rows_buf = torch.zeros((2, n, CORNERS_PER_BRICK, f),
+                                   dtype=torch.float32, device=g.device)
+            at = corner[:, :, None].expand(n, 8, f)
+            rows_buf[0].scatter_(1, at, upd * (1.0 - tf))
+            rows_buf[1].scatter_(1, at, upd * tf)
+            rows = torch.cat([lo_row, lo_row + 1]).to(torch.int32)
+            d_flat = sk.scatter_add_rows(
+                rows, rows_buf.view(2 * n, CORNERS_PER_BRICK * f),
+                lv.n_rows * lv.keyframes)
+            del rows_buf
+            if lv.accum_bf16:
+                d_flat = d_flat.to(torch.bfloat16)
+            d_flat = d_flat.to(ctx.flat_dtype)
+        if ctx.needs_input_grad[1]:
+            h = (_keyframe_feats(lohi, t_frac, lv.compute_dtype)
+                 * g[:, None, :]).sum(-1)                           # [N, 8]
+            # d w / d frac_a = +-(the other two axes' weights)
+            others = torch.stack([w3[:, 1] * w3[:, 2], w3[:, 0] * w3[:, 2],
+                                  w3[:, 0] * w3[:, 1]], 1)         # [N, 3, 8]
+            sign = _corner_bits(g.device) * 2.0 - 1.0
+            d_x = (h[:, None, :] * sign * others).sum(-1) \
+                * float(np.float32(lv.scale)) * ok
+        if ctx.needs_input_grad[2]:
+            dlt = ((lohi[1].float() - lohi[0].float())
+                   * g[:, None, :]).sum(-1)
+            d_t = ((dlt * w).sum(-1) * float(lv.keyframes - 1)).reshape(
+                ctx.t_shape)
+        return d_flat, d_x, d_t, None, None, None
+
+
+def _encode_keyframes(x, t, params, spec: BrickGridSpec, compute_dtype):
+    layouts = spec.level_layout()
+    scales = spec.level_scales()
+    tables = keyframe_tables(params, spec)
+    with torch.no_grad():
+        idx_lo, t_frac = _time_geom(t, spec.keyframes)
+    outs = []
+    for lvl, flat in enumerate(tables):
+        lay = layouts[lvl]
+        lv = _KeyLevel(scale=scales[lvl], nb=lay["n_bricks_axis"],
+                       hashed=lay["hashed"], n_rows=lay["rows"],
+                       n_feat=spec.n_features, keyframes=spec.keyframes,
+                       compute_dtype=compute_dtype,
+                       accum_bf16=spec.grad_accum_dtype == "bfloat16")
+        outs.append(_KeyframeLevelEncode.apply(flat, x, t, idx_lo, t_frac,
+                                               lv))
+    return torch.cat(outs, dim=-1)
+
+
 def brick_encode(x: torch.Tensor, params: Dict[str, torch.Tensor],
                  spec: BrickGridSpec, t: Optional[torch.Tensor] = None,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Multiresolution brick-grid encoding, differentiable in x and in every
-    table of `params`.
+    table of `params` (and in t, for a 4D keyframe spec).
 
-    x: [N, 3] unit-cube positions; params from BrickGridSpec.init_params.
-    Returns [N, n_levels * n_features] in compute_dtype. The tables are cast
-    to compute_dtype before the gather, as in the JAX encoder; the lane math
-    and the sums run in f32. On CUDA the compute dtype must be bfloat16 (the
-    kernels read bf16 rows)."""
-    if spec.time_keyframes:
-        raise NotImplementedError(
-            "brick_encode: 4D keyframe levels (grid_type='hash4d') come with "
-            "a later slice of the port")
+    x: [N, 3] unit-cube positions; t: [N, 1] times in [0, 1] (4D specs
+    only); params from BrickGridSpec.init_params. Returns
+    [N, n_levels * n_features] in compute_dtype. The tables are cast to
+    compute_dtype before the gather, as in the JAX encoder; the lane math
+    and the sums run in f32. On CUDA the 3D route's compute dtype must be
+    bfloat16 (the kernels read bf16 rows)."""
     if spec.row_layout != "brick":
         raise NotImplementedError(
             f"brick_encode: row_layout={spec.row_layout!r} comes with a later "
@@ -291,14 +476,19 @@ def brick_encode(x: torch.Tensor, params: Dict[str, torch.Tensor],
     if spec.grad_accum_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"brick_encode: grad_accum_dtype "
                          f"{spec.grad_accum_dtype!r} is not float32/bfloat16")
-    if x.is_cuda:
-        if spec.interp_impl == "plain":
-            raise ValueError("brick_encode: the plain version was requested "
-                             "on a CUDA tensor; the CUDA route is the kernel")
-        if compute_dtype != torch.bfloat16:
-            raise NotImplementedError(
-                "brick_encode: the CUDA kernels read bf16 rows; "
-                f"compute_dtype={compute_dtype} runs only on the CPU")
+    if x.is_cuda and spec.interp_impl == "plain":
+        raise ValueError("brick_encode: the plain version was requested "
+                         "on a CUDA tensor; the CUDA route is the kernel")
+    if spec.time_keyframes:
+        if t is None:
+            raise ValueError("brick_encode: a 4D keyframe spec "
+                             "(time_keyframes > 0) needs t [N, 1]")
+        return _encode_keyframes(x.float().contiguous(), t.float(), params,
+                                 spec, compute_dtype)
+    if x.is_cuda and compute_dtype != torch.bfloat16:
+        raise NotImplementedError(
+            "brick_encode: the CUDA kernels read bf16 rows; "
+            f"compute_dtype={compute_dtype} runs only on the CPU")
     x = x.float().contiguous()
     layouts = spec.level_layout()
     scales = spec.level_scales()

@@ -1,8 +1,8 @@
 """Measurement helpers shared by chip_smoke.py, profile_serving.py and
 profile_training.py: the card's name, CUDA-event timing, the viewer's
 default orbit camera, an occupancy grid filled for a field, hash tables
-drawn at a scale that the MLPs feel, the train step's flags, and a
-profiler table of device time by kernel."""
+drawn at a scale that the MLPs feel, the train step's flags (3D and 4D
+encoder), and a profiler table of device time by kernel."""
 
 import math
 import subprocess
@@ -16,6 +16,9 @@ from ..ops.occupancy import create_occ_grid, update_occ_grid
 TRAIN_FLAGS = dict(use_time_embedding=True, use_time_attenuation=True,
                    use_feat_predict=True, acc_entropy_loss=True,
                    use_div_offsets=True, distortion_loss=True)
+# the same with the 4D keyframe encoder (--grid_type hash4d; the field's
+# time_keyframes default of 4)
+HASH4D_FLAGS = dict(TRAIN_FLAGS, grid_type="hash4d")
 
 
 def card_name() -> str:

@@ -7,7 +7,7 @@ Phases, each of which must pass (nothing is caught and carried on):
 
   1. device: needs CUDA (exits 1 without it, printing no result); prints
      the card's name and power limit as nvidia-smi reports them;
-  2. build: nvcc builds the port's three CUDA sources from the checkout,
+  2. build: nvcc builds the port's four CUDA sources from the checkout,
      one nvcc per source, all started together;
   3. kernels: K1 (interp_fwd) and K5 (fused_encode_fwd) against their plain
      PyTorch versions at one full seg-eval pass (eval_chunk_seg 32768 x
@@ -37,7 +37,21 @@ Phases, each of which must pass (nothing is caught and carried on):
      loss must be finite and the last 8 default steps' mean PSNR above the
      first 8's; counters zeroed before each route and read after it: K5, K6
      and K4 on the default steps, K1, K2 and K4 on the interp steps, no
-     plain version on CUDA in either.
+     plain version on CUDA in either;
+  8. K3 (scatter_add_rows) against its plain version on the update rows of
+     one real backward of the full-width 4D keyframe field (--grid_type
+     hash4d: 3 dense and 5 hashed levels, K = 4) at the train step's
+     262,144 samples, on level 0 (864 keyframe rows, the most contended)
+     and on a hashed level (65,536 rows), and on a ragged M = 100,003 of
+     random rows; each timed with CUDA events beside its bound and
+     index_add_;
+  9. hash4d reference step: phase 6 for the 4D field (its backward on K3
+     on the card, on the plain version on the CPU);
+ 10. hash4d training: Trainer.run_step on the full-width 4D field for
+     HASH4D_STEPS steps; finite losses, rising PSNR, K3 launched 8 times a
+     step (one per level) and K4 once, no K1/K2/K5/K6 and no plain version
+     on CUDA; then one 400x400 frame at 128 samples of the trained field
+     through ViewerServer, finite.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
@@ -81,6 +95,13 @@ STEP_GRAD_REL, STEP_LOSS_RTOL = 0.01, 1e-4
 # the training phase: 512 default-route steps (the 256-step all-cells
 # occupancy warmup, then 64 sampled updates), then 8 on the K1/K2 route
 TRAIN_STEPS, INTERP_STEPS = 512, 8
+# the hash4d training phase: the 256-step warmup and 64 steps after it
+HASH4D_STEPS = 320
+# K3 against its plain version: both sum in f32, K3 with atomics in an order
+# that changes from run to run, index_add_ in its own (up to ~1,200 adds per
+# address on level 0 at 262,144 samples), so each table is held to 1e-4 of
+# its largest entry, as K6's table gradient.
+K3_FRAC = 1e-4
 
 
 def log(msg):
@@ -283,6 +304,7 @@ def post_render(port, c2w, t, width, max_samples, depth):
 
 def serving_phase(field, field_k1, occ, cfg):
     from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import scatter_kernels as sk
     from cednerf_torch.utils.bench import orbit_c2w
     from cednerf_torch.viewer.server import ViewerServer
 
@@ -307,6 +329,7 @@ def serving_phase(field, field_k1, occ, cfg):
         # warm-up frame outside the counted run (allocator, cuBLAS handles)
         post_render(ports[0], c2w, 0.25, 64, 32, False)
         ek.reset_counts()
+        sk.reset_counts()
         for which, t, width, ms, depth in requests:
             before = dict(ek.launches)
             _, wall_ms, n_bytes = post_render(ports[which], c2w, t, width,
@@ -324,14 +347,16 @@ def serving_phase(field, field_k1, occ, cfg):
                    "passes_per_chunk": stats["passes_per_chunk"]}
             frames.append(rec)
             log(json.dumps({"frame": rec}))
-        launches = dict(ek.launches)
-        plain = dict(ek.plain_cuda_calls)
+        launches = {**ek.launches, **sk.launches}
+        plain = {**ek.plain_cuda_calls, **sk.plain_cuda_calls}
     finally:
         for h in httpds:
             h.shutdown()
             h.server_close()
     if launches["fused_encode_fwd"] == 0 or launches["interp_fwd"] == 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    if launches["scatter_add_rows"]:
+        raise AssertionError(f"serving launched K3: {launches}")
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on CUDA: {plain}")
     return frames, launches
@@ -481,9 +506,90 @@ def compact_kernel_phase(budget, seed):
     return main
 
 
-def reference_step_phase(seed):
+def scatter_kernel_phase(cfg, seed):
+    """K3 against its plain version. The update rows of level 0 and of the
+    last hashed level come from one backward of the full-width 4D field's
+    encoder at the train step's N (positions and times uniform, a bf16
+    cotangent with one row in eight zero, as unused budget slots carry):
+    the wrapper is wrapped for that one call to keep what it is handed.
+    Then a ragged M = 100,003 of random rows into the hashed table."""
+    import torch
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.utils.bench import HASH4D_FLAGS, cuda_ms
+
+    field = build_field(cfg, ModelFlags(**HASH4D_FLAGS), device="cuda",
+                        seed=seed)
+    spec = field.hash_encoder.bspec
+    n = cfg.sample_budget
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    xn = torch.rand((n, 3), device="cuda", generator=gen)
+    t = torch.rand((n, 1), device="cuda", generator=gen)
+    g = torch.randn((n, spec.output_dim), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    g[::8] = 0
+    lay = spec.level_layout()
+    cases = [("level 0", lay[0]["rows"] * spec.keyframes),
+             ("hashed level", lay[-1]["rows"] * spec.keyframes)]
+    kept = {}
+    real = sk.scatter_add_rows
+
+    def keep(rows, upd, n_rows):
+        if n_rows in {r for _, r in cases}:
+            kept.setdefault(n_rows, (rows, upd))
+        return real(rows, upd, n_rows)
+
+    sk.scatter_add_rows = keep
+    try:
+        field.hash_encoder(xn, t).backward(g)
+    finally:
+        sk.scatter_add_rows = real
+    del field
+    cases = [(label, n_rows) + kept[n_rows] for label, n_rows in cases]
+    m = 100_003
+    cases.append(("ragged random rows", cases[1][1],
+                  torch.randint(0, cases[1][1], (m,), device="cuda",
+                                generator=gen, dtype=torch.int32),
+                  torch.randn((m, spec.row_width), device="cuda",
+                              generator=gen)))
+    recs = []
+    for label, n_rows, rows, upd in cases:
+        want = sk.scatter_add_rows_plain(rows, upd, n_rows)
+        got = real(rows, upd, n_rows)
+        torch.cuda.synchronize()
+        frac = _frac_err(got, want)
+        if frac > K3_FRAC:
+            raise AssertionError(f"scatter_add_rows {label}: error {frac} "
+                                 f"of the largest entry (limit {K3_FRAC})")
+        rows_m, w = upd.shape
+        nnz = int((upd != 0).sum().item())
+        t_bytes = (rows_m * 4 + upd.numel() * 4 + n_rows * w * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = nnz / F32_FLOPS * 1e3       # one add per nonzero lane
+        rec = {"name": "scatter_add_rows", "case": label, "m": rows_m,
+               "w": w, "n_rows": n_rows, "nonzero_lanes": nnz,
+               "max_abs_err": (got - want).abs().max().item(),
+               "err_frac": frac, "table_max": want.abs().max().item(),
+               "ms": cuda_ms(lambda: real(rows, upd, n_rows), 20),
+               "plain_ms": cuda_ms(
+                   lambda: sk.scatter_add_rows_plain(rows, upd, n_rows), 5),
+               "library_ms": cuda_ms(lambda: torch.zeros(
+                   (n_rows, w), device="cuda").index_add_(0, rows, upd), 20),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(json.dumps({"kernel_check": rec}))
+        recs.append(rec)
+        del want, got
+    del kept, cases
+    torch.cuda.empty_cache()
+    return recs
+
+
+def reference_step_phase(seed, grid_type="hash3d"):
     """One train step of the shrunken config (SMALL) on the card, through
-    each kernel route, and on the CPU through the plain versions: the same
+    each kernel route (for hash4d the one route: its backward on K3), and
+    on the CPU through the plain versions: the same
     weights (tables uniform(-1, 1), so that the MLPs feel them), occupancy
     grid (30% of cells, numpy), ray batch (BallScene) and march jitter.
     n_valid must match, the loss within STEP_LOSS_RTOL, and each
@@ -502,7 +608,8 @@ def reference_step_phase(seed):
     from cednerf_torch.utils.bench import TRAIN_FLAGS, load_uniform_tables
 
     cfg = dataclasses.replace(dnerf_config(), **SMALL)
-    flags = ModelFlags(**TRAIN_FLAGS)
+    flags = ModelFlags(**TRAIN_FLAGS, grid_type=grid_type)
+    routes = ("xla", "interp") if grid_type == "hash3d" else ("xla",)
     rng = np.random.default_rng(seed)
     res = cfg.grid_resolution
     bins = rng.uniform(size=(1, res, res, res)) < 0.3
@@ -511,7 +618,8 @@ def reference_step_phase(seed):
     batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
     jitter = rng.uniform(size=128).astype(np.float32)
     runs = {}
-    for route, dev in (("plain", "cpu"), ("xla", "cuda"), ("interp", "cuda")):
+    for route, dev in (("plain", "cpu"),) + tuple((r, "cuda")
+                                                 for r in routes):
         c = dataclasses.replace(cfg, interp_impl=route)
         f = build_field(c, flags, device=dev, seed=seed)
         load_uniform_tables([f], seed, 1.0)
@@ -525,9 +633,9 @@ def reference_step_phase(seed):
                        {n: p.grad.detach().float().cpu()
                         for n, p in f.named_parameters()})
     loss0, aux0, g0 = runs["plain"]
-    rec = {"cpu_loss": loss0, "n_valid": aux0["n_valid"],
-           "complete_frac": aux0["complete_frac"]}
-    for route in ("xla", "interp"):
+    rec = {"grid_type": grid_type, "cpu_loss": loss0,
+           "n_valid": aux0["n_valid"], "complete_frac": aux0["complete_frac"]}
+    for route in routes:
         loss, aux, grads = runs[route]
         rels = {n: ((grads[n] - g0[n]).norm() / g0[n].norm()).item()
                 for n in g0 if g0[n].norm() > 0}
@@ -549,6 +657,72 @@ def reference_step_phase(seed):
     return rec
 
 
+def _drive(trainer, cfg, n, label):
+    """`n` steps of trainer.run_step with every launch counter zeroed just
+    before and read just after: (per-step records, launch counts). Fails on
+    a non-finite loss or a plain version run on CUDA."""
+    import numpy as np
+    import torch
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import scatter_kernels as sk
+
+    mods = (ek, ck, sk)
+    for mod in mods:
+        mod.reset_counts()
+    recs = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        occ_step = trainer.step % cfg.occ_update_interval == 0
+        m = trainer.run_step()
+        torch.cuda.synchronize()
+        m["ms"] = (time.perf_counter() - t0) * 1e3
+        m["occ_update"] = occ_step
+        if not np.isfinite(m["loss"]):
+            raise AssertionError(f"{label} step {trainer.step}: loss "
+                                 f"{m['loss']}")
+        recs.append(m)
+    counts = {k: v for mod in mods for k, v in mod.launches.items()}
+    plain = {k: v for mod in mods for k, v in mod.plain_cuda_calls.items()}
+    if any(plain.values()):
+        raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
+    return recs, counts
+
+
+def _train_summary(recs, cfg, counts, tag):
+    """PSNR rise (fails unless the last 8 steps' mean is above the first
+    8's), step times and rates; logs a few steps' records under `tag`."""
+    import numpy as np
+
+    steps = len(recs)
+    psnr = [r["psnr"] for r in recs]
+    first, last = float(np.mean(psnr[:8])), float(np.mean(psnr[-8:]))
+    if not last > first:
+        raise AssertionError(f"{tag}: PSNR did not rise: first 8 {first}, "
+                             f"last 8 {last}")
+    steady = [r for r in recs[cfg.occ_warmup_steps:] if not r["occ_update"]]
+    warm = [r for r in recs[:cfg.occ_warmup_steps] if not r["occ_update"]]
+    step_ms = float(np.median([r["ms"] for r in steady or recs]))
+    for i in sorted({0, 7, cfg.occ_warmup_steps - 1, steps - 1}):
+        if i < steps:
+            log(json.dumps({tag: i, **recs[i]}))
+    return {
+        "steps": steps, "psnr_first8": first, "psnr_last8": last,
+        "median_ms_per_step": step_ms,
+        "median_ms_per_warmup_step": float(np.median(
+            [r["ms"] for r in warm])) if warm else None,
+        "occ_update_step_ms": float(np.median(
+            [r["ms"] for r in recs if r["occ_update"]])),
+        "budget_slots_per_s": cfg.sample_budget / step_ms * 1e3,
+        "valid_samples_per_s": float(np.median(
+            [r["n_samples"] / r["ms"] * 1e3 for r in steady or recs])),
+        "last": {k: recs[-1][k] for k in ("num_rays", "n_valid", "n_samples",
+                                          "complete_frac", "loss", "psnr")},
+        "buckets_visited": sorted({r["num_rays"] for r in recs}),
+        "launches": counts}
+
+
 def training_phase(cfg, flags, seed, steps=TRAIN_STEPS,
                    interp_steps=INTERP_STEPS):
     """Trainer.run_step at full width: `steps` default-route steps, then
@@ -565,75 +739,95 @@ def training_phase(cfg, flags, seed, steps=TRAIN_STEPS,
     trainer = Trainer(field, cfg, flags, BallCloudScene(seed=seed),
                       seed=seed, device="cuda")
 
-    def drive(n, label):
-        ek.reset_counts()
-        ck.reset_counts()
-        recs = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            occ_step = trainer.step % cfg.occ_update_interval == 0
-            m = trainer.run_step()
-            torch.cuda.synchronize()
-            m["ms"] = (time.perf_counter() - t0) * 1e3
-            m["occ_update"] = occ_step
-            if not np.isfinite(m["loss"]):
-                raise AssertionError(f"{label} step {trainer.step}: loss "
-                                     f"{m['loss']}")
-            recs.append(m)
-        counts = {**ek.launches, **ck.launches}
-        plain = {**ek.plain_cuda_calls, **ck.plain_cuda_calls}
-        if any(plain.values()):
-            raise AssertionError(f"{label}: plain versions ran on CUDA: "
-                                 f"{plain}")
-        return recs, counts
-
-    recs, counts = drive(steps, "default route")
+    recs, counts = _drive(trainer, cfg, steps, "default route")
     for k in ("fused_encode_fwd", "fused_encode_bwd", "compact_select"):
         if counts[k] == 0:
             raise AssertionError(f"default route: {k} never launched: "
                                  f"{counts}")
-    if counts["interp_fwd"] or counts["interp_bwd_fused"]:
-        raise AssertionError(f"default route took K1/K2: {counts}")
-    psnr = [r["psnr"] for r in recs]
-    first, last = float(np.mean(psnr[:8])), float(np.mean(psnr[-8:]))
-    if not last > first:
-        raise AssertionError(f"PSNR did not rise: first 8 {first}, last 8 "
-                             f"{last}")
-    steady = [r for r in recs[cfg.occ_warmup_steps:] if not r["occ_update"]]
-    warm = [r for r in recs[:cfg.occ_warmup_steps] if not r["occ_update"]]
-    step_ms = float(np.median([r["ms"] for r in steady or recs]))
-    summary = {
-        "steps": steps, "psnr_first8": first, "psnr_last8": last,
-        "median_ms_per_step": step_ms,
-        "median_ms_per_warmup_step": float(np.median(
-            [r["ms"] for r in warm])) if warm else None,
-        "occ_update_step_ms": float(np.median(
-            [r["ms"] for r in recs if r["occ_update"]])),
-        "budget_slots_per_s": cfg.sample_budget / step_ms * 1e3,
-        "valid_samples_per_s": float(np.median(
-            [r["n_samples"] / r["ms"] * 1e3 for r in steady or recs])),
-        "last": {k: recs[-1][k] for k in ("num_rays", "n_valid", "n_samples",
-                                          "complete_frac", "loss", "psnr")},
-        "buckets_visited": sorted({r["num_rays"] for r in recs}),
-        "launches": counts}
-    for i in sorted({0, 7, cfg.occ_warmup_steps - 1, steps - 1}):
-        if i < len(recs):
-            log(json.dumps({"train_step": i, **recs[i]}))
+    if (counts["interp_fwd"] or counts["interp_bwd_fused"]
+            or counts["scatter_add_rows"]):
+        raise AssertionError(f"default route took K1/K2/K3: {counts}")
+    summary = _train_summary(recs, cfg, counts, "train_step")
 
     spec = field.hash_encoder.bspec
     field.hash_encoder.bspec = dataclasses.replace(spec, interp_impl="interp")
-    irecs, icounts = drive(interp_steps, "interp route")
+    irecs, icounts = _drive(trainer, cfg, interp_steps, "interp route")
     for k in ("interp_fwd", "interp_bwd_fused", "compact_select"):
         if icounts[k] == 0:
             raise AssertionError(f"interp route: {k} never launched: "
                                  f"{icounts}")
-    if icounts["fused_encode_fwd"] or icounts["fused_encode_bwd"]:
-        raise AssertionError(f"interp route took K5/K6: {icounts}")
+    if (icounts["fused_encode_fwd"] or icounts["fused_encode_bwd"]
+            or icounts["scatter_add_rows"]):
+        raise AssertionError(f"interp route took K5/K6/K3: {icounts}")
     summary["interp"] = {
         "steps": interp_steps, "launches": icounts,
         "median_ms_per_step": float(np.median([r["ms"] for r in irecs])),
         "psnr": [r["psnr"] for r in irecs]}
+    return summary
+
+
+def hash4d_phase(cfg, seed, steps=HASH4D_STEPS):
+    """Trainer.run_step on the full-width 4D keyframe field for `steps`
+    steps, then one 400x400 frame at 128 samples of the trained field and
+    its occupancy grid through ViewerServer."""
+    import torch
+    from cednerf_torch.datasets.procedural import BallCloudScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.utils.bench import HASH4D_FLAGS, orbit_c2w
+    from cednerf_torch.viewer.server import ViewerServer
+
+    flags = ModelFlags(**HASH4D_FLAGS)
+    field = build_field(cfg, flags, device="cuda", seed=seed)
+    n_levels = field.hash_encoder.bspec.n_levels
+    trainer = Trainer(field, cfg, flags, BallCloudScene(seed=seed),
+                      seed=seed, device="cuda")
+    recs, counts = _drive(trainer, cfg, steps, "hash4d")
+    if counts["scatter_add_rows"] != n_levels * steps:
+        raise AssertionError(f"hash4d: K3 launched {counts['scatter_add_rows']}"
+                             f" times in {steps} steps, not {n_levels} a step")
+    if counts["compact_select"] != steps:
+        raise AssertionError(f"hash4d: K4 launched {counts['compact_select']}"
+                             f" times in {steps} steps")
+    if any(counts[k] for k in ("fused_encode_fwd", "fused_encode_bwd",
+                               "interp_fwd", "interp_bwd_fused")):
+        raise AssertionError(f"hash4d took a 3D kernel: {counts}")
+    summary = _train_summary(recs, cfg, counts, "hash4d_step")
+
+    server = ViewerServer(field, trainer.state.occ, cfg, wh=(400, 400),
+                          render_bkgd=(1, 1, 1))
+    httpd = server.start(port=0, host="127.0.0.1")
+    port = httpd.server_address[1]
+    mods = (ek, ck, sk)
+    try:
+        post_render(port, orbit_c2w(), 0.25, 64, 32, False)    # warm-up
+        for mod in mods:
+            mod.reset_counts()
+        _, wall_ms, n_bytes = post_render(port, orbit_c2w(), 0.5, 400, 128,
+                                          False)
+        launches = {k: v for mod in mods for k, v in mod.launches.items()}
+        plain = {k: v for mod in mods
+                 for k, v in mod.plain_cuda_calls.items()}
+        stats = server.last_frame
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if not stats["finite"]:
+        raise AssertionError("hash4d frame: non-finite values")
+    if any(plain.values()) or any(launches.values()):
+        raise AssertionError(f"hash4d frame: launches {launches}, plain "
+                             f"versions on CUDA {plain} (its forward is "
+                             "plain PyTorch, no kernel)")
+    summary["frame"] = {
+        "t": 0.5, "width": 400, "max_samples": 128,
+        "render_ms": stats["ms"], "http_ms": wall_ms, "png_bytes": n_bytes,
+        "chunks": len(stats["passes_per_chunk"]),
+        "passes_per_chunk": stats["passes_per_chunk"], "launches": launches}
+    log(json.dumps({"hash4d_frame": summary["frame"]}))
     return summary
 
 
@@ -703,6 +897,14 @@ def main(argv=None):
 
     train = training_phase(cfg, ModelFlags(**TRAIN_FLAGS), args.seed)
     log(json.dumps({"training": train}))
+    torch.cuda.empty_cache()
+
+    k3 = scatter_kernel_phase(cfg, args.seed)
+    kern["scatter_add_rows"] = k3[1]          # the hashed level
+    log(json.dumps({"reference_step": reference_step_phase(args.seed,
+                                                           "hash4d")}))
+    h4 = hash4d_phase(cfg, args.seed)
+    log(json.dumps({"hash4d_training": h4}))
 
     replaces = {
         "fused_encode_fwd": "cednerf_tpu/ops/pallas_fused.py:138",
@@ -710,6 +912,7 @@ def main(argv=None):
         "fused_encode_bwd": "cednerf_tpu/ops/pallas_fused.py:244",
         "interp_bwd_fused": "cednerf_tpu/ops/pallas_encoder.py:307",
         "compact_select": "cednerf_tpu/ops/pallas_compact.py:47",
+        "scatter_add_rows": "cednerf_tpu/ops/pallas_scatter.py:87",
     }
     sources = {
         "fused_encode_fwd": "cednerf_torch/csrc/brick_encode_fwd.cu",
@@ -717,13 +920,16 @@ def main(argv=None):
         "fused_encode_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "interp_bwd_fused": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "compact_select": "cednerf_torch/csrc/compact_select.cu",
+        "scatter_add_rows": "cednerf_torch/csrc/scatter_add_rows.cu",
     }
     line = []
     for name in replaces:
         r = kern[name]
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train["launches"].get(name, 0),
-                   "train_interp": train["interp"]["launches"].get(name, 0)}
+                   "train_interp": train["interp"]["launches"].get(name, 0),
+                   "train_hash4d": h4["launches"].get(name, 0),
+                   "serve_hash4d": h4["frame"]["launches"].get(name, 0)}
         line.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),

@@ -2,12 +2,15 @@
 """Where a train step's time goes on the card (cednerf_torch, one GPU).
 
     python3 profile_training.py [--seed 0] [--steps 288] [--profile-steps 8]
+                                [--interp | --hash4d]
                                 [--out results/profile_training]
 
 The configuration of chip_smoke.py's training phase: dnerf_config() with
 -te -ta -f -ae -df -d (L8 F4, dst resolution 1024, 2^21 hashmap, 16384-row
 cap, budget 262,144 samples, 1024 march steps, 128^3 occupancy), random
-weights from --seed, BallCloudScene. Then:
+weights from --seed, BallCloudScene; with --hash4d the 4D keyframe
+encoder (--grid_type hash4d, K = 4: 4x the tables, a plain PyTorch forward
+and the K3 table-gradient scatter in its backward). Then:
 
   1. --steps steps of Trainer.run_step (by default past the 256-step
      all-cells occupancy warmup, so that the grid has carved and the ray
@@ -17,10 +20,10 @@ weights from --seed, BallCloudScene. Then:
      device's busy share; the profiler's own host overhead lowers it, so
      step 1's unprofiled ms beside the device ms is the fairer ratio),
      kernel launches per step, the host-side operators by CPU time, and
-     the share of the port's kernels (K5/K6/K4, or K1/K2/K4 with
-     --interp);
+     the share of the port's kernels (K5/K6/K4, K1/K2/K4 with --interp,
+     K3/K4 with --hash4d);
   3. components at the last step's shapes, CUDA events: the field forward
-     and forward+backward at the budget, K6 and K4 alone.
+     and forward+backward at the budget, K6 (3D only) and K4 alone.
 
 Prints JSON lines; writes the profiler's table under --out.
 """
@@ -40,6 +43,8 @@ def main(argv=None):
     ap.add_argument("--profile-steps", type=int, default=8)
     ap.add_argument("--interp", action="store_true",
                     help="take the K1/K2 route (interp_impl='interp')")
+    ap.add_argument("--hash4d", action="store_true",
+                    help="train the 4D keyframe encoder (grid_type hash4d)")
     ap.add_argument("--out", default="results/profile_training")
     args = ap.parse_args(argv)
 
@@ -56,9 +61,11 @@ def main(argv=None):
     from cednerf_torch.engine.train import Trainer
     from cednerf_torch.ops import compact_kernels as ck
     from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import scatter_kernels as sk
     from cednerf_torch.ops.brick_grid import _level_geom
     from cednerf_torch.ops.cuda_build import build_all
-    from cednerf_torch.utils.bench import (TRAIN_FLAGS, card_name, cuda_ms,
+    from cednerf_torch.utils.bench import (HASH4D_FLAGS, TRAIN_FLAGS,
+                                           card_name, cuda_ms,
                                            device_time_by_kernel)
 
     card = card_name()
@@ -68,11 +75,10 @@ def main(argv=None):
     cfg = dnerf_config()
     if args.interp:
         cfg = dataclasses.replace(cfg, interp_impl="interp")
-    field = build_field(cfg, ModelFlags(**TRAIN_FLAGS), device="cuda",
-                        seed=args.seed)
-    trainer = Trainer(field, cfg, ModelFlags(**TRAIN_FLAGS),
-                      BallCloudScene(seed=args.seed), seed=args.seed,
-                      device="cuda")
+    flags = ModelFlags(**(HASH4D_FLAGS if args.hash4d else TRAIN_FLAGS))
+    field = build_field(cfg, flags, device="cuda", seed=args.seed)
+    trainer = Trainer(field, cfg, flags, BallCloudScene(seed=args.seed),
+                      seed=args.seed, device="cuda")
 
     # 1. steps on the host clock
     ms = []
@@ -84,14 +90,14 @@ def main(argv=None):
         ms.append((time.perf_counter() - t0) * 1e3)
     tail = ms[cfg.occ_warmup_steps:] or ms
     print(json.dumps({"steps": {
-        "n": args.steps, "median_ms": float(np.median(ms)),
+        "grid_type": flags.grid_type, "n": args.steps, "median_ms": float(np.median(ms)),
         "median_ms_after_warmup": float(np.median(tail)),
         "last": m}}), flush=True)
 
     # 2. steady steps under the profiler
     from torch.profiler import ProfilerActivity, profile
-    ek.reset_counts()
-    ck.reset_counts()
+    for mod in (ek, ck, sk):
+        mod.reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
@@ -102,7 +108,7 @@ def main(argv=None):
     rows, device_ms = device_time_by_kernel(prof)
     ours = [r for r in rows if any(k in r[0] for k in (
         "fused_encode", "interp_fwd", "encode_bwd", "count_kernel",
-        "scan_tiles", "select_kernel", "fill_kernel"))]
+        "scan_tiles", "select_kernel", "fill_kernel", "scatter_rows"))]
     cpu_ops = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CPU),
                      key=lambda e: -e.self_cpu_time_total)
@@ -117,7 +123,7 @@ def main(argv=None):
         sum(r[1] for r in rows) / args.profile_steps,
         "port_kernels_ms_per_step":
         sum(r[2] for r in ours) / args.profile_steps,
-        "launches": {**ek.launches, **ck.launches},
+        "launches": {**ek.launches, **ck.launches, **sk.launches},
         "num_rays": [r["num_rays"] for r in recs],
         "n_samples": [r["n_samples"] for r in recs],
         "n_valid": [r["n_valid"] for r in recs]}}), flush=True)
@@ -175,12 +181,12 @@ def main(argv=None):
     comp = {
         "n": n, "field_forward_ms": fwd_ms,
         "field_forward_backward_ms": cuda_ms(fwd_bwd, 10),
-        "k6_ms": cuda_ms(lambda: ek.fused_encode_bwd(
-            xn, g, rows, table, scales, nbs, level_rows, spec.n_features),
-            10),
         "k4_ms": cuda_ms(lambda: ck.compact_select_kernel(
             valid, cfg.sample_budget), 10),
         "k4_lattice": list(valid.shape)}
+    if not args.hash4d:
+        comp["k6_ms"] = cuda_ms(lambda: ek.fused_encode_bwd(
+            xn, g, rows, table, scales, nbs, level_rows, spec.n_features), 10)
     print(json.dumps({"components": comp}), flush=True)
     return 0
 

@@ -143,9 +143,14 @@ def test_brick_encode_unported_options_raise():
         with pytest.raises(NotImplementedError, match="row_layout"):
             tbg.brick_encode(x, params, dataclasses.replace(
                 spec, row_layout="cell"))
-        with pytest.raises(NotImplementedError, match="keyframe"):
+        with pytest.raises(NotImplementedError, match="row_layout"):
             tbg.brick_encode(x, params, dataclasses.replace(
-                spec, time_keyframes=4), t=torch.rand(8, 1))
+                spec, row_layout="cell", time_keyframes=4),
+                t=torch.rand(8, 1))
+    spec4 = dataclasses.replace(spec, time_keyframes=4)
+    params4 = spec4.init_params(torch.Generator().manual_seed(3))
+    with pytest.raises(ValueError, match="needs t"):
+        tbg.brick_encode(x, params4, spec4)
     with pytest.raises(ValueError, match="grad_accum_dtype"):
         tbg.brick_encode(x, params, dataclasses.replace(
             spec, grad_accum_dtype="float16"))

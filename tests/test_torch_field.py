@@ -33,6 +33,8 @@ FLAG_SETS = [
     dict(use_time_embedding=True, time_inject_before_sigma=False,
          use_weight_predict=True),
     dict(),
+    dict(grid_type="hash4d", use_div_offsets=True, use_feat_predict=True,
+         use_time_embedding=True, use_time_attenuation=True),
 ]
 
 
@@ -176,9 +178,14 @@ def test_unported_field_options_raise():
     with pytest.raises(NotImplementedError):
         DNGPRadianceField(**FIELD_KW, hash4motion=True)
     with pytest.raises(NotImplementedError):
-        DNGPRadianceField(**FIELD_KW, grid_type="hash4d")
-    with pytest.raises(NotImplementedError):
         DNGPRadianceField(**FIELD_KW, grid_type="triplane")
+    with pytest.raises(NotImplementedError):
+        DNGPRadianceField(**FIELD_KW, grid_type="hash4d", hash4motion=True)
+    with pytest.raises(NotImplementedError, match="row_layout"):
+        f = DNGPRadianceField(**FIELD_KW, grid_type="hash4d",
+                              row_layout="cell")
+        with torch.no_grad():
+            f.query_density(torch.zeros(4, 3), torch.zeros(4, 1))
 
 
 def test_occ_from_numpy():

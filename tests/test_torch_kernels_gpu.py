@@ -1,4 +1,5 @@
-"""The CUDA kernels K1, K5, K6, K2 and K4 against their plain versions, on
+"""The CUDA kernels K1, K5, K6, K2, K4 and K3 against their plain versions,
+and the 4D keyframe encoder (whose backward runs K3) against the CPU, on
 the card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
@@ -11,7 +12,12 @@ Tolerances: f32 output rtol 1e-5, atol 1e-9 (summation order only, at the
 +-1e-4 table scale); bf16 output one bf16 rounding, rtol 2^-7. Backward
 kernels (K6, K2): their f32 atomics add in another order than the plain
 version's index_add, so each gradient is held to 1e-5 of its largest entry
-(plus rtol 1e-5). K4 (compaction) is integer work: bit-exact.
+(plus rtol 1e-5). K4 (compaction) is integer work: bit-exact. K3 (row
+scatter-add) sums with f32 atomics against index_add's order: 1e-5 of the
+largest entry, as K6. The 4D encoder on the card against the CPU: the
+forward is the same PyTorch code on both (bf16 out, rtol 2^-7: one bf16
+rounding of f32 sums taken in another order); its gradients 1e-5 of each
+array's largest entry (K3's atomics, and the reductions' order).
 """
 
 import numpy as np
@@ -21,6 +27,7 @@ import torch
 from cednerf_torch.ops import brick_grid as tbg
 from cednerf_torch.ops import compact_kernels as ck
 from cednerf_torch.ops import encode_kernels as ek
+from cednerf_torch.ops import scatter_kernels as sk
 
 pytestmark = pytest.mark.gpu
 
@@ -144,3 +151,66 @@ def test_compact_kernel_bit_exact(r, m, budget, p):
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,w,n_rows,bf16", [
+    (20000, 256, 864, False), (100003, 256, 65536, False),
+    (777, 30, 50, False), (5001, 256, 300, True)])
+def test_k3_matches_plain(m, w, n_rows, bf16):
+    """Contended and sparse tables, a ragged M, W % 4 != 0 (the scalar
+    kernel), bf16 rows; rows past the table are dropped, zero lanes and
+    zero rows skipped."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    rows = torch.randint(-2, n_rows + 3, (m,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    upd = torch.randn((m, w), device="cuda", generator=gen)
+    upd = upd * (torch.rand((m, w), device="cuda", generator=gen) < 0.2)
+    upd[::9] = 0
+    if bf16:
+        upd = upd.to(torch.bfloat16)
+    want = sk.scatter_add_rows_plain(rows, upd, n_rows)
+    sk.reset_counts()
+    got = sk.scatter_add_rows(rows, upd, n_rows)
+    torch.cuda.synchronize()
+    assert sk.launches["scatter_add_rows"] == 1
+    assert got.dtype == torch.float32 and got.shape == (n_rows, w)
+    _close_to_scale(got, want)
+    with pytest.raises(ValueError):
+        sk.scatter_add_rows(rows.long(), upd, n_rows)
+
+
+def test_keyframe_encoder_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    spec = tbg.BrickGridSpec(n_levels=8, n_features=4, base_res=16,
+                             max_res=512, log2_hashmap_size=16,
+                             max_table_rows=2048, time_keyframes=4)
+    rng = np.random.default_rng(7)
+    n = 30011
+    x = rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
+    t = rng.uniform(0, 1, (n, 1)).astype(np.float32)
+    t[:8] = [[0], [1 / 3], [2 / 3], [1], [0.5], [1], [0], [0.25]]
+    params = {k: rng.uniform(-1, 1, s).astype(np.float32)
+              for k, s in spec.param_shapes()}
+    g = torch.from_numpy(rng.normal(size=(n, spec.output_dim)).astype(
+        np.float32))
+    res = {}
+    sk.reset_counts()
+    for dev in ("cpu", "cuda"):
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        tt = torch.from_numpy(t).to(dev).requires_grad_(True)
+        pt = {k: torch.from_numpy(v).to(dev).requires_grad_(True)
+              for k, v in params.items()}
+        out = tbg.brick_encode(xt, pt, spec, t=tt)
+        (out.float() * g.to(dev)).sum().backward()
+        res[dev] = [out.detach().float().cpu(), xt.grad.cpu(), tt.grad.cpu()
+                    ] + [pt[k].grad.cpu() for k in sorted(pt)]
+    torch.cuda.synchronize()
+    assert sk.launches["scatter_add_rows"] == spec.n_levels
+    assert sk.plain_cuda_calls["scatter_add_rows"] == 0
+    cpu, card = res["cpu"], res["cuda"]
+    torch.testing.assert_close(card[0], cpu[0], rtol=2.0 ** -7, atol=1e-6)
+    for a, b in zip(card[1:], cpu[1:]):
+        _close_to_scale(a, b)

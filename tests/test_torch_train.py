@@ -111,12 +111,18 @@ def _grad_capture():
         lambda p: {"g": zeros(p)}, lambda g, s, p=None: (zeros(g), {"g": g}))
 
 
-def test_one_train_step_matches_jax():
+@pytest.mark.parametrize("grid_type", ["hash3d", "hash4d"])
+def test_one_train_step_matches_jax(grid_type):
+    """hash4d: the 4D keyframe encoder (K = 4), whose backward reaches K3's
+    plain version here; the JAX step keeps its default scatter_impl "xla"
+    (the same sums: test_torch_keyframe_encoder.py holds K3 against the
+    JAX Pallas kernel)."""
+    flags = {**FLAGS, "grid_type": grid_type}
     jcfg = dataclasses.replace(j_dnerf_config(), grad_accum_dtype="float32",
                                **SMALL)
     tcfg = dataclasses.replace(dnerf_config(), grad_accum_dtype="float32",
                                **SMALL)
-    jfield = j_build_field(jcfg, JFlags(**FLAGS))
+    jfield = j_build_field(jcfg, JFlags(**flags))
     params = jax.tree_util.tree_map(np.asarray, jt.create_train_state(
         jfield, jcfg, jax.random.PRNGKey(0)).params)
     rng = np.random.default_rng(0)
@@ -133,7 +139,7 @@ def test_one_train_step_matches_jax():
     jitter = np.asarray(jax.random.uniform(k_march, (128,)))
 
     cap = _grad_capture()
-    one = jt._make_one_step(jfield, jcfg, JFlags(**FLAGS), 4096, cap)
+    one = jt._make_one_step(jfield, jcfg, JFlags(**flags), 4096, cap)
     jstate = jt.TrainState(
         params=jax.tree_util.tree_map(jnp.asarray, params),
         opt_state=cap.init(params), occ=occ)
@@ -141,12 +147,12 @@ def test_one_train_step_matches_jax():
                                     for k, v in batch.items()}, key)
     jgrads = jax.tree_util.tree_map(np.asarray, out.opt_state["g"])
 
-    tfield = build_field(tcfg, ModelFlags(**FLAGS), device="cpu")
+    tfield = build_field(tcfg, ModelFlags(**flags), device="cpu")
     tfield.load_state_dict(params_from_numpy(params), strict=True)
     state = tt.create_train_state(tfield, tcfg, device="cpu")
     state.occ = occ_from_numpy(occs, bins, np.asarray(occ.aabbs),
                                device="cpu")
-    loss_and_grads = tt._make_loss_fn(tcfg, ModelFlags(**FLAGS), 4096)
+    loss_and_grads = tt._make_loss_fn(tcfg, ModelFlags(**flags), 4096)
     loss, aux = loss_and_grads(
         state, {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()},
         jitter=torch.from_numpy(jitter))
