@@ -11,6 +11,12 @@
 //                                 _build_bwd_fused (public interp_bwd_fused):
 //                                 the same given the gathered rows [L, N, 64F]
 //                                 that the K1 forward saved.
+//   K7 brick_interp_bwd        <- cednerf_tpu/ops/pallas_encoder.py::
+//                                 _build_bwd (public interp_bwd): K1's
+//                                 backward that writes every level's update
+//                                 rows [L, N, 64F] for the caller to scatter
+//                                 (K3) instead of accumulating them; see the
+//                                 note above interp_bwd_rows_kernel.
 //
 // Both compute, for every (sample, level), the gradient of
 //   out[i, l*F + f] = sum_c w_c(frac) * row[c*F + f]
@@ -157,6 +163,126 @@ __global__ void __launch_bounds__(kBlock)
   d_x[i * 3 + 2] = dx[2];
 }
 
+// K7. The same sums as K2, but the table-gradient terms are not added into a
+// table: every (sample, level) gets its full update row upd[l, i, c*F + f] =
+// (wx * (wy * wz)) * g[i, l*F + f], zero outside the cell's 8 corners, as
+// the TPU kernel emits it for an XLA scatter-add.
+//
+// What bounds it on this card: the write of the rows. At N = 262,144, L8 F4
+// they are 8 x 262,144 x 256 x 4 B = 2.15 GB of f32 (56 of every 64 corners
+// zero), against 268 MB of corner reads and ~23 MB of x, g and d_x: ~0.73 ms
+// at 3.35 TB/s. So a block takes kBlock samples and walks the levels. Per
+// level, each thread first takes one sample: its geometry, its 8 corners
+// (d_x summed in registers, as K2) and its 3 x 4 per-axis corner weights and
+// F cotangents, which it leaves in shared memory. Then the block writes the
+// level's kBlock rows, which are contiguous in [L, N, 64F], as 16-byte words
+// in order: neighbouring threads write neighbouring words, with streaming
+// stores (the rows are not read again here). A lane's value is rebuilt from
+// shared memory in the plain version's order, so upd equals it bit for bit
+// (up to the sign of a zero: 0 * a negative g is -0.0 on either side).
+// bf16 rows are the f32 product rounded once.
+template <int F, bool kBf16Out>
+__global__ void __launch_bounds__(kBlock)
+    interp_bwd_rows_kernel(const float* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ g,
+                           const __nv_bfloat16* __restrict__ feats, Levels lv,
+                           int n_levels, long long n, void* __restrict__ upd,
+                           float* __restrict__ d_x) {
+  constexpr int W = 64 * F;
+  constexpr int kLanes = kBf16Out ? 8 : 4;   // lanes per 16-byte word
+  constexpr int kWords = W / kLanes;         // words per row
+  constexpr int kCorners = kLanes / F;       // corners per word
+  __shared__ float s_w[3][4][kBlock];        // axis, corner k, sample
+  __shared__ float s_g[F][kBlock];
+  const int t = threadIdx.x;
+  const long long i0 = (long long)blockIdx.x * kBlock;
+  const int n_here = (int)min((long long)kBlock, n - i0);
+  const long long i = i0 + t;
+  const bool live = t < n_here;
+  float p[3] = {0.0f, 0.0f, 0.0f};
+  if (live) {
+    p[0] = x[i * 3];
+    p[1] = x[i * 3 + 1];
+    p[2] = x[i * 3 + 2];
+  }
+  float dx[3] = {0.0f, 0.0f, 0.0f};
+  for (int l = 0; l < n_levels; ++l) {
+    if (live) {
+      int ia[3];
+      float w[3][2], ok[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        axis_geom(p[a], lv.scale[l], lv.nb[l], ia[a], w[a][1], w[a][0], ok[a]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          s_w[a][k][t] = k == ia[a] ? w[a][0] : (k == ia[a] + 1 ? w[a][1]
+                                                                 : 0.0f);
+      }
+      float gf[F];
+      bool any = false;
+#pragma unroll
+      for (int f = 0; f < F; ++f) {
+        gf[f] = __bfloat162float(g[i * (long long)(n_levels * F) + l * F + f]);
+        s_g[f][t] = gf[f];
+        any |= gf[f] != 0.0f;
+      }
+      if (any) {  // else every d_x term of this level is zero
+        const __nv_bfloat16* row = feats + ((long long)l * n + i) * W;
+        float s[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int c8 = 0; c8 < 8; ++c8) {
+          const int kx = c8 >> 2, ky = (c8 >> 1) & 1, kz = c8 & 1;
+          const int corner =
+              (ia[0] + kx) * 16 + (ia[1] + ky) * 4 + (ia[2] + kz);
+          float v[F];
+          load_corner<F>(row + corner * F, v);
+          float h = 0.0f;
+#pragma unroll
+          for (int f = 0; f < F; ++f) h = fmaf(v[f], gf[f], h);
+          s[0] += (kx ? h : -h) * (w[1][ky] * w[2][kz]);
+          s[1] += (ky ? h : -h) * (w[0][kx] * w[2][kz]);
+          s[2] += (kz ? h : -h) * (w[0][kx] * w[1][ky]);
+        }
+#pragma unroll
+        for (int a = 0; a < 3; ++a) dx[a] += s[a] * ok[a] * lv.scale[l];
+      }
+    }
+    __syncthreads();
+    // this level's rows of samples i0 .. i0 + n_here - 1, word by word
+    const long long first = ((long long)l * n + i0) * kWords;
+    for (int j = t; j < n_here * kWords; j += kBlock) {
+      const int sm = j / kWords;
+      const int c0 = (j - sm * kWords) * kCorners;
+      float v[kLanes];
+#pragma unroll
+      for (int cc = 0; cc < kCorners; ++cc) {
+        const int c = c0 + cc;
+        const float wc = s_w[0][c >> 4][sm] *
+                         (s_w[1][(c >> 2) & 3][sm] * s_w[2][c & 3][sm]);
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[cc * F + f] = wc * s_g[f][sm];
+      }
+      if constexpr (kBf16Out) {
+        uint4 q;
+        __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          h2[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        __stcs(static_cast<uint4*>(upd) + first + j, q);
+      } else {
+        __stcs(static_cast<float4*>(upd) + first + j,
+               make_float4(v[0], v[1], v[2], v[3]));
+      }
+    }
+    __syncthreads();
+  }
+  if (live) {
+    d_x[i * 3] = dx[0];
+    d_x[i * 3 + 1] = dx[1];
+    d_x[i * 3 + 2] = dx[2];
+  }
+}
+
 bool fill_levels(Levels& lv, int n_levels, const float* scales, const int* nbs,
                  const int* level_rows) {
   if (n_levels < 1 || n_levels > kMaxLevels) return false;
@@ -164,11 +290,24 @@ bool fill_levels(Levels& lv, int n_levels, const float* scales, const int* nbs,
   for (int l = 0; l < n_levels; ++l) {
     lv.scale[l] = scales[l];
     lv.nb[l] = nbs[l];
-    lv.rows[l] = level_rows[l];
+    lv.rows[l] = level_rows ? level_rows[l] : 0;
     lv.offset[l] = off;
     off += lv.rows[l];
   }
   return true;
+}
+
+template <int F>
+void launch_rows(unsigned grid, cudaStream_t st, const float* x,
+                 const __nv_bfloat16* g, const __nv_bfloat16* feats,
+                 const Levels& lv, int n_levels, long long n, void* upd,
+                 int upd_bf16, float* d_x) {
+  if (upd_bf16)
+    interp_bwd_rows_kernel<F, true><<<grid, kBlock, 0, st>>>(
+        x, g, feats, lv, n_levels, n, upd, d_x);
+  else
+    interp_bwd_rows_kernel<F, false><<<grid, kBlock, 0, st>>>(
+        x, g, feats, lv, n_levels, n, upd, d_x);
 }
 
 template <bool kGather>
@@ -230,6 +369,36 @@ int brick_interp_bwd_fused(const float* x, const void* g, const int* rows,
                            void* stream) {
   return launch<false>(x, g, rows, feats, n_levels, n, n_feat, scales, nbs,
                        level_rows, d_table, d_x, stream);
+}
+
+// K7. x [N,3] f32, g [N, L*F] bf16, feats [L, N, 64F] bf16 -> upd
+// [L, N, 64F] (upd_bf16: bf16, else f32; every lane written), d_x [N, 3]
+// f32. Returns cudaGetLastError().
+int brick_interp_bwd(const float* x, const void* g, const void* feats,
+                     int n_levels, long long n, int n_feat, const float* scales,
+                     const int* nbs, void* upd, int upd_bf16, float* d_x,
+                     void* stream) {
+  Levels lv;
+  if (n <= 0 || !fill_levels(lv, n_levels, scales, nbs, nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid = (unsigned int)((n + kBlock - 1) / kBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
+  const __nv_bfloat16* fb = static_cast<const __nv_bfloat16*>(feats);
+  switch (n_feat) {
+    case 1:
+      launch_rows<1>(grid, st, x, gb, fb, lv, n_levels, n, upd, upd_bf16, d_x);
+      break;
+    case 2:
+      launch_rows<2>(grid, st, x, gb, fb, lv, n_levels, n, upd, upd_bf16, d_x);
+      break;
+    case 4:
+      launch_rows<4>(grid, st, x, gb, fb, lv, n_levels, n, upd, upd_bf16, d_x);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -100,7 +100,7 @@ def build_all() -> Dict[str, Tuple[float, str]]:
     """Build every library of the port at once (one nvcc per source, all
     started together) and load them: {stem: (nvcc seconds, nvcc log)}."""
     from . import (compact_kernels, encode_kernels,  # noqa: F401 (register)
-                   scatter_kernels)
+                   gather_kernels, scatter_kernels)
 
     for lib in LIBRARIES:
         lib._lock.acquire()

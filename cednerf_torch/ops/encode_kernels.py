@@ -1,5 +1,5 @@
-"""Brick-encoder kernels K1, K5 (forward) and K6, K2 (backward), and their
-plain versions.
+"""Brick-encoder kernels K1, K5 (forward) and K6, K2, K7 (backward), and
+their plain versions.
 
   * `interp_fwd` (K1) — trilinear interpolation of pre-gathered brick rows,
     all levels in one launch. Replaces cednerf_tpu/ops/pallas_encoder.py
@@ -13,6 +13,12 @@ plain versions.
     levels in one launch here).
   * `interp_bwd_fused` (K2) — K1's backward, given the gathered rows.
     Replaces pallas_encoder.py `_build_bwd_fused` / `interp_bwd_fused`.
+  * `interp_bwd` (K7) — K1's backward that returns every level's update
+    rows [L, N, 64F] and d_x instead of a table gradient; the caller
+    scatters the rows (K3, ops/scatter_kernels.py). Replaces
+    pallas_encoder.py `_build_bwd` / `interp_bwd`. No model path runs it
+    (the JAX package never wired it either); this package's encoder probe
+    tools/profile_interp_enc.py does.
 
 The forward kernels live in csrc/brick_encode_fwd.cu and the backward ones
 in csrc/brick_encode_bwd.cu, each built by nvcc for sm_90a the first time
@@ -42,7 +48,7 @@ MAX_LEVELS = 16          # kMaxLevels in the CUDA sources
 KERNEL_FEATURES = (1, 2, 4)
 
 _NAMES = ("interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
-          "interp_bwd_fused")
+          "interp_bwd_fused", "interp_bwd")
 launches = dict.fromkeys(_NAMES, 0)
 plain_cuda_calls = dict.fromkeys(_NAMES, 0)
 
@@ -73,6 +79,9 @@ def _bind_bwd(lib):
         fn.argtypes = [_P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P,
                        _P]
         fn.restype = _I32
+    lib.brick_interp_bwd.argtypes = [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P,
+                                     _I32, _P, _P]
+    lib.brick_interp_bwd.restype = _I32
 
 
 _FWD = KernelLibrary("brick_encode_fwd", _bind_fwd)
@@ -253,6 +262,26 @@ def interp_bwd_fused_plain(x, g, feats, rows, scales: Sequence[float],
                              level_rows, scales, nbs, n_feat)
 
 
+def interp_bwd_plain(x, g, feats, scales: Sequence[float], nbs: Sequence[int],
+                     n_feat: int, upd_dtype=torch.float32):
+    """Plain K7: (upd [L, N, 64F] in upd_dtype, d_x [N, 3] f32) for the
+    cotangent g [N, L*F] of interp_fwd(x, feats, ...): level l's update
+    rows w * g (_bwd_rows' f32 products, rounded once to upd_dtype) and
+    d_x summed over the levels in level order."""
+    if x.is_cuda:
+        plain_cuda_calls["interp_bwd"] += 1
+    L, n = len(scales), x.shape[0]
+    upd = torch.empty((L, n, CORNERS_PER_BRICK * n_feat), dtype=upd_dtype,
+                      device=x.device)
+    d_x = torch.zeros((n, 3), dtype=torch.float32, device=x.device)
+    for lvl in range(L):
+        u, dx = _bwd_rows(feats[lvl], x, g[:, lvl * n_feat:(lvl + 1) * n_feat],
+                          scales[lvl], nbs[lvl], n_feat)
+        upd[lvl].copy_(u)
+        d_x += dx
+    return upd, d_x
+
+
 # --------------------------------------------------------------------- #
 # Wrappers: plain version on CPU tensors, kernel on CUDA tensors
 
@@ -319,8 +348,8 @@ def fused_encode_fwd(x, table, rows, scales: Sequence[float],
     return out
 
 
-def _check_bwd_inputs(name, x, g, rows, src, src_shape, level_rows, n_feat):
-    L = len(level_rows)
+def _check_bwd_inputs(name, x, g, rows, src, src_shape, L, n_feat):
+    """K6/K2/K7's input checks (rows None: K7, which places no rows)."""
     n = x.shape[0]
     if n_feat not in KERNEL_FEATURES:
         raise ValueError(f"{name}: kernel takes n_feat in {KERNEL_FEATURES}")
@@ -331,14 +360,16 @@ def _check_bwd_inputs(name, x, g, rows, src, src_shape, level_rows, n_feat):
             or not g.is_contiguous()):
         raise ValueError(f"{name}: g must be contiguous bfloat16 "
                          f"[{n}, {L * n_feat}]")
-    if (rows.dtype != torch.int32 or tuple(rows.shape) != (L, n)
-            or not rows.is_contiguous()):
+    if rows is not None and (rows.dtype != torch.int32
+                             or tuple(rows.shape) != (L, n)
+                             or not rows.is_contiguous()):
         raise ValueError(f"{name}: rows must be contiguous int32 [{L}, {n}]")
     if (src.dtype != torch.bfloat16 or tuple(src.shape) != src_shape
             or not src.is_contiguous() or src.data_ptr() % 16):
         raise ValueError(f"{name}: brick rows must be contiguous, 16-byte "
                          f"aligned bfloat16 {src_shape}")
-    if not all(t.device == x.device for t in (g, rows, src)):
+    if not all(t.device == x.device for t in (g, src)) or (
+            rows is not None and rows.device != x.device):
         raise ValueError(f"{name}: inputs on different devices")
 
 
@@ -373,7 +404,7 @@ def fused_encode_bwd(x, g, rows, table, scales: Sequence[float],
                                       level_rows, n_feat)
     _check_bwd_inputs("fused_encode_bwd", x, g, rows, table,
                       (sum(level_rows), CORNERS_PER_BRICK * n_feat),
-                      level_rows, n_feat)
+                      len(level_rows), n_feat)
     return _launch_bwd("brick_fused_encode_bwd", "fused_encode_bwd", x, g,
                        rows, table, scales, nbs, level_rows, n_feat)
 
@@ -390,6 +421,39 @@ def interp_bwd_fused(x, g, feats, rows, scales: Sequence[float],
                                       level_rows, n_feat)
     _check_bwd_inputs("interp_bwd_fused", x, g, rows, feats,
                       (len(level_rows), x.shape[0],
-                       CORNERS_PER_BRICK * n_feat), level_rows, n_feat)
+                       CORNERS_PER_BRICK * n_feat), len(level_rows),
+                      n_feat)
     return _launch_bwd("brick_interp_bwd_fused", "interp_bwd_fused", x, g,
                        rows, feats, scales, nbs, level_rows, n_feat)
+
+
+def interp_bwd(x, g, feats, scales: Sequence[float], nbs: Sequence[int],
+               n_feat: int, upd_dtype=torch.float32):
+    """K7: the backward of interp_fwd as update rows. x [N, 3] f32, g
+    [N, L*F] bf16 cotangent, feats [L, N, 64F] bf16 rows the forward read
+    -> (upd [L, N, 64F] in upd_dtype (float32 or bfloat16), every lane
+    written, zero outside each sample's 8 corners; d_x [N, 3] f32, summed
+    over levels, scaled and edge-gated). Scatter upd[l] at the level's rows
+    to get its table gradient."""
+    if not x.is_cuda:
+        return interp_bwd_plain(x, g, feats, scales, nbs, n_feat, upd_dtype)
+    if upd_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("interp_bwd: upd_dtype must be bfloat16 or float32")
+    n, L = x.shape[0], len(scales)
+    _check_bwd_inputs("interp_bwd", x, g, None, feats,
+                      (L, n, CORNERS_PER_BRICK * n_feat), L, n_feat)
+    upd = torch.empty((L, n, CORNERS_PER_BRICK * n_feat), dtype=upd_dtype,
+                      device=x.device)
+    d_x = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return upd, d_x
+    lib = _BWD.get()
+    sc, nb, _ = _level_arrays(scales, nbs)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.brick_interp_bwd(x.data_ptr(), g.data_ptr(), feats.data_ptr(), L,
+                              n, n_feat, sc, nb, upd.data_ptr(),
+                              int(upd_dtype == torch.bfloat16), d_x.data_ptr(),
+                              stream)
+    _BWD.check(rc, "interp_bwd")
+    launches["interp_bwd"] += 1
+    return upd, d_x

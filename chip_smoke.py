@@ -7,7 +7,7 @@ Phases, each of which must pass (nothing is caught and carried on):
 
   1. device: needs CUDA (exits 1 without it, printing no result); prints
      the card's name and power limit as nvidia-smi reports them;
-  2. build: nvcc builds the port's four CUDA sources from the checkout,
+  2. build: nvcc builds the port's five CUDA sources from the checkout,
      one nvcc per source, all started together;
   3. kernels: K1 (interp_fwd) and K5 (fused_encode_fwd) against their plain
      PyTorch versions at one full seg-eval pass (eval_chunk_seg 32768 x
@@ -51,7 +51,24 @@ Phases, each of which must pass (nothing is caught and carried on):
      HASH4D_STEPS steps; finite losses, rising PSNR, K3 launched 8 times a
      step (one per level) and K4 once, no K1/K2/K5/K6 and no plain version
      on CUDA; then one 400x400 frame at 128 samples of the trained field
-     through ViewerServer, finite.
+     through ViewerServer, finite;
+ 11. interp_enc probe: K7 (interp_bwd) against its plain version on the
+     full-width field's levels (tables +-8, as phase 3) at the probe's N =
+     262,144 and at a ragged N, timed beside its bound; then
+     cednerf_torch.tools.profile_interp_enc.run at its defaults (L8 F4, max
+     res 1024, 2^19 hashmap, N = 262,144), counters zeroed just before and
+     read just after: K1's forward within one bf16 ulp of brick_encode's
+     (K5), K7 + one K3 per level within 1e-4 of the K6 route's table
+     gradients and d_x within 1e-5; K7 launched once and K3 8 times; then
+     the tool's four timings in a second run;
+ 12. row_gather probe: K8 (row_gather) bit-exact against its plain version
+     on the probe's tables (442,368 rows of W = 128 and 256 bf16, N =
+     1,048,576 random rows), a W = 128 f32 table, and a ragged N =
+     1,000,003 with indices out of range; the in-range cases timed beside
+     their bound and index_select; then
+     cednerf_torch.tools.profile_row_gather.run at its defaults, counted:
+     every `match` true and K8 launched by every setting.
+Phases 5, 7 and 10 fail if K7 or K8 launched on a serving or training path.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
@@ -102,10 +119,43 @@ HASH4D_STEPS = 320
 # address on level 0 at 262,144 samples), so each table is held to 1e-4 of
 # its largest entry, as K6's table gradient.
 K3_FRAC = 1e-4
+# K7 against its plain version: its update rows are the plain version's f32
+# products in the same order, d_x the same sums in another order; held to
+# the limits of K6/K2: 1e-4 of each level's largest upd entry, 1e-5 of d_x's
+K7_UPD_FRAC, K7_DX_FRAC = BWD_TABLE_FRAC, BWD_DX_FRAC
+# kernels that only the probe paths (phases 11 and 12) run
+PROBE_KERNELS = ("interp_bwd", "row_gather")
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def no_probe_kernels(label, launches):
+    """Fails if K7 or K8 launched on a serving or training path."""
+    ran = {k: launches[k] for k in PROBE_KERNELS if launches[k]}
+    if ran:
+        raise AssertionError(f"{label} launched a probe kernel: {ran}")
+
+
+def _kernel_modules():
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import gather_kernels as gk
+    from cednerf_torch.ops import scatter_kernels as sk
+    return ek, ck, sk, gk
+
+
+def reset_counts():
+    for mod in _kernel_modules():
+        mod.reset_counts()
+
+
+def all_counts():
+    """(launches, plain-version calls on CUDA) of every kernel wrapper."""
+    mods = _kernel_modules()
+    return ({k: v for mod in mods for k, v in mod.launches.items()},
+            {k: v for mod in mods for k, v in mod.plain_cuda_calls.items()})
 
 
 def check_close(name, got, want, rtol, atol):
@@ -304,7 +354,6 @@ def post_render(port, c2w, t, width, max_samples, depth):
 
 def serving_phase(field, field_k1, occ, cfg):
     from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.ops import scatter_kernels as sk
     from cednerf_torch.utils.bench import orbit_c2w
     from cednerf_torch.viewer.server import ViewerServer
 
@@ -328,8 +377,7 @@ def serving_phase(field, field_k1, occ, cfg):
             raise AssertionError("viewer page or /snap malformed")
         # warm-up frame outside the counted run (allocator, cuBLAS handles)
         post_render(ports[0], c2w, 0.25, 64, 32, False)
-        ek.reset_counts()
-        sk.reset_counts()
+        reset_counts()
         for which, t, width, ms, depth in requests:
             before = dict(ek.launches)
             _, wall_ms, n_bytes = post_render(ports[which], c2w, t, width,
@@ -347,8 +395,7 @@ def serving_phase(field, field_k1, occ, cfg):
                    "passes_per_chunk": stats["passes_per_chunk"]}
             frames.append(rec)
             log(json.dumps({"frame": rec}))
-        launches = {**ek.launches, **sk.launches}
-        plain = {**ek.plain_cuda_calls, **sk.plain_cuda_calls}
+        launches, plain = all_counts()
     finally:
         for h in httpds:
             h.shutdown()
@@ -357,6 +404,7 @@ def serving_phase(field, field_k1, occ, cfg):
         raise AssertionError(f"a kernel was not launched: {launches}")
     if launches["scatter_add_rows"]:
         raise AssertionError(f"serving launched K3: {launches}")
+    no_probe_kernels("serving", launches)
     if any(plain.values()):
         raise AssertionError(f"plain versions ran on CUDA: {plain}")
     return frames, launches
@@ -663,13 +711,8 @@ def _drive(trainer, cfg, n, label):
     a non-finite loss or a plain version run on CUDA."""
     import numpy as np
     import torch
-    from cednerf_torch.ops import compact_kernels as ck
-    from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.ops import scatter_kernels as sk
 
-    mods = (ek, ck, sk)
-    for mod in mods:
-        mod.reset_counts()
+    reset_counts()
     recs = []
     for _ in range(n):
         torch.cuda.synchronize()
@@ -683,10 +726,10 @@ def _drive(trainer, cfg, n, label):
             raise AssertionError(f"{label} step {trainer.step}: loss "
                                  f"{m['loss']}")
         recs.append(m)
-    counts = {k: v for mod in mods for k, v in mod.launches.items()}
-    plain = {k: v for mod in mods for k, v in mod.plain_cuda_calls.items()}
+    counts, plain = all_counts()
     if any(plain.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
+    no_probe_kernels(label, counts)
     return recs, counts
 
 
@@ -775,9 +818,6 @@ def hash4d_phase(cfg, seed, steps=HASH4D_STEPS):
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags
     from cednerf_torch.engine.train import Trainer
-    from cednerf_torch.ops import compact_kernels as ck
-    from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.ops import scatter_kernels as sk
     from cednerf_torch.utils.bench import HASH4D_FLAGS, orbit_c2w
     from cednerf_torch.viewer.server import ViewerServer
 
@@ -802,16 +842,12 @@ def hash4d_phase(cfg, seed, steps=HASH4D_STEPS):
                           render_bkgd=(1, 1, 1))
     httpd = server.start(port=0, host="127.0.0.1")
     port = httpd.server_address[1]
-    mods = (ek, ck, sk)
     try:
         post_render(port, orbit_c2w(), 0.25, 64, 32, False)    # warm-up
-        for mod in mods:
-            mod.reset_counts()
+        reset_counts()
         _, wall_ms, n_bytes = post_render(port, orbit_c2w(), 0.5, 400, 128,
                                           False)
-        launches = {k: v for mod in mods for k, v in mod.launches.items()}
-        plain = {k: v for mod in mods
-                 for k, v in mod.plain_cuda_calls.items()}
+        launches, plain = all_counts()
         stats = server.last_frame
     finally:
         httpd.shutdown()
@@ -829,6 +865,177 @@ def hash4d_phase(cfg, seed, steps=HASH4D_STEPS):
         "passes_per_chunk": stats["passes_per_chunk"], "launches": launches}
     log(json.dumps({"hash4d_frame": summary["frame"]}))
     return summary
+
+
+def interp_bwd_kernel_phase(spec, n_main, n_ragged, seed):
+    """K7 against its plain version on the full-width field's levels,
+    tables uniform(-8, 8), f32 update rows, at the probe's sample count and
+    at a ragged one; one bf16 cotangent row in eight zero."""
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops.brick_grid import _level_geom
+    from cednerf_torch.utils.bench import cuda_ms
+
+    lay = spec.level_layout()
+    scales = spec.level_scales()
+    nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    L, F = spec.n_levels, spec.n_features
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tables = [((torch.rand((r, 64 * F), device="cuda", generator=gen) * 2
+                - 1) * REF_TABLE_BOUND).to(torch.bfloat16) for r in level_rows]
+    main = None
+    for n in (n_main, n_ragged):
+        x = torch.rand((n, 3), device="cuda", generator=gen)
+        g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
+             ).to(torch.bfloat16)
+        g[::8] = 0
+        feats = torch.stack([tables[l].index_select(0, _level_geom(
+            x, scales[l], nbs[l], lay[l]["hashed"], level_rows[l])[0].long())
+            for l in range(L)]).contiguous()
+        want_u, want_x = ek.interp_bwd_plain(x, g, feats, scales, nbs, F)
+        upd, d_x = ek.interp_bwd(x, g, feats, scales, nbs, F)
+        torch.cuda.synchronize()
+        errs = [_frac_err(upd[l], want_u[l]) for l in range(L)]
+        err_x = _frac_err(d_x, want_x)
+        if max(errs) > K7_UPD_FRAC or err_x > K7_DX_FRAC:
+            raise AssertionError(
+                f"interp_bwd N={n}: upd errors per level {errs} (limit "
+                f"{K7_UPD_FRAC}), d_x {err_x} (limit {K7_DX_FRAC})")
+        rec = {"name": "interp_bwd", "n": n, "levels": L, "n_feat": F,
+               "max_abs_err": max((upd - want_u).abs().max().item(),
+                                  (d_x - want_x).abs().max().item()),
+               "upd_err_frac_per_level": errs, "dx_err_frac": err_x,
+               "nonzero_upd_lanes": int((upd != 0).sum().item())}
+        del upd, want_u
+        if n == n_main:
+            rec["ms"] = cuda_ms(
+                lambda: ek.interp_bwd(x, g, feats, scales, nbs, F), 20)
+            rec["plain_ms"] = cuda_ms(
+                lambda: ek.interp_bwd_plain(x, g, feats, scales, nbs, F), 3)
+            rec["library_ms"] = None      # no one PyTorch call computes it
+            # the f32 rows written once (every lane), x, g and the 8
+            # corners of each (sample, level) read once, d_x written once
+            out_b = L * n * 64 * F * 4 + n * 3 * 4
+            in_b = x.numel() * 4 + g.numel() * 2 + _corner_bytes(n, L, F)
+            t_bytes = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
+            # per (sample, level): 8F products for the rows, 8F
+            # multiply-adds for d_x
+            t_ops = n * L * 8 * F * 2 * 2 / F32_FLOPS * 1e3
+            rec["bound_ms"] = max(t_bytes, t_ops)
+            rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            rec["upd_bytes"] = L * n * 64 * F * 4
+            main = rec
+        log(json.dumps({"kernel_check": rec}))
+        del feats, want_x
+        torch.cuda.empty_cache()
+    return main
+
+
+def interp_enc_probe_phase(seed):
+    """cednerf_torch.tools.profile_interp_enc at its defaults, counted; then
+    its timings from a second run."""
+    import torch
+    from cednerf_torch.tools import profile_interp_enc as pie
+
+    reset_counts()
+    res = pie.run(device="cuda", seed=seed, reps=0)
+    torch.cuda.synchronize()
+    launches, plain = all_counts()
+    log(json.dumps({"probe_interp_enc": res, "launches": launches}))
+    if not res["ok"]:
+        raise AssertionError(f"profile_interp_enc: outside its limits: {res}")
+    want = {"interp_bwd": 1, "scatter_add_rows": res["levels"],
+            "interp_fwd": 1, "row_gather": 0}
+    if any(launches[k] != v for k, v in want.items()) or any(plain.values()):
+        raise AssertionError(f"profile_interp_enc: launches {launches} (want "
+                             f"{want}), plain on CUDA {plain}")
+    ms = pie.run(device="cuda", seed=seed, reps=20)["ms"]
+    log(json.dumps({"probe_interp_enc_ms": ms}))
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms}
+
+
+def row_gather_kernel_phase(seed, rows=442_368, n=1_048_576):
+    """K8 bit-exact against its plain version: the probe's bf16 tables at
+    W = 128 and 256, a W = 128 f32 table, and a ragged N with 1% of the
+    indices out of range; the in-range cases timed beside their bound and
+    index_select (which cannot take an out-of-range index)."""
+    import torch
+    from cednerf_torch.ops import gather_kernels as gk
+    from cednerf_torch.tools.profile_row_gather import bits_equal
+    from cednerf_torch.utils.bench import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    idx = torch.randint(0, rows, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    ragged = torch.randint(0, rows, (1_000_003,), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    ragged[::100] = torch.randint(-rows, 2 * rows, ragged[::100].shape,
+                                  device="cuda", generator=gen,
+                                  dtype=torch.int32)
+    cases = [("W=128 bf16", torch.bfloat16, 128, idx),
+             ("W=256 bf16", torch.bfloat16, 256, idx),
+             ("W=128 f32", torch.float32, 128, idx),
+             ("ragged, out of range", torch.bfloat16, 256, ragged)]
+    recs = {}
+    for label, dtype, w, ix in cases:
+        table = torch.randn((rows, w), device="cuda", generator=gen).to(dtype)
+        want = gk.row_gather_plain(table, ix)
+        got = gk.row_gather(table, ix)
+        torch.cuda.synchronize()
+        if not bits_equal(got, want):
+            raise AssertionError(f"row_gather {label}: differs from its "
+                                 "plain version")
+        valid = ix[(ix >= 0) & (ix < rows)]
+        distinct = int(torch.unique(valid).numel())
+        rec = {"name": "row_gather", "case": label, "rows": rows, "w": w,
+               "n": ix.shape[0], "dtype": str(dtype).split(".")[1],
+               "rows_in_flight": gk.DEFAULT_ROWS_IN_FLIGHT, "max_abs_err": 0,
+               "out_of_range": int(ix.shape[0] - valid.shape[0]),
+               "distinct_rows": distinct}
+        del got, want
+        if rec["out_of_range"] == 0:
+            es = table.element_size()
+            rec["ms"] = cuda_ms(lambda: gk.row_gather(table, ix), 20)
+            rec["plain_ms"] = cuda_ms(lambda: gk.row_gather_plain(table, ix),
+                                      5)
+            rec["library_ms"] = cuda_ms(lambda: table.index_select(0, ix), 20)
+            # the output written once, the index read once, each distinct
+            # row read once; no arithmetic
+            rec["bound_ms"] = (ix.shape[0] * w * es + ix.shape[0] * 4
+                               + distinct * w * es) / HBM_BYTES_PER_S * 1e3
+            rec["bound_by"] = "bytes"
+        log(json.dumps({"kernel_check": rec}))
+        recs[label] = rec
+        del table
+    torch.cuda.empty_cache()
+    return recs
+
+
+def row_gather_probe_phase(seed):
+    """cednerf_torch.tools.profile_row_gather at its defaults, counted."""
+    import torch
+    from cednerf_torch.ops import gather_kernels as gk
+    from cednerf_torch.tools import profile_row_gather as prg
+
+    reset_counts()
+    res = prg.run(device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    launches, plain = all_counts()
+    for rec in res["widths"]:
+        log(json.dumps({"probe_row_gather": rec}))
+    # each setting: the match run, cuda_ms's warm-up and 20 timed calls
+    want = len(res["widths"]) * len(gk.ROWS_IN_FLIGHT) * (1 + 1 + 20)
+    if not res["all_match"]:
+        raise AssertionError("profile_row_gather: a setting did not match "
+                             "index_select")
+    others = {k: v for k, v in launches.items() if k != "row_gather" and v}
+    if launches["row_gather"] != want or others or any(plain.values()):
+        raise AssertionError(f"profile_row_gather: launches {launches} (want "
+                             f"row_gather {want} alone), plain on CUDA "
+                             f"{plain}")
+    return {"launches": launches, "widths": res["widths"]}
 
 
 def main(argv=None):
@@ -890,6 +1097,7 @@ def main(argv=None):
     log(json.dumps({"reference": ref}))
 
     frames, serve_launches = serving_phase(field, field_k1, occ, cfg)
+    spec3d = field.hash_encoder.bspec
     del field, field_k1, occ
     torch.cuda.empty_cache()
 
@@ -905,6 +1113,16 @@ def main(argv=None):
                                                            "hash4d")}))
     h4 = hash4d_phase(cfg, args.seed)
     log(json.dumps({"hash4d_training": h4}))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kern["interp_bwd"] = interp_bwd_kernel_phase(spec3d, 262_144, 100_003,
+                                                 args.seed)
+    probe_enc = interp_enc_probe_phase(args.seed)
+    k8 = row_gather_kernel_phase(args.seed)
+    kern["row_gather"] = k8["W=256 bf16"]
+    probe_gather = row_gather_probe_phase(args.seed)
+    log(f"probe phases 11-12: {time.perf_counter() - t0:.1f} s")
 
     replaces = {
         "fused_encode_fwd": "cednerf_tpu/ops/pallas_fused.py:138",
@@ -913,6 +1131,8 @@ def main(argv=None):
         "interp_bwd_fused": "cednerf_tpu/ops/pallas_encoder.py:307",
         "compact_select": "cednerf_tpu/ops/pallas_compact.py:47",
         "scatter_add_rows": "cednerf_tpu/ops/pallas_scatter.py:87",
+        "interp_bwd": "cednerf_tpu/ops/pallas_encoder.py:180",
+        "row_gather": "cednerf_tpu/ops/pallas_gather.py:27",
     }
     sources = {
         "fused_encode_fwd": "cednerf_torch/csrc/brick_encode_fwd.cu",
@@ -921,6 +1141,8 @@ def main(argv=None):
         "interp_bwd_fused": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "compact_select": "cednerf_torch/csrc/compact_select.cu",
         "scatter_add_rows": "cednerf_torch/csrc/scatter_add_rows.cu",
+        "interp_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
+        "row_gather": "cednerf_torch/csrc/row_gather.cu",
     }
     line = []
     for name in replaces:
@@ -929,7 +1151,9 @@ def main(argv=None):
                    "train": train["launches"].get(name, 0),
                    "train_interp": train["interp"]["launches"].get(name, 0),
                    "train_hash4d": h4["launches"].get(name, 0),
-                   "serve_hash4d": h4["frame"]["launches"].get(name, 0)}
+                   "serve_hash4d": h4["frame"]["launches"].get(name, 0),
+                   "probe_interp_enc": probe_enc["launches"].get(name, 0),
+                   "probe_row_gather": probe_gather["launches"].get(name, 0)}
         line.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": sum(by_path.values()),

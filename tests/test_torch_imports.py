@@ -32,11 +32,12 @@ def _imported_roots(path):
 def test_port_files_exist():
     assert len(FILES) > 25
     for name in ("brick_encode_fwd", "brick_encode_bwd", "compact_select",
-                 "scatter_add_rows"):
+                 "scatter_add_rows", "row_gather"):
         assert (ROOT / "cednerf_torch" / "csrc" / f"{name}.cu").exists()
     for mod in ("engine/train.py", "ops/losses.py", "ops/segments.py",
                 "ops/compact_kernels.py", "ops/scatter_kernels.py",
-                "datasets/procedural.py"):
+                "ops/gather_kernels.py", "tools/profile_interp_enc.py",
+                "tools/profile_row_gather.py", "datasets/procedural.py"):
         assert (ROOT / "cednerf_torch" / mod).exists()
 
 

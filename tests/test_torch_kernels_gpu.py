@@ -1,6 +1,6 @@
-"""The CUDA kernels K1, K5, K6, K2, K4 and K3 against their plain versions,
-and the 4D keyframe encoder (whose backward runs K3) against the CPU, on
-the card.
+"""The CUDA kernels K1, K5, K6, K2, K4, K3, K7 and K8 against their plain
+versions, and the 4D keyframe encoder (whose backward runs K3) against the
+CPU, on the card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither jax nor the JAX package, so it runs on a machine that has only the
@@ -17,7 +17,10 @@ scatter-add) sums with f32 atomics against index_add's order: 1e-5 of the
 largest entry, as K6. The 4D encoder on the card against the CPU: the
 forward is the same PyTorch code on both (bf16 out, rtol 2^-7: one bf16
 rounding of f32 sums taken in another order); its gradients 1e-5 of each
-array's largest entry (K3's atomics, and the reductions' order).
+array's largest entry (K3's atomics, and the reductions' order). K7
+(update rows): the rows are the same f32 products in the same order as the
+plain version's, d_x sums them in another order: 1e-5 of each array's
+largest entry. K8 (row gather) copies bytes: bit-exact.
 """
 
 import numpy as np
@@ -27,6 +30,7 @@ import torch
 from cednerf_torch.ops import brick_grid as tbg
 from cednerf_torch.ops import compact_kernels as ck
 from cednerf_torch.ops import encode_kernels as ek
+from cednerf_torch.ops import gather_kernels as gk
 from cednerf_torch.ops import scatter_kernels as sk
 
 pytestmark = pytest.mark.gpu
@@ -214,3 +218,53 @@ def test_keyframe_encoder_card_matches_cpu():
     torch.testing.assert_close(card[0], cpu[0], rtol=2.0 ** -7, atol=1e-6)
     for a, b in zip(card[1:], cpu[1:]):
         _close_to_scale(a, b)
+
+
+@pytest.mark.parametrize("n_feat,n,levels", [(4, 1001, 8), (2, 4099, 16),
+                                             (1, 33, 3), (4, 20000, 4)])
+@pytest.mark.parametrize("upd_dtype", [torch.float32, torch.bfloat16])
+def test_k7_matches_plain(n_feat, n, levels, upd_dtype):
+    x, _, _, feats, scales, nbs, _ = _cuda_inputs(4, n_feat, n, levels)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    g = torch.randn((n, levels * n_feat), device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    g[::7] = 0
+    want_u, want_x = ek.interp_bwd_plain(x, g, feats, scales, nbs, n_feat,
+                                         upd_dtype)
+    ek.reset_counts()
+    upd, d_x = ek.interp_bwd(x, g, feats, scales, nbs, n_feat, upd_dtype)
+    torch.cuda.synchronize()
+    assert ek.launches["interp_bwd"] == 1
+    assert upd.dtype == upd_dtype and upd.shape == want_u.shape
+    for l in range(levels):
+        _close_to_scale(upd[l].float(), want_u[l].float())
+    _close_to_scale(d_x, want_x)
+    with pytest.raises(ValueError):
+        ek.interp_bwd(x, g.float(), feats, scales, nbs, n_feat)
+
+
+@pytest.mark.parametrize("dtype,w,n", [
+    (torch.bfloat16, 128, 100003), (torch.bfloat16, 256, 4099),
+    (torch.bfloat16, 100, 777), (torch.float32, 256, 5000),
+    (torch.float32, 37, 333), (torch.bfloat16, 8, 1001)])
+def test_k8_matches_plain(dtype, w, n):
+    """512- and 256-byte rows, 1 KB f32 rows (a group loops over the row's
+    words), rows that are not a multiple of 16 bytes (the scalar kernel),
+    16-byte rows; ragged N, indices out of range; every rows_in_flight."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(w)
+    r = 3000
+    table = torch.randn((r, w), device="cuda", generator=gen).to(dtype)
+    idx = torch.randint(-3, r + 3, (n,), device="cuda", generator=gen,
+                        dtype=torch.int32)
+    want = gk.row_gather_plain(table, idx)
+    bits = {2: torch.int16, 4: torch.int32}[table.element_size()]
+    for rif in gk.ROWS_IN_FLIGHT:
+        gk.reset_counts()
+        got = gk.row_gather(table, idx, rif)
+        torch.cuda.synchronize()
+        assert gk.launches["row_gather"] == 1
+        assert torch.equal(got.view(bits), want.view(bits)), rif
+    with pytest.raises(ValueError):
+        gk.row_gather(table, idx.long())
