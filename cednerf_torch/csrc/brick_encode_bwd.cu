@@ -34,20 +34,53 @@
 // in f32 with atomicAdd, in an order that changes from run to run (on the
 // TPU one core walks the sample tiles in order); the wrapper rounds the
 // finished sum to bf16 once when the spec asks for a bf16 accumulator.
-// d_x is summed over the levels in level order in registers and written
-// once per sample, so it is deterministic.
+// d_x is summed over the levels in level order (K2, K7 in registers, K6 in
+// shared memory) and written once per sample, so it is deterministic.
 //
-// What bounds them on this card: the scattered f32 atomics (N*L*8*F of
-// them: 67M at one train step's N = 262,144, L8 F4) and, for K6, the
-// 8 random 8-byte corner reads per (sample, level); a level of 216 bricks
-// takes ~1,200 atomics per address. A thread per sample walks its levels in
-// order; a level whose cotangent is all zero (an unused budget slot) skips
-// its atomics. Shared-memory or warp-aggregated accumulation for the dense
-// coarse levels is a lever for a later PR.
+// K6. Each (sample, level) is one thread, and a block is 32 consecutive
+// samples x L levels with one warp per level, so the level's constants are
+// warp-uniform and 32 neighbouring samples of one level share a warp. The
+// thread reads the 4 z-lines of its cell (as K5: 128 B at F = 4, not 8
+// separate corners), computes the geometry once, forms the 8 corners' terms
+// and adds each corner's F gradient lanes with one vector atomicAdd (float4
+// at F = 4, float2 at F = 2; sm_90, global memory): N*L*8 atomic operations,
+// 16.8M at one train step's N = 262,144, L8 F4, instead of N*L*8*F scalar
+// ones. Before the atomics, the lanes of a warp whose samples share a cell
+// (a brick row and intra cell, hence all 8 corners) are found with
+// __match_any_sync and their terms summed by shuffles, so that one lane
+// adds each corner once: ray-major samples (a renderer's and the packed
+// step's order) put 3-4 consecutive samples into one cell of the coarsest
+// level. d_x: each thread leaves its level's 3 terms in shared memory, and
+// the level-0 warp sums them over the levels in level order, as before. A
+// (sample, level) whose cotangent is all zero (an unused budget slot) skips
+// its loads and atomics.
+//
+// What bounds K6 now: the atomics in the L2. Its needed bytes (table, x, g,
+// rows read, d_table and d_x written once) take ~0.05 ms at 3.35 TB/s and
+// its corner reads plus atomic payload ~0.16 ms; it takes ~0.45 ms on
+// uniform random samples (16.8M float4 atomics, ~37 G/s) and ~0.30 ms on
+// ray-major ones. Measured on an H100 80GB HBM3 at 700 W against an edited
+// copy of this kernel without it, in one run: the match-group aggregation
+// costs nothing on random samples (0.446 against 0.447 ms without it),
+// saves a third on ray-major ones (0.296 against 0.437 ms) and 36% when
+// every sample lies in one level-0 brick (0.548 against 0.859 ms).
+// profile_training.py reports the share of atomics it saves on a real
+// train step's batch.
+// Accumulating the coarse levels in shared memory was not taken: level 0's
+// f32 gradient alone is 216 x 256 x 4 B = 221 KB, a whole SM's shared
+// memory for one block.
+//
+// K2 keeps its first design (a thread per sample walking its levels in
+// order, 8 separate corner reads and F scalar f32 atomics per corner, ~1,200
+// atomics per address on a level of 216 bricks at N = 262,144). K6 was first
+// the same kernel re-gathering from the table: 0.963 ms at N = 262,144 on an
+// H100 80GB HBM3 at 700 W, 19x its bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "zline.cuh"
 
 namespace {
 
@@ -99,9 +132,9 @@ __device__ __forceinline__ void load_corner(const __nv_bfloat16* p,
   }
 }
 
-// kGather: K6 (src is the flat table [sum R_l, 64F], rows index it per
-// level); otherwise K2 (src is feats [L, N, 64F], row i of level l).
-template <int F, bool kGather>
+// K2: src is feats [L, N, 64F] (row i of level l); rows place the gradient
+// in the flat table [sum R_l, 64F].
+template <int F>
 __global__ void __launch_bounds__(kBlock)
     encode_bwd_kernel(const float* __restrict__ x,
                       const __nv_bfloat16* __restrict__ g,
@@ -127,8 +160,7 @@ __global__ void __launch_bounds__(kBlock)
     int r = rows[(long long)l * n + i];
     r = min(max(r, 0), lv.rows[l] - 1);
     const long long trow = lv.offset[l] + r;
-    const __nv_bfloat16* row =
-        kGather ? src + trow * W : src + ((long long)l * n + i) * W;
+    const __nv_bfloat16* row = src + ((long long)l * n + i) * W;
     float* drow = d_table + trow * W;
     int ia[3];
     float w[3][2], ok[3];
@@ -161,6 +193,154 @@ __global__ void __launch_bounds__(kBlock)
   d_x[i * 3] = dx[0];
   d_x[i * 3 + 1] = dx[1];
   d_x[i * 3 + 2] = dx[2];
+}
+
+// The F gradient lanes of one corner, added with one vector atomic.
+template <int F>
+__device__ __forceinline__ void add_corner(float* dst, const float (&v)[F]);
+template <>
+__device__ __forceinline__ void add_corner<4>(float* dst,
+                                              const float (&v)[4]) {
+  atomicAdd(reinterpret_cast<float4*>(dst),
+            make_float4(v[0], v[1], v[2], v[3]));
+}
+template <>
+__device__ __forceinline__ void add_corner<2>(float* dst,
+                                              const float (&v)[2]) {
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+}
+template <>
+__device__ __forceinline__ void add_corner<1>(float* dst,
+                                              const float (&v)[1]) {
+  atomicAdd(dst, v[0]);
+}
+
+constexpr int kK6Samples = 32;  // samples of a K6 block: one warp per level
+
+// K6: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32 (level-local), table
+// [sum R_l, 64F] bf16 -> d_table (accumulated into), d_x [N, 3].
+// Block (32, L): threadIdx.x is the sample, threadIdx.y the level.
+template <int F>
+__global__ void __launch_bounds__(kK6Samples * kMaxLevels)
+    fused_encode_bwd_kernel(const float* __restrict__ x,
+                            const __nv_bfloat16* __restrict__ g,
+                            const int* __restrict__ rows,
+                            const __nv_bfloat16* __restrict__ table,
+                            Levels lv, int n_levels, long long n,
+                            float* __restrict__ d_table,
+                            float* __restrict__ d_x) {
+  constexpr int W = 64 * F;
+  __shared__ float s_dx[kMaxLevels][3][kK6Samples];
+  const int lane = threadIdx.x;
+  const int l = threadIdx.y;
+  const long long i = (long long)blockIdx.x * kK6Samples + lane;
+  const bool valid = i < n;
+  float gf[F];
+  bool any = false;
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    gf[f] = valid ? __bfloat162float(g[i * (n_levels * F) + l * F + f])
+                  : 0.0f;
+    any |= gf[f] != 0.0f;
+  }
+  float dxl[3] = {0.0f, 0.0f, 0.0f};
+  const unsigned act = __ballot_sync(0xffffffffu, any);
+  if (any) {  // else every term of this (sample, level) is zero
+    const float scale = lv.scale[l];
+    int r = __ldg(rows + (long long)l * n + i);
+    r = min(max(r, 0), lv.rows[l] - 1);
+    const long long trow = lv.offset[l] + r;
+    const float p[3] = {__ldg(x + i * 3), __ldg(x + i * 3 + 1),
+                        __ldg(x + i * 3 + 2)};
+    int ia[3];
+    float w[3][2], ok[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      axis_geom(p[a], scale, lv.nb[l], ia[a], w[a][1], w[a][0], ok[a]);
+    const __nv_bfloat16* row = table + trow * W;
+    ZLine<F> line[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      line[q] = load_zline<F>(
+          row + ((ia[0] + (q >> 1)) * 16 + (ia[1] + (q & 1)) * 4) * F);
+    float* drow = d_table + trow * W;
+    float s[3] = {0.0f, 0.0f, 0.0f};
+    float upd[8][F];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int kx = q >> 1, ky = q & 1;
+      // h_k = sum_f row[corner k of the line, f] * g[f]
+      float hk[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        hk[k] = 0.0f;
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          hk[k] = fmaf(zval<F>(line[q], k, f), gf[f], hk[k]);
+      }
+#pragma unroll
+      for (int kz = 0; kz < 2; ++kz) {
+        const int k = ia[2] + kz;
+        const float h =
+            k == 0 ? hk[0] : (k == 1 ? hk[1] : (k == 2 ? hk[2] : hk[3]));
+        const float wyz = w[1][ky] * w[2][kz];
+        const float wc = w[0][kx] * wyz;
+#pragma unroll
+        for (int f = 0; f < F; ++f) upd[q * 2 + kz][f] = wc * gf[f];
+        // d w_c / d frac_a = +-(product of the other two axes' weights)
+        s[0] += (kx ? h : -h) * wyz;
+        s[1] += (ky ? h : -h) * (w[0][kx] * w[2][kz]);
+        s[2] += (kz ? h : -h) * (w[0][kx] * w[1][ky]);
+      }
+    }
+    // Lanes of this warp (one level) whose samples lie in the same cell
+    // share all 8 corners: their terms are summed by a shuffle tree over the
+    // match group (each step adds the next remaining peer's sums, and the
+    // peers of odd rank drop out), and the group's first lane adds them.
+    const unsigned key =
+        (unsigned)r * 27u + (unsigned)(ia[0] * 9 + ia[1] * 3 + ia[2]);
+    const unsigned peers = __match_any_sync(act, key);
+    const bool leader = lane == __ffs(peers) - 1;
+    int rank = __popc(peers & ((1u << lane) - 1u));
+    unsigned above = peers & (0xfffffffeu << lane);
+    while (__any_sync(act, above)) {
+      const int next = __ffs(above);
+      const int src = next ? next - 1 : lane;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float t = __shfl_sync(act, upd[c][f], src);
+          if (next) upd[c][f] += t;
+        }
+      }
+      above &= ~__ballot_sync(act, rank & 1);
+      rank >>= 1;
+    }
+    if (leader) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int corner = (ia[0] + (c >> 2)) * 16 +
+                           (ia[1] + ((c >> 1) & 1)) * 4 + ia[2] + (c & 1);
+        add_corner<F>(drow + corner * F, upd[c]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) dxl[a] = s[a] * ok[a] * scale;
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) s_dx[l][a][lane] = dxl[a];
+  __syncthreads();
+  if (l == 0 && valid) {
+    float dx[3] = {0.0f, 0.0f, 0.0f};
+    for (int m = 0; m < n_levels; ++m) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) dx[a] += s_dx[m][a][lane];
+    }
+    d_x[i * 3] = dx[0];
+    d_x[i * 3 + 1] = dx[1];
+    d_x[i * 3 + 2] = dx[2];
+  }
 }
 
 // K7. The same sums as K2, but the table-gradient terms are not added into a
@@ -310,33 +490,65 @@ void launch_rows(unsigned grid, cudaStream_t st, const float* x,
         x, g, feats, lv, n_levels, n, upd, d_x);
 }
 
-template <bool kGather>
-int launch(const float* x, const void* g, const int* rows, const void* src,
-           int n_levels, long long n, int n_feat, const float* scales,
-           const int* nbs, const int* level_rows, float* d_table, float* d_x,
-           void* stream) {
+bool bwd_args_ok(Levels& lv, long long n, int n_levels, int n_feat,
+                 const float* scales, const int* nbs, const int* level_rows) {
+  return n > 0 && (n_feat == 1 || n_feat == 2 || n_feat == 4) &&
+         fill_levels(lv, n_levels, scales, nbs, level_rows);
+}
+
+int launch_k6(const float* x, const void* g, const int* rows,
+              const void* table, int n_levels, long long n, int n_feat,
+              const float* scales, const int* nbs, const int* level_rows,
+              float* d_table, float* d_x, void* stream) {
   Levels lv;
-  if (n <= 0 || !fill_levels(lv, n_levels, scales, nbs, level_rows))
+  if (!bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid = (unsigned int)((n + kK6Samples - 1) / kK6Samples);
+  const dim3 block(kK6Samples, n_levels);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
+  const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(table);
+  switch (n_feat) {
+    case 1:
+      fused_encode_bwd_kernel<1><<<grid, block, 0, st>>>(
+          x, gb, rows, tb, lv, n_levels, n, d_table, d_x);
+      break;
+    case 2:
+      fused_encode_bwd_kernel<2><<<grid, block, 0, st>>>(
+          x, gb, rows, tb, lv, n_levels, n, d_table, d_x);
+      break;
+    default:
+      fused_encode_bwd_kernel<4><<<grid, block, 0, st>>>(
+          x, gb, rows, tb, lv, n_levels, n, d_table, d_x);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_k2(const float* x, const void* g, const int* rows,
+              const void* feats, int n_levels, long long n, int n_feat,
+              const float* scales, const int* nbs, const int* level_rows,
+              float* d_table, float* d_x, void* stream) {
+  Levels lv;
+  if (!bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int grid = (unsigned int)((n + kBlock - 1) / kBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
-  const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(src);
+  const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(feats);
   switch (n_feat) {
     case 1:
-      encode_bwd_kernel<1, kGather><<<grid, kBlock, 0, st>>>(
+      encode_bwd_kernel<1><<<grid, kBlock, 0, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
       break;
     case 2:
-      encode_bwd_kernel<2, kGather><<<grid, kBlock, 0, st>>>(
-          x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
-      break;
-    case 4:
-      encode_bwd_kernel<4, kGather><<<grid, kBlock, 0, st>>>(
+      encode_bwd_kernel<2><<<grid, kBlock, 0, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      encode_bwd_kernel<4><<<grid, kBlock, 0, st>>>(
+          x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
+      break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -357,8 +569,8 @@ int brick_fused_encode_bwd(const float* x, const void* g, const int* rows,
                            int n_feat, const float* scales, const int* nbs,
                            const int* level_rows, float* d_table, float* d_x,
                            void* stream) {
-  return launch<true>(x, g, rows, table, n_levels, n, n_feat, scales, nbs,
-                      level_rows, d_table, d_x, stream);
+  return launch_k6(x, g, rows, table, n_levels, n, n_feat, scales, nbs,
+                   level_rows, d_table, d_x, stream);
 }
 
 // K2. As K6 with feats [L, N, 64F] bf16 in place of the table.
@@ -367,8 +579,8 @@ int brick_interp_bwd_fused(const float* x, const void* g, const int* rows,
                            int n_feat, const float* scales, const int* nbs,
                            const int* level_rows, float* d_table, float* d_x,
                            void* stream) {
-  return launch<false>(x, g, rows, feats, n_levels, n, n_feat, scales, nbs,
-                       level_rows, d_table, d_x, stream);
+  return launch_k2(x, g, rows, feats, n_levels, n, n_feat, scales, nbs,
+                   level_rows, d_table, d_x, stream);
 }
 
 // K7. x [N,3] f32, g [N, L*F] bf16, feats [L, N, 64F] bf16 -> upd

@@ -3,7 +3,8 @@
 Each `KernelLibrary` is one source under cednerf_torch/csrc/ with a plain C
 interface. nvcc compiles it for sm_90a the first time one of its kernels is
 called, or when `build_all()` is, into cednerf_torch/_build/ (a file named
-after a hash of the source and the flags, so an edited source rebuilds).
+after a hash of the source, the csrc/ headers and the flags, so an edited
+source or header rebuilds).
 `build_all()` starts one nvcc per source, all at once, and waits for them
 together.
 """
@@ -34,6 +35,12 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _headers() -> List[str]:
+    """The .cuh headers under csrc/, which sources include."""
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cuh"))
+
+
 class KernelLibrary:
     """One nvcc-built shared library, compiled and loaded on first use.
 
@@ -50,8 +57,10 @@ class KernelLibrary:
         LIBRARIES.append(self)
 
     def _target(self) -> str:
-        with open(self.source, "rb") as fh:
-            src = fh.read()
+        src = b""
+        for path in [self.source] + _headers():
+            with open(path, "rb") as fh:
+                src += fh.read()
         tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
         return os.path.join(BUILD_DIR, f"lib{self.stem}_{tag[:16]}.so")
 

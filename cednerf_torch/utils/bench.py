@@ -2,7 +2,10 @@
 profile_training.py: the card's name, CUDA-event timing, the viewer's
 default orbit camera, an occupancy grid filled for a field, hash tables
 drawn at a scale that the MLPs feel, the train step's flags (3D and 4D
-encoder), and a profiler table of device time by kernel."""
+encoder), a profiler table of device time by kernel, two sample sets for
+the encoder kernels (ray-major samples of one camera, and points on every
+intra-brick cell and cell boundary of each level), and the match groups
+that K6 forms on a batch."""
 
 import math
 import subprocess
@@ -10,6 +13,8 @@ import subprocess
 import numpy as np
 import torch
 
+from ..datasets.rays import pinhole_rays
+from ..ops.encode_kernels import cell_geom
 from ..ops.occupancy import create_occ_grid, update_occ_grid
 
 # the published D-NeRF train flags -te -ta -f -ae -df -d (ModelFlags kwargs)
@@ -106,3 +111,84 @@ def device_time_by_kernel(prof):
                    and dev_us(e) > 0 and "#" not in e.key),
                   key=lambda r: -r[2])
     return rows, sum(r[2] for r in rows)
+
+
+def ray_major_samples(n_rays: int, n_samples: int = 64, seed: int = 0,
+                      width: int = 400):
+    """Encoder inputs in the order a renderer makes them: `n_rays` rays of
+    one width x width pinhole camera on the viewer's orbit (radius 2,
+    centred on the unit cube [0, 1]^3, focal 1.1 * width), picked at random
+    from the pixels whose ray crosses the cube and kept in pixel order;
+    `n_samples` stratified samples per ray between its cube entry and exit.
+
+    Returns (x [n_rays * n_samples, 3] f32, ray-major: ray r's samples are
+    rows r * n_samples ..., in ascending t and clipped into the cube;
+    t [n_rays, n_samples] f32; origins and unit directions [n_rays, 3])."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[width * 1.1, 0, width / 2], [0, width * 1.1, width / 2],
+                  [0, 0, 1]], np.float32)
+    c2w = orbit_c2w(radius=2.0)
+    c2w[:, 3] += 0.5
+    pix = np.arange(width * width)
+    o, d, _ = pinhole_rays((pix % width).astype(np.float32),
+                           (pix // width).astype(np.float32), K,
+                           np.broadcast_to(c2w, (pix.size, 3, 4)), True)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t0, t1 = (0.0 - o) / d, (1.0 - o) / d
+    t_in = np.minimum(t0, t1).max(-1)
+    t_out = np.maximum(t0, t1).min(-1)
+    hit = np.flatnonzero(t_out > np.maximum(t_in, 0.0))
+    pick = np.sort(rng.choice(hit, n_rays, replace=n_rays > hit.size))
+    u = rng.uniform(size=(n_rays, n_samples))
+    span = (t_out - t_in)[pick, None]
+    t = (t_in[pick, None] + (np.arange(n_samples) + u) / n_samples * span
+         ).astype(np.float32)
+    x = o[pick, None] + t[..., None] * d[pick, None]
+    x = np.clip(x, 0.0, 1.0).astype(np.float32).reshape(-1, 3)
+    return x, t, o[pick], d[pick]
+
+
+def cell_points(scales, nbs, seed: int = 0, bricks: int = 3,
+                boundary: int = 64):
+    """f32 points [M, 3] that visit the brick-cell addressing of every
+    level: one random point inside each of the 27 intra cells of `bricks`
+    random bricks per level, and `boundary` points on cell boundaries (pos =
+    x * scale + 0.5 integral; every other one on a brick boundary, a
+    multiple of 3), from just outside the grid to just past its far edge,
+    each with its f32 neighbours on both sides."""
+    rng = np.random.default_rng(seed)
+    cells = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"),
+                     -1).reshape(1, 27, 3)
+    pts = []
+    for s, nb in zip(scales, nbs):
+        s32 = np.float32(s)
+        c = 3 * rng.integers(0, nb, (bricks, 1, 3)) + cells
+        frac = rng.uniform(0.05, 0.95, c.shape)
+        pts.append(((c + frac - 0.5) / s32).reshape(-1, 3))
+        k = rng.integers(-1, 3 * nb + 2, (boundary, 3))
+        k[::2] = 3 * rng.integers(0, nb + 1, (len(k[::2]), 3))
+        xb = ((k - np.float32(0.5)) / s32).astype(np.float32)
+        pts += [xb, np.nextafter(xb, np.float32(2)),
+                np.nextafter(xb, np.float32(-2))]
+    return np.concatenate(pts).astype(np.float32)
+
+
+def k6_match_groups(x, g, rows, scales, nbs, n_feat: int, warp: int = 32):
+    """What K6's match-group aggregation does on a batch. K6 gives one
+    level of `warp` consecutive samples to a warp; the lanes whose
+    cotangent is not all zero (the terms) and whose samples share a cell (a
+    brick row and intra cell, hence all 8 corners) form one group, and K6
+    issues 8 vector atomics per group instead of per term.
+
+    x [N, 3] f32, g [N, L*F], rows [L, N] (level-local). Returns [(terms,
+    groups)] per level."""
+    warp_id = torch.arange(x.shape[0], device=x.device) // warp
+    out = []
+    for lvl, (scale, nb) in enumerate(zip(scales, nbs)):
+        live = (g[:, lvl * n_feat:(lvl + 1) * n_feat] != 0).any(-1)
+        intra = cell_geom(x, scale, nb)[2]
+        key = rows[lvl].long() * 27 + intra[:, 0] * 9 + intra[:, 1] * 3 \
+            + intra[:, 2]
+        key = warp_id * (int(key.max()) + 1) + key
+        out.append((int(live.sum()), int(torch.unique(key[live]).numel())))
+    return out

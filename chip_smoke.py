@@ -13,10 +13,16 @@ Phases, each of which must pass (nothing is caught and carried on):
      PyTorch versions at one full seg-eval pass (eval_chunk_seg 32768 x
      budget_per_ray 64 = 2,097,152 samples) and at a ragged N; K6
      (fused_encode_bwd) and K2 (interp_bwd_fused) at one train step's
-     262,144 samples and at a ragged N, all 8 levels, tables of +-8; K4
-     (compact_select) bit-exact on [256, 1024] and [16000, 1024] lattices
-     (the warmup and top ray buckets) at occupancy 1.0 and ~0.1, budget
-     262,144. Each is timed with CUDA events beside its bound;
+     262,144 samples and at a ragged N, all 8 levels, tables of +-8; K5 and
+     K6 also on every intra cell and on cell and brick boundaries of each
+     level at F = 1, 2, 4 (K5 in both output dtypes), and K6 on a batch
+     whose samples all lie in one level-0 brick; K4 (compact_select)
+     bit-exact on [256, 1024] and [16000, 1024] lattices (the warmup and
+     top ray buckets) at occupancy 1.0 and ~0.1, budget 262,144. Each is
+     timed with CUDA events beside its bound on uniform random samples, K5
+     and K6 also on ray-major ones (32,768 and 4,096 rays of one 400x400
+     camera, 64 samples each, as a seg-eval pass and a packed step order
+     them);
   4. reference: a small frame rendered on the card (kernel route) and on
      the CPU (plain route) from the same weights and grid must agree (see
      reference_phase for why the check can fail);
@@ -168,10 +174,27 @@ def check_close(name, got, want, rtol, atol):
     return err.max().item()
 
 
+def _level_rows(x, spec):
+    """[L, N] int32 brick rows of x on every level of `spec`."""
+    import torch
+    from cednerf_torch.ops.brick_grid import _level_geom
+
+    lay = spec.level_layout()
+    return torch.stack([
+        _level_geom(x, s, l["n_bricks_axis"], l["hashed"], l["rows"])[0]
+        for s, l in zip(spec.level_scales(), lay)]).contiguous()
+
+
+def _ray_major_x(n_rays, seed):
+    import torch
+    from cednerf_torch.utils.bench import ray_major_samples
+    return torch.from_numpy(ray_major_samples(n_rays, 64, seed)[0]).cuda()
+
+
 def kernel_phase(field, n_main, n_ragged, seed):
     import torch
     from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.ops.brick_grid import _level_geom, level_tables
+    from cednerf_torch.ops.brick_grid import level_tables
     from cednerf_torch.utils.bench import cuda_ms
 
     spec = field.hash_encoder.bspec
@@ -188,9 +211,7 @@ def kernel_phase(field, n_main, n_ragged, seed):
     results = {}
     for n in (n_main, n_ragged):
         x = torch.rand((n, 3), device="cuda", generator=gen)
-        rows = torch.stack([
-            _level_geom(x, scales[l], nbs[l], lay[l]["hashed"],
-                        level_rows[l])[0] for l in range(L)]).contiguous()
+        rows = _level_rows(x, spec)
         feats = torch.stack([tables[l].index_select(0, rows[l].long())
                              for l in range(L)]).contiguous()
         calls = {
@@ -223,6 +244,17 @@ def kernel_phase(field, n_main, n_ragged, seed):
                 if name == "fused_encode_fwd":
                     in_b = rows.numel() * 4 + x.numel() * 4 \
                         + table.numel() * 2
+                    # the corner sectors that K5 reads, with the rows, x and
+                    # the output, at the HBM rate
+                    rec["sector_bound_ms"] = (
+                        in_b - table.numel() * 2 + _corner_bytes(n, L, F)
+                        + out_b) / HBM_BYTES_PER_S * 1e3
+                    xm = _ray_major_x(n // 64, seed)
+                    rm = _level_rows(xm, spec)
+                    rec["ray_major_ms"] = cuda_ms(
+                        lambda: ek.fused_encode_fwd(
+                            xm, table, rm, scales, nbs, level_rows, F), 20)
+                    del xm, rm
                 else:
                     in_b = x.numel() * 4 + _corner_bytes(n, L, F)
                 t_bytes = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
@@ -237,6 +269,111 @@ def kernel_phase(field, n_main, n_ragged, seed):
         del feats
         torch.cuda.empty_cache()
     return results
+
+
+def cell_kernel_phase(spec4, seed):
+    """K5 and K6 against their plain versions on the points that stress
+    their corner addressing: every intra cell of a few bricks and cell and
+    brick boundaries (with their f32 neighbours) on each level
+    (bench.cell_points), then 10,007 uniform points, at the field's level
+    geometry with F = 1, 2 and 4, tables of +-1e-4 as a fresh field's; K5 in
+    both output dtypes. Then K6 on 262,144 samples that all lie in one
+    level-0 brick, tables of +-8 (every atomic of level 0 on one row:
+    the most contended table gradient and the largest match groups), timed."""
+    import numpy as np
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.utils.bench import cell_points, cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    recs = []
+    for F in (1, 2, 4):
+        spec = dataclasses.replace(spec4, n_features=F)
+        lay = spec.level_layout()
+        scales = spec.level_scales()
+        nbs = [l["n_bricks_axis"] for l in lay]
+        level_rows = [l["rows"] for l in lay]
+        L = spec.n_levels
+        x = torch.cat([torch.from_numpy(cell_points(scales, nbs, seed)).cuda(),
+                       torch.rand((10_007, 3), device="cuda", generator=gen)])
+        rows = _level_rows(x, spec)
+        table = ((torch.rand((sum(level_rows), 64 * F), device="cuda",
+                             generator=gen) * 2 - 1) * 1e-4).to(torch.bfloat16)
+        want = ek.fused_encode_fwd_plain(x, table, rows, scales, nbs,
+                                         level_rows, F, torch.float32)
+        rec = {"case": "cells", "n": x.shape[0], "levels": L, "n_feat": F}
+        for od, rtol, atol in ((torch.bfloat16, BF16_RTOL, BF16_ATOL),
+                               (torch.float32, F32_RTOL, F32_ATOL)):
+            got = ek.fused_encode_fwd(x, table, rows, scales, nbs,
+                                      level_rows, F, od)
+            torch.cuda.synchronize()
+            rec[f"k5_max_abs_err_{str(od)[6:]}"] = check_close(
+                f"fused_encode_fwd cells F={F} {od}", got, want, rtol, atol)
+        g = torch.randn((x.shape[0], L * F), device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        g[::8] = 0
+        rec.update(_k6_against_plain(f"cells F={F}", x, g, rows, table,
+                                     scales, nbs, level_rows, F))
+        log(json.dumps({"kernel_check": {"name": "k5_k6_cells", **rec}}))
+        recs.append(rec)
+    spec = spec4
+    lay = spec.level_layout()
+    scales = spec.level_scales()
+    nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    L, F, n = spec.n_levels, spec.n_features, 262_144
+    # pos = x * scale + 0.5 in [3.01, 5.99) on every axis: level-0 brick 1
+    x = ((torch.rand((n, 3), device="cuda", generator=gen) * 2.98 + 2.51)
+         / float(np.float32(scales[0])))
+    rows = _level_rows(x, spec)
+    table = ((torch.rand((sum(level_rows), 64 * F), device="cuda",
+                         generator=gen) * 2 - 1) * REF_TABLE_BOUND
+             ).to(torch.bfloat16)
+    g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
+         ).to(torch.bfloat16)
+    rec = {"case": "one level-0 brick", "n": n, "levels": L, "n_feat": F,
+           "level0_rows": int(torch.unique(rows[0]).numel())}
+    rec.update(_k6_against_plain("one brick", x, g, rows, table, scales, nbs,
+                                 level_rows, F))
+    rec["ms"] = cuda_ms(lambda: ek.fused_encode_bwd(
+        x, g, rows, table, scales, nbs, level_rows, F), 20)
+    log(json.dumps({"kernel_check": {"name": "fused_encode_bwd", **rec}}))
+    recs.append(rec)
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _bwd_errors(label, got, want, level_rows):
+    """(each level's table-gradient error as a fraction of that level's
+    largest entry, d_x's error as a fraction of its largest entry) of
+    got = (d_table, d_x) against want; fails above BWD_TABLE_FRAC or
+    BWD_DX_FRAC."""
+    offs = [0]
+    for r in level_rows:
+        offs.append(offs[-1] + r)
+    errs = [_frac_err(got[0][offs[l]:offs[l + 1]],
+                      want[0][offs[l]:offs[l + 1]])
+            for l in range(len(level_rows))]
+    err_x = _frac_err(got[1], want[1])
+    if max(errs) > BWD_TABLE_FRAC or err_x > BWD_DX_FRAC:
+        raise AssertionError(
+            f"{label}: table errors per level {errs} (limit "
+            f"{BWD_TABLE_FRAC}), d_x {err_x} (limit {BWD_DX_FRAC})")
+    return errs, err_x
+
+
+def _k6_against_plain(label, x, g, rows, table, scales, nbs, level_rows, F):
+    """K6 against its plain version (_bwd_errors' limits)."""
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+
+    want = ek.fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
+                                     level_rows, F)
+    got = ek.fused_encode_bwd(x, g, rows, table, scales, nbs, level_rows, F)
+    torch.cuda.synchronize()
+    errs, err_x = _bwd_errors(f"fused_encode_bwd {label}", got, want,
+                              level_rows)
+    return {"k6_table_err_frac": max(errs), "k6_dx_err_frac": err_x}
 
 
 def reference_phase(field, occ, cfg, flags, seed):
@@ -411,10 +548,10 @@ def serving_phase(field, field_k1, occ, cfg):
 
 
 def _corner_bytes(n, L, F):
-    """The bytes of gathered brick rows that K1 and K2 must read: the 8
-    corners of a (sample, level) lie on 4 lines of the 4^3 brick, each 4
-    corners x F bf16 (8F bytes, one 32-byte DRAM sector at F = 4), and the
-    other 56 corners of the 64F row are never read."""
+    """The bytes of brick rows that K1 and K2 must read, and that K5 and K6
+    do read: the 8 corners of a (sample, level) lie on 4 z-lines of the 4^3
+    brick, each 4 corners x F bf16 (8F bytes, one 32-byte DRAM sector at
+    F = 4), and the other 56 corners of the 64F row are never read."""
     return n * L * 4 * 8 * F
 
 
@@ -431,7 +568,6 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
     slots carry zero)."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.ops.brick_grid import _level_geom
     from cednerf_torch.utils.bench import cuda_ms
 
     spec = field.hash_encoder.bspec
@@ -453,9 +589,7 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
         g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
              ).to(torch.bfloat16)
         g[::8] = 0
-        rows = torch.stack([
-            _level_geom(x, scales[l], nbs[l], lay[l]["hashed"],
-                        level_rows[l])[0] for l in range(L)]).contiguous()
+        rows = _level_rows(x, spec)
         feats = torch.stack([table[offs[l]:offs[l + 1]].index_select(
             0, rows[l].long()) for l in range(L)]).contiguous()
         want_t, want_x = ek.fused_encode_bwd_plain(x, g, rows, table, scales,
@@ -475,13 +609,8 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
         for name, (kern, plain) in calls.items():
             d_t, d_x = kern()
             torch.cuda.synchronize()
-            errs = [_frac_err(d_t[offs[l]:offs[l + 1]],
-                              want_t[offs[l]:offs[l + 1]]) for l in range(L)]
-            err_x = _frac_err(d_x, want_x)
-            if max(errs) > BWD_TABLE_FRAC or err_x > BWD_DX_FRAC:
-                raise AssertionError(
-                    f"{name} N={n}: table errors per level {errs} (limit "
-                    f"{BWD_TABLE_FRAC}), d_x {err_x} (limit {BWD_DX_FRAC})")
+            errs, err_x = _bwd_errors(f"{name} N={n}", (d_t, d_x),
+                                      (want_t, want_x), level_rows)
             rec = {"name": name, "n": n, "levels": L, "n_feat": F,
                    "max_abs_err": max((d_t - want_t).abs().max().item(),
                                       (d_x - want_x).abs().max().item()),
@@ -504,6 +633,13 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
                 # the kernel's own traffic: 8 corners x F bf16 read and
                 # 8 x F f32 atomics per (sample, level)
                 rec["corner_bytes"] = n * L * 8 * F * (2 + 4)
+                if name == "fused_encode_bwd":
+                    xm = _ray_major_x(n // 64, seed)
+                    rm = _level_rows(xm, spec)
+                    rec["ray_major_ms"] = cuda_ms(
+                        lambda: ek.fused_encode_bwd(
+                            xm, g, rm, table, scales, nbs, level_rows, F), 20)
+                    del xm, rm
                 results[name] = rec
             log(json.dumps({"kernel_check": rec}))
         del feats, want_t, want_x
@@ -873,7 +1009,6 @@ def interp_bwd_kernel_phase(spec, n_main, n_ragged, seed):
     at a ragged one; one bf16 cotangent row in eight zero."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.ops.brick_grid import _level_geom
     from cednerf_torch.utils.bench import cuda_ms
 
     lay = spec.level_layout()
@@ -890,9 +1025,9 @@ def interp_bwd_kernel_phase(spec, n_main, n_ragged, seed):
         g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
              ).to(torch.bfloat16)
         g[::8] = 0
-        feats = torch.stack([tables[l].index_select(0, _level_geom(
-            x, scales[l], nbs[l], lay[l]["hashed"], level_rows[l])[0].long())
-            for l in range(L)]).contiguous()
+        rows = _level_rows(x, spec)
+        feats = torch.stack([tables[l].index_select(0, rows[l].long())
+                             for l in range(L)]).contiguous()
         want_u, want_x = ek.interp_bwd_plain(x, g, feats, scales, nbs, F)
         upd, d_x = ek.interp_bwd(x, g, feats, scales, nbs, F)
         torch.cuda.synchronize()
@@ -1067,7 +1202,8 @@ def main(argv=None):
         + ", ".join(f"{k} (nvcc {v[0]:.2f} s)" for k, v in builds.items()))
     for stem, (_, build_log) in builds.items():
         for line in build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Compiling entry function" in line or "registers" in line
+                    or "spill" in line):
                 log(f"ptxas {stem}: " + line.strip())
 
     cfg = dnerf_config()
@@ -1083,6 +1219,7 @@ def main(argv=None):
     kern = kernel_phase(field, n_main, 1_000_003, args.seed)
     kern.update(backward_kernel_phase(field, cfg.sample_budget, 100_003,
                                       args.seed))
+    cells = cell_kernel_phase(field.hash_encoder.bspec, args.seed)
     kern["compact_select"] = compact_kernel_phase(cfg.sample_budget,
                                                   args.seed)
 
@@ -1161,7 +1298,12 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+        line[-1].update({k: r[k] for k in ("sector_bound_ms", "ray_major_ms")
+                         if k in r})
+        if name == "fused_encode_bwd":
+            line[-1]["one_brick_ms"] = cells[-1]["ms"]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
+    log(card_name())
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

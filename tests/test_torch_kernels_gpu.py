@@ -32,11 +32,17 @@ from cednerf_torch.ops import compact_kernels as ck
 from cednerf_torch.ops import encode_kernels as ek
 from cednerf_torch.ops import gather_kernels as gk
 from cednerf_torch.ops import scatter_kernels as sk
+from cednerf_torch.utils.bench import cell_points
 
 pytestmark = pytest.mark.gpu
 
 
-def _cuda_inputs(seed, n_feat, n, levels):
+def _cuda_inputs(seed, n_feat, n, levels, points=None):
+    """Tables of +-1e-4 and positions for a spec of `levels` levels: n
+    uniform points in and just around the unit cube, or with
+    points="cells" bench.cell_points (every intra cell and cell and brick
+    boundaries of each level) and n uniform ones after them, or with
+    points="one brick" n points inside one level-0 brick."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     spec = tbg.BrickGridSpec(n_levels=levels, n_features=n_feat, base_res=16,
@@ -46,10 +52,16 @@ def _cuda_inputs(seed, n_feat, n, levels):
     lay = spec.level_layout()
     tables = [rng.uniform(-1e-4, 1e-4, (l["rows"], 64 * n_feat))
               .astype(np.float32) for l in lay]
-    x = torch.from_numpy(rng.uniform(-0.05, 1.05, (n, 3)).astype(
-        np.float32)).cuda()
     scales = spec.level_scales()
     nbs = [l["n_bricks_axis"] for l in lay]
+    x = rng.uniform(-0.05, 1.05, (n, 3)).astype(np.float32)
+    if points == "cells":
+        x = np.concatenate([cell_points(scales, nbs, seed), x])
+    elif points == "one brick":
+        # pos = x * scale + 0.5 in [3.01, 5.99): brick 1 of level 0 per axis
+        x = ((rng.uniform(3.01, 5.99, (n, 3)) - 0.5)
+             / np.float32(scales[0])).astype(np.float32)
+    x = torch.from_numpy(x).cuda()
     level_rows = [l["rows"] for l in lay]
     rows = torch.stack([tbg._level_geom(x, scales[i], nbs[i], l["hashed"],
                                         l["rows"])[0]
@@ -61,11 +73,14 @@ def _cuda_inputs(seed, n_feat, n, levels):
     return x, table, rows, feats, scales, nbs, level_rows
 
 
-@pytest.mark.parametrize("n_feat,n,levels", [(4, 1001, 8), (2, 4099, 16),
-                                             (1, 33, 3)])
-def test_kernels_match_plain(n_feat, n, levels):
+@pytest.mark.parametrize("n_feat,n,levels,points", [
+    (4, 1001, 8, None), (2, 4099, 16, None), (1, 33, 3, None),
+    (4, 101, 8, "cells"), (2, 77, 5, "cells"), (1, 5, 3, "cells")])
+def test_kernels_match_plain(n_feat, n, levels, points):
+    """K5 and K1 against K5's plain version; with points="cells" on every
+    intra cell and on cell and brick boundaries of each level."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
-        0, n_feat, n, levels)
+        0, n_feat, n, levels, points)
     want = ek.fused_encode_fwd_plain(x, table, rows, scales, nbs, level_rows,
                                      n_feat, torch.float32)
     for out_dtype, rtol, atol in ((torch.float32, 1e-5, 1e-9),
@@ -114,14 +129,20 @@ def _close_to_scale(got, want):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale + 1e-30)
 
 
-@pytest.mark.parametrize("n_feat,n,levels", [(4, 1001, 8), (2, 4099, 16),
-                                             (1, 33, 3), (4, 20000, 4)])
-def test_backward_kernels_match_plain(n_feat, n, levels):
+@pytest.mark.parametrize("n_feat,n,levels,points", [
+    (4, 1001, 8, None), (2, 4099, 16, None), (1, 33, 3, None),
+    (4, 20000, 4, None), (4, 101, 8, "cells"), (2, 77, 5, "cells"),
+    (1, 5, 3, "cells"), (4, 20000, 8, "one brick"),
+    (2, 4097, 3, "one brick")])
+def test_backward_kernels_match_plain(n_feat, n, levels, points):
+    """K6 and K2 against K6's plain version; "cells" as in
+    test_kernels_match_plain, "one brick" puts every sample into one
+    level-0 brick (the most contended table gradient)."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
-        3, n_feat, n, levels)
+        3, n_feat, n, levels, points)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    g = (torch.randn((n, levels * n_feat), device="cuda", generator=gen)
-         ).to(torch.bfloat16)
+    g = (torch.randn((x.shape[0], levels * n_feat), device="cuda",
+                     generator=gen)).to(torch.bfloat16)
     g[::7] = 0          # unused budget slots carry a zero cotangent
     want_t, want_x = ek.fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
                                                level_rows, n_feat)
