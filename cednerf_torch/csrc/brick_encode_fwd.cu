@@ -52,14 +52,22 @@
 // (110 KB) in shared memory, which serves one lane in eight, costs every
 // block a 110-KB load, and saves reads of rows the L2 already holds.
 //
-// K1 keeps its first design (a group of G = 8F lanes per sample, each lane
-// loading 16 B of the gathered 512-B row, the group's partial sums folded
-// with warp shuffles): the caller gathers its rows [L, N, 64F], so it is
-// bound by reading them whole. K5 was first that design with the gather
-// inside the kernel: it read all 64 corners of every row and spent ~200
-// warp instructions per (sample, level) on lane weights and shuffles
-// (8.915 ms per seg-eval pass on an H100 80GB HBM3 at 700 W, 110x its
-// bound).
+// K1 is K5's design on rows the caller has already gathered, [L, N, 64F]:
+// thread (l, i) reads the 4 z-lines of row (l, i), never the other 56
+// corners. Those rows are read once and never again, so they come from HBM,
+// not the L2: what bounds K1 is the 4 z-lines per (sample, level), N*L*4*8F
+// bytes (2.15 GB for one 2M-sample seg-eval pass at L8 F4, 0.64 ms at 3.35
+// TB/s). The two lines of one dx are 64 contiguous bytes at 128*ix + 32*iy
+// (F = 4); for iy = 1 they straddle a 64-byte boundary, so an L2 that
+// fetches 64-byte pairs moves up to ~1.33x those bytes. A thread owns two
+// (sample, level) pairs and issues all their loads, through the read-only
+// path, before any of their sums. Other settings, each built from this
+// source and timed beside it in one run by a probe since removed (an H100
+// 80GB HBM3 at 700 W): two pairs took 1.129 ms per pass, one pair per thread
+// 1.188, four 1.139 (218 registers at F = 4), ld.global.cs (evict first)
+// 1.188 with two pairs and 1.253 with one. K1's first design, a group of 8F
+// lanes per sample, each loading 16 B of the 512-B row and the group's sums
+// folded with shuffles, took 7.52 ms, 11x its bound.
 //
 // The TPU envelopes do not carry over: any N is accepted (the last group is
 // masked, not padded to a tile), any F in {1, 2, 4}, no 128-lane view and no
@@ -75,7 +83,7 @@ namespace {
 
 constexpr int kMaxLevels = 16;
 constexpr int kBlock = 256;
-constexpr int kLoadBatch = 8;  // levels whose rows a lane loads before math
+constexpr int kK1PerThread = 2;  // (sample, level) pairs a K1 thread owns
 
 struct Levels {
   float scale[kMaxLevels];
@@ -106,59 +114,31 @@ __device__ __forceinline__ void axis_geom(float xa, float scale, int nb,
   intra = cell - (cell / 3) * 3;
 }
 
-__device__ __forceinline__ float axis_weight(int k, int i, float f,
-                                             float one_minus) {
-  return k == i ? one_minus : (k == i + 1 ? f : 0.0f);
-}
-
-template <typename OutT>
-__device__ __forceinline__ OutT to_out(float v);
-template <>
-__device__ __forceinline__ float to_out<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Interpolate one level from this lane's 16-byte slice of the brick row and
-// fold the group's partial sums; lane 0 of the group stores the F features.
-template <int F, typename OutT>
-__device__ __forceinline__ void interp_level(const uint4& v, int q, float px,
-                                             float py, float pz, float scale,
-                                             int nb, bool valid, OutT* dst) {
-  constexpr int G = 8 * F;
+// A sample's cell on one level: intra cell and fractions per axis (g = 1 -
+// f).
+struct Cell {
   int ix, iy, iz;
   float fx, fy, fz, gx, gy, gz;
-  axis_geom(px, scale, nb, ix, fx, gx);
-  axis_geom(py, scale, nb, iy, fy, gy);
-  axis_geom(pz, scale, nb, iz, fz, gz);
-  float acc[F];
+};
+
+__device__ __forceinline__ Cell cell_of(const float* __restrict__ x,
+                                        long long i, float scale, int nb) {
+  Cell c;
+  axis_geom(__ldg(x + i * 3), scale, nb, c.ix, c.fx, c.gx);
+  axis_geom(__ldg(x + i * 3 + 1), scale, nb, c.iy, c.fy, c.gy);
+  axis_geom(__ldg(x + i * 3 + 2), scale, nb, c.iz, c.fz, c.gz);
+  return c;
+}
+
+// The 4 z-lines of the cell in a brick row.
+template <int F>
+__device__ __forceinline__ void load_cell(const __nv_bfloat16* row,
+                                          const Cell& c,
+                                          ZLine<F> (&line)[4]) {
 #pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 ab = __bfloat1622float2(pairs[j]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = q * 8 + j * 2 + h;  // lane within the row
-      const int c = e / F;              // corner = dx*16 + dy*4 + dz
-      const float w = axis_weight(c >> 4, ix, fx, gx) *
-                      axis_weight((c >> 2) & 3, iy, fy, gy) *
-                      axis_weight(c & 3, iz, fz, gz);
-      acc[(j * 2 + h) % F] = fmaf(w, h ? ab.y : ab.x, acc[(j * 2 + h) % F]);
-    }
-  }
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) {
-#pragma unroll
-    for (int f = 0; f < F; ++f)
-      acc[f] += __shfl_xor_sync(0xffffffffu, acc[f], o);
-  }
-  if (q == 0 && valid) {
-#pragma unroll
-    for (int f = 0; f < F; ++f) dst[f] = to_out<OutT>(acc[f]);
-  }
+  for (int q = 0; q < 4; ++q)
+    line[q] = load_zline<F>(
+        row + ((c.ix + (q >> 1)) * 16 + (c.iy + (q & 1)) * 4) * F);
 }
 
 template <int F, typename OutT>
@@ -199,6 +179,34 @@ __device__ __forceinline__ void store_feats<1, __nv_bfloat16>(
   *dst = __float2bfloat16_rn(v[0]);
 }
 
+// The trilinear sum of the cell's 8 corners from its 4 z-lines, products
+// in the plain version's order (wx * wy) * wz and summed in f32, stored as
+// the F features of one (sample, level). Corners iz and iz+1 of each line
+// get the compare-built z weights, the other two 0.
+template <int F, typename OutT>
+__device__ __forceinline__ void interp_store(const ZLine<F> (&line)[4],
+                                             const Cell& c, OutT* dst) {
+  float wz[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    wz[k] = k == c.iz ? c.gz : (k == c.iz + 1 ? c.fz : 0.0f);
+  float acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float wxy = ((q >> 1) ? c.fx : c.gx) * ((q & 1) ? c.fy : c.gy);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float w = wxy * wz[k];
+#pragma unroll
+      for (int f = 0; f < F; ++f)
+        acc[f] = fmaf(w, zval<F>(line[q], k, f), acc[f]);
+    }
+  }
+  store_feats<F, OutT>(dst, acc);
+}
+
 // K5: rows [L, N] i32 (level-local), x [N, 3] f32, table [sum R_l, 64F] bf16
 // (levels concatenated, level l from row lv.offset[l]) -> out [N, L*F].
 // Block (L, kBlock / L): threadIdx.x is the level, threadIdx.y the sample.
@@ -226,70 +234,46 @@ __global__ void __launch_bounds__(kBlock)
   if (i >= n) return;
   int r = __ldg(rows + (long long)l * n + i);
   r = min(max(r, 0), s_rows[l] - 1);
-  const float scale = s_scale[l];
-  const int nb = s_nb[l];
-  int ix, iy, iz;
-  float fx, fy, fz, gx, gy, gz;
-  axis_geom(__ldg(x + i * 3), scale, nb, ix, fx, gx);
-  axis_geom(__ldg(x + i * 3 + 1), scale, nb, iy, fy, gy);
-  axis_geom(__ldg(x + i * 3 + 2), scale, nb, iz, fz, gz);
-  const __nv_bfloat16* row = table + (s_offset[l] + r) * (64 * F);
+  const Cell c = cell_of(x, i, s_scale[l], s_nb[l]);
   ZLine<F> line[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    line[q] = load_zline<F>(row +
-                            ((ix + (q >> 1)) * 16 + (iy + (q & 1)) * 4) * F);
-  float wz[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) wz[k] = axis_weight(k, iz, fz, gz);
-  float acc[F];
-#pragma unroll
-  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    // the plain version's product order: (wx * wy) * wz
-    const float wxy = ((q >> 1) ? fx : gx) * ((q & 1) ? fy : gy);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float w = wxy * wz[k];
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        acc[f] = fmaf(w, zval<F>(line[q], k, f), acc[f]);
-    }
-  }
-  store_feats<F, OutT>(out + (i * n_levels + l) * F, acc);
+  load_cell<F>(table + (s_offset[l] + r) * (64 * F), c, line);
+  interp_store<F, OutT>(line, c, out + (i * n_levels + l) * F);
 }
 
-// K1: feats [L, N, 64F] bf16 (rows already gathered), x [N, 3] f32
-// -> out [N, L*F].
+// K1: x [N, 3] f32, feats [L, N, 64F] bf16 (rows already gathered) -> out
+// [N, L*F]. Block (L, kBlock / L) as K5's; a thread owns samples i0 + p *
+// blockDim.y for p < kK1PerThread and loads all their z-lines before it
+// sums any of them.
 template <int F, typename OutT>
 __global__ void __launch_bounds__(kBlock)
     interp_fwd_kernel(const float* __restrict__ x,
-                      const uint4* __restrict__ feats, Levels lv, int n_levels,
-                      long long n, OutT* __restrict__ out) {
-  constexpr int G = 8 * F;
-  constexpr int kRowVecs = 8 * F;
-  const long long sample = ((long long)blockIdx.x * kBlock + threadIdx.x) / G;
-  const int q = threadIdx.x % G;
-  const bool valid = sample < n;
-  const long long i = valid ? sample : n - 1;
-  const float px = x[i * 3], py = x[i * 3 + 1], pz = x[i * 3 + 2];
-  OutT* dst = out + i * (long long)(n_levels * F);
-  for (int l0 = 0; l0 < n_levels; l0 += kLoadBatch) {
-    uint4 v[kLoadBatch];
+                      const __nv_bfloat16* __restrict__ feats, Levels lv,
+                      int n_levels, long long n, OutT* __restrict__ out) {
+  __shared__ float s_scale[kMaxLevels];
+  __shared__ int s_nb[kMaxLevels];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if (tid < n_levels) {
+    s_scale[tid] = lv.scale[tid];
+    s_nb[tid] = lv.nb[tid];
+  }
+  __syncthreads();
+  const int l = threadIdx.x;
+  const long long i0 =
+      (long long)blockIdx.x * blockDim.y * kK1PerThread + threadIdx.y;
+  Cell c[kK1PerThread];
+  ZLine<F> line[kK1PerThread][4];
 #pragma unroll
-    for (int j = 0; j < kLoadBatch; ++j) {
-      const int l = l0 + j;
-      if (l < n_levels)
-        v[j] = __ldg(feats + ((long long)l * n + i) * kRowVecs + q);
+  for (int p = 0; p < kK1PerThread; ++p) {
+    const long long i = i0 + (long long)p * blockDim.y;
+    if (i < n) {
+      c[p] = cell_of(x, i, s_scale[l], s_nb[l]);
+      load_cell<F>(feats + ((long long)l * n + i) * (64 * F), c[p], line[p]);
     }
+  }
 #pragma unroll
-    for (int j = 0; j < kLoadBatch; ++j) {
-      const int l = l0 + j;
-      if (l < n_levels)
-        interp_level<F, OutT>(v[j], q, px, py, pz, lv.scale[l], lv.nb[l],
-                              valid, dst + l * F);
-    }
+  for (int p = 0; p < kK1PerThread; ++p) {
+    const long long i = i0 + (long long)p * blockDim.y;
+    if (i < n) interp_store<F, OutT>(line[p], c[p], out + (i * n_levels + l) * F);
   }
 }
 
@@ -305,10 +289,6 @@ bool fill_levels(Levels& lv, int n_levels, const float* scales, const int* nbs,
     off += lv.rows[l];
   }
   return true;
-}
-
-unsigned int grid_for(long long n, int n_feat) {
-  return (unsigned int)((n * 8 * n_feat + kBlock - 1) / kBlock);
 }
 
 template <typename OutT>
@@ -335,22 +315,25 @@ void launch_fused(int n_feat, cudaStream_t st, const int* rows, const float* x,
 }
 
 template <typename OutT>
-void launch_interp(int n_feat, unsigned int grid, cudaStream_t st,
-                   const float* x, const uint4* feats, const Levels& lv,
-                   int n_levels, long long n, void* out) {
+void launch_interp(int n_feat, cudaStream_t st, const float* x,
+                   const __nv_bfloat16* feats, const Levels& lv, int n_levels,
+                   long long n, void* out) {
   OutT* o = static_cast<OutT*>(out);
+  const dim3 block(n_levels, kBlock / n_levels);
+  const long long per_block = (long long)block.y * kK1PerThread;
+  const unsigned int grid = (unsigned int)((n + per_block - 1) / per_block);
   switch (n_feat) {
     case 1:
-      interp_fwd_kernel<1, OutT><<<grid, kBlock, 0, st>>>(x, feats, lv,
-                                                          n_levels, n, o);
+      interp_fwd_kernel<1, OutT><<<grid, block, 0, st>>>(x, feats, lv,
+                                                         n_levels, n, o);
       break;
     case 2:
-      interp_fwd_kernel<2, OutT><<<grid, kBlock, 0, st>>>(x, feats, lv,
-                                                          n_levels, n, o);
+      interp_fwd_kernel<2, OutT><<<grid, block, 0, st>>>(x, feats, lv,
+                                                         n_levels, n, o);
       break;
     default:
-      interp_fwd_kernel<4, OutT><<<grid, kBlock, 0, st>>>(x, feats, lv,
-                                                          n_levels, n, o);
+      interp_fwd_kernel<4, OutT><<<grid, block, 0, st>>>(x, feats, lv,
+                                                         n_levels, n, o);
       break;
   }
 }
@@ -392,14 +375,12 @@ int brick_interp_fwd(const float* x, const void* feats, int n_levels,
   if (n <= 0 || !feat_ok(n_feat) ||
       !fill_levels(lv, n_levels, scales, nbs, nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned int grid = grid_for(n, n_feat);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint4* f = static_cast<const uint4*>(feats);
+  const __nv_bfloat16* f = static_cast<const __nv_bfloat16*>(feats);
   if (out_f32)
-    launch_interp<float>(n_feat, grid, st, x, f, lv, n_levels, n, out);
+    launch_interp<float>(n_feat, st, x, f, lv, n_levels, n, out);
   else
-    launch_interp<__nv_bfloat16>(n_feat, grid, st, x, f, lv, n_levels, n,
-                                 out);
+    launch_interp<__nv_bfloat16>(n_feat, st, x, f, lv, n_levels, n, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,13 +6,19 @@
     `compact_select_pallas`, which is bit-compatible with
     cednerf_tpu/engine/renderer.py `compact_select_rayfold`.
 
-The kernel lives in csrc/compact_select.cu (a hand-written multi-pass
-stream compaction: tile counts, one scan of the tile totals, a ranking and
-select pass, a sentinel fill), built by nvcc for sm_90a at first use
-(ops/cuda_build.py). Its plain version, `compact_select_rayfold`, is the
-port of the JAX function of that name: both return the same bits. A CPU
-tensor takes the plain version, a CUDA tensor the kernel; nothing falls
-back. `launches` / `plain_cuda_calls` count as in ops/encode_kernels.py.
+The kernel lives in csrc/compact_select.cu (a hand-written single-pass
+stream compaction with decoupled look-back: one launch that reads the
+lattice once, ranks it tile by tile and fills the sentinel), built by nvcc
+for sm_90a at first use (ops/cuda_build.py). Its plain version,
+`compact_select_rayfold`, is the port of the JAX function of that name:
+both return the same bits. A CPU tensor takes the plain version, a CUDA
+tensor the kernel; nothing falls back. `launches` / `plain_cuda_calls`
+count as in ops/encode_kernels.py.
+
+The kernel's scratch (one status word per tile and a tile counter that
+carries a per-call epoch, so nothing is reset between calls) is allocated
+once per device and stream and kept in `_SCRATCH`: a call allocates only
+`sel` and `kept`.
 """
 
 import ctypes
@@ -21,7 +27,12 @@ import torch
 
 from .cuda_build import KernelLibrary
 
-TILE = 4096   # candidates per block of the count and select passes
+TILE = 8192   # candidates per tile of the kernel (kTile)
+_MIN_TILES = 2048   # status words of a first scratch (16.8 M candidates)
+
+# (device index, stream) -> int64 [tiles + 1]: the status words, then the
+# tile counter, whose high half is the epoch (starts at 1, no claims)
+_SCRATCH = {}
 
 launches = {"compact_select": 0}
 plain_cuda_calls = {"compact_select": 0}
@@ -36,7 +47,7 @@ def reset_counts():
 def _bind(lib):
     p = ctypes.c_void_p
     lib.compact_select.argtypes = [p, ctypes.c_longlong, ctypes.c_int, p, p,
-                                   p, p, p]
+                                   p, ctypes.c_longlong, p, p]
     lib.compact_select.restype = ctypes.c_int
 
 
@@ -97,13 +108,28 @@ def compact_select_kernel(valid: torch.Tensor, budget: int):
     dev = v.device
     sel = torch.empty(budget, dtype=torch.int32, device=dev)
     kept = torch.empty((r, m), dtype=torch.bool, device=dev)
-    offsets = torch.empty(-(-n // TILE), dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    status = _scratch(dev, stream, -(-n // TILE))
     lib = _LIB.get()
     rc = lib.compact_select(v.data_ptr(), n, budget, sel.data_ptr(),
-                            kept.data_ptr(), offsets.data_ptr(),
-                            total.data_ptr(),
-                            torch.cuda.current_stream(dev).cuda_stream)
+                            kept.data_ptr(), status.data_ptr(),
+                            status.numel() - 1,
+                            status.data_ptr() + 8 * (status.numel() - 1),
+                            stream)
     _LIB.check(rc, "compact_select")
     launches["compact_select"] += 1
     return sel, kept
+
+
+def _scratch(dev, stream: int, n_tiles: int) -> torch.Tensor:
+    """The kernel's status words and tile counter for (device, stream),
+    made once (zeros, the counter at epoch 1) and again only for a lattice
+    of more tiles than it holds."""
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() - 1 < n_tiles:
+        buf = torch.zeros(max(n_tiles, _MIN_TILES) + 1, dtype=torch.int64,
+                          device=dev)
+        buf[-1] = 1 << 32
+        _SCRATCH[key] = buf
+    return buf

@@ -2,7 +2,8 @@
 profile_training.py: the card's name, CUDA-event timing, the viewer's
 default orbit camera, an occupancy grid filled for a field, hash tables
 drawn at a scale that the MLPs feel, the train step's flags (3D and 4D
-encoder), a profiler table of device time by kernel, two sample sets for
+encoder), a profiler table of device time by kernel and a call's device
+time from it, two sample sets for
 the encoder kernels (ray-major samples of one camera, and points on every
 intra-brick cell and cell boundary of each level), and the match groups
 that K6 forms on a batch."""
@@ -111,6 +112,24 @@ def device_time_by_kernel(prof):
                    and dev_us(e) > 0 and "#" not in e.key),
                   key=lambda r: -r[2])
     return rows, sum(r[2] for r in rows)
+
+
+def device_ms(fn, reps: int):
+    """(device ms per call, the rows of device_time_by_kernel) of `reps`
+    calls of fn under torch.profiler, after one warm-up: the sum of the
+    kernels (and copies) the calls ran on the card, without the host time
+    between them that CUDA events over back-to-back calls also count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows, total = device_time_by_kernel(prof)
+    return total / reps, rows
 
 
 def ray_major_samples(n_rays: int, n_samples: int = 64, seed: int = 0,

@@ -13,16 +13,18 @@ Phases, each of which must pass (nothing is caught and carried on):
      PyTorch versions at one full seg-eval pass (eval_chunk_seg 32768 x
      budget_per_ray 64 = 2,097,152 samples) and at a ragged N; K6
      (fused_encode_bwd) and K2 (interp_bwd_fused) at one train step's
-     262,144 samples and at a ragged N, all 8 levels, tables of +-8; K5 and
-     K6 also on every intra cell and on cell and brick boundaries of each
-     level at F = 1, 2, 4 (K5 in both output dtypes), and K6 on a batch
-     whose samples all lie in one level-0 brick; K4 (compact_select)
-     bit-exact on [256, 1024] and [16000, 1024] lattices (the warmup and
-     top ray buckets) at occupancy 1.0 and ~0.1, budget 262,144. Each is
-     timed with CUDA events beside its bound on uniform random samples, K5
-     and K6 also on ray-major ones (32,768 and 4,096 rays of one 400x400
-     camera, 64 samples each, as a seg-eval pass and a packed step order
-     them);
+     262,144 samples and at a ragged N, all 8 levels, tables of +-8; K5, K1
+     and K6 also on every intra cell and on cell and brick boundaries of
+     each level at F = 1, 2, 4 (K5 and K1 in both output dtypes), and K6 on
+     a batch whose samples all lie in one level-0 brick; K4
+     (compact_select) bit-exact on [256, 1024] and [16000, 1024] lattices
+     (the warmup and top ray buckets) at occupancy 1.0 and ~0.1, budget
+     262,144. Each is timed with CUDA events beside its bound on uniform
+     random samples, K5 and K6 also on ray-major ones (32,768 and 4,096
+     rays of one 400x400 camera, 64 samples each, as a seg-eval pass and a
+     packed step order them); K4 and torch.nonzero also by their device
+     time per call under torch.profiler (bench.device_ms), which leaves out
+     the host time between calls that the events count;
   4. reference: a small frame rendered on the card (kernel route) and on
      the CPU (plain route) from the same weights and grid must agree (see
      reference_phase for why the check can fail);
@@ -272,12 +274,13 @@ def kernel_phase(field, n_main, n_ragged, seed):
 
 
 def cell_kernel_phase(spec4, seed):
-    """K5 and K6 against their plain versions on the points that stress
+    """K5, K1 and K6 against their plain versions on the points that stress
     their corner addressing: every intra cell of a few bricks and cell and
     brick boundaries (with their f32 neighbours) on each level
     (bench.cell_points), then 10,007 uniform points, at the field's level
-    geometry with F = 1, 2 and 4, tables of +-1e-4 as a fresh field's; K5 in
-    both output dtypes. Then K6 on 262,144 samples that all lie in one
+    geometry with F = 1, 2 and 4, tables of +-1e-4 as a fresh field's; K5
+    and K1 (on the rows gathered at those points) in both output dtypes.
+    Then K6 on 262,144 samples that all lie in one
     level-0 brick, tables of +-8 (every atomic of level 0 on one row:
     the most contended table gradient and the largest match groups), timed."""
     import numpy as np
@@ -309,12 +312,23 @@ def cell_kernel_phase(spec4, seed):
             torch.cuda.synchronize()
             rec[f"k5_max_abs_err_{str(od)[6:]}"] = check_close(
                 f"fused_encode_fwd cells F={F} {od}", got, want, rtol, atol)
+        offs = np.cumsum([0] + level_rows)
+        feats = torch.stack([table[offs[l]:offs[l + 1]].index_select(
+            0, rows[l].long()) for l in range(L)]).contiguous()
+        want1 = ek.interp_fwd_plain(x, feats, scales, nbs, F, torch.float32)
+        for od, rtol, atol in ((torch.bfloat16, BF16_RTOL, BF16_ATOL),
+                               (torch.float32, F32_RTOL, F32_ATOL)):
+            got = ek.interp_fwd(x, feats, scales, nbs, F, od)
+            torch.cuda.synchronize()
+            rec[f"k1_max_abs_err_{str(od)[6:]}"] = check_close(
+                f"interp_fwd cells F={F} {od}", got, want1, rtol, atol)
+        del feats
         g = torch.randn((x.shape[0], L * F), device="cuda",
                         generator=gen).to(torch.bfloat16)
         g[::8] = 0
         rec.update(_k6_against_plain(f"cells F={F}", x, g, rows, table,
                                      scales, nbs, level_rows, F))
-        log(json.dumps({"kernel_check": {"name": "k5_k6_cells", **rec}}))
+        log(json.dumps({"kernel_check": {"name": "k5_k1_k6_cells", **rec}}))
         recs.append(rec)
     spec = spec4
     lay = spec.level_layout()
@@ -650,10 +664,13 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
 def compact_kernel_phase(budget, seed):
     """K4 bit-exact against its plain version on the warmup and top ray
     buckets' lattices at occupancy 1.0 and ~0.1; times the top bucket at
-    ~0.1 (a carved steady-state grid) beside torch.nonzero."""
+    ~0.1 (a carved steady-state grid) beside torch.nonzero, each with CUDA
+    events over 20 back-to-back calls (`ms`, `library_ms`) and by its
+    device time per call under the profiler (`device_ms`,
+    `library_device_ms`, with the kernels each call ran)."""
     import torch
     from cednerf_torch.ops import compact_kernels as ck
-    from cednerf_torch.utils.bench import cuda_ms
+    from cednerf_torch.utils.bench import cuda_ms, device_ms
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     main = None
@@ -678,6 +695,12 @@ def compact_kernel_phase(budget, seed):
                     lambda: ck.compact_select_rayfold(valid, budget), 3)
                 flat = valid.reshape(-1)
                 rec["library_ms"] = cuda_ms(lambda: torch.nonzero(flat), 20)
+                rec["device_ms"], k4_rows = device_ms(
+                    lambda: ck.compact_select_kernel(valid, budget), 20)
+                rec["library_device_ms"], lib_rows = device_ms(
+                    lambda: torch.nonzero(flat), 20)
+                rec["device_kernels"] = [r[:2] for r in k4_rows]
+                rec["library_device_kernels"] = [r[:2] for r in lib_rows]
                 n = valid.numel()
                 # read the lattice once, write kept and sel once; the work
                 # is a few integer operations per candidate
@@ -1298,7 +1321,8 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
-        line[-1].update({k: r[k] for k in ("sector_bound_ms", "ray_major_ms")
+        line[-1].update({k: r[k] for k in ("sector_bound_ms", "ray_major_ms",
+                                           "device_ms", "library_device_ms")
                          if k in r})
         if name == "fused_encode_bwd":
             line[-1]["one_brick_ms"] = cells[-1]["ms"]

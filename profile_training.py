@@ -113,8 +113,8 @@ def main(argv=None):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows, device_ms = device_time_by_kernel(prof)
     ours = [r for r in rows if any(k in r[0] for k in (
-        "fused_encode", "interp_fwd", "encode_bwd", "count_kernel",
-        "scan_tiles", "select_kernel", "fill_kernel", "scatter_rows"))]
+        "fused_encode", "interp_fwd", "encode_bwd", "compact_select",
+        "scatter_rows"))]
     cpu_ops = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CPU),
                      key=lambda e: -e.self_cpu_time_total)

@@ -20,6 +20,11 @@ CASES = [  # r, m, budget, occupancy
     (16, 128, 1024, 1.0),     # full lattice, budget under demand
     (16, 128, 4096, 1.0),     # full lattice, budget over demand
     (40, 64, 977, 0.25),      # budget not a multiple of anything
+    # lattices of several of the CUDA kernel's tiles (ck.TILE candidates)
+    (64, 512, 5000, 0.5),     # 4 tiles, the budget inside the second
+    (64, 512, 2 * ck.TILE, 1.0),  # the budget on a tile edge
+    (37, 1000, 9000, 0.6),    # n = 37,000, not a multiple of 16
+    (20, 1000, 30000, 0.4),   # budget above n (sentinel fill past n slots)
 ]
 
 
@@ -76,3 +81,20 @@ def test_kernel_wrapper_counts_plain_calls_only_on_cuda():
     ck.compact_select_kernel(torch.ones((4, 8), dtype=torch.bool), 16)
     assert ck.launches == {"compact_select": 0}
     assert ck.plain_cuda_calls == {"compact_select": 0}
+
+
+def test_kernel_scratch_is_made_once_per_device_and_stream(monkeypatch):
+    """K4's status words and tile counter are allocated once per (device,
+    stream), with the counter at epoch 1 and no claims, and again only for
+    a lattice of more tiles than they hold."""
+    monkeypatch.setattr(ck, "_SCRATCH", {})
+    dev = torch.device("cpu")
+    first = ck._scratch(dev, 7, 3)
+    assert first.dtype == torch.int64
+    assert first.numel() == ck._MIN_TILES + 1
+    assert first[-1].item() == 1 << 32 and not first[:-1].any()
+    assert ck._scratch(dev, 7, ck._MIN_TILES) is first
+    assert ck._scratch(dev, 8, 3) is not first          # another stream
+    grown = ck._scratch(dev, 7, ck._MIN_TILES + 5)
+    assert grown.numel() == ck._MIN_TILES + 6 and grown[-1].item() == 1 << 32
+    assert ck._scratch(dev, 7, 3) is grown

@@ -1,6 +1,7 @@
-"""The plain versions of K5 (fused_encode_fwd) and K6 (fused_encode_bwd) on
-the points that stress the CUDA kernels' corner addressing, against the JAX
-Pallas kernels they replace, run in interpret mode on the CPU; the
+"""The plain versions of K5 (fused_encode_fwd), K1 (interp_fwd) and K6
+(fused_encode_bwd) on the points that stress the CUDA kernels' corner
+addressing, against the JAX Pallas kernels they replace, run in interpret
+mode on the CPU; the
 ray-major sample builder that chip_smoke.py times the kernels on; and the
 count of K6's match groups that profile_training.py reports.
 
@@ -13,8 +14,8 @@ test_torch_brick_grid.py on FMA contraction).
 
 Tolerances, as tests/test_torch_encode_kernels.py and
 tests/test_torch_encode_backward.py hold these functions:
-  * K5, f32 compute and output on bf16-valued tables: rtol 1e-5, atol
-    1e-9 at the +-1e-4 table scale (summation order only);
+  * K5 and K1, f32 compute and output on bf16-valued tables: rtol 1e-5,
+    atol 1e-9 at the +-1e-4 table scale (summation order only);
   * K6 with compute_dtype=float32 on the JAX side: each level's table
     gradient and d_x within rtol 1e-5 plus 1e-5 of the largest entry
     (f32 summation order only).
@@ -29,6 +30,7 @@ import pytest
 import torch
 
 from cednerf_tpu.ops import brick_grid as jbg
+from cednerf_tpu.ops import pallas_encoder as jpe
 from cednerf_tpu.ops import pallas_fused as jpf
 from cednerf_torch.ops import brick_grid as tbg
 from cednerf_torch.ops import encode_kernels as ek
@@ -44,8 +46,8 @@ def _bf16(a):
     return np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
 
 
-def _case(seed):
-    spec = tbg.BrickGridSpec(**SPEC_KW)
+def _case(seed, n_feat=4):
+    spec = tbg.BrickGridSpec(**dict(SPEC_KW, n_features=n_feat))
     lay = spec.level_layout()
     assert [l["hashed"] for l in lay] == [False, True, True, True]
     scales = spec.level_scales()
@@ -90,6 +92,24 @@ def test_k5_plain_matches_jax_on_corner_cells():
         torch.from_numpy(x), torch.from_numpy(np.concatenate(tables)),
         torch.from_numpy(rows), scales, nbs, [l["rows"] for l in lay], 4,
         out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-9)
+
+
+@pytest.mark.parametrize("n_feat", [4, 2, 1])
+def test_k1_plain_matches_jax_on_corner_cells(n_feat):
+    """K1's plain version on the rows gathered at the cell points, N padded
+    to the JAX kernel's tile (interp_fwd takes n % tile == 0 only)."""
+    lay, scales, nbs, x, rows, rng = _case(20 + n_feat, n_feat)
+    assert len(x) % TILE == 0
+    feats = np.stack([_bf16(rng.uniform(-1e-4, 1e-4, (l["rows"],
+                                                      64 * n_feat)))[r]
+                      for l, r in zip(lay, rows)])
+    want = jpe.interp_fwd(jnp.asarray(x), [jnp.asarray(f) for f in feats],
+                          scales, nbs, n_feat, compute_dtype=jnp.float32,
+                          tile=TILE, interpret=True)
+    got = ek.interp_fwd_plain(torch.from_numpy(x), torch.from_numpy(feats),
+                              scales, nbs, n_feat, out_dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-9)
 

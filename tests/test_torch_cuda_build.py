@@ -37,3 +37,15 @@ def test_included_headers_are_in_csrc():
                 for inc in re.findall(r'#include "([^"]+)"', fh.read()):
                     assert inc in headers, (name, inc)
     assert "zline.cuh" in headers
+
+
+def test_one_registered_library_per_source():
+    """build_all() builds every csrc/*.cu once: the kernel modules register
+    one library per source, and no source twice."""
+    from cednerf_torch.ops import (compact_kernels, encode_kernels,  # noqa
+                                   gather_kernels, scatter_kernels)
+
+    stems = [lib.stem for lib in cb.LIBRARIES]
+    sources = {n[:-3] for n in os.listdir(cb.CSRC_DIR) if n.endswith(".cu")}
+    assert len(stems) == len(set(stems))
+    assert set(stems) == sources

@@ -1,6 +1,6 @@
 """The CUDA kernels K1, K5, K6, K2, K4, K3, K7 and K8 against their plain
-versions, and the 4D keyframe encoder (whose backward runs K3) against the
-CPU, on the card.
+versions, K4's cached scratch across calls, and the 4D keyframe encoder
+(whose backward runs K3) against the CPU, on the card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither jax nor the JAX package, so it runs on a machine that has only the
@@ -95,6 +95,26 @@ def test_kernels_match_plain(n_feat, n, levels, points):
                                        atol=atol)
 
 
+@pytest.mark.parametrize("points", [None, "cells", "one brick"])
+@pytest.mark.parametrize("n_feat", [1, 2, 4])
+def test_k1_matches_its_plain_version(n_feat, points):
+    """K1 against interp_fwd_plain on the same gathered rows, both output
+    dtypes: uniform points (a ragged N), every intra cell and cell and
+    brick boundary of each level, and a batch in one level-0 brick."""
+    n = {None: 4099, "cells": 101, "one brick": 20000}[points]
+    x, _, _, feats, scales, nbs, _ = _cuda_inputs(5, n_feat, n, 8, points)
+    want = ek.interp_fwd_plain(x, feats, scales, nbs, n_feat, torch.float32)
+    for out_dtype, rtol, atol in ((torch.float32, 1e-5, 1e-9),
+                                  (torch.bfloat16, 2.0 ** -7, 1e-9)):
+        ek.reset_counts()
+        got = ek.interp_fwd(x, feats, scales, nbs, n_feat, out_dtype)
+        torch.cuda.synchronize()
+        assert ek.launches["interp_fwd"] == 1
+        assert ek.plain_cuda_calls["interp_fwd"] == 0
+        assert got.dtype == out_dtype and got.shape == want.shape
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
 def test_k5_clamps_rows_like_its_plain_version():
     x, table, rows, _, scales, nbs, level_rows = _cuda_inputs(2, 4, 777, 8)
     lim = torch.tensor(level_rows, dtype=torch.int32, device="cuda")[:, None]
@@ -164,7 +184,13 @@ def test_backward_kernels_match_plain(n_feat, n, levels, points):
 @pytest.mark.parametrize("r,m,budget,p", [
     (64, 128, 2048, 0.3), (32, 256, 1024, 0.9), (24, 97, 512, 0.5),
     (7, 3, 100, 1.0), (256, 1024, 262144, 1.0), (300, 1024, 262144, 0.1),
-    (16, 1024, 4096, 0.0), (1000, 1000, 1, 0.5)])
+    (16, 1024, 4096, 0.0), (1000, 1000, 1, 0.5),
+    # several tiles (ck.TILE candidates): the budget inside one, on a tile
+    # edge, an n that is not a multiple of 16, a budget above n (sentinel
+    # fill over several fill blocks), the top ray bucket at ~10%
+    (64, 512, 5000, 0.5), (64, 512, 2 * ck.TILE, 1.0),
+    (37, 1000, 9000, 0.6), (20, 1000, 30000, 0.4),
+    (16000, 1024, 262144, 0.1)])
 def test_compact_kernel_bit_exact(r, m, budget, p):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -176,6 +202,41 @@ def test_compact_kernel_bit_exact(r, m, budget, p):
     assert got[0].dtype == torch.int32 and got[1].dtype == torch.bool
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
+
+
+def test_compact_kernel_reuses_its_scratch():
+    """Back-to-back K4 calls on different lattices, with no sync between
+    them, through one cached scratch: each call advances the epoch in the
+    tile counter word and leaves no claim behind, so no call reads the
+    status words of the one before. Then a lattice of more tiles than the
+    scratch holds (it grows once) and a small one after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = [((300, 1024), 0.3, 50000), ((120, 1000), 0.7, 70000),
+             ((300, 1024), 0.05, 262144), ((7, 3), 1.0, 5),
+             ((64, 512), 0.5, 5000)]
+    lattices = [(torch.rand(shape, device="cuda", generator=gen) < p, b)
+                for shape, p, b in cases]
+    wants = [ck.compact_select_rayfold(v, b) for v, b in lattices]
+    ck.compact_select_kernel(*lattices[0])
+    torch.cuda.synchronize()
+    key = (lattices[0][0].device.index, torch.cuda.current_stream().cuda_stream)
+    buf = ck._SCRATCH[key]
+    epoch = buf[-1].item() >> 32
+    gots = [ck.compact_select_kernel(v, b) for v, b in lattices]
+    torch.cuda.synchronize()
+    assert ck._SCRATCH[key] is buf
+    assert buf[-1].item() == (epoch + len(lattices)) << 32
+    for (sel, kept), (want_sel, want_kept) in zip(gots, wants):
+        assert torch.equal(sel, want_sel) and torch.equal(kept, want_kept)
+    big = torch.rand((buf.numel() * ck.TILE // 1000, 1000), device="cuda",
+                     generator=gen) < 0.2
+    for v, b in ((big, 262144), lattices[4]):
+        got = ck.compact_select_kernel(v, b)
+        want = ck.compact_select_rayfold(v, b)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ck._SCRATCH[key] is not buf
 
 
 @pytest.mark.parametrize("m,w,n_rows,bf16", [
