@@ -18,7 +18,7 @@
 //                                 (K3) instead of accumulating them; see the
 //                                 note above interp_bwd_rows_kernel.
 //
-// Both compute, for every (sample, level), the gradient of
+// All three compute, for every (sample, level), the gradient of
 //   out[i, l*F + f] = sum_c w_c(frac) * row[c*F + f]
 // with respect to the brick row (d_table[row, c*F + f] += w_c * g[i, l*F+f])
 // and to the position (d_x[i, a] += scale_l * ok_a * sum_c dw_c/dfrac_a *
@@ -34,28 +34,33 @@
 // in f32 with atomicAdd, in an order that changes from run to run (on the
 // TPU one core walks the sample tiles in order); the wrapper rounds the
 // finished sum to bf16 once when the spec asks for a bf16 accumulator.
-// d_x is summed over the levels in level order (K2, K7 in registers, K6 in
-// shared memory) and written once per sample, so it is deterministic.
+// d_x is summed over the levels in level order (K7 in registers, K6 and K2
+// in shared memory) and written once per sample, so it is deterministic.
 //
-// K6. Each (sample, level) is one thread, and a block is 32 consecutive
-// samples x L levels with one warp per level, so the level's constants are
-// warp-uniform and 32 neighbouring samples of one level share a warp. The
-// thread reads the 4 z-lines of its cell (as K5: 128 B at F = 4, not 8
-// separate corners), computes the geometry once, forms the 8 corners' terms
-// and adds each corner's F gradient lanes with one vector atomicAdd (float4
-// at F = 4, float2 at F = 2; sm_90, global memory): N*L*8 atomic operations,
-// 16.8M at one train step's N = 262,144, L8 F4, instead of N*L*8*F scalar
-// ones. Before the atomics, the lanes of a warp whose samples share a cell
-// (a brick row and intra cell, hence all 8 corners) are found with
-// __match_any_sync and their terms summed by shuffles, so that one lane
-// adds each corner once: ray-major samples (a renderer's and the packed
-// step's order) put 3-4 consecutive samples into one cell of the coarsest
-// level. d_x: each thread leaves its level's 3 terms in shared memory, and
-// the level-0 warp sums them over the levels in level order, as before. A
+// K6 and K2 are one kernel, encode_bwd_kernel<F, Rows>, templated on where
+// the brick row of a (sample, level) lies: row r of level l in the flat
+// table (K6, Rows::kTable, re-gathered inside the kernel) or row (l, i) of
+// the gathered rows [L, N, 64F] that the K1 forward saved (K2,
+// Rows::kGathered). Nothing else differs. Each (sample, level) is one
+// thread, and a block is 32 consecutive samples x L levels with one warp
+// per level, so the level's constants are warp-uniform and 32 neighbouring
+// samples of one level share a warp. The thread reads the 4 z-lines of its
+// cell through the read-only path (zline.cuh, as K5 and K1: 128 B at F = 4,
+// not 8 separate corners), computes the geometry once, forms the 8 corners'
+// terms and adds each corner's F gradient lanes with one vector atomicAdd
+// (float4 at F = 4, float2 at F = 2; sm_90, global memory): N*L*8 atomic
+// operations, 16.8M at one train step's N = 262,144, L8 F4, instead of
+// N*L*8*F scalar ones. Before the atomics, the lanes of a warp whose
+// samples share a cell (a brick row and intra cell, hence all 8 corners)
+// are found with __match_any_sync and their terms summed by shuffles, so
+// that one lane adds each corner once: ray-major samples (a renderer's and
+// the packed step's order) put 3-4 consecutive samples into one cell of the
+// coarsest level. d_x: each thread leaves its level's 3 terms in shared
+// memory, and the level-0 warp sums them over the levels in level order. A
 // (sample, level) whose cotangent is all zero (an unused budget slot) skips
 // its loads and atomics.
 //
-// What bounds K6 now: the atomics in the L2. Its needed bytes (table, x, g,
+// What bounds K6: the atomics in the L2. Its needed bytes (table, x, g,
 // rows read, d_table and d_x written once) take ~0.05 ms at 3.35 TB/s and
 // its corner reads plus atomic payload ~0.16 ms; it takes ~0.45 ms on
 // uniform random samples (16.8M float4 atomics, ~37 G/s) and ~0.30 ms on
@@ -65,16 +70,23 @@
 // saves a third on ray-major ones (0.296 against 0.437 ms) and 36% when
 // every sample lies in one level-0 brick (0.548 against 0.859 ms).
 // profile_training.py reports the share of atomics it saves on a real
-// train step's batch.
+// train step's batch (K2's with --interp).
 // Accumulating the coarse levels in shared memory was not taken: level 0's
 // f32 gradient alone is 216 x 256 x 4 B = 221 KB, a whole SM's shared
 // memory for one block.
 //
-// K2 keeps its first design (a thread per sample walking its levels in
-// order, 8 separate corner reads and F scalar f32 atomics per corner, ~1,200
-// atomics per address on a level of 216 bricks at N = 262,144). K6 was first
-// the same kernel re-gathering from the table: 0.963 ms at N = 262,144 on an
-// H100 80GB HBM3 at 700 W, 19x its bound.
+// What bounds K2: the same L2 atomics to the same addresses as K6, plus
+// its z-lines. Its rows are read once and never by another thread, so the
+// z-lines come from HBM, not from a table mostly held in the L2: N*L*4*8F
+// bytes, 268 MB at N = 262,144 L8 F4, ~0.08 ms at 3.35 TB/s. On an H100
+// 80GB HBM3 at 700 W, beside K6 in two chip_smoke.py runs of one call:
+// 0.511-0.512 ms on uniform random samples against K6's 0.451-0.453, and
+// 0.382-0.390 on ray-major ones against 0.297-0.299; there the lanes of a
+// match group read one table row in K6, but each its own copy of that row
+// in K2. On a real interp step's batch it takes 0.270 device-ms
+// (profile_training.py --interp). Its first design (a thread per sample
+// walking its levels, 8 separate corner reads and F scalar f32 atomics per
+// corner) took 1.001-1.004 ms at N = 262,144 in the same call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -132,69 +144,6 @@ __device__ __forceinline__ void load_corner(const __nv_bfloat16* p,
   }
 }
 
-// K2: src is feats [L, N, 64F] (row i of level l); rows place the gradient
-// in the flat table [sum R_l, 64F].
-template <int F>
-__global__ void __launch_bounds__(kBlock)
-    encode_bwd_kernel(const float* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ g,
-                      const int* __restrict__ rows,
-                      const __nv_bfloat16* __restrict__ src, Levels lv,
-                      int n_levels, long long n, float* __restrict__ d_table,
-                      float* __restrict__ d_x) {
-  constexpr int W = 64 * F;
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i >= n) return;
-  const float p[3] = {x[i * 3], x[i * 3 + 1], x[i * 3 + 2]};
-  float dx[3] = {0.0f, 0.0f, 0.0f};
-  const __nv_bfloat16* gi = g + i * (long long)(n_levels * F);
-  for (int l = 0; l < n_levels; ++l) {
-    float gf[F];
-    bool any = false;
-#pragma unroll
-    for (int f = 0; f < F; ++f) {
-      gf[f] = __bfloat162float(gi[l * F + f]);
-      any |= gf[f] != 0.0f;
-    }
-    if (!any) continue;  // every term of this level is zero
-    int r = rows[(long long)l * n + i];
-    r = min(max(r, 0), lv.rows[l] - 1);
-    const long long trow = lv.offset[l] + r;
-    const __nv_bfloat16* row = src + ((long long)l * n + i) * W;
-    float* drow = d_table + trow * W;
-    int ia[3];
-    float w[3][2], ok[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      axis_geom(p[a], lv.scale[l], lv.nb[l], ia[a], w[a][1], w[a][0], ok[a]);
-    float s[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int c8 = 0; c8 < 8; ++c8) {
-      const int kx = c8 >> 2, ky = (c8 >> 1) & 1, kz = c8 & 1;
-      const int corner = (ia[0] + kx) * 16 + (ia[1] + ky) * 4 + (ia[2] + kz);
-      const float wyz = w[1][ky] * w[2][kz];
-      const float wc = w[0][kx] * wyz;
-      float v[F];
-      load_corner<F>(row + corner * F, v);
-      float h = 0.0f;
-#pragma unroll
-      for (int f = 0; f < F; ++f) {
-        h = fmaf(v[f], gf[f], h);
-        atomicAdd(drow + corner * F + f, wc * gf[f]);
-      }
-      // d w_c / d frac_a = +-(product of the other two axes' weights)
-      s[0] += (kx ? h : -h) * wyz;
-      s[1] += (ky ? h : -h) * (w[0][kx] * w[2][kz]);
-      s[2] += (kz ? h : -h) * (w[0][kx] * w[1][ky]);
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) dx[a] += s[a] * ok[a] * lv.scale[l];
-  }
-  d_x[i * 3] = dx[0];
-  d_x[i * 3 + 1] = dx[1];
-  d_x[i * 3 + 2] = dx[2];
-}
-
 // The F gradient lanes of one corner, added with one vector atomic.
 template <int F>
 __device__ __forceinline__ void add_corner(float* dst, const float (&v)[F]);
@@ -215,25 +164,30 @@ __device__ __forceinline__ void add_corner<1>(float* dst,
   atomicAdd(dst, v[0]);
 }
 
-constexpr int kK6Samples = 32;  // samples of a K6 block: one warp per level
+constexpr int kBwdSamples = 32;  // samples of a K6/K2 block: a warp a level
 
-// K6: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32 (level-local), table
-// [sum R_l, 64F] bf16 -> d_table (accumulated into), d_x [N, 3].
+// Where the brick row of (sample i, level l) lies: row offset_l + r of the
+// flat table [sum R_l, 64F] (K6) or row l*N + i of the gathered rows
+// [L, N, 64F] (K2).
+enum class Rows { kTable, kGathered };
+
+// K6 and K2: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32 (level-local),
+// src the table or the gathered rows (bf16) -> d_table [sum R_l, 64F]
+// (accumulated into), d_x [N, 3].
 // Block (32, L): threadIdx.x is the sample, threadIdx.y the level.
-template <int F>
-__global__ void __launch_bounds__(kK6Samples * kMaxLevels)
-    fused_encode_bwd_kernel(const float* __restrict__ x,
-                            const __nv_bfloat16* __restrict__ g,
-                            const int* __restrict__ rows,
-                            const __nv_bfloat16* __restrict__ table,
-                            Levels lv, int n_levels, long long n,
-                            float* __restrict__ d_table,
-                            float* __restrict__ d_x) {
+template <int F, Rows kRows>
+__global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
+    encode_bwd_kernel(const float* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ g,
+                      const int* __restrict__ rows,
+                      const __nv_bfloat16* __restrict__ src, Levels lv,
+                      int n_levels, long long n, float* __restrict__ d_table,
+                      float* __restrict__ d_x) {
   constexpr int W = 64 * F;
-  __shared__ float s_dx[kMaxLevels][3][kK6Samples];
+  __shared__ float s_dx[kMaxLevels][3][kBwdSamples];
   const int lane = threadIdx.x;
   const int l = threadIdx.y;
-  const long long i = (long long)blockIdx.x * kK6Samples + lane;
+  const long long i = (long long)blockIdx.x * kBwdSamples + lane;
   const bool valid = i < n;
   float gf[F];
   bool any = false;
@@ -257,7 +211,8 @@ __global__ void __launch_bounds__(kK6Samples * kMaxLevels)
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       axis_geom(p[a], scale, lv.nb[l], ia[a], w[a][1], w[a][0], ok[a]);
-    const __nv_bfloat16* row = table + trow * W;
+    const __nv_bfloat16* row =
+        src + (kRows == Rows::kTable ? trow : (long long)l * n + i) * W;
     ZLine<F> line[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
@@ -305,12 +260,12 @@ __global__ void __launch_bounds__(kK6Samples * kMaxLevels)
     unsigned above = peers & (0xfffffffeu << lane);
     while (__any_sync(act, above)) {
       const int next = __ffs(above);
-      const int src = next ? next - 1 : lane;
+      const int peer = next ? next - 1 : lane;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
 #pragma unroll
         for (int f = 0; f < F; ++f) {
-          const float t = __shfl_sync(act, upd[c][f], src);
+          const float t = __shfl_sync(act, upd[c][f], peer);
           if (next) upd[c][f] += t;
         }
       }
@@ -353,7 +308,7 @@ __global__ void __launch_bounds__(kK6Samples * kMaxLevels)
 // zero), against 268 MB of corner reads and ~23 MB of x, g and d_x: ~0.73 ms
 // at 3.35 TB/s. So a block takes kBlock samples and walks the levels. Per
 // level, each thread first takes one sample: its geometry, its 8 corners
-// (d_x summed in registers, as K2) and its 3 x 4 per-axis corner weights and
+// (d_x summed in registers) and its 3 x 4 per-axis corner weights and
 // F cotangents, which it leaves in shared memory. Then the block writes the
 // level's kBlock rows, which are contiguous in [L, N, 64F], as 16-byte words
 // in order: neighbouring threads write neighbouring words, with streaming
@@ -496,57 +451,31 @@ bool bwd_args_ok(Levels& lv, long long n, int n_levels, int n_feat,
          fill_levels(lv, n_levels, scales, nbs, level_rows);
 }
 
-int launch_k6(const float* x, const void* g, const int* rows,
-              const void* table, int n_levels, long long n, int n_feat,
-              const float* scales, const int* nbs, const int* level_rows,
-              float* d_table, float* d_x, void* stream) {
+template <Rows kRows>
+int launch_bwd(const float* x, const void* g, const int* rows,
+               const void* src, int n_levels, long long n, int n_feat,
+               const float* scales, const int* nbs, const int* level_rows,
+               float* d_table, float* d_x, void* stream) {
   Levels lv;
   if (!bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned int grid = (unsigned int)((n + kK6Samples - 1) / kK6Samples);
-  const dim3 block(kK6Samples, n_levels);
+  const unsigned int grid =
+      (unsigned int)((n + kBwdSamples - 1) / kBwdSamples);
+  const dim3 block(kBwdSamples, n_levels);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
-  const __nv_bfloat16* tb = static_cast<const __nv_bfloat16*>(table);
+  const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(src);
   switch (n_feat) {
     case 1:
-      fused_encode_bwd_kernel<1><<<grid, block, 0, st>>>(
-          x, gb, rows, tb, lv, n_levels, n, d_table, d_x);
-      break;
-    case 2:
-      fused_encode_bwd_kernel<2><<<grid, block, 0, st>>>(
-          x, gb, rows, tb, lv, n_levels, n, d_table, d_x);
-      break;
-    default:
-      fused_encode_bwd_kernel<4><<<grid, block, 0, st>>>(
-          x, gb, rows, tb, lv, n_levels, n, d_table, d_x);
-      break;
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_k2(const float* x, const void* g, const int* rows,
-              const void* feats, int n_levels, long long n, int n_feat,
-              const float* scales, const int* nbs, const int* level_rows,
-              float* d_table, float* d_x, void* stream) {
-  Levels lv;
-  if (!bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned int grid = (unsigned int)((n + kBlock - 1) / kBlock);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
-  const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(feats);
-  switch (n_feat) {
-    case 1:
-      encode_bwd_kernel<1><<<grid, kBlock, 0, st>>>(
+      encode_bwd_kernel<1, kRows><<<grid, block, 0, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
       break;
     case 2:
-      encode_bwd_kernel<2><<<grid, kBlock, 0, st>>>(
+      encode_bwd_kernel<2, kRows><<<grid, block, 0, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
       break;
     default:
-      encode_bwd_kernel<4><<<grid, kBlock, 0, st>>>(
+      encode_bwd_kernel<4, kRows><<<grid, block, 0, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
       break;
   }
@@ -569,8 +498,9 @@ int brick_fused_encode_bwd(const float* x, const void* g, const int* rows,
                            int n_feat, const float* scales, const int* nbs,
                            const int* level_rows, float* d_table, float* d_x,
                            void* stream) {
-  return launch_k6(x, g, rows, table, n_levels, n, n_feat, scales, nbs,
-                   level_rows, d_table, d_x, stream);
+  return launch_bwd<Rows::kTable>(x, g, rows, table, n_levels, n, n_feat,
+                                  scales, nbs, level_rows, d_table, d_x,
+                                  stream);
 }
 
 // K2. As K6 with feats [L, N, 64F] bf16 in place of the table.
@@ -579,8 +509,9 @@ int brick_interp_bwd_fused(const float* x, const void* g, const int* rows,
                            int n_feat, const float* scales, const int* nbs,
                            const int* level_rows, float* d_table, float* d_x,
                            void* stream) {
-  return launch_k2(x, g, rows, feats, n_levels, n, n_feat, scales, nbs,
-                   level_rows, d_table, d_x, stream);
+  return launch_bwd<Rows::kGathered>(x, g, rows, feats, n_levels, n, n_feat,
+                                     scales, nbs, level_rows, d_table, d_x,
+                                     stream);
 }
 
 // K7. x [N,3] f32, g [N, L*F] bf16, feats [L, N, 64F] bf16 -> upd

@@ -1,5 +1,5 @@
 // The z-line read of a brick row, shared by K5 and K1 (brick_encode_fwd.cu)
-// and K6 (brick_encode_bwd.cu).
+// and K6 and K2 (brick_encode_bwd.cu).
 //
 // A brick row holds the 4x4x4 corners of a brick, 64F bf16 values, lane =
 // corner*F + f with corner = dx*16 + dy*4 + dz. A z-line is the 4 corners

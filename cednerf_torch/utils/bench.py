@@ -6,7 +6,7 @@ encoder), a profiler table of device time by kernel and a call's device
 time from it, two sample sets for
 the encoder kernels (ray-major samples of one camera, and points on every
 intra-brick cell and cell boundary of each level), and the match groups
-that K6 forms on a batch."""
+that K6 and K2 form on a batch."""
 
 import math
 import subprocess
@@ -192,12 +192,13 @@ def cell_points(scales, nbs, seed: int = 0, bricks: int = 3,
     return np.concatenate(pts).astype(np.float32)
 
 
-def k6_match_groups(x, g, rows, scales, nbs, n_feat: int, warp: int = 32):
-    """What K6's match-group aggregation does on a batch. K6 gives one
-    level of `warp` consecutive samples to a warp; the lanes whose
-    cotangent is not all zero (the terms) and whose samples share a cell (a
-    brick row and intra cell, hence all 8 corners) form one group, and K6
-    issues 8 vector atomics per group instead of per term.
+def match_groups(x, g, rows, scales, nbs, n_feat: int, warp: int = 32):
+    """What the match-group aggregation of K6 and K2 (one kernel body) does
+    on a batch. The kernel gives one level of `warp` consecutive samples to
+    a warp; the lanes whose cotangent is not all zero (the terms) and whose
+    samples share a cell (a brick row and intra cell, hence all 8 corners)
+    form one group, and the kernel issues 8 vector atomics per group
+    instead of per term.
 
     x [N, 3] f32, g [N, L*F], rows [L, N] (level-local). Returns [(terms,
     groups)] per level."""

@@ -20,9 +20,9 @@ Phases, each of which must pass (nothing is caught and carried on):
      (compact_select) bit-exact on [256, 1024] and [16000, 1024] lattices
      (the warmup and top ray buckets) at occupancy 1.0 and ~0.1, budget
      262,144. Each is timed with CUDA events beside its bound on uniform
-     random samples, K5 and K6 also on ray-major ones (32,768 and 4,096
-     rays of one 400x400 camera, 64 samples each, as a seg-eval pass and a
-     packed step order them); K4 and torch.nonzero also by their device
+     random samples, K5, K6 and K2 also on ray-major ones (32,768 and
+     4,096 rays of one 400x400 camera, 64 samples each, as a seg-eval pass
+     and a packed step order them); K4 and torch.nonzero also by their device
      time per call under torch.profiler (bench.device_ms), which leaves out
      the host time between calls that the events count;
   4. reference: a small frame rendered on the card (kernel route) and on
@@ -576,10 +576,12 @@ def _frac_err(got, want):
 
 
 def backward_kernel_phase(field, n_main, n_ragged, seed):
-    """K6 and K2 against their plain versions on the full-width field's
-    levels, tables uniform(-8, 8), at one train step's sample count and at
-    a ragged one. One bf16 cotangent row in eight is zero (unused budget
-    slots carry zero)."""
+    """K6 and K2 (one kernel body, on the table and on the gathered rows)
+    against their plain versions on the full-width field's levels, tables
+    uniform(-8, 8), at one train step's sample count and at a ragged one,
+    each timed at the step's count on uniform random and on ray-major
+    samples. One bf16 cotangent row in eight is zero (unused budget slots
+    carry zero)."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.utils.bench import cuda_ms
@@ -597,6 +599,12 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
     offs = [0]
     for r in level_rows:
         offs.append(offs[-1] + r)
+
+    def gather(rows):
+        """The rows [L, N, 64F] that the K1 forward saves for K2."""
+        return torch.stack([table[offs[l]:offs[l + 1]].index_select(
+            0, rows[l].long()) for l in range(L)]).contiguous()
+
     results = {}
     for n in (n_main, n_ragged):
         x = torch.rand((n, 3), device="cuda", generator=gen)
@@ -604,8 +612,7 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
              ).to(torch.bfloat16)
         g[::8] = 0
         rows = _level_rows(x, spec)
-        feats = torch.stack([table[offs[l]:offs[l + 1]].index_select(
-            0, rows[l].long()) for l in range(L)]).contiguous()
+        feats = gather(rows)
         want_t, want_x = ek.fused_encode_bwd_plain(x, g, rows, table, scales,
                                                    nbs, level_rows, F)
         calls = {
@@ -644,16 +651,23 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
                 t_ops = n * L * 8 * F * 2 * 2 / F32_FLOPS * 1e3
                 rec["bound_ms"] = max(t_bytes, t_ops)
                 rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-                # the kernel's own traffic: 8 corners x F bf16 read and
-                # 8 x F f32 atomics per (sample, level)
-                rec["corner_bytes"] = n * L * 8 * F * (2 + 4)
+                # the kernel's own traffic per (sample, level): the 4
+                # z-lines it reads (8F bytes each) and the payload of its 8
+                # F-lane f32 atomics
+                rec["corner_bytes"] = n * L * (4 * 8 * F + 8 * F * 4)
+                xm = _ray_major_x(n // 64, seed)
+                rm = _level_rows(xm, spec)
                 if name == "fused_encode_bwd":
-                    xm = _ray_major_x(n // 64, seed)
-                    rm = _level_rows(xm, spec)
                     rec["ray_major_ms"] = cuda_ms(
                         lambda: ek.fused_encode_bwd(
                             xm, g, rm, table, scales, nbs, level_rows, F), 20)
-                    del xm, rm
+                else:
+                    fm = gather(rm)
+                    rec["ray_major_ms"] = cuda_ms(
+                        lambda: ek.interp_bwd_fused(
+                            xm, g, fm, rm, scales, nbs, level_rows, F), 20)
+                    del fm
+                del xm, rm
                 results[name] = rec
             log(json.dumps({"kernel_check": rec}))
         del feats, want_t, want_x

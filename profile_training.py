@@ -24,10 +24,11 @@ and the K3 table-gradient scatter in its backward). Then:
      K3/K4 with --hash4d);
   3. components at the last step's shapes, CUDA events: the field forward
      and forward+backward at the budget, K6 (3D only) and K4 alone; in 3D
-     also K6 on one more step's own batch (x, cotangent, rows, table), and
-     the share of K6's table atomics that its match groups save on that
-     batch, on ray-major samples (bench.ray_major_samples) and on uniform
-     random ones (bench.k6_match_groups).
+     also the step's encoder backward (K6, or K2 with --interp) on one more
+     step's own batch (`k6_step_ms` / `k2_step_ms`), and the share of its
+     table atomics that its match groups save on that batch, on ray-major
+     samples (bench.ray_major_samples) and on uniform random ones
+     (bench.match_groups; `k6_match_*` / `k2_match_*`).
 
 Prints JSON lines; writes the profiler's table under --out.
 """
@@ -71,7 +72,7 @@ def main(argv=None):
     from cednerf_torch.utils.bench import (HASH4D_FLAGS, TRAIN_FLAGS,
                                            card_name, cuda_ms,
                                            device_time_by_kernel,
-                                           k6_match_groups,
+                                           match_groups,
                                            ray_major_samples)
 
     card = card_name()
@@ -193,20 +194,25 @@ def main(argv=None):
     if not args.hash4d:
         comp["k6_ms"] = cuda_ms(lambda: ek.fused_encode_bwd(
             xn, g, rows, table, scales, nbs, level_rows, spec.n_features), 10)
-        # one more step, keeping K6's inputs
-        k6, seen = ek.fused_encode_bwd, {}
+        # one more step, keeping the inputs of its encoder backward: K6, or
+        # K2 on the interp route (one kernel body, the same match groups)
+        name, tag = (("interp_bwd_fused", "k2") if args.interp
+                     else ("fused_encode_bwd", "k6"))
+        kern, seen = getattr(ek, name), {}
 
         def keep(*a):
             seen["args"] = a
-            return k6(*a)
+            return kern(*a)
 
-        ek.fused_encode_bwd = keep
+        setattr(ek, name, keep)
         try:
             trainer.run_step()
         finally:
-            ek.fused_encode_bwd = k6
-        comp["k6_step_ms"] = cuda_ms(lambda: k6(*seen["args"]), 10)
-        xs, gs, rs = seen["args"][:3]
+            setattr(ek, name, kern)
+        comp[f"{tag}_step_ms"] = cuda_ms(lambda: kern(*seen["args"]), 10)
+        # K6 takes (x, g, rows, table, ...), K2 (x, g, feats, rows, ...)
+        xs, gs = seen["args"][:2]
+        rs = seen["args"][3 if args.interp else 2]
         xm = torch.from_numpy(ray_major_samples(n // 64, 64, args.seed)[0])
         xm = xm.cuda()
         rm = torch.stack([_level_geom(xm, scales[i], nbs[i], l["hashed"],
@@ -215,9 +221,9 @@ def main(argv=None):
         for label, (xb, gb, rb) in (("step", (xs, gs, rs)),
                                     ("ray_major", (xm, g, rm)),
                                     ("random", (xn, g, rows))):
-            terms, groups = zip(*k6_match_groups(xb, gb, rb, scales, nbs,
-                                                 spec.n_features))
-            comp[f"k6_match_{label}"] = {
+            terms, groups = zip(*match_groups(xb, gb, rb, scales, nbs,
+                                              spec.n_features))
+            comp[f"{tag}_match_{label}"] = {
                 "terms": terms, "groups": groups,
                 "atomics_saved": 1 - sum(groups) / sum(terms)}
     print(json.dumps({"components": comp}), flush=True)

@@ -1,9 +1,9 @@
-"""The plain versions of K5 (fused_encode_fwd), K1 (interp_fwd) and K6
-(fused_encode_bwd) on the points that stress the CUDA kernels' corner
-addressing, against the JAX Pallas kernels they replace, run in interpret
-mode on the CPU; the
-ray-major sample builder that chip_smoke.py times the kernels on; and the
-count of K6's match groups that profile_training.py reports.
+"""The plain versions of K5 (fused_encode_fwd), K1 (interp_fwd), K6
+(fused_encode_bwd) and K2 (interp_bwd_fused) on the points that stress the
+CUDA kernels' corner addressing, against the JAX Pallas kernels they
+replace, run in interpret mode on the CPU; the ray-major sample builder
+that chip_smoke.py times the kernels on; and the count of the match groups
+of K6 and K2 (one kernel body) that profile_training.py reports.
 
 The points (cednerf_torch.utils.bench.cell_points): every one of the 27
 intra cells of random bricks, and cell and brick boundaries with their f32
@@ -16,9 +16,10 @@ Tolerances, as tests/test_torch_encode_kernels.py and
 tests/test_torch_encode_backward.py hold these functions:
   * K5 and K1, f32 compute and output on bf16-valued tables: rtol 1e-5,
     atol 1e-9 at the +-1e-4 table scale (summation order only);
-  * K6 with compute_dtype=float32 on the JAX side: each level's table
-    gradient and d_x within rtol 1e-5 plus 1e-5 of the largest entry
-    (f32 summation order only).
+  * K6 and K2 with compute_dtype=float32 on the JAX side: each level's
+    table gradient and d_x within rtol 1e-5 plus 1e-5 of the largest entry
+    (f32 summation order only). K2 takes the rows gathered from one
+    bf16-valued table at the points' rows, as the K1 forward saves them.
 """
 
 import functools
@@ -34,7 +35,7 @@ from cednerf_tpu.ops import pallas_encoder as jpe
 from cednerf_tpu.ops import pallas_fused as jpf
 from cednerf_torch.ops import brick_grid as tbg
 from cednerf_torch.ops import encode_kernels as ek
-from cednerf_torch.utils.bench import (cell_points, k6_match_groups,
+from cednerf_torch.utils.bench import (cell_points, match_groups,
                                        ray_major_samples)
 
 SPEC_KW = dict(n_levels=4, n_features=4, base_res=16, max_res=128,
@@ -135,6 +136,28 @@ def test_k6_plain_matches_jax_on_corner_cells(lvl):
                                    atol=1e-5 * np.abs(want).max())
 
 
+@pytest.mark.parametrize("lvl", [0, 1, 2, 3])
+def test_k2_plain_matches_jax_on_corner_cells(lvl):
+    lay, scales, nbs, x, rows, rng = _case(30 + lvl)
+    table = _bf16(rng.uniform(-1, 1, (lay[lvl]["rows"], 256)))
+    feats = table[rows[lvl]]
+    g = _bf16(rng.normal(size=(len(x), 4)))
+    dt_j, dx_j = jpe.interp_bwd_fused(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(feats, jnp.bfloat16),
+        jnp.asarray(rows[lvl]), scale=scales[lvl], nb=nbs[lvl],
+        n_rows=lay[lvl]["rows"], n_feat=4, compute_dtype=jnp.float32,
+        tile=TILE, interpret=True)
+    dt_t, dx_t = ek.interp_bwd_fused(
+        torch.from_numpy(x), torch.from_numpy(g).to(torch.bfloat16),
+        torch.from_numpy(feats)[None].to(torch.bfloat16),
+        torch.from_numpy(rows[lvl])[None].to(torch.int32), [scales[lvl]],
+        [nbs[lvl]], [lay[lvl]["rows"]], 4)
+    for got, want in ((dt_t.numpy(), np.asarray(dt_j, np.float32)),
+                      (dx_t.numpy(), np.asarray(dx_j))):
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max())
+
+
 def test_ray_major_samples():
     n_rays, n_samples = 300, 64
     x, t, o, d = ray_major_samples(n_rays, n_samples, seed=3, width=64)
@@ -156,9 +179,10 @@ def test_ray_major_samples():
 
 @pytest.mark.parametrize("order", ["ray_major", "one_cell", "random"])
 def test_k6_match_groups(order):
-    """bench.k6_match_groups counts, per level and warp of 32 samples, the
+    """bench.match_groups counts, per level and warp of 32 samples, the
     lanes with a nonzero cotangent and the distinct (row, intra cell) keys
-    among them: checked against a loop over the warps."""
+    among them (the groups of K6 and K2, one kernel body): checked against
+    a loop over the warps."""
     spec = tbg.BrickGridSpec(**SPEC_KW)
     lay = spec.level_layout()
     scales = spec.level_scales()
@@ -176,7 +200,7 @@ def test_k6_match_groups(order):
                         for s, nb, l in zip(scales, nbs, lay)])
     g = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
     g[rng.uniform(size=n) < 0.25] = 0.0     # unused budget slots
-    got = k6_match_groups(x, g.to(torch.bfloat16), rows, scales, nbs, 4)
+    got = match_groups(x, g.to(torch.bfloat16), rows, scales, nbs, 4)
     live = (g.reshape(n, 4, 4) != 0).any(-1)
     for lvl, (s, nb) in enumerate(zip(scales, nbs)):
         intra = ek.cell_geom(x, s, nb)[2]

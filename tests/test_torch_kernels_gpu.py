@@ -10,11 +10,13 @@ port's dependencies; there, skip the suite's JAX conftest:
 
 Tolerances: f32 output rtol 1e-5, atol 1e-9 (summation order only, at the
 +-1e-4 table scale); bf16 output one bf16 rounding, rtol 2^-7. Backward
-kernels (K6, K2): their f32 atomics add in another order than the plain
-version's index_add, so each gradient is held to 1e-5 of its largest entry
-(plus rtol 1e-5). K4 (compaction) is integer work: bit-exact. K3 (row
-scatter-add) sums with f32 atomics against index_add's order: 1e-5 of the
-largest entry, as K6. The 4D encoder on the card against the CPU: the
+kernels (K6, K2: one kernel body, on the table or on the gathered rows):
+their f32 atomics add in another order than the plain version's index_add,
+so each gradient is held to 1e-5 of its largest entry (plus rtol 1e-5);
+K2's d_x, summed in level order, is bit-equal across two launches. K4
+(compaction) is integer work: bit-exact. K3 (row scatter-add) sums with
+f32 atomics against index_add's order: 1e-5 of the largest entry, as K6.
+The 4D encoder on the card against the CPU: the
 forward is the same PyTorch code on both (bf16 out, rtol 2^-7: one bf16
 rounding of f32 sums taken in another order); its gradients 1e-5 of each
 array's largest entry (K3's atomics, and the reductions' order). K7
@@ -32,7 +34,7 @@ from cednerf_torch.ops import compact_kernels as ck
 from cednerf_torch.ops import encode_kernels as ek
 from cednerf_torch.ops import gather_kernels as gk
 from cednerf_torch.ops import scatter_kernels as sk
-from cednerf_torch.utils.bench import cell_points
+from cednerf_torch.utils.bench import cell_points, ray_major_samples
 
 pytestmark = pytest.mark.gpu
 
@@ -42,7 +44,9 @@ def _cuda_inputs(seed, n_feat, n, levels, points=None):
     uniform points in and just around the unit cube, or with
     points="cells" bench.cell_points (every intra cell and cell and brick
     boundaries of each level) and n uniform ones after them, or with
-    points="one brick" n points inside one level-0 brick."""
+    points="one brick" n points inside one level-0 brick, or with
+    points="ray major" the first n of bench.ray_major_samples (64 samples
+    a ray in ray order: long runs of a warp's lanes in one cell)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     spec = tbg.BrickGridSpec(n_levels=levels, n_features=n_feat, base_res=16,
@@ -61,6 +65,8 @@ def _cuda_inputs(seed, n_feat, n, levels, points=None):
         # pos = x * scale + 0.5 in [3.01, 5.99): brick 1 of level 0 per axis
         x = ((rng.uniform(3.01, 5.99, (n, 3)) - 0.5)
              / np.float32(scales[0])).astype(np.float32)
+    elif points == "ray major":
+        x = ray_major_samples(-(-n // 64), 64, seed)[0][:n]
     x = torch.from_numpy(x).cuda()
     level_rows = [l["rows"] for l in lay]
     rows = torch.stack([tbg._level_geom(x, scales[i], nbs[i], l["hashed"],
@@ -153,11 +159,13 @@ def _close_to_scale(got, want):
     (4, 1001, 8, None), (2, 4099, 16, None), (1, 33, 3, None),
     (4, 20000, 4, None), (4, 101, 8, "cells"), (2, 77, 5, "cells"),
     (1, 5, 3, "cells"), (4, 20000, 8, "one brick"),
-    (2, 4097, 3, "one brick")])
+    (2, 4097, 3, "one brick"), (4, 20000, 8, "ray major"),
+    (1, 4099, 5, "ray major")])
 def test_backward_kernels_match_plain(n_feat, n, levels, points):
-    """K6 and K2 against K6's plain version; "cells" as in
-    test_kernels_match_plain, "one brick" puts every sample into one
-    level-0 brick (the most contended table gradient)."""
+    """K6 and K2 (one kernel body) against K6's plain version; "cells" as
+    in test_kernels_match_plain, "one brick" puts every sample into one
+    level-0 brick (the most contended table gradient), "ray major" gives
+    large and mixed match groups."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
         3, n_feat, n, levels, points)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -179,6 +187,28 @@ def test_backward_kernels_match_plain(n_feat, n, levels, points):
                                          level_rows, n_feat)
     _close_to_scale(k2_plain[0], want_t)
     _close_to_scale(k2_plain[1], want_x)
+
+
+@pytest.mark.parametrize("n_feat,points", [(4, "ray major"), (2, None)])
+def test_k2_d_x_is_deterministic(n_feat, points):
+    """d_x is summed over the levels in level order, so two launches of K2
+    give the same bits (only the table gradient's atomics add in another
+    order from run to run)."""
+    x, _, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        6, n_feat, 30011, 8, points)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    g = torch.randn((x.shape[0], 8 * n_feat), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    g[::5] = 0
+    ek.reset_counts()
+    runs = [ek.interp_bwd_fused(x, g, feats, rows, scales, nbs, level_rows,
+                                n_feat) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ek.launches["interp_bwd_fused"] == 2
+    assert ek.plain_cuda_calls["interp_bwd_fused"] == 0
+    assert torch.equal(runs[0][1].view(torch.int32),
+                       runs[1][1].view(torch.int32))
+    _close_to_scale(runs[1][0], runs[0][0])
 
 
 @pytest.mark.parametrize("r,m,budget,p", [
