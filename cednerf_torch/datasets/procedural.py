@@ -1,6 +1,6 @@
-"""Procedural dynamic scenes for training without dataset files (numpy only,
-the port's copy of cednerf_tpu/datasets/procedural.py's BallScene and
-BallCloudScene, host samplers).
+"""Procedural dynamic scenes for training without dataset files, the port's
+copy of cednerf_tpu/datasets/procedural.py's BallScene and BallCloudScene:
+host samplers in numpy and device samplers in PyTorch.
 
 BallScene: one opaque coloured ball drifting with time, rendered
 analytically by ray-sphere intersection. BallCloudScene: K drifting balls
@@ -8,10 +8,17 @@ filling the box, the nearest hit's colour, for a denser per-ray sample load.
 Both expose the sampler protocol of engine/train.py's Trainer:
 `sample(num_rays) -> batch dict` of numpy arrays and `timestamps_pool`.
 The same seed gives the same batches as the JAX package's scenes.
+`device_sampler()` returns the scanned train path's (data, sample_fn) pair
+(engine/sampling.py): camera, time and pixel draws from the Trainer's
+generator, then rays and analytic ground truth by `sample_at`, a function
+of the draws alone.
 """
 
 import numpy as np
+import torch
 
+from ..engine.sampling import pinhole_rays_device
+from ..utils.device import resolve_device
 from .rays import pinhole_rays, viewmatrix
 
 BALL_COLOR = np.array([0.9, 0.25, 0.1], np.float32)
@@ -84,6 +91,56 @@ class BallScene:
         return {"origins": origins, "viewdirs": viewdirs, "pixels": pixels,
                 "timestamps": t.reshape(-1, 1), "color_bkgd": BG.copy()}
 
+    def device_data(self, device) -> dict:
+        """The sampler's constants on `device`, colours included (a per-step
+        upload from numpy would cost a host sync)."""
+        return {"c2ws": torch.as_tensor(self.c2ws, device=device),
+                "K": torch.as_tensor(self.K, device=device),
+                "times": torch.as_tensor(self.times, device=device),
+                "bg": torch.as_tensor(BG, device=device),
+                "ball_color": torch.as_tensor(BALL_COLOR, device=device)}
+
+    def device_sampler(self, device="cuda"):
+        """(data, sample_fn) for the scanned train path, the data on
+        `device` (CUDA unless device="cpu"). sample_fn(data, generator,
+        n_rays, i=None) draws camera, time, x and y indices in that order
+        from `generator` (all four always; monocular scenes take the time
+        as the camera) and hands them to sample_at."""
+        data = self.device_data(resolve_device(device))
+        wh, mono = self.wh, self.monocular
+
+        def sample(d, generator, n_rays: int, i=None):
+            dev = d["times"].device
+
+            def draw(high):
+                return torch.randint(0, high, (n_rays,), device=dev,
+                                     generator=generator)
+
+            cam = draw(d["c2ws"].shape[0])
+            ti = draw(d["times"].shape[0])
+            x, y = draw(wh), draw(wh)
+            return self.sample_at(d, ti if mono else cam, ti, x.float(),
+                                  y.float())
+
+        return data, sample
+
+    def sample_at(self, d: dict, cam, ti, x, y) -> dict:
+        """The batch of the draws cam, ti [R] (int) and pixel x, y [R]
+        (float): pinhole rays and the analytic ground truth."""
+        origins, viewdirs = pinhole_rays_device(x, y, d["K"], d["c2ws"][cam],
+                                                True)
+        t = d["times"][ti]
+        center = torch.stack([0.3 * (t - 0.5), torch.zeros_like(t),
+                              torch.zeros_like(t)], dim=-1)
+        oc = origins - center
+        b = (oc * viewdirs).sum(-1)
+        disc = b ** 2 - ((oc * oc).sum(-1) - RADIUS ** 2)
+        hit = (disc > 0) & (-b - torch.sqrt(torch.clamp(disc, min=0)) > 0)
+        bg = d["bg"]
+        pixels = torch.where(hit[:, None], d["ball_color"], bg)
+        return {"origins": origins, "viewdirs": viewdirs, "pixels": pixels,
+                "timestamps": t.reshape(-1, 1), "color_bkgd": bg}
+
     def eval_view(self, theta: float, t: float):
         """Held-out full image from a novel camera angle: (gt, origins,
         viewdirs), each [wh, wh, 3]."""
@@ -146,3 +203,28 @@ class BallCloudScene(BallScene):
         any_hit = np.isfinite(tt[np.arange(len(k)), k])
         return np.where(any_hit[:, None], self.colors[k], BG).astype(
             np.float32)
+
+    def device_data(self, device) -> dict:
+        return {**super().device_data(device),
+                "centers0": torch.as_tensor(self.centers0, device=device),
+                "vels": torch.as_tensor(self.vels, device=device),
+                "radii": torch.as_tensor(self.radii, device=device),
+                "colors": torch.as_tensor(self.colors, device=device)}
+
+    def sample_at(self, d: dict, cam, ti, x, y) -> dict:
+        origins, viewdirs = pinhole_rays_device(x, y, d["K"], d["c2ws"][cam],
+                                                True)
+        t = d["times"][ti]
+        c = d["centers0"][None] + d["vels"][None] * (t[:, None, None] - 0.5)
+        oc = origins[:, None, :] - c                       # [N, K, 3]
+        b = (oc * viewdirs[:, None, :]).sum(-1)
+        disc = b ** 2 - ((oc * oc).sum(-1) - d["radii"][None] ** 2)
+        tt = -b - torch.sqrt(torch.clamp(disc, min=0))
+        hit = (disc > 0) & (tt > 0)
+        tt = torch.where(hit, tt, torch.inf)
+        k = torch.argmin(tt, dim=-1)
+        any_hit = torch.isfinite(torch.gather(tt, 1, k[:, None])[:, 0])
+        bg = d["bg"]
+        pixels = torch.where(any_hit[:, None], d["colors"][k], bg)
+        return {"origins": origins, "viewdirs": viewdirs, "pixels": pixels,
+                "timestamps": t.reshape(-1, 1), "color_bkgd": bg}

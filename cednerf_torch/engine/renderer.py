@@ -1,6 +1,7 @@
 """Rendering — port of cednerf_tpu/engine/renderer.py: the packed, budgeted
-train renderer (`compact_select`, `pack_budget_samples`, `render_packed`,
-`render_rays_budget_packed`), the segment-compacted eval renderer
+train renderer (`compact_select`, `pack_candidates`, `pack_budget_samples`,
+`march_segments`, `render_packed`, `render_rays_budget_packed`), the
+segment-compacted eval renderer
 (`make_eval_render_fn_seg`), the `make_eval_render_fn` dispatch and the
 `render_image` host loop.
 
@@ -33,8 +34,8 @@ import torch
 from ..ops import compact_kernels as ck
 from ..ops.compact_kernels import compact_select_rayfold  # noqa: F401
 from ..ops.occupancy import (OccGridState, RayCandidates, coarse_lookup,
-                             occupancy_lookup, pooled_binaries,
-                             ray_aabb_intersect)
+                             march_t_lattice, occupancy_lookup,
+                             pooled_binaries, ray_aabb_intersect)
 from ..ops.segments import segment_broadcast
 from ..utils.math import exclusive_cumsum
 from .config import SceneConfig
@@ -118,6 +119,34 @@ def _compact_sel_kept(valid: torch.Tensor, budget: int, n_blocks: int,
     return sel, kept
 
 
+def pack_candidates(cand: RayCandidates, s_cap: int):
+    """Per-ray compaction of the valid candidates into the first `s_cap`
+    slots: (packed RayCandidates [R, s_cap], fits [R] bool, False where a
+    ray had more than s_cap valid candidates and was cut). The slots hold
+    what JAX's stable argsort of ~valid puts first: the valid candidates in
+    lattice order, then the invalid ones in lattice order. Written as one
+    rank and one scatter (no sort); each candidate's rank is its slot, and
+    ranks past the cap land in a spare column that is dropped."""
+    valid = cand.valid
+    r, m = valid.shape
+    s_cap = min(s_cap, m)
+    vi = valid.to(torch.int64)
+    n_v = vi.sum(dim=-1, keepdim=True)
+    dest = torch.where(valid, torch.cumsum(vi, dim=-1) - 1,
+                       n_v + torch.cumsum(1 - vi, dim=-1) - 1)
+    src = torch.arange(m, device=valid.device).expand(r, m)
+    order = torch.zeros((r, s_cap + 1), dtype=torch.int64,
+                        device=valid.device).scatter_(
+        1, torch.clamp(dest, max=s_cap), src)[:, :s_cap]
+
+    def take(a):
+        return torch.gather(a, 1, order)
+
+    packed = RayCandidates(t_starts=take(cand.t_starts), dts=take(cand.dts),
+                           valid=take(cand.valid), covered=cand.covered)
+    return packed, n_v[:, 0] <= s_cap
+
+
 def _ray_info(origins, viewdirs, timestamps):
     """[R, 7] per-ray slot-gather source: origin | viewdir | timestamp."""
     r = origins.shape[0]
@@ -190,6 +219,106 @@ def pack_budget_samples(origins, viewdirs, cand: RayCandidates, timestamps,
                          valid=sel_valid, ray=ray, starts=starts,
                          counts=counts, complete=complete,
                          n_valid=cand.valid.sum())
+
+
+def march_segments(occ_state: OccGridState, origins, viewdirs, timestamps,
+                   *, budget: int, near_plane: float, far_plane: float,
+                   render_step_size: float, cone_angle: float = 0.0,
+                   max_march_steps: int = 1024, seg: int = 8,
+                   overcommit: float = 1.5, pool: int = 4, n_blocks: int = 1,
+                   jitter: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   compact_impl: str = "xla") -> PackedSamples:
+    """Two-stage (segment -> sample) budgeted marching into PackedSamples.
+
+    Stage A tests each `seg`-step segment once against the pooled, dilated
+    coarse grid (a conservative superset) at the midpoint of its t-range
+    clipped to t_max, and compacts the occupied segments into
+    budget * overcommit / seg slots; stage B tests the fine samples inside
+    the selected segments and compacts them into the budget. Both
+    compactions are K4 on CUDA (_compact_sel_kept), so a step launches it
+    twice. Slots stay ray-major and t-ascending, as on the dense path.
+    The march jitter is `jitter` [R] in [0, 1) if given, else drawn from
+    `generator` (march_t_lattice). n_valid extrapolates the fine-valid
+    count over the segments that stage A cut. Single-level grids and
+    uniform steps only, as in the JAX package."""
+    if occ_state.levels != 1 or max_march_steps % seg:
+        raise ValueError("march_segments: single-level grids and "
+                         "max_march_steps % seg == 0 only")
+    r = origins.shape[0]
+    dev = origins.device
+    m = max_march_steps
+    ms = m // seg
+    nseg = r * ms
+    # segment-slot budget: a multiple of 8 * n_blocks
+    sb = max(int(budget * overcommit) // seg, n_blocks * 8)
+    sb = -(-sb // (8 * n_blocks)) * (8 * n_blocks)
+
+    t0, dt, t_max = march_t_lattice(
+        occ_state, origins, viewdirs, near_plane=near_plane,
+        far_plane=far_plane, render_step_size=render_step_size,
+        cone_angle=cone_angle, max_march_steps=max_march_steps,
+        jitter=jitter, generator=generator)
+
+    # stage A: coarse segment test + segment compaction
+    coarse = pooled_binaries(occ_state, pool=pool, dilate=1)
+    t_lo = t0[:, ::seg]                                            # [R, Ms]
+    t_hi = t0[:, seg - 1::seg] + dt[:, seg - 1::seg]
+    t_hi = torch.maximum(torch.minimum(t_hi, t_max[:, None]), t_lo)
+    tm_seg = 0.5 * (t_lo + t_hi)
+    pos_seg = origins[:, None, :] + viewdirs[:, None, :] * tm_seg[..., None]
+    seg_valid = ((t_lo < t_max[:, None])
+                 & coarse_lookup(occ_state, coarse, pos_seg))      # [R, Ms]
+    seg_sel, seg_kept = _compact_sel_kept(seg_valid, sb, n_blocks,
+                                          compact_impl)
+    seg_sel = seg_sel.to(torch.int64)
+    seg_ok = seg_sel < nseg
+    seg_c = torch.clamp(seg_sel, max=nseg - 1)
+    seg_ray = seg_c // ms                                          # [SB]
+    ri = _ray_info(origins, viewdirs, timestamps)[seg_ray]         # [SB, 7]
+    tl = torch.cat([t0.reshape(nseg, seg), dt.reshape(nseg, seg)], dim=-1)
+    tv = tl[seg_c]
+    t0_s, dt_s = tv[:, :seg], tv[:, seg:]                          # [SB, seg]
+
+    # stage B: fine per-sample test + sample compaction
+    pos_s = (ri[:, None, 0:3]
+             + ri[:, None, 3:6] * (t0_s + 0.5 * dt_s)[..., None])  # [SB,seg,3]
+    tmax_s = t_max[seg_ray]
+    fine_valid = (occupancy_lookup(occ_state, pos_s)
+                  & (t0_s < tmax_s[:, None]) & seg_ok[:, None])    # [SB, seg]
+    n2 = sb * seg
+    sel2, kept2 = _compact_sel_kept(fine_valid, budget, n_blocks,
+                                    compact_impl)
+    sel2 = sel2.to(torch.int64)
+    ok2 = sel2 < n2
+    c2 = torch.clamp(sel2, max=n2 - 1)
+    sidx = c2 // seg                                               # [B] -> SB
+    spack = torch.cat([pos_s.reshape(n2, 3), t0_s.reshape(n2, 1),
+                       dt_s.reshape(n2, 1)], dim=-1)               # [n2, 5]
+    sv = spack[c2]
+    pos_p, t0_p, dt_p = sv[:, 0:3], sv[:, 3], sv[:, 4]
+    d_p, ts_p = ri[sidx, 3:6], ri[sidx, 6]
+    ray_p = seg_ray[sidx]
+
+    # per-ray layout and accounting
+    cnt_seg = kept2.sum(dim=-1)                                    # [SB]
+    counts = torch.zeros(r, dtype=torch.int64, device=dev).index_add_(
+        0, seg_ray, cnt_seg).to(torch.int32)
+    starts = _block_starts(counts, budget, n_blocks)
+    drop_a = torch.any(seg_valid & torch.logical_not(seg_kept), dim=-1)
+    drop_b_seg = torch.any(fine_valid & torch.logical_not(kept2), dim=-1)
+    drop_b = torch.zeros(r, dtype=torch.int64, device=dev).scatter_reduce(
+        0, seg_ray, drop_b_seg.to(torch.int64), reduce="amax") > 0
+    complete = torch.logical_not(drop_a | drop_b)
+    # demand feedback: fine-valid density extrapolated over cut segments
+    nv_fine = fine_valid.sum().float()
+    segs_valid = seg_valid.sum().float()
+    segs_kept = (seg_valid & seg_kept).sum().float()
+    n_valid = (nv_fine * segs_valid
+               / torch.clamp(segs_kept, min=1.0)).to(torch.int32)
+    return PackedSamples(pos=pos_p, dirs=d_p, ts=ts_p, t_starts=t0_p,
+                         dts=dt_p, valid=ok2, ray=ray_p, starts=starts,
+                         counts=counts, complete=complete, n_valid=n_valid)
 
 
 def render_packed(field, ps: PackedSamples, render_bkgd,

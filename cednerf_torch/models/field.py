@@ -156,6 +156,10 @@ class DNGPRadianceField(nn.Module):
             raise NotImplementedError(
                 "hash4motion comes with a later slice of the port")
         self.aabb = tuple(float(v) for v in aabb)
+        # on the field's device, so that no call uploads it (a host sync)
+        self.register_buffer("_aabb_t", torch.tensor(self.aabb,
+                                                     dtype=torch.float32),
+                             persistent=False)
         self.geo_feat_dim = geo_feat_dim
         self.moving_step = moving_step
         self.use_div_offsets = use_div_offsets
@@ -205,7 +209,7 @@ class DNGPRadianceField(nn.Module):
     # ------------------------------------------------------------------ #
 
     def _aabb(self, like: torch.Tensor):
-        aabb = torch.tensor(self.aabb, dtype=torch.float32, device=like.device)
+        aabb = self._aabb_t.to(like.device)
         return aabb[:3], aabb[3:]
 
     def query_move(self, x, t):

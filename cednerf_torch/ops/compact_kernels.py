@@ -130,6 +130,6 @@ def _scratch(dev, stream: int, n_tiles: int) -> torch.Tensor:
     if buf is None or buf.numel() - 1 < n_tiles:
         buf = torch.zeros(max(n_tiles, _MIN_TILES) + 1, dtype=torch.int64,
                           device=dev)
-        buf[-1] = 1 << 32
+        buf[-1:].fill_(1 << 32)     # a fill: an item assignment would sync
         _SCRATCH[key] = buf
     return buf

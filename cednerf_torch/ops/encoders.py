@@ -17,14 +17,21 @@ def sinusoidal_latent_dim(x_dim: int, min_deg: int, max_deg: int,
     return (int(use_identity) + (max_deg - min_deg) * 2) * x_dim
 
 
+def _pow2(min_deg: int, max_deg: int, like: torch.Tensor) -> torch.Tensor:
+    """[2^min_deg, ..., 2^(max_deg-1)] made on like's device (exact powers
+    of two): a tensor built from a Python list would be a host upload, and
+    a host sync, on every call."""
+    return torch.exp2(torch.arange(min_deg, max_deg, dtype=like.dtype,
+                                   device=like.device))
+
+
 def sinusoidal_encode(x: torch.Tensor, min_deg: int, max_deg: int,
                       use_identity: bool = True) -> torch.Tensor:
     """[..., D] -> [..., (use_identity + 2*(max_deg-min_deg)) * D] laid out as
     [x?, sin(x*2^i) for all (i, d), cos(x*2^i) for all (i, d)]."""
     if max_deg == min_deg:
         return x
-    scales = torch.tensor([2.0 ** i for i in range(min_deg, max_deg)],
-                          dtype=x.dtype, device=x.device)
+    scales = _pow2(min_deg, max_deg, x)
     xb = (x[..., None, :] * scales[:, None]).reshape(*x.shape[:-1], -1)
     latent = torch.sin(torch.cat([xb, xb + 0.5 * math.pi], dim=-1))
     if use_identity:
@@ -40,12 +47,10 @@ def sinusoidal_encode_with_exp(x: torch.Tensor, x_var: torch.Tensor,
     x: [..., D]; x_var: [..., 1] non-negative damping magnitude."""
     if max_deg == min_deg:
         return x
-    degs = list(range(min_deg, max_deg))
-    scales = torch.tensor([2.0 ** i for i in degs], dtype=x.dtype,
-                          device=x.device)
-    scales_move = torch.tensor([i * 2.0 ** i for i in degs], dtype=x.dtype,
-                               device=x.device)
-    n_deg = len(degs)
+    scales = _pow2(min_deg, max_deg, x)
+    scales_move = torch.arange(min_deg, max_deg, dtype=x.dtype,
+                               device=x.device) * scales
+    n_deg = max_deg - min_deg
     d = x.shape[-1]
     xb = x[..., None, :] * scales[:, None]                       # [..., n, D]
     damp = torch.exp(-(x_var[..., None, :] * scales_move[:, None])[..., 0])

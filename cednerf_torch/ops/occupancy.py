@@ -8,8 +8,8 @@ are nerfacc's, as in the JAX package: nested AABB levels (level i is the ROI
 scaled by 2^i), occs[cell] <- max(occs * ema_decay, new) with binaries =
 occs > min(mean(occs), occ_thre), lookups against the finest level
 containing the point, uniform steps with cone-angle growth and a per-ray
-stratified start jitter. Empty-space skipping (`advance_t_min`) comes with
-the scanned train path.
+stratified start jitter. Empty-space skipping (`advance_t_min`) moves each
+ray's lattice start past leading empty space for the steady-state step.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -259,6 +259,50 @@ def march_t_lattice(state: OccGridState, origins: torch.Tensor,
     return torch.stack(ts, dim=1), torch.stack(ds, dim=1), t_max
 
 
+# advance_t_min's probe geometry, named so that the Trainer's shrink margin
+# (engine/train.py _steady_margin) and span telemetry (_span_slots) derive
+# from the same constants
+SKIP_SEG_DEFAULT = 8
+SKIP_POOL_DEFAULT = 4
+SKIP_DILATE = 1
+
+
+def advance_t_min(state: OccGridState, origins: torch.Tensor,
+                  viewdirs: torch.Tensor, t_min: torch.Tensor,
+                  t_max: torch.Tensor, *, render_step_size: float,
+                  march_steps: int, probe_steps: int):
+    """Advance each ray's lattice start past leading empty space.
+
+    Probes a coarse [R, probe_steps/SKIP_SEG_DEFAULT] segment lattice over
+    the full traversal against pooled_binaries (a conservative superset: a
+    False probe proves every fine sample of the segment unoccupied). Returns
+    (t_min_adv [R]: t_min advanced by whole SKIP_SEG_DEFAULT * step quanta
+    to the first possibly-occupied segment, so that a march_steps-slot
+    lattice from it lands on the full lattice's sample positions; covered
+    [R] bool: every possibly-occupied segment fits within march_steps slots
+    of the advanced start -- rays that do not must be loss-masked). Uniform steps
+    only, as in the JAX package."""
+    step = render_step_size
+    skip_seg = SKIP_SEG_DEFAULT
+    ms = -(-probe_steps // skip_seg)
+    seg_len = skip_seg * step
+    coarse = pooled_binaries(state, pool=SKIP_POOL_DEFAULT, dilate=SKIP_DILATE)
+    s = torch.arange(ms, dtype=torch.float32, device=origins.device)
+    t_lo = t_min[:, None] + s[None, :] * seg_len                   # [R, Ms]
+    t_hi = torch.maximum(torch.minimum(t_lo + seg_len, t_max[:, None]), t_lo)
+    tm = 0.5 * (t_lo + t_hi)
+    pos = origins[:, None, :] + viewdirs[:, None, :] * tm[..., None]
+    occ_seg = (t_lo < t_max[:, None]) & coarse_lookup(state, coarse, pos)
+    occ_u8 = occ_seg.to(torch.uint8)
+    any_occ = occ_seg.any(dim=-1)
+    first = torch.argmax(occ_u8, dim=-1)
+    last = (ms - 1) - torch.argmax(occ_u8.flip(-1), dim=-1)
+    t_min_adv = torch.where(any_occ, t_min + first.float() * seg_len, t_max)
+    covered = torch.logical_not(any_occ) | (
+        (last + 1 - first) * skip_seg <= march_steps)
+    return t_min_adv, covered
+
+
 def march_candidates(state: OccGridState, origins: torch.Tensor,
                      viewdirs: torch.Tensor, *, near_plane: float,
                      far_plane: float, render_step_size: float,
@@ -271,17 +315,35 @@ def march_candidates(state: OccGridState, origins: torch.Tensor,
     midpoint is occupied (nerfacc's estimator.sampling as a fixed-shape
     lattice). No compaction happens here.
 
-    probe_steps > 0 (empty-space skipping through advance_t_min) belongs to
-    the scanned train path and raises until that slice of the port."""
+    probe_steps > max_march_steps (uniform steps only) skips empty space:
+    each ray's jittered start t_min0 + u * step advances past leading
+    unoccupied segments of a probe_steps-slot probe (advance_t_min), the
+    sample positions stay the full lattice's, and `covered` flags the rays
+    whose occupied span outruns the shorter lattice."""
     if probe_steps > max_march_steps and cone_angle == 0.0:
-        raise NotImplementedError(
-            "march_candidates: probe_steps > 0 (advance_t_min) comes with "
-            "the scanned train-path slice of the port")
-    t0, dt, t_max = march_t_lattice(
-        state, origins, viewdirs, near_plane=near_plane, far_plane=far_plane,
-        render_step_size=render_step_size, cone_angle=cone_angle,
-        max_march_steps=max_march_steps, jitter=jitter, generator=generator)
+        t_min0, t_max = ray_aabb_intersect(origins, viewdirs,
+                                           state.aabbs[-1])
+        t_min0 = torch.clamp(t_min0, min=near_plane)
+        t_max = torch.clamp(t_max, max=far_plane)
+        u = _jitter_of(origins.shape[0], origins, jitter, generator)
+        if u is not None:
+            t_min0 = t_min0 + u * render_step_size
+        t_min, covered = advance_t_min(
+            state, origins, viewdirs, t_min0, t_max,
+            render_step_size=render_step_size, march_steps=max_march_steps,
+            probe_steps=probe_steps)
+        steps = torch.arange(max_march_steps, dtype=torch.float32,
+                             device=origins.device)
+        t0 = t_min[:, None] + steps[None, :] * render_step_size
+        dt = torch.full_like(t0, render_step_size)
+    else:
+        covered = None
+        t0, dt, t_max = march_t_lattice(
+            state, origins, viewdirs, near_plane=near_plane,
+            far_plane=far_plane, render_step_size=render_step_size,
+            cone_angle=cone_angle, max_march_steps=max_march_steps,
+            jitter=jitter, generator=generator)
     t_mid = t0 + dt / 2.0
     pos = origins[:, None, :] + viewdirs[:, None, :] * t_mid[..., None]
     valid = (t0 < t_max[:, None]) & occupancy_lookup(state, pos)
-    return RayCandidates(t_starts=t0, dts=dt, valid=valid)
+    return RayCandidates(t_starts=t0, dts=dt, valid=valid, covered=covered)

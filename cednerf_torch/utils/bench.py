@@ -3,13 +3,14 @@ profile_training.py: the card's name, CUDA-event timing, the viewer's
 default orbit camera, an occupancy grid filled for a field, hash tables
 drawn at a scale that the MLPs feel, the train step's flags (3D and 4D
 encoder), a profiler table of device time by kernel and a call's device
-time from it, two sample sets for
+time from it, the host syncs a call makes, two sample sets for
 the encoder kernels (ray-major samples of one camera, and points on every
 intra-brick cell and cell boundary of each level), and the match groups
 that K6 and K2 form on a batch."""
 
 import math
 import subprocess
+import warnings
 
 import numpy as np
 import torch
@@ -130,6 +131,21 @@ def device_ms(fn, reps: int):
         torch.cuda.synchronize()
     rows, total = device_time_by_kernel(prof)
     return total / reps, rows
+
+
+def sync_calls(fn):
+    """(fn's result, the messages of the synchronizing CUDA calls fn made),
+    recorded under torch.cuda.set_sync_debug_mode("warn")."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, [str(w.message) for w in seen
+                 if "synchroniz" in str(w.message)]
 
 
 def ray_major_samples(n_rays: int, n_samples: int = 64, seed: int = 0,

@@ -76,13 +76,32 @@ Phases, each of which must pass (nothing is caught and carried on):
      their bound and index_select; then
      cednerf_torch.tools.profile_row_gather.run at its defaults, counted:
      every `match` true and K8 launched by every setting.
-Phases 5, 7 and 10 fail if K7 or K8 launched on a serving or training path.
+  7b. scanned training: Trainer.run(SCANNED_STEPS) on the full-width
+     field through run_chunk (BallCloudScene's device sampler, 16 steps a
+     chunk, occupancy updates inside the chunks, the shrink-from-full
+     lattice adaptation), a rolling checkpoint every 256 steps: finite
+     losses, the last chunk's PSNR above the first's, K6 and K4 launched
+     once a step and K5 once a step plus the occupancy probes, nothing else
+     and no plain version; the empty-space-skip lattice on the card for 2
+     chunks or more (by the shrink, else pinned at 512 slots for 2 chunks
+     from the step-256 checkpoint); one skip-lattice chunk dispatched under
+     torch.cuda.set_sync_debug_mode("error") and one run_chunk with exactly
+     one host sync; a fresh Trainer resumed from the step-256 checkpoint
+     (step, bucket and lattice restored); 2 chunks of march_seg=8 (K4 twice
+     a step) and 2 of stacked host batches, finite; K4's result on the
+     first lattice of each shape and budget these runs handed it (march_seg's
+     [R, 128] segments and [49152, 8] samples among them) bit-exact against
+     its plain version. Phase 6 also holds the steady-state steps (skip
+     lattice, s_cap, march_seg) card vs CPU.
+Phases 5, 7, 7b and 10 fail if K7 or K8 launched on a serving or training
+path.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -117,11 +136,17 @@ SMALL = dict(target_sample_batch_size=4096, grid_resolution=16,
 # scaled by 1.02 reads 0.0094 and by 1.05 0.0184, one dropped table-gradient
 # corner 0.31, and one level's features scaled by 1.01 move the loss 7.4e-4.
 STEP_GRAD_REL, STEP_LOSS_RTOL = 0.01, 1e-4
-# the training phase: 512 default-route steps (the 256-step all-cells
-# occupancy warmup, then 64 sampled updates), then 8 on the K1/K2 route
-TRAIN_STEPS, INTERP_STEPS = 512, 8
+# the training phase: 288 default-route steps (the 256-step all-cells
+# occupancy warmup, then 32 steps with sampled updates; the scanned phase
+# trains the steady state longer), then 8 on the K1/K2 route
+TRAIN_STEPS, INTERP_STEPS = 288, 8
 # the hash4d training phase: the 256-step warmup and 64 steps after it
 HASH4D_STEPS = 320
+# the scanned training phase: Trainer.run(512) at 16 steps a chunk (runs
+# while step <= 512, so 33 chunks), a checkpoint every 256 steps; the
+# empty-space-skip lattice pinned for 2 chunks if the shrink did not fire
+SCANNED_STEPS, SCANNED_K, SCANNED_CKPT = 512, 16, 256
+PINNED_LATTICE = 512
 # K3 against its plain version: both sum in f32, K3 with atomics in an order
 # that changes from run to run, index_add_ in its own (up to ~1,200 adds per
 # address on level 0 at 262,144 samples), so each table is held to 1e-4 of
@@ -807,37 +832,45 @@ def scatter_kernel_phase(cfg, seed):
     return recs
 
 
-def reference_step_phase(seed, grid_type="hash3d"):
-    """One train step of the shrunken config (SMALL) on the card, through
-    each kernel route (for hash4d the one route: its backward on K3), and
-    on the CPU through the plain versions: the same
-    weights (tables uniform(-1, 1), so that the MLPs feel them), occupancy
-    grid (30% of cells, numpy), ray batch (BallScene) and march jitter.
-    n_valid must match, the loss within STEP_LOSS_RTOL, and each
-    parameter's gradient within STEP_GRAD_REL of its L2 norm, the
-    limits set out beside them (between the sound reading and a fault's).
-    A backward kernel that dropped a corner, a level or the position
-    gradient would move the table or motion-MLP gradients far past that."""
+# the steady-state steps of the reference step phase (hash3d), each as
+# tests/test_torch_steady_march.py holds it against JAX: (config change,
+# step option). The skip lattice runs on a 64^3 grid and a 256-slot probe,
+# so that the probe's pooled cells leave some spans inside its 112 slots.
+STEADY_REF = {
+    "skip": (dict(steady_march_steps=112, max_march_steps=256,
+                  grid_resolution=64), dict(steady_march=True)),
+    "s_cap": (dict(), dict(s_cap=24)),
+    "seg": (dict(march_seg=8, seg_overcommit=2.0), dict(use_seg=True)),
+}
+
+
+def _shell_bins(res, rng, radius=0.55, width=0.2, noise=0.01):
+    """[1, res, res, res] bool: a carved grid, the cells of a shell about
+    the centre plus `noise` random cells."""
+    import numpy as np
+    c = (np.arange(res) + 0.5) / res * 3.0 - 1.5
+    r = np.sqrt(c[:, None, None] ** 2 + c[None, :, None] ** 2
+                + c[None, None, :] ** 2)
+    return ((np.abs(r - radius) < width)
+            | (rng.uniform(size=r.shape) < noise))[None]
+
+
+def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
+                   step_kw=None):
+    """One loss-and-gradients step of `cfg` per route: ("plain", CPU) and
+    each route of `routes` on the card, from the same weights, grid, batch
+    and jitter. {route: (loss, aux floats, gradients on the CPU)}."""
     import numpy as np
     import torch
     from cednerf_torch.bridge import occ_from_numpy
-    from cednerf_torch.datasets.procedural import BallScene
     from cednerf_torch.engine import train as tt
     from cednerf_torch.engine.cli import build_field
-    from cednerf_torch.engine.config import ModelFlags, dnerf_config
     from cednerf_torch.ops.occupancy import create_occ_grid
-    from cednerf_torch.utils.bench import TRAIN_FLAGS, load_uniform_tables
+    from cednerf_torch.utils.bench import load_uniform_tables
 
-    cfg = dataclasses.replace(dnerf_config(), **SMALL)
-    flags = ModelFlags(**TRAIN_FLAGS, grid_type=grid_type)
-    routes = ("xla", "interp") if grid_type == "hash3d" else ("xla",)
-    rng = np.random.default_rng(seed)
-    res = cfg.grid_resolution
-    bins = rng.uniform(size=(1, res, res, res)) < 0.3
     occs = np.where(bins, 0.5, 0.0).astype(np.float32).reshape(1, -1)
-    aabbs = create_occ_grid(cfg.aabb, res, 1, device="cpu").aabbs.numpy()
-    batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
-    jitter = rng.uniform(size=128).astype(np.float32)
+    aabbs = create_occ_grid(cfg.aabb, bins.shape[-1], 1,
+                            device="cpu").aabbs.numpy()
     runs = {}
     for route, dev in (("plain", "cpu"),) + tuple((r, "cuda")
                                                  for r in routes):
@@ -846,16 +879,25 @@ def reference_step_phase(seed, grid_type="hash3d"):
         load_uniform_tables([f], seed, 1.0)
         state = tt.create_train_state(f, c, device=dev)
         state.occ = occ_from_numpy(occs, bins, aabbs, device=dev)
-        loss, aux = tt._make_loss_fn(c, flags, c.sample_budget)(
+        loss, aux = tt._make_loss_fn(c, flags, c.sample_budget,
+                                     **(step_kw or {}))(
             state, {k: torch.as_tensor(np.asarray(v)).to(dev)
                     for k, v in batch.items()},
             jitter=torch.from_numpy(jitter).to(dev))
         runs[route] = (loss.item(), {k: v.item() for k, v in aux.items()},
                        {n: p.grad.detach().float().cpu()
                         for n, p in f.named_parameters()})
+    return runs
+
+
+def _ref_step_check(label, runs, routes):
+    """Each card route against the CPU run: n_valid (and, on the steady
+    steps, complete_frac and span_slots) exact, the loss within
+    STEP_LOSS_RTOL, every gradient within STEP_GRAD_REL of its norm."""
     loss0, aux0, g0 = runs["plain"]
-    rec = {"grid_type": grid_type, "cpu_loss": loss0,
-           "n_valid": aux0["n_valid"], "complete_frac": aux0["complete_frac"]}
+    rec = {"cpu_loss": loss0, "n_valid": aux0["n_valid"],
+           "complete_frac": aux0["complete_frac"],
+           "span_slots": aux0["span_slots"]}
     for route in routes:
         loss, aux, grads = runs[route]
         rels = {n: ((grads[n] - g0[n]).norm() / g0[n].norm()).item()
@@ -866,15 +908,62 @@ def reference_step_phase(seed, grid_type="hash3d"):
                       "worst_grad": worst, "worst_grad_rel_err": rels[worst],
                       "encoder_grad_rel_err": {
                           n: rels[n] for n in rels if "hash_encoder" in n}}
-        if aux["n_valid"] != aux0["n_valid"]:
-            raise AssertionError(f"reference step ({route}): n_valid "
-                                 f"{aux['n_valid']} != {aux0['n_valid']}")
+        for k in ("n_valid", "complete_frac", "span_slots"):
+            if aux[k] != aux0[k]:
+                raise AssertionError(f"{label} ({route}): {k} {aux[k]} != "
+                                     f"{aux0[k]}")
         if abs(loss - loss0) > STEP_LOSS_RTOL * abs(loss0):
-            raise AssertionError(f"reference step ({route}): loss {loss} vs "
+            raise AssertionError(f"{label} ({route}): loss {loss} vs "
                                  f"{loss0}")
         if rels[worst] > STEP_GRAD_REL:
-            raise AssertionError(f"reference step ({route}): gradient of "
+            raise AssertionError(f"{label} ({route}): gradient of "
                                  f"{worst} off by {rels[worst]}: {rec}")
+    return rec
+
+
+def reference_step_phase(seed, grid_type="hash3d"):
+    """One train step of the shrunken config (SMALL) on the card, through
+    each kernel route (for hash4d the one route: its backward on K3), and
+    on the CPU through the plain versions: the same
+    weights (tables uniform(-1, 1), so that the MLPs feel them), occupancy
+    grid (30% of cells, numpy), ray batch (BallScene) and march jitter.
+    n_valid must match, the loss within STEP_LOSS_RTOL, and each
+    parameter's gradient within STEP_GRAD_REL of its L2 norm, the
+    limits set out beside them (between the sound reading and a fault's).
+    A backward kernel that dropped a corner, a level or the position
+    gradient would move the table or motion-MLP gradients far past that.
+    For hash3d, then the steady-state steps of STEADY_REF (skip lattice,
+    s_cap, march_seg with K4 twice) on a carved grid, the card's default
+    route against the CPU, with complete_frac and span_slots exact too."""
+    import numpy as np
+    from cednerf_torch.datasets.procedural import BallScene
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.utils.bench import TRAIN_FLAGS
+
+    cfg = dataclasses.replace(dnerf_config(), **SMALL)
+    flags = ModelFlags(**TRAIN_FLAGS, grid_type=grid_type)
+    routes = ("xla", "interp") if grid_type == "hash3d" else ("xla",)
+    rng = np.random.default_rng(seed)
+    res = cfg.grid_resolution
+    bins = rng.uniform(size=(1, res, res, res)) < 0.3
+    batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
+    jitter = rng.uniform(size=128).astype(np.float32)
+    rec = {"grid_type": grid_type, **_ref_step_check(
+        "reference step", _ref_step_runs(cfg, flags, bins, batch, jitter,
+                                         seed, routes), routes)}
+    if grid_type != "hash3d":
+        return rec
+    for name, (cfg_kw, step_kw) in STEADY_REF.items():
+        c = dataclasses.replace(cfg, **cfg_kw)
+        sbins = _shell_bins(c.grid_resolution, rng)
+        rec[name] = _ref_step_check(
+            f"reference step {name}",
+            _ref_step_runs(c, flags, sbins, batch, jitter, seed, ("xla",),
+                           step_kw), ("xla",))
+        if not 0.0 < rec[name]["complete_frac"] < 1.0:
+            raise AssertionError(f"reference step {name}: complete_frac "
+                                 f"{rec[name]['complete_frac']} is not a "
+                                 "mix of cut and whole rays")
     return rec
 
 
@@ -980,6 +1069,286 @@ def training_phase(cfg, flags, seed, steps=TRAIN_STEPS,
         "median_ms_per_step": float(np.median([r["ms"] for r in irecs])),
         "psnr": [r["psnr"] for r in irecs]}
     return summary
+
+
+def _occ_probe_launches(cfg, step0, steps, warmup_phase):
+    """K5 launches of the occupancy updates in steps [step0, step0 +
+    steps): one per 65,536-position chunk of update_occ_grid, all cells
+    while a warmup-phase chunk is below occ_warmup_steps, a quarter after."""
+    cells = cfg.grid_nlvl * cfg.grid_resolution ** 3
+    n = 0
+    for step in range(step0, step0 + steps):
+        if step % cfg.occ_update_interval == 0:
+            warm = warmup_phase and step < cfg.occ_warmup_steps
+            n += -(-(cells if warm else int(cells * 0.25)) // 2 ** 16)
+    return n
+
+
+def _record_chunks(trainer, recs):
+    """Wrap trainer.run_chunk (the one Trainer.run calls) to record each
+    chunk: its metrics, first step, lattice, phase and host ms. Fails on a
+    non-finite loss."""
+    import numpy as np
+    import torch
+
+    chunk = trainer.run_chunk
+
+    def recorded():
+        step0, lattice = trainer.step, trainer.steady_march
+        warm = trainer._warmup_now()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = chunk()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not np.isfinite(m["loss"]):
+            raise AssertionError(f"scanned chunk at step {step0}: loss "
+                                 f"{m['loss']}")
+        recs.append({**m, "step0": step0, "lattice": lattice,
+                     "warmup": warm, "ms": ms})
+        return m
+
+    trainer.run_chunk = recorded
+
+
+def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1):
+    """K6 once a step, K4 k4_per_step times, K5 once a step plus the
+    occupancy probes, nothing else, no plain version on CUDA."""
+    if any(plain.values()):
+        raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
+    no_probe_kernels(label, counts)
+    steps = sum(r["steps"] for r in recs)
+    want = {"fused_encode_fwd": steps + sum(
+                _occ_probe_launches(cfg, r["step0"], r["steps"], r["warmup"])
+                for r in recs),
+            "fused_encode_bwd": steps,
+            "compact_select": k4_per_step * steps,
+            "interp_fwd": 0, "interp_bwd_fused": 0, "scatter_add_rows": 0}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def _sync_checked_chunk(trainer):
+    """One chunk of `trainer`: its dispatch under
+    set_sync_debug_mode("error") (a host sync inside raises), then a whole
+    run_chunk under "warn", whose synchronizing calls are counted and must
+    be exactly one (the chunk's metrics read). Returns the count."""
+    import numpy as np
+    import torch
+
+    from cednerf_torch.utils.bench import sync_calls
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        metrics = trainer.dispatch_chunk()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not np.isfinite(metrics.cpu().numpy()[:, 0]).all():
+        raise AssertionError(f"sync-checked chunk: losses {metrics}")
+    # the class's run_chunk, not _record_chunks' timed wrapper
+    m, syncs = sync_calls(lambda: type(trainer).run_chunk(trainer))
+    if len(syncs) != 1 or not np.isfinite(m["loss"]):
+        raise AssertionError(f"run_chunk: {len(syncs)} host syncs (want 1: "
+                             f"the metrics read): {syncs}")
+    return len(syncs)
+
+
+@contextlib.contextmanager
+def _keeping_k4(kept, label):
+    """Within the block, K4's wrapper (ops/compact_kernels.py, which the
+    renderer calls through its module) keeps in `kept` the lattice and
+    result of its first call on each (lattice shape, budget), with the
+    label of the path that made it."""
+    from cednerf_torch.ops import compact_kernels as ck
+    real = ck.compact_select_kernel
+
+    def keep(valid, budget):
+        sel, sel_kept = real(valid, budget)
+        key = (tuple(valid.shape), budget)
+        if key not in kept:
+            kept[key] = (label, valid.clone(), sel.clone(), sel_kept.clone())
+        return sel, sel_kept
+
+    ck.compact_select_kernel = keep
+    try:
+        yield
+    finally:
+        ck.compact_select_kernel = real
+
+
+def _check_k4_kept(kept):
+    """Each result _keeping_k4 kept, bit-exact against compact_select_rayfold
+    on the same lattice (run after the paths' launch counts were read)."""
+    import torch
+    from cednerf_torch.ops import compact_kernels as ck
+    recs = []
+    for (shape, budget), (label, valid, sel, sel_kept) in kept.items():
+        want = ck.compact_select_rayfold(valid, budget)
+        torch.cuda.synchronize()
+        if not (torch.equal(sel, want[0]) and torch.equal(sel_kept, want[1])):
+            raise AssertionError(f"compact_select on the {label} path's "
+                                 f"{shape} lattice, budget {budget}: "
+                                 "differs from its plain version")
+        rec = {"name": "compact_select", "path": label,
+               "lattice": list(shape), "budget": budget,
+               "tiles": -(-valid.numel() // ck.TILE), "max_abs_err": 0,
+               "n_valid": int(valid.sum().item()),
+               "n_selected": int(sel_kept.sum().item())}
+        log(json.dumps({"kernel_check": rec}))
+        recs.append(rec)
+    kept.clear()
+    return recs
+
+
+def scanned_phase(cfg, flags, seed, steps=SCANNED_STEPS, k=SCANNED_K,
+                  ckpt_every=SCANNED_CKPT):
+    """Trainer.run(steps) through run_chunk at full width: BallCloudScene's
+    device sampler, k steps a chunk (the occupancy warmup, then steady
+    chunks with the shrink-from-full adaptation), a rolling checkpoint
+    every ckpt_every steps, the one at ckpt_every kept. Fails unless every
+    loss is finite, the last chunk's PSNR tops the first's and the launch
+    counts are K6 and K4 once a step and K5 once a step plus the probes.
+    Then from the kept checkpoint, fresh Trainers: the empty-space-skip
+    lattice for 2 chunks (unless the shrink already ran it for 2), a
+    resume that must restore step, bucket and lattice, march_seg (K4 twice
+    a step) and stacked host batches, 2 chunks each; one skip-lattice
+    chunk's dispatch under sync-debug "error" and one run_chunk with
+    exactly one host sync. K4's result on the first lattice of each shape
+    and budget that these runs hand it (the full and skip lattices at each
+    ray bucket, march_seg's segment and sample lattices) is held bit-exact
+    against its plain version."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.procedural import BallCloudScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.train import Trainer
+
+    scene = BallCloudScene(seed=seed)
+    k4 = {}       # (lattice shape, budget) -> K4's first call there
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    roll, kept = os.path.join(tmp, "rolling"), os.path.join(tmp, "kept")
+
+    def trainer_for(c, **kw):
+        if not kw.get("stacked_host"):
+            kw["device_sampler"] = scene.device_sampler()
+        return Trainer(build_field(c, flags, device="cuda", seed=seed), c,
+                       flags, scene, seed=seed, device="cuda",
+                       steps_per_call=k, **kw)
+
+    def two_chunks(label, trainer, k4_per_step=1):
+        recs = []
+        _record_chunks(trainer, recs)
+        reset_counts()
+        with _keeping_k4(k4, label):
+            for _ in range(2):
+                trainer.run_chunk()
+        counts, plain = all_counts()
+        _check_step_launches(label, counts, plain, trainer.cfg, recs,
+                             k4_per_step)
+        return recs, counts
+
+    try:
+        main = trainer_for(cfg)
+        recs, saved = [], {}
+        _record_chunks(main, recs)
+
+        def keep():       # the rolling checkpoint written at ckpt_every
+            shutil.copytree(roll, kept)
+            saved.update(step=main.step, bucket=main.bucket,
+                         lattice=main.steady_march)
+
+        t0 = time.perf_counter()
+        reset_counts()
+        with _keeping_k4(k4, "scanned run"):
+            main.run(steps, log_every=0, hooks=[(ckpt_every, keep)],
+                     checkpoint_dir=roll, checkpoint_every=ckpt_every)
+        counts, plain = all_counts()
+        run_s = time.perf_counter() - t0
+        _check_step_launches("scanned run", counts, plain, cfg, recs)
+        if not recs[-1]["psnr"] > recs[0]["psnr"]:
+            raise AssertionError(f"scanned run: PSNR {recs[0]['psnr']} -> "
+                                 f"{recs[-1]['psnr']}")
+        if saved.get("step") != ckpt_every:
+            raise AssertionError(f"no checkpoint at step {ckpt_every}: "
+                                 f"{saved}")
+        skip = [r for r in recs if not r["warmup"]
+                and 0 < r["lattice"] < cfg.max_march_steps]
+        steady = [r for r in recs if not r["warmup"]]
+        out = {"steps": main.step, "chunks": len(recs), "run_s": run_s,
+               "launches": counts, "psnr_first": recs[0]["psnr"],
+               "psnr_last": recs[-1]["psnr"],
+               "median_ms_per_step_warmup": float(np.median(
+                   [r["ms"] / r["steps"] for r in recs if r["warmup"]])),
+               "median_ms_per_step_steady": float(np.median(
+                   [r["ms"] / r["steps"] for r in steady])),
+               "lattices": sorted({r["lattice"] for r in recs}),
+               "buckets": sorted({r["num_rays"] for r in recs}),
+               "last": {x: recs[-1][x] for x in (
+                   "num_rays", "n_valid", "n_samples", "complete_frac",
+                   "loss", "psnr")}}
+        for r in recs[:1] + recs[15:17] + recs[-1:]:
+            log(json.dumps({"scanned_chunk": r}))
+        if len(skip) >= 2:
+            out["skip_lattice"] = {"by": "shrink-from-full",
+                                   "lattice": main.steady_march,
+                                   "chunks": len(skip)}
+            sync_trainer = main
+        else:
+            pinned = trainer_for(dataclasses.replace(
+                cfg, steady_march_steps=PINNED_LATTICE))
+            pinned.resume(kept)
+            prec, pcounts = two_chunks("pinned skip lattice", pinned)
+            out["skip_lattice"] = {
+                "by": f"steady_march_steps={PINNED_LATTICE} pinned, "
+                      f"resumed at step {ckpt_every} (the shrink did not "
+                      f"fire in {len(steady)} steady chunks)",
+                "lattice": pinned.steady_march, "chunks": len(prec),
+                "complete_frac": [r["complete_frac"] for r in prec],
+                "ms_per_step": [r["ms"] / r["steps"] for r in prec],
+                "launches": pcounts}
+            sync_trainer = pinned
+        log(json.dumps({"scanned_skip": out["skip_lattice"]}))
+        out["syncs_per_chunk"] = _sync_checked_chunk(sync_trainer)
+        del main, sync_trainer
+        torch.cuda.empty_cache()
+
+        res = trainer_for(cfg)
+        at = res.resume(kept)
+        got = {"step": at, "bucket": res.bucket, "lattice": res.steady_march}
+        if got != saved:
+            raise AssertionError(f"resume restored {got}, saved {saved}")
+        rrec, _ = two_chunks("resumed", res)
+        out["resume"] = {**got, "losses": [r["loss"] for r in rrec]}
+        del res
+
+        seg = trainer_for(dataclasses.replace(cfg, march_seg=8))
+        seg.resume(kept)
+        srec, scounts = two_chunks("march_seg", seg, k4_per_step=2)
+        out["march_seg"] = {"launches": scounts,
+                            "losses": [r["loss"] for r in srec],
+                            "complete_frac": [r["complete_frac"]
+                                              for r in srec],
+                            "ms_per_step": [r["ms"] / r["steps"]
+                                            for r in srec]}
+        del seg
+
+        st = trainer_for(cfg, stacked_host=True)
+        st.resume(kept)
+        strec, _ = two_chunks("stacked host", st)
+        out["stacked_host"] = {"losses": [r["loss"] for r in strec],
+                               "ms_per_step": [r["ms"] / r["steps"]
+                                               for r in strec]}
+        del st
+        out["k4_path_checks"] = [(r["path"], r["lattice"], r["budget"])
+                                 for r in _check_k4_kept(k4)]
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def hash4d_phase(cfg, seed, steps=HASH4D_STEPS):
@@ -1281,6 +1650,11 @@ def main(argv=None):
     log(json.dumps({"training": train}))
     torch.cuda.empty_cache()
 
+    t0 = time.perf_counter()
+    scanned = scanned_phase(cfg, ModelFlags(**TRAIN_FLAGS), args.seed)
+    log(json.dumps({"scanned_training": scanned}))
+    log(f"scanned training: {time.perf_counter() - t0:.1f} s")
+
     k3 = scatter_kernel_phase(cfg, args.seed)
     kern["scatter_add_rows"] = k3[1]          # the hashed level
     log(json.dumps({"reference_step": reference_step_phase(args.seed,
@@ -1324,6 +1698,9 @@ def main(argv=None):
         by_path = {"serve": serve_launches.get(name, 0),
                    "train": train["launches"].get(name, 0),
                    "train_interp": train["interp"]["launches"].get(name, 0),
+                   "train_scanned": scanned["launches"].get(name, 0),
+                   "train_scanned_seg":
+                   scanned["march_seg"]["launches"].get(name, 0),
                    "train_hash4d": h4["launches"].get(name, 0),
                    "serve_hash4d": h4["frame"]["launches"].get(name, 0),
                    "probe_interp_enc": probe_enc["launches"].get(name, 0),

@@ -4,6 +4,7 @@
     python3 profile_training.py [--seed 0] [--steps 288] [--profile-steps 8]
                                 [--interp | --hash4d]
                                 [--out results/profile_training]
+    python3 profile_training.py --chunk [--steps-per-call 16] [--steps 448]
 
 The configuration of chip_smoke.py's training phase: dnerf_config() with
 -te -ta -f -ae -df -d (L8 F4, dst resolution 1024, 2^21 hashmap, 16384-row
@@ -30,6 +31,20 @@ and the K3 table-gradient scatter in its backward). Then:
      samples (bench.ray_major_samples) and on uniform random ones
      (bench.match_groups; `k6_match_*` / `k2_match_*`).
 
+With --chunk it compares the two ways the Trainer steps instead, in one
+process on one card: run_step (a host batch uploaded and the metrics read
+back every step) and run_chunk (BallCloudScene's device sampler,
+--steps-per-call steps a dispatch, one metrics read a chunk), each for
+--steps steps from the same seed, in the order step, chunk, chunk, step.
+It reports, for each run, the host ms per step over the --steps-per-call
+step windows after the occupancy warmup (each window holds one occupancy
+update, for either path) and their median, then over one window past
+them (--profile-steps steps of run_step, one chunk of run_chunk) the
+device ms and kernel launches per step under torch.profiler and the host
+syncs per step (synchronizing calls counted under
+torch.cuda.set_sync_debug_mode("warn")), and the steady lattice that
+run_chunk's adaptation reached.
+
 Prints JSON lines; writes the profiler's table under --out.
 """
 
@@ -44,14 +59,22 @@ import time
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--steps", type=int, default=288)
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps to run (default 288; 448 with --chunk)")
     ap.add_argument("--profile-steps", type=int, default=8)
     ap.add_argument("--interp", action="store_true",
                     help="take the K1/K2 route (interp_impl='interp')")
     ap.add_argument("--hash4d", action="store_true",
                     help="train the 4D keyframe encoder (grid_type hash4d)")
     ap.add_argument("--out", default="results/profile_training")
+    ap.add_argument("--chunk", action="store_true",
+                    help="compare run_chunk with run_step (see above)")
+    ap.add_argument("--steps-per-call", type=int, default=16)
     args = ap.parse_args(argv)
+    if args.steps is None:
+        args.steps = 448 if args.chunk else 288
+    if args.chunk:
+        return chunk_main(args)
 
     import numpy as np
     import torch
@@ -227,6 +250,104 @@ def main(argv=None):
                 "terms": terms, "groups": groups,
                 "atomics_saved": 1 - sum(groups) / sum(terms)}
     print(json.dumps({"components": comp}), flush=True)
+    return 0
+
+
+def chunk_main(args):
+    """run_step against run_chunk at full width (the --chunk mode)."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_training: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from torch.profiler import ProfilerActivity, profile
+
+    from cednerf_torch.datasets.procedural import BallCloudScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.ops.cuda_build import build_all
+    from cednerf_torch.utils.bench import (TRAIN_FLAGS, card_name,
+                                           device_time_by_kernel, sync_calls)
+
+    card = card_name()
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build_all()
+    cfg = dnerf_config()
+    flags = ModelFlags(**TRAIN_FLAGS)
+    k = args.steps_per_call
+
+    def trainer(chunked):
+        scene = BallCloudScene(seed=args.seed)
+        return Trainer(build_field(cfg, flags, device="cuda", seed=args.seed),
+                       cfg, flags, scene, seed=args.seed, device="cuda",
+                       steps_per_call=k,
+                       device_sampler=scene.device_sampler() if chunked
+                       else None)
+
+    runs = []
+    for path in ("run_step", "run_chunk", "run_chunk", "run_step"):
+        tr = trainer(path == "run_chunk")
+        one = tr.run_chunk if path == "run_chunk" else tr.run_step
+        per = k if path == "run_chunk" else 1
+        calls = []                       # (first step, ms) per call
+        while tr.step < args.steps:
+            step0 = tr.step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = one()
+            torch.cuda.synchronize()
+            calls.append((step0, (time.perf_counter() - t0) * 1e3))
+        # ms per step over k-step windows from a multiple of k, so that each
+        # window holds one occupancy update for either path
+        windows = {}
+        for step0, ms in calls:
+            if step0 >= cfg.occ_warmup_steps:
+                windows.setdefault(step0 // k, []).append(ms)
+        win = [sum(v) / k for v in windows.values() if len(v) == k // per]
+        window = per if path == "run_chunk" else args.profile_steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(window // per):
+                one()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        rows, dev_ms = device_time_by_kernel(prof)
+        _, syncs = sync_calls(one)
+        rec = {
+            "path": path, "steps": tr.step,
+            "ms_per_step_windows": win,
+            "median_ms_per_step": float(np.median(win)),
+            "median_ms_per_call_after_warmup": float(np.median(
+                [ms for s0, ms in calls if s0 >= cfg.occ_warmup_steps])),
+            "device_ms_per_step": dev_ms / window,
+            "profiled_wall_ms_per_step": prof_ms / window,
+            "kernel_launches_per_step": sum(r[1] for r in rows) / window,
+            "syncs_per_step": len(syncs) / per,
+            "lattice": tr.steady_march, "bucket": tr.bucket,
+            "last": {x: m[x] for x in ("num_rays", "n_valid", "n_samples",
+                                       "complete_frac", "psnr")}}
+        runs.append(rec)
+        print(json.dumps(rec), flush=True)
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, f"{path}_{len(runs)}_key_averages"
+                               ".txt"), "w") as fh:
+            fh.write(card + "\n")
+            fh.write(prof.key_averages().table(
+                sort_by="self_cuda_time_total", row_limit=60))
+        del tr, one
+        torch.cuda.empty_cache()
+    print(json.dumps({"chunk_vs_step": {
+        "card": card, "order": [r["path"] for r in runs],
+        **{key: [r[key] for r in runs] for key in (
+            "median_ms_per_step", "device_ms_per_step",
+            "kernel_launches_per_step", "syncs_per_step", "lattice")}}}),
+        flush=True)
     return 0
 
 

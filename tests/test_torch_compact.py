@@ -25,6 +25,7 @@ CASES = [  # r, m, budget, occupancy
     (64, 512, 2 * ck.TILE, 1.0),  # the budget on a tile edge
     (37, 1000, 9000, 0.6),    # n = 37,000, not a multiple of 16
     (20, 1000, 30000, 0.4),   # budget above n (sentinel fill past n slots)
+    (3072, 8, 6144, 0.5),     # march_seg's narrow sample lattice, 3 tiles
 ]
 
 

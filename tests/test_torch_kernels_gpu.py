@@ -220,7 +220,11 @@ def test_k2_d_x_is_deterministic(n_feat, points):
     # fill over several fill blocks), the top ray bucket at ~10%
     (64, 512, 5000, 0.5), (64, 512, 2 * ck.TILE, 1.0),
     (37, 1000, 9000, 0.6), (20, 1000, 30000, 0.4),
-    (16000, 1024, 262144, 0.1)])
+    (16000, 1024, 262144, 0.1),
+    # the scanned train path's lattices: march_seg's segments [R, 128] and
+    # samples [49152, 8] (48 tiles), the skip lattice [R, 512]
+    (16384, 128, 49152, 0.3), (49152, 8, 262144, 0.5),
+    (16384, 512, 262144, 0.1)])
 def test_compact_kernel_bit_exact(r, m, budget, p):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -97,6 +97,8 @@ def test_march_candidates_matches_jax(levels, cone):
 
 
 def test_march_jitter_from_generator_and_probe_steps_raise():
+    """The generator's jitter, and the lattice that probe_steps gives (a
+    raise before the skip lattice was ported; the name is kept)."""
     o, d, _ = _rays(0, 16)
     _, tocc = _occ(0)
     kw = dict(near_plane=0.0, far_plane=1e10, render_step_size=STEP,
@@ -107,9 +109,25 @@ def test_march_jitter_from_generator_and_probe_steps_raise():
                             **kw)
     shift = (a.t_starts - b.t_starts)[:, 0]
     assert bool(((shift >= 0) & (shift < STEP)).all())
-    with pytest.raises(NotImplementedError, match="scanned"):
-        to.march_candidates(tocc, torch.from_numpy(o), torch.from_numpy(d),
-                            probe_steps=4 * M, **kw)
+    # probe_steps > max_march_steps skips empty space: the same generator
+    # draw jitters the start, and each ray's M-slot lattice is the 4M-slot
+    # lattice's, advanced by whole 8-slot segments, with the same occupancy
+    # bits
+    g = torch.Generator().manual_seed(1)
+    skip = to.march_candidates(tocc, torch.from_numpy(o), torch.from_numpy(d),
+                               generator=g, probe_steps=4 * M, **kw)
+    full = to.march_candidates(tocc, torch.from_numpy(o), torch.from_numpy(d),
+                               generator=torch.Generator().manual_seed(1),
+                               **{**kw, "max_march_steps": 4 * M})
+    assert skip.covered is not None and skip.covered.shape == (16,)
+    seg = ((skip.t_starts[:, 0] - full.t_starts[:, 0]) / (8 * STEP)).numpy()
+    hit = skip.valid.any(dim=-1).numpy()
+    assert hit.any()
+    for r in np.flatnonzero(hit):
+        k = int(round(seg[r]))
+        assert k >= 0 and abs(seg[r] - k) < 1e-3, seg[r]
+        np.testing.assert_array_equal(skip.valid[r].numpy(),
+                                      full.valid[r, 8 * k:8 * k + M].numpy())
 
 
 @pytest.mark.parametrize("n_blocks", [1, 2])
