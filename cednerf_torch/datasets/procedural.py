@@ -1,10 +1,12 @@
 """Procedural dynamic scenes for training without dataset files, the port's
-copy of cednerf_tpu/datasets/procedural.py's BallScene and BallCloudScene:
-host samplers in numpy and device samplers in PyTorch.
+copy of cednerf_tpu/datasets/procedural.py's BallScene, BallCloudScene and
+MonocularOrbitScene: host samplers in numpy and device samplers in PyTorch.
 
 BallScene: one opaque coloured ball drifting with time, rendered
 analytically by ray-sphere intersection. BallCloudScene: K drifting balls
 filling the box, the nearest hit's colour, for a denser per-ray sample load.
+MonocularOrbitScene: the cloud seen by one camera per time (the HyperNeRF
+vrig capture regime).
 Both expose the sampler protocol of engine/train.py's Trainer:
 `sample(num_rays) -> batch dict` of numpy arrays and `timestamps_pool`.
 The same seed gives the same batches as the JAX package's scenes.
@@ -228,3 +230,24 @@ class BallCloudScene(BallScene):
         pixels = torch.where(any_hit[:, None], d["colors"][k], bg)
         return {"origins": origins, "viewdirs": viewdirs, "pixels": pixels,
                 "timestamps": t.reshape(-1, 1), "color_bkgd": bg}
+
+
+class MonocularOrbitScene(BallCloudScene):
+    """The HyperNeRF vrig capture regime: each time is observed from exactly
+    one camera of an orbit (n_cams == n_times, camera i <-> time i), so
+    viewpoint and scene time are entangled, as in the reference's only
+    published numbers (run_hyper.sh vrig scenes: one moving rig camera).
+    The multi-camera scenes sample (camera, time) independently (the D-NeRF
+    / DyNeRF regime).
+
+    Eval protocol, as vrig's held-out rig: a novel camera angle at a
+    training time (eval_view)."""
+
+    monocular = True
+
+    def __init__(self, n_frames: int = 32, wh: int = 128,
+                 n_balls: int = 48, seed: int = 0):
+        super().__init__(n_cams=n_frames, wh=wh, n_times=n_frames,
+                         n_balls=n_balls, seed=seed)
+        # the per-ball drift slowed to what one orbit pass can constrain
+        self.vels = (0.5 * self.vels).astype(np.float32)

@@ -1,17 +1,16 @@
 """Per-dataset training/rendering presets + model flags.
 
 The port's own copy of `cednerf_tpu/engine/config.py` (`ModelFlags`,
-`SceneConfig`, `dnerf_config`), kept field-for-field identical so that a
-preset means the same run in both packages
-(tests/test_torch_field.py::test_config_copy_matches_jax holds the two side
-by side). The port reads the serving and the packed-train-step fields
-(`grid_type` "hash3d" and "hash4d"); the fields of paths still to port
-(the scanned train loop, segment marching, the cell layouts, multi-device
-compaction) are carried so that presets stay whole.
+`SceneConfig`, the presets `dnerf_config`, `hypernerf_config`,
+`dynerf_config` and the scene-name dispatch `config_for_scene`), kept
+field-for-field identical so that a preset means the same run in both
+packages (tests/test_torch_field.py::test_config_copy_matches_jax holds the
+two side by side). The fields of paths still to port (the cell layouts,
+multi-device compaction) are carried so that presets stay whole.
 """
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,3 +178,72 @@ def dnerf_config(max_steps: int = 20000) -> SceneConfig:
         train_bkgd_aug="white",
         test_bkgd_aug="white",
     )
+
+
+def hypernerf_config(scene: str, max_steps: int = 20000) -> SceneConfig:
+    """HyperNeRF real-capture preset (train_real.py:119-149)."""
+    return SceneConfig(
+        family="hypernerf",
+        max_steps=max_steps,
+        target_sample_batch_size=1 << 18,
+        aabb=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+        near_plane=0.2,
+        far_plane=1e10,
+        moving_step=1.0 / 4096,
+        hash_dst_resolution=4096,
+        grid_resolution=128,
+        grid_nlvl=2,
+        render_step_size=1e-3,
+        alpha_thre=1e-2,
+        cone_angle=0.004,
+        milestones=_milestones(max_steps),
+        max_march_steps=1024,
+        train_bkgd_aug="black",
+        test_bkgd_aug="black",
+        dataset_factor=2,
+        add_cam="vrig" in scene,
+    )
+
+
+def dynerf_config(max_steps: int = 40000) -> SceneConfig:
+    """DyNeRF multi-camera video preset (train_real.py:151-182)."""
+    grid_nlvl = 4
+    return SceneConfig(
+        family="dynerf",
+        max_steps=max_steps,
+        target_sample_batch_size=1 << 20,
+        aabb=(-1.0, -1.0, -1.0, 1.0, 1.0, 1.0),
+        near_plane=0.2,
+        far_plane=1e10,
+        moving_step=1.0 / (2048 * grid_nlvl),
+        hash_dst_resolution=2048 * grid_nlvl,
+        grid_resolution=128,
+        grid_nlvl=grid_nlvl,
+        render_step_size=1e-3,
+        alpha_thre=1e-2,
+        cone_angle=0.004,
+        milestones=_milestones(max_steps, extra_56=True),
+        # outer level aabb is +-8; geometric step growth bounds the count
+        max_march_steps=1536,
+        train_bkgd_aug="random",
+        test_bkgd_aug="black",
+        dataset_factor=4,
+    )
+
+
+def config_for_scene(scene: str,
+                     max_steps: Optional[int] = None) -> SceneConfig:
+    """Scene-name -> preset dispatch (train_real.py:86,119,151)."""
+    from ..datasets import (DNERF_SYNTHETIC_SCENES, DYNERF_SCENES,
+                            HYPERNERF_SCENES)
+
+    if scene.startswith("procedural"):
+        # dataset-free analytic scenes (datasets/procedural.py)
+        return dnerf_config(max_steps or 2000)
+    if scene in DNERF_SYNTHETIC_SCENES:
+        return dnerf_config(max_steps or 20000)
+    if scene in HYPERNERF_SCENES:
+        return hypernerf_config(scene, max_steps or 20000)
+    if scene in DYNERF_SCENES:
+        return dynerf_config(max_steps or 40000)
+    raise ValueError(f"unknown scene: {scene}")

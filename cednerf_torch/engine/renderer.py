@@ -1,9 +1,11 @@
 """Rendering — port of cednerf_tpu/engine/renderer.py: the packed, budgeted
 train renderer (`compact_select`, `pack_candidates`, `pack_budget_samples`,
 `march_segments`, `render_packed`, `render_rays_budget_packed`), the
-segment-compacted eval renderer
-(`make_eval_render_fn_seg`), the `make_eval_render_fn` dispatch and the
-`render_image` host loop.
+dense-lattice renderers (`render_rays`, `render_rays_budget`), the
+segment-compacted eval renderer (`make_eval_render_fn_seg`), the lattice
+eval marcher (`LatticeEvalRenderer`: cone-angle configs and
+budgeted=False), the `make_eval_render_fn` dispatch and the `render_image`
+host loop.
 
 Train path: the [R, M] candidate lattice is compacted to a fixed budget of
 sample slots (kernel K4 on CUDA, ops/compact_kernels.py), each ray's
@@ -11,11 +13,12 @@ samples forming one contiguous segment; the field runs on the budget and
 the compositing scans run on the packed buffer (ops/segments.py). Channel
 scans are laid out [C, B] and run along the contiguous dim.
 
-The JAX renderer is one jitted program whose pass loop is a
-`lax.while_loop`. Here the loop is a Python loop on the host: each pass is a
-run of eager PyTorch ops (and one field forward through the brick-encoder
-kernel), and each loop test reads its condition back with `.item()`, one
-device->host sync per pass. The renderer counts its passes (`pass_log`) so
+The JAX eval renderers are jitted programs whose pass loops are
+`lax.while_loop`s. Here each loop is a Python loop on the host: each pass is
+a run of eager PyTorch ops (a lattice pass also one K4 compaction, and each
+pass one field forward through the brick-encoder kernel), and each loop
+test reads its condition back with `.item()`, one device->host sync per
+pass. The renderer counts its passes (`pass_log`) so
 that the cost is visible; removing the syncs is later work.
 
 Index semantics: every `jnp.take` of the JAX loop reads in-range indices
@@ -33,9 +36,13 @@ import torch
 
 from ..ops import compact_kernels as ck
 from ..ops.compact_kernels import compact_select_rayfold  # noqa: F401
-from ..ops.occupancy import (OccGridState, RayCandidates, coarse_lookup,
+from ..ops.occupancy import (OccGridState, RayCandidates, RaySamples,
+                             coarse_lookup, march_candidates, march_rays,
                              march_t_lattice, occupancy_lookup,
-                             pooled_binaries, ray_aabb_intersect)
+                             pooled_binaries, ray_aabb_intersect,
+                             stable_valid_order)
+from ..ops.render import (composite, reduce_along_rays,
+                          render_weights_from_density)
 from ..ops.segments import segment_broadcast
 from ..utils.math import exclusive_cumsum
 from .config import SceneConfig
@@ -123,28 +130,15 @@ def pack_candidates(cand: RayCandidates, s_cap: int):
     """Per-ray compaction of the valid candidates into the first `s_cap`
     slots: (packed RayCandidates [R, s_cap], fits [R] bool, False where a
     ray had more than s_cap valid candidates and was cut). The slots hold
-    what JAX's stable argsort of ~valid puts first: the valid candidates in
-    lattice order, then the invalid ones in lattice order. Written as one
-    rank and one scatter (no sort); each candidate's rank is its slot, and
-    ranks past the cap land in a spare column that is dropped."""
-    valid = cand.valid
-    r, m = valid.shape
-    s_cap = min(s_cap, m)
-    vi = valid.to(torch.int64)
-    n_v = vi.sum(dim=-1, keepdim=True)
-    dest = torch.where(valid, torch.cumsum(vi, dim=-1) - 1,
-                       n_v + torch.cumsum(1 - vi, dim=-1) - 1)
-    src = torch.arange(m, device=valid.device).expand(r, m)
-    order = torch.zeros((r, s_cap + 1), dtype=torch.int64,
-                        device=valid.device).scatter_(
-        1, torch.clamp(dest, max=s_cap), src)[:, :s_cap]
+    what JAX's stable argsort of ~valid puts first (stable_valid_order)."""
+    order = stable_valid_order(cand.valid, s_cap)
 
     def take(a):
         return torch.gather(a, 1, order)
 
     packed = RayCandidates(t_starts=take(cand.t_starts), dts=take(cand.dts),
                            valid=take(cand.valid), covered=cand.covered)
-    return packed, n_v[:, 0] <= s_cap
+    return packed, cand.valid.sum(dim=-1) <= order.shape[1]
 
 
 def _ray_info(origins, viewdirs, timestamps):
@@ -417,6 +411,154 @@ def render_rays_budget_packed(field, origins, viewdirs, cand: RayCandidates,
                          n_blocks=n_blocks, assembly_impl=assembly_impl)
 
 
+def _field_on_selected(field, valid, t_starts, dts, ray_info, *, budget: int,
+                       n_blocks: int = 1, compact_impl: str = "xla",
+                       train: bool = False):
+    """The cross-ray compaction of a dense [R, M] lattice (K4 on CUDA) and
+    the field on the selected slots: (sel [budget] int64, kept [R, M],
+    rgb [budget, 3], the field's result dict). Slots the budget leaves
+    unused have sel >= R*M and evaluate the lattice's last slot."""
+    r, m = valid.shape
+    n = r * m
+    sel, kept = _compact_sel_kept(valid, budget, n_blocks, compact_impl)
+    sel = sel.to(torch.int64)
+    sel_c = torch.clamp(sel, max=n - 1)
+    ri = ray_info[sel_c // m]
+    d = ri[:, 3:6]
+    pos = ri[:, 0:3] + d * (t_starts.reshape(-1)[sel_c]
+                            + 0.5 * dts.reshape(-1)[sel_c])[:, None]
+    rgb_c, res_c = field(pos, ri[:, 6:7], d, return_internal=train)
+    return sel, kept, rgb_c, res_c
+
+
+def _scatter_selected(rows, sel, n: int):
+    """Rows of the selected slots [budget, K] back into the dense [n, K]
+    lattice; the rows of unused slots are zeroed and land in a spare row
+    that is dropped (JAX's .at[].set(mode="drop"))."""
+    sel_valid = sel < n
+    scat = torch.where(sel_valid, sel, torch.full_like(sel, n))
+    return rows.new_zeros((n + 1, rows.shape[-1])).index_copy(
+        0, scat, rows * sel_valid[:, None])[:n]
+
+
+def _composite_lattice(sigmas, rgbs, t_starts, t_ends, dts, mask,
+                       render_bkgd, occ_mean=None, *, alpha_thre: float = 0.0,
+                       latent=None, weight_pred=None, selector=None
+                       ) -> RenderResult:
+    """Compositing of the field's outputs on a dense [R, S] lattice: the
+    alpha_thre pruning on the slot dts (nerfacc prunes samples whose
+    standalone alpha <= alpha_thre before the transmittance scan,
+    cednerf/utils.py:115-125; occ_mean clamps the threshold during
+    training), the weights and the composite. latent [R, S, K] gives
+    extras["latent_losses"], the weight-scaled per-ray sums
+    (cednerf/render.py:105-113); weight_pred and selector [R, S] give
+    extras["weight_losses"], huber(predicted weight, transmittance) *
+    selector as weight-scaled per-ray means (cednerf/render.py:114-124)."""
+    if alpha_thre > 0:
+        thre = alpha_thre if occ_mean is None else torch.clamp(
+            occ_mean, max=alpha_thre)
+        alpha_raw = 1.0 - torch.exp(-sigmas.detach() * dts)
+        mask = mask & (alpha_raw > thre)
+    weights, trans, alphas = render_weights_from_density(t_starts, t_ends,
+                                                         sigmas, mask)
+    rgb, opacity, depth = composite(weights, rgbs, t_starts, t_ends, mask,
+                                    render_bkgd)
+    extras = {"weights": weights, "trans": trans, "alphas": alphas,
+              "sigmas": sigmas, "rgbs": rgbs, "mask": mask,
+              "t_starts": t_starts, "t_ends": t_ends}
+    if latent is not None:
+        extras["latent_losses"] = reduce_along_rays(
+            latent, mask, weights=weights.detach(), reduce="sum")
+    if weight_pred is not None:
+        from ..models.field import huber
+        wl = huber(weight_pred, trans) * selector
+        extras["weight_losses"] = reduce_along_rays(
+            wl[..., None], mask, weights=weights, reduce="mean")
+    return RenderResult(rgb=rgb, opacity=opacity, depth=depth,
+                        n_samples=mask.sum(), extras=extras)
+
+
+def render_rays_budget(field, origins, viewdirs, cand: RayCandidates,
+                       timestamps, render_bkgd,
+                       occ_mean: Optional[torch.Tensor] = None, *,
+                       budget: int, alpha_thre: float = 0.0,
+                       train: bool = True, n_blocks: int = 1,
+                       ray_complete: Optional[torch.Tensor] = None,
+                       compact_impl: str = "xla") -> RenderResult:
+    """The dense-lattice train renderer (cfg.packed_render=False): the field
+    runs on at most `budget` valid candidates (_field_on_selected), its
+    outputs are scattered back into the dense [R*M] lattice and the
+    compositing runs there (_composite_lattice). extras["complete"] is 1.0
+    for rays none of whose valid samples the budget dropped (ANDed with
+    ray_complete and cand.covered), as on the packed path."""
+    r, m = cand.valid.shape
+    sel, kept, rgb_c, res_c = _field_on_selected(
+        field, cand.valid, cand.t_starts, cand.dts,
+        _ray_info(origins, viewdirs, timestamps), budget=budget,
+        n_blocks=n_blocks, compact_impl=compact_impl, train=train)
+
+    # the per-sample outputs packed into one row and scattered back once
+    cols = [res_c["density"].float().reshape(-1, 1), rgb_c.float()]
+    internal = res_c.get("internal") if train else None
+    has_latent = internal is not None and "latent_losses" in internal
+    has_weight = internal is not None and "weight_losses" in internal
+    if has_latent:
+        # channel mean first: the mean over rays and channels of
+        # sum_s w * h[s, c] is the mean over rays of sum_s w * mean_c h
+        cols.append(internal["latent_losses"].float().mean(-1, keepdim=True))
+    if has_weight:
+        cols += [internal["weight_losses"].float(),
+                 internal["selector"].float()[:, None]]
+    dense = _scatter_selected(torch.cat(cols, dim=-1), sel, r * m)
+    out = _composite_lattice(
+        dense[:, 0].reshape(r, m), dense[:, 1:4].reshape(r, m, 3),
+        cand.t_starts, cand.t_ends, cand.dts, kept, render_bkgd, occ_mean,
+        alpha_thre=alpha_thre,
+        latent=dense[:, 4:5].reshape(r, m, 1) if has_latent else None,
+        weight_pred=dense[:, -2].reshape(r, m) if has_weight else None,
+        selector=dense[:, -1].reshape(r, m) if has_weight else None)
+    complete = torch.logical_not(
+        torch.any(cand.valid & torch.logical_not(kept), dim=-1))
+    if ray_complete is not None:
+        complete = complete & ray_complete
+    if cand.covered is not None:
+        complete = complete & cand.covered
+    out.extras.update(complete=complete.float(), n_valid=cand.valid.sum())
+    return out
+
+
+def render_rays(field, origins, viewdirs, samples: RaySamples, timestamps,
+                render_bkgd, occ_mean: Optional[torch.Tensor] = None, *,
+                alpha_thre: float = 0.0, train: bool = False) -> RenderResult:
+    """The field on padded [R, S] samples, composited along rays
+    (_composite_lattice). timestamps: [R, 1] per-ray times or anything that
+    broadcasts (a scalar). train=True adds the latent and weight losses of
+    the field's internals to extras, as the JAX proposal trainer
+    (engine/train_prop.py) reads them. The JAX compact_budget truncation
+    is left out: no caller in either package sets it."""
+    r, s = samples.t_starts.shape
+    t_mid = (samples.t_starts + samples.t_ends) / 2.0
+    pos = origins[:, None, :] + viewdirs[:, None, :] * t_mid[..., None]
+    dirs = viewdirs[:, None, :].expand(r, s, 3)
+    t = torch.as_tensor(timestamps, dtype=torch.float32,
+                        device=origins.device).reshape(-1, 1, 1).expand(
+        r, s, 1)
+    rgbs, res = field(pos.reshape(-1, 3), t.reshape(-1, 1),
+                      dirs.reshape(-1, 3), return_internal=train)
+    internal = (res.get("internal") or {}) if train else {}
+    has_weight = "weight_losses" in internal
+    return _composite_lattice(
+        res["density"].reshape(r, s).float(), rgbs.reshape(r, s, 3),
+        samples.t_starts, samples.t_ends, samples.t_ends - samples.t_starts,
+        samples.mask, render_bkgd, occ_mean, alpha_thre=alpha_thre,
+        latent=(internal["latent_losses"].reshape(r, s, -1)
+                if "latent_losses" in internal else None),
+        weight_pred=(internal["weight_losses"].reshape(r, s).float()
+                     if has_weight else None),
+        selector=(internal["selector"].reshape(r, s) if has_weight
+                  else None))
+
+
 def _seg_dilate(cfg: SceneConfig, seg: int, pool: int) -> int:
     """Coarse-grid dilation that makes one segment-midpoint probe a superset
     test (see the JAX docstring)."""
@@ -449,8 +591,9 @@ class SegEvalRenderer:
                  seg: int = 8, pool: int = 4):
         if cfg.cone_angle != 0.0:
             raise NotImplementedError(
-                "seg eval path: uniform steps only (cone_angle == 0); the "
-                "lattice fallback comes with a later slice of the port")
+                "seg eval path: uniform steps only (cone_angle == 0); "
+                "cone-angle configs take the lattice marcher "
+                "(make_eval_render_fn impl='lattice')")
         self.field = field
         self.cfg = cfg
         self.s_max = s_max or cfg.eval_s_max
@@ -651,6 +794,125 @@ def make_eval_render_fn_seg(field, cfg: SceneConfig,
                            early_stop_eps=early_stop_eps, seg=seg, pool=pool)
 
 
+class LatticeEvalRenderer:
+    """The lattice eval marcher: fn(occ_state, origins [C,3], viewdirs [C,3],
+    timestamp, render_bkgd [3]) -> (rgb, opacity, depth). The JAX
+    make_eval_render_fn's lattice branch, its path for cone-angle configs
+    (the HyperNeRF and DyNeRF presets) and for budgeted=False.
+
+    The full [C, max_march_steps] candidate lattice is marched
+    (march_candidates, geometric steps under cone_angle) and each ray keeps
+    its first s_max valid candidates (the per-ray max_samples contract).
+
+    budgeted=True packs those into a [C, m] lattice once (m = min(s_max,
+    max_march_steps), slot = the candidate's valid rank), then runs passes
+    until no candidate remains: each pass compacts the remaining candidates
+    to budget = min(budget_per_ray * C, C * m) slots (K4 on CUDA), runs the
+    field on them, scatters density and rgb back into the dense [C*m, 4]
+    buffer (unused slots into a spare row that is dropped), applies the
+    alpha_thre mask on the packed dts, composites with the transmittance
+    carried from earlier passes (render_weights_from_density's
+    prefix_trans) and drops the rays whose transmittance fell to
+    early_stop_eps. The results are exact up to the s_max cap and the early
+    stop, for any budget. budgeted=False is one dense pass of render_rays
+    over each ray's first s_max candidates.
+
+    pass_log: per rendered chunk, [passes] (budgeted=False logs [1])."""
+
+    def __init__(self, field, cfg: SceneConfig, s_max: Optional[int] = None,
+                 budgeted: bool = True, budget_per_ray: int = 64,
+                 early_stop_eps: float = 1e-4):
+        self.field = field
+        self.cfg = cfg
+        self.s_max = s_max or cfg.eval_s_max
+        self.budgeted = budgeted
+        self.budget_per_ray = budget_per_ray
+        self.early_stop_eps = early_stop_eps
+        self.pass_log: List[List[int]] = []
+
+    @torch.inference_mode()
+    def __call__(self, occ_state: OccGridState, origins, viewdirs, timestamp,
+                 render_bkgd):
+        cfg, s_max = self.cfg, self.s_max
+        dev = origins.device
+        r = origins.shape[0]
+        t = torch.as_tensor(timestamp, dtype=torch.float32,
+                            device=dev).reshape(1, 1).expand(r, 1)
+        bkgd = torch.as_tensor(render_bkgd, dtype=torch.float32, device=dev)
+        march = dict(near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+                     render_step_size=cfg.render_step_size,
+                     cone_angle=cfg.cone_angle,
+                     max_march_steps=cfg.max_march_steps)
+        if not self.budgeted:
+            # each ray's first s_max valid candidates, in one dense pass
+            samples = march_rays(occ_state, origins, viewdirs, s_max=s_max,
+                                 **march)
+            out = render_rays(self.field, origins, viewdirs, samples, t,
+                              bkgd, alpha_thre=cfg.alpha_thre)
+            self.pass_log.append([1])
+            return out.rgb, out.opacity, out.depth
+
+        cand = march_candidates(occ_state, origins, viewdirs, **march)
+        # per-ray max_samples cap: only the first s_max valid candidates
+        vcum = torch.cumsum(cand.valid.to(torch.int32), dim=-1)
+        valid = cand.valid & (vcum <= s_max)
+
+        # each ray's first s_max valid candidates packed into [C, m] once
+        # (slot = valid rank, order kept): every per-pass op then runs at
+        # m slots instead of max_march_steps
+        m = min(s_max, valid.shape[1])
+        n = r * m
+        ray_idx = torch.arange(r, device=dev)[:, None]
+        dst = torch.where(valid, ray_idx * m + (vcum - 1).to(torch.int64),
+                          torch.full_like(ray_idx, n)).reshape(-1)
+        lat = torch.stack([cand.t_starts, cand.t_ends, cand.dts],
+                          dim=-1).reshape(-1, 3)
+        packed = lat.new_zeros((n + 1, 3)).index_copy_(0, dst, lat)[:n]
+        p_t0, p_t1, p_dts = (packed[:, i].reshape(r, m) for i in range(3))
+        p_valid = (torch.arange(m, device=dev)[None, :]
+                   < vcum[:, -1:].clamp(max=m))
+        t_mid = (p_t0 + p_t1) / 2.0
+
+        budget = min(self.budget_per_ray * r, n)
+        ray_info = _ray_info(origins, viewdirs, t)
+        remaining = p_valid
+        trans = torch.ones(r, dtype=torch.float32, device=dev)
+        rgb_acc = torch.zeros((r, 3), dtype=torch.float32, device=dev)
+        opac_acc = torch.zeros(r, dtype=torch.float32, device=dev)
+        depth_acc = torch.zeros(r, dtype=torch.float32, device=dev)
+        n_pass = 0
+        # one device->host sync per loop test (the JAX while_loop's
+        # condition, read back to drive the Python loop)
+        while bool(remaining.any().item()):
+            sel, kept, rgb_c, res_c = _field_on_selected(
+                self.field, remaining, p_t0, p_dts, ray_info, budget=budget,
+                compact_impl=cfg.compact_impl)
+            dense = _scatter_selected(
+                torch.cat([res_c["density"].float().reshape(-1, 1),
+                           rgb_c.float()], dim=-1), sel, n)
+            sigmas = dense[:, 0].reshape(r, m)
+            rgbs = dense[:, 1:4].reshape(r, m, 3)
+            mask = kept
+            if cfg.alpha_thre > 0:
+                alpha_raw = 1.0 - torch.exp(-sigmas * p_dts)
+                mask = mask & (alpha_raw > cfg.alpha_thre)
+            weights, _, _ = render_weights_from_density(
+                p_t0, p_t1, sigmas, mask, prefix_trans=trans)
+            rgb_acc = rgb_acc + torch.sum(weights[..., None] * rgbs, dim=-2)
+            opac_acc = opac_acc + torch.sum(weights, dim=-1)
+            depth_acc = depth_acc + torch.sum(weights * t_mid, dim=-1)
+            sdelta = sigmas * p_dts * mask
+            trans = trans * torch.exp(-torch.sum(sdelta, dim=-1))
+            remaining = (remaining & torch.logical_not(kept)
+                         & (trans > self.early_stop_eps)[:, None])
+            n_pass += 1
+        self.pass_log.append([n_pass])
+        opacity = opac_acc[:, None]
+        depth = depth_acc[:, None] / torch.clamp(opacity, min=1.1920929e-07)
+        rgb = rgb_acc + bkgd * (1.0 - opacity)
+        return rgb, opacity, depth
+
+
 def eval_chunk_for(cfg: SceneConfig) -> int:
     """Rays per eval chunk matching make_eval_render_fn's impl="auto" pick."""
     return cfg.eval_chunk_seg if cfg.cone_angle == 0.0 else cfg.eval_chunk
@@ -662,21 +924,25 @@ def make_eval_render_fn(field, cfg: SceneConfig, s_max: Optional[int] = None,
     """Chunk renderer for full-image evaluation: fn(occ_state, origins [C,3],
     viewdirs [C,3], timestamp, render_bkgd [3]) -> (rgb, opacity, depth).
 
-    impl "auto" picks the segment path for uniform-step configs
-    (cone_angle == 0), as in the JAX package; "seg" forces it. The lattice
-    marcher (cone-angle configs, budgeted=False) comes with a later slice."""
+    impl "auto" picks the segment path (SegEvalRenderer) for budgeted
+    uniform-step configs (cone_angle == 0) and the lattice marcher
+    (LatticeEvalRenderer) otherwise, as in the JAX package; "seg" forces
+    the segment path (budgeted only), any other value the lattice."""
     s_max = s_max or cfg.eval_s_max
     if impl == "auto":
         impl = "seg" if (budgeted and cfg.cone_angle == 0.0) else "lattice"
-    if impl != "seg":
-        raise NotImplementedError(
-            "make_eval_render_fn: the lattice marcher (cone_angle > 0 or "
-            "budgeted=False) comes with a later slice of the port")
-    if not budgeted:
-        raise ValueError("impl='seg' requires budgeted=True")
-    return make_eval_render_fn_seg(field, cfg, s_max=s_max,
-                                   budget_per_ray=budget_per_ray,
-                                   early_stop_eps=early_stop_eps)
+    if impl == "seg":
+        if not budgeted:
+            raise ValueError(
+                "impl='seg' requires budgeted=True (the segment marcher is "
+                "a multi-pass budgeted loop); use impl='lattice' for the "
+                "single-pass dense reference path")
+        return make_eval_render_fn_seg(field, cfg, s_max=s_max,
+                                       budget_per_ray=budget_per_ray,
+                                       early_stop_eps=early_stop_eps)
+    return LatticeEvalRenderer(field, cfg, s_max=s_max, budgeted=budgeted,
+                               budget_per_ray=budget_per_ray,
+                               early_stop_eps=early_stop_eps)
 
 
 def render_image(field, occ_state, render_chunk_fn, origins, viewdirs,

@@ -19,8 +19,9 @@ its metrics back once a step (the JAX Trainer's `int(metrics["n_valid"])`);
 `run_chunk` runs K steps with device sampling and occupancy updates inside
 and reads the chunk's stacked metrics back once.
 
-Not ported yet, each raising where it is asked for: the dense-lattice
-renderer (`packed_render=False`) and the device mesh.
+With cfg.packed_render=False the step composites on the dense [R, M]
+lattice instead (render_rays_budget, the unpacked losses). Not ported yet,
+raising where it is asked for: the device mesh.
 """
 
 import dataclasses
@@ -40,7 +41,7 @@ from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint_full, save_checkpoint
 from .config import ModelFlags, SceneConfig
 from .renderer import (march_segments, pack_candidates, render_packed,
-                       render_rays_budget_packed)
+                       render_rays_budget, render_rays_budget_packed)
 from .sampling import make_stacked_sampler, upload_stacked
 
 # the step's metrics, in the column order of make_train_loop's [K, M] stack
@@ -145,11 +146,57 @@ def _span_slots(valid: torch.Tensor) -> torch.Tensor:
     return span.max().float()
 
 
+def _packed_regularizers(loss, extras: dict, batch: dict, flags: ModelFlags,
+                         budget: int, complete, n_blocks: int):
+    """`loss` plus the opt-in ray regularizers on the packed buffer
+    (render_rays_budget_packed / render_packed extras), complete-masked."""
+    starts, counts = extras["starts"], extras["counts"]
+    if flags.distortion_loss:
+        loss = loss + L.packed_distortion_loss(
+            extras["weights_p"], extras["t_starts_p"], extras["dts_p"],
+            starts, counts, budget, complete, n_blocks=n_blocks) * 1e-3
+    if flags.weight_rgbper:
+        loss = loss + L.packed_rgbper_loss(
+            extras["rgbs_p"], batch["pixels"], extras["weights_p"].detach(),
+            starts, counts, budget, complete) * 1e-3
+    if flags.use_feat_predict:
+        loss = loss + L.packed_ray_sum_mean(
+            extras["latent_p"] * extras["weights_p"].detach(), starts,
+            counts, budget, complete)
+    if flags.use_weight_predict:
+        loss = loss + L.packed_per_ray_mean(
+            extras["weight_loss_p"] * extras["weights_p"], extras["valid_p"],
+            starts, counts, budget, complete)
+    return loss
+
+
+def _dense_regularizers(loss, extras: dict, batch: dict, flags: ModelFlags,
+                        complete):
+    """`loss` plus the same regularizers on the dense [R, M] lattice
+    (render_rays_budget extras), complete-masked."""
+    if flags.distortion_loss:
+        loss = loss + L.distortion_loss(
+            extras["weights"], extras["t_starts"], extras["t_ends"],
+            extras["mask"], ray_weights=complete) * 1e-3
+    if flags.weight_rgbper:
+        loss = loss + L.rgbper_loss(
+            extras["rgbs"], batch["pixels"], extras["weights"].detach(),
+            extras["mask"], ray_weights=complete) * 1e-3
+    if flags.use_feat_predict:
+        loss = loss + L.ray_mean(extras["latent_losses"].reshape(-1),
+                                 complete)
+    if flags.use_weight_predict:
+        loss = loss + L.ray_mean(extras["weight_losses"].reshape(-1),
+                                 complete)
+    return loss
+
+
 def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
                   s_cap: int = 0, use_seg: bool = False,
                   steady_march: bool = False):
     """loss_and_grads(state, batch, jitter=None, generator=None) ->
-    (loss, aux): march, budgeted packed render, losses, and backward into
+    (loss, aux): march, budgeted render (packed; on the dense lattice with
+    cfg.packed_render=False), losses, and backward into
     the field's .grad (zeroed first). Gradients land in every parameter
     (zeros where none flows), as optax's update sees them. The march
     jitter is `jitter` [R] in [0, 1) if given, else drawn from `generator`.
@@ -174,9 +221,6 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
     march_steps = (cfg.steady_march_steps if skip_empty
                    else cfg.max_march_steps)
     capped = bool(s_cap and s_cap < cfg.max_march_steps)
-    if not cfg.packed_render:
-        raise _later("the dense-lattice renderer (packed_render=False)",
-                     "dense-lattice")
 
     def loss_and_grads(state: TrainState, batch: dict, jitter=None,
                        generator: Optional[torch.Generator] = None):
@@ -216,7 +260,7 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
                 field, ps, batch["color_bkgd"], occ_mean, budget=budget,
                 alpha_thre=cfg.alpha_thre, train=True,
                 n_blocks=cfg.compact_blocks, assembly_impl=cfg.assembly_impl)
-        else:
+        elif cfg.packed_render:
             # uniform steps on the unpacked lattice: a slot's t is its
             # ray's t_min plus its column times dt (packing reorders the
             # columns, so s_cap turns this off)
@@ -230,6 +274,13 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
                 uniform_dt=(cfg.render_step_size
                             if cfg.cone_angle == 0.0 and not capped
                             else None))
+        else:
+            out = render_rays_budget(
+                field, batch["origins"], batch["viewdirs"], cand,
+                batch["timestamps"], batch["color_bkgd"], occ_mean,
+                budget=budget, alpha_thre=cfg.alpha_thre, train=True,
+                n_blocks=cfg.compact_blocks, ray_complete=fits,
+                compact_impl=cfg.compact_impl)
         extras = out.extras
         complete = extras["complete"]
         denom = torch.clamp(complete.sum(), min=1.0)
@@ -242,25 +293,11 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
         if flags.acc_entropy_loss:
             loss = loss + L.acc_entropy_loss(out.opacity,
                                              ray_weights=complete) * 1e-3
-        starts, counts = extras["starts"], extras["counts"]
-        if flags.distortion_loss:
-            loss = loss + L.packed_distortion_loss(
-                extras["weights_p"], extras["t_starts_p"], extras["dts_p"],
-                starts, counts, budget, complete,
-                n_blocks=cfg.compact_blocks) * 1e-3
-        if flags.weight_rgbper:
-            loss = loss + L.packed_rgbper_loss(
-                extras["rgbs_p"], batch["pixels"],
-                extras["weights_p"].detach(), starts, counts, budget,
-                complete) * 1e-3
-        if flags.use_feat_predict:
-            loss = loss + L.packed_ray_sum_mean(
-                extras["latent_p"] * extras["weights_p"].detach(), starts,
-                counts, budget, complete)
-        if flags.use_weight_predict:
-            loss = loss + L.packed_per_ray_mean(
-                extras["weight_loss_p"] * extras["weights_p"],
-                extras["valid_p"], starts, counts, budget, complete)
+        if extras.get("packed"):
+            loss = _packed_regularizers(loss, extras, batch, flags, budget,
+                                        complete, cfg.compact_blocks)
+        else:
+            loss = _dense_regularizers(loss, extras, batch, flags, complete)
         loss.backward()
         for p in field.parameters():
             if p.grad is None:

@@ -1,10 +1,11 @@
-"""Training losses of the packed train step (port of the packed half of
-cednerf_tpu/ops/losses.py; reference train_real.py:369-409).
+"""Training losses (port of cednerf_tpu/ops/losses.py; reference
+train_real.py:369-409).
 
-Per-slot arrays are [B] over the compacted budget buffer, with per-ray
-segments [starts, starts + counts); every per-ray reduction goes through
-ops/segments.py. The dense-lattice forms (distortion_loss, rgbper_loss)
-come with a later slice.
+The dense-lattice forms (distortion_loss, rgbper_loss) reduce along the
+sample axis of padded [R, S] buffers (the packed_render=False train step).
+The packed forms take per-slot arrays [B] over the compacted budget
+buffer, with per-ray segments [starts, starts + counts); every per-ray
+reduction there goes through ops/segments.py.
 """
 
 import torch
@@ -19,6 +20,36 @@ def ray_mean(per_ray: torch.Tensor, ray_weights=None) -> torch.Tensor:
         return per_ray.mean()
     w = ray_weights.reshape(per_ray.shape)
     return (per_ray * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def distortion_loss(weights, t_starts, t_ends, mask=None, ray_weights=None):
+    """Mip-NeRF 360 distortion loss in its O(N) prefix-sum form, mean over
+    rays (flatten_eff_distloss's normalization, cednerf/losses.py:4-11):
+
+      L(ray) = 2 sum_i w_i (m_i sum_{j<i} w_j - sum_{j<i} w_j m_j)
+               + 1/3 sum_i w_i^2 (t1_i - t0_i)
+
+    for samples sorted by t along each ray. ray_weights: optional [R] 0/1
+    mask (budget-truncated rays excluded)."""
+    if mask is not None:
+        weights = weights * mask
+    mid = (t_starts + t_ends) / 2.0
+    interval = t_ends - t_starts
+    wm = weights * mid
+    w_prefix = exclusive_cumsum(weights, dim=-1)
+    wm_prefix = exclusive_cumsum(wm, dim=-1)
+    loss_bi = 2.0 * torch.sum(weights * (mid * w_prefix - wm_prefix), dim=-1)
+    loss_uni = (1.0 / 3.0) * torch.sum(weights ** 2 * interval, dim=-1)
+    return ray_mean(loss_bi + loss_uni, ray_weights)
+
+
+def rgbper_loss(rgbs, pixels, weights, mask, ray_weights=None):
+    """Per-sample colour-to-pixel penalty (train_real.py:394-396):
+    sum_i |rgb_i - pixel|^2 w_i per ray, mean over rays. rgbs [R, S, 3],
+    pixels [R, 3]; the caller detaches the weights."""
+    per = torch.sum((rgbs - pixels[:, None, :]) ** 2, dim=-1)
+    per_ray = torch.sum(per * weights * mask, dim=-1)
+    return ray_mean(per_ray, ray_weights)
 
 
 def opacity_loss(opacities, eps: float = 1e-6, ray_weights=None):

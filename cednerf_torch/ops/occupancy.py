@@ -2,8 +2,9 @@
 
 Holds the grid state, its EMA update (all cells during the occupancy
 warmup, a sampled quarter afterwards), the ray/AABB slab test, the fine and
-pooled-coarse occupancy lookups of the segment eval renderer, and the dense
-candidate lattice of the packed train step (`march_candidates`). Semantics
+pooled-coarse occupancy lookups of the segment eval renderer, the dense
+candidate lattice of the train step and the lattice eval marcher
+(`march_candidates`) and its per-ray compaction (`march_rays`). Semantics
 are nerfacc's, as in the JAX package: nested AABB levels (level i is the ROI
 scaled by 2^i), occs[cell] <- max(occs * ema_decay, new) with binaries =
 occs > min(mean(occs), occ_thre), lookups against the finest level
@@ -202,6 +203,19 @@ def coarse_lookup(state: OccGridState, coarse: torch.Tensor,
     return _lookup(state, coarse, pos)
 
 
+class RaySamples(NamedTuple):
+    """Padded per-ray sample intervals, all [n_rays, s_max]: t_starts,
+    t_ends, mask (bool validity)."""
+
+    t_starts: torch.Tensor
+    t_ends: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def num_valid(self):
+        return self.mask.sum()
+
+
 class RayCandidates(NamedTuple):
     """Dense (uncompacted) marching candidates, all [n_rays, n_steps]:
     t_starts, dts, valid (bool); covered [n_rays] bool or None (None: every
@@ -347,3 +361,44 @@ def march_candidates(state: OccGridState, origins: torch.Tensor,
     pos = origins[:, None, :] + viewdirs[:, None, :] * t_mid[..., None]
     valid = (t0 < t_max[:, None]) & occupancy_lookup(state, pos)
     return RayCandidates(t_starts=t0, dts=dt, valid=valid, covered=covered)
+
+
+def stable_valid_order(valid: torch.Tensor, s_max: int) -> torch.Tensor:
+    """The first s_max columns of JAX's stable argsort of ~valid along the
+    last axis: each ray's valid candidates in lattice order, then its
+    invalid ones in lattice order. [R, M] bool -> [R, min(s_max, M)]
+    int64. Written as one rank and one scatter (no sort): each
+    candidate's rank is its column, and ranks past s_max land in a spare
+    column that is dropped."""
+    r, m = valid.shape
+    s_max = min(s_max, m)
+    vi = valid.to(torch.int64)
+    n_v = vi.sum(dim=-1, keepdim=True)
+    dest = torch.where(valid, torch.cumsum(vi, dim=-1) - 1,
+                       n_v + torch.cumsum(1 - vi, dim=-1) - 1)
+    src = torch.arange(m, device=valid.device).expand(r, m)
+    return torch.zeros((r, s_max + 1), dtype=torch.int64,
+                       device=valid.device).scatter_(
+        1, torch.clamp(dest, max=s_max), src)[:, :s_max]
+
+
+def march_rays(state: OccGridState, origins: torch.Tensor,
+               viewdirs: torch.Tensor, *, near_plane: float,
+               far_plane: float, render_step_size: float,
+               cone_angle: float = 0.0, max_march_steps: int = 1024,
+               s_max: int = 256, jitter: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None) -> RaySamples:
+    """march_candidates plus a stable per-ray compaction of the valid
+    samples into the first s_max slots: the fixed-shape [n_rays, s_max]
+    stand-in for nerfacc's ragged packed output."""
+    cand = march_candidates(
+        state, origins, viewdirs, near_plane=near_plane, far_plane=far_plane,
+        render_step_size=render_step_size, cone_angle=cone_angle,
+        max_march_steps=max_march_steps, jitter=jitter, generator=generator)
+    order = stable_valid_order(cand.valid, s_max)
+
+    def take(a):
+        return torch.gather(a, 1, order)
+
+    return RaySamples(t_starts=take(cand.t_starts), t_ends=take(cand.t_ends),
+                      mask=take(cand.valid))

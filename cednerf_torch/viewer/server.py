@@ -3,8 +3,10 @@
 Serves the same single-page app (orbit camera, time scrubber, max-samples
 slider, depth toggle, view snapping): the browser posts
 {c2w, time, depth, max_samples, width} to /render and the server renders
-with the segment eval renderer and replies with a PNG encoded by the
-standard library (utils/image.py).
+through make_eval_render_fn (the segment eval renderer for uniform-step
+configs, the lattice marcher for cone-angle ones such as the HyperNeRF and
+DyNeRF presets) at eval_chunk_for's chunk, and replies with a PNG encoded
+by the standard library (utils/image.py).
 
 Usage:
     server = ViewerServer(field, occ_state, cfg, train_poses=..., K=...,
@@ -125,7 +127,9 @@ class ViewerServer:
 
     Frames render one at a time (a lock serializes concurrent requests: the
     card renders one frame at a full chunk budget anyway). `last_frame`
-    holds the latest frame's stats: ms, passes per chunk, finite flag."""
+    holds the latest frame's stats: ms, passes per chunk, finite flag.
+    render_bkgd defaults to black for every family, as in the JAX
+    ViewerServer (the HyperNeRF and DyNeRF families' own background)."""
 
     def __init__(self, field, occ_state, cfg, *,
                  train_poses: Optional[np.ndarray] = None,

@@ -93,8 +93,23 @@ Phases, each of which must pass (nothing is caught and carried on):
      [R, 128] segments and [49152, 8] samples among them) bit-exact against
      its plain version. Phase 6 also holds the steady-state steps (skip
      lattice, s_cap, march_seg) card vs CPU.
-Phases 5, 7, 7b and 10 fail if K7 or K8 launched on a serving or training
-path.
+ 13. hypernerf: the HyperNeRF preset (hypernerf_config, -te -ta -f -ae -df
+     -d: L8 F4, max resolution 4096, 2^21 hashmap, field AABB +-2, cone
+     angle 4e-3, 2 grid levels, alpha_thre 1e-2, near plane 0.2). A 32x32
+     frame of a shrunken config through the lattice marcher on the card and
+     on the CPU (budgeted and budgeted=False, phase 4's limits) and its
+     train step card vs CPU (packed and packed_render=False, phase 6's
+     limits); then at full width: K5 and K6 against their plain versions
+     on the full-width field's levels (levels 0-1 dense, 2-7 hashed) at
+     the step's 262,144 samples and a ragged 100,003 (phase 1's and 2's
+     limits), one all-cells update of the 2-level grid, Trainer.run(HYPER_STEPS) over MonocularOrbitScene's device
+     sampler (finite losses, rising PSNR, K5/K6/K4 at the counts the steps
+     and probes imply, nothing else), ViewerServer /render of 400x400
+     frames at max_samples 64, 128 and 256 through the lattice marcher (K4
+     and K5 once a pass), PSNR / SSIM / MS-SSIM of a held-out view, and
+     K4 bit-exact on every lattice shape these runs handed it.
+Phases 5, 7, 7b, 10 and 13 fail if K7 or K8 launched on a serving or
+training path.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
@@ -147,6 +162,15 @@ HASH4D_STEPS = 320
 # empty-space-skip lattice pinned for 2 chunks if the shrink did not fire
 SCANNED_STEPS, SCANNED_K, SCANNED_CKPT = 512, 16, 256
 PINNED_LATTICE = 512
+# the HyperNeRF phase: Trainer.run(HYPER_STEPS) at HYPER_K steps a chunk
+# (the 256-step warmup and 64 after it; runs while step <= 320, so 21
+# chunks), then 400x400 frames at these max_samples
+HYPER_STEPS, HYPER_K = 320, 16
+HYPER_SAMPLES = (64, 128, 256)
+# its card-vs-CPU frame and steps: the shrunken config of the reference
+# step (SMALL) on the HyperNeRF preset (cone, 2 levels, alpha_thre, near
+# 0.2) with a 1e-2 step, whose 384 cone steps cross the +-2 box
+HYPER_REF = dict(SMALL, render_step_size=1e-2, max_march_steps=384)
 # K3 against its plain version: both sum in f32, K3 with atomics in an order
 # that changes from run to run, index_add_ in its own (up to ~1,200 adds per
 # address on level 0 at 262,144 samples), so each table is held to 1e-4 of
@@ -218,7 +242,11 @@ def _ray_major_x(n_rays, seed):
     return torch.from_numpy(ray_major_samples(n_rays, 64, seed)[0]).cuda()
 
 
-def kernel_phase(field, n_main, n_ragged, seed):
+def kernel_phase(field, n_main, n_ragged, seed,
+                 names=("fused_encode_fwd", "interp_fwd"), timed=True):
+    """K5 and K1 against their plain versions on the field's levels and its
+    tables, x uniform over the unit cube, at n_main and at a ragged count;
+    with `timed`, each timed at n_main. `names` picks the kernels."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops.brick_grid import level_tables
@@ -239,8 +267,9 @@ def kernel_phase(field, n_main, n_ragged, seed):
     for n in (n_main, n_ragged):
         x = torch.rand((n, 3), device="cuda", generator=gen)
         rows = _level_rows(x, spec)
-        feats = torch.stack([tables[l].index_select(0, rows[l].long())
-                             for l in range(L)]).contiguous()
+        feats = (torch.stack([tables[l].index_select(0, rows[l].long())
+                              for l in range(L)]).contiguous()
+                 if "interp_fwd" in names else None)
         calls = {
             "fused_encode_fwd": (
                 lambda od: ek.fused_encode_fwd(x, table, rows, scales, nbs,
@@ -253,7 +282,8 @@ def kernel_phase(field, n_main, n_ragged, seed):
                 lambda: ek.interp_fwd_plain(x, feats, scales, nbs, F,
                                             torch.float32)),
         }
-        for name, (kern, plain) in calls.items():
+        for name in names:
+            kern, plain = calls[name]
             want = plain()
             got16 = kern(torch.bfloat16)
             got32 = kern(torch.float32)
@@ -265,6 +295,8 @@ def kernel_phase(field, n_main, n_ragged, seed):
             rec = {"name": name, "n": n, "levels": L, "n_feat": F,
                    "max_abs_err": err16, "max_abs_err_f32_out": err32}
             if n == n_main:
+                results[name] = rec
+            if n == n_main and timed:
                 rec["ms"] = cuda_ms(lambda: kern(torch.bfloat16), 20)
                 rec["plain_ms"] = cuda_ms(plain, 3)
                 out_b = n * L * F * 2
@@ -291,7 +323,6 @@ def kernel_phase(field, n_main, n_ragged, seed):
                 rec["bound_ms"] = max(t_bytes, t_ops)
                 rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
                 rec["row_bytes"] = n * L * 64 * F * 2
-                results[name] = rec
             log(json.dumps({"kernel_check": rec}))
         del feats
         torch.cuda.empty_cache()
@@ -481,26 +512,37 @@ def reference_phase(field, occ, cfg, flags, seed):
                  (field, occ)):
         fn = make_eval_render_fn(f, cfg, s_max=64)
         outs.append(render_image(f, g, fn, o, d, 0.5, bkgd, chunk=4096))
-    card_out, ref_out, served_out = outs
+    rec.update(_compare_frames("reference", *outs))
+    return rec
+
+
+def _compare_frames(label, card_out, ref_out, served_out):
+    """The frame checks of reference_phase: the card's (rgb, opacity,
+    depth) against the CPU's, rgb and opacity within 2e-2, depth within
+    5e-2 on rays of opacity >= 0.1, all finite; and the served frame of a
+    field with ~0 features must differ from the card's by more than 5x the
+    rgb and opacity limits, which shows that the check can fail."""
+    import numpy as np
+
     seen = ref_out[1][..., 0] >= 0.1
-    rec["opacity_mean"] = float(ref_out[1].mean())
-    rec["depth_rays"] = int(seen.sum())
+    rec = {"opacity_mean": float(ref_out[1].mean()),
+           "depth_rays": int(seen.sum())}
     for i, (name, tol) in enumerate((("rgb", 2e-2), ("opacity", 2e-2),
                                      ("depth", 5e-2))):
         a, b, z = card_out[i], ref_out[i], served_out[i]
         if not (np.isfinite(a).all() and np.isfinite(z).all()):
-            raise AssertionError(f"reference: non-finite {name} on the card")
+            raise AssertionError(f"{label}: non-finite {name} on the card")
         if name == "depth":
             a, b, z = a[seen], b[seen], z[seen]
         err = float(np.abs(a - b).max())
         if err > tol:
-            raise AssertionError(f"reference: {name} differs by {err} "
+            raise AssertionError(f"{label}: {name} differs by {err} "
                                  f"(> {tol}): {rec}")
         rec[f"{name}_max_abs_err"] = err
         rec[f"{name}_moved_by_zero_features"] = float(np.abs(z - a).max())
         if name != "depth" and rec[f"{name}_moved_by_zero_features"] < 5 * tol:
             raise AssertionError(
-                f"reference: zero features barely move {name}, so the frame "
+                f"{label}: zero features barely move {name}, so the frame "
                 f"check could not fail: {rec}")
     return rec
 
@@ -600,13 +642,15 @@ def _frac_err(got, want):
     return (got - want).abs().max().item() / max(scale, 1e-30)
 
 
-def backward_kernel_phase(field, n_main, n_ragged, seed):
+def backward_kernel_phase(field, n_main, n_ragged, seed,
+                          names=("fused_encode_bwd", "interp_bwd_fused"),
+                          timed=True):
     """K6 and K2 (one kernel body, on the table and on the gathered rows)
     against their plain versions on the full-width field's levels, tables
-    uniform(-8, 8), at one train step's sample count and at a ragged one,
-    each timed at the step's count on uniform random and on ray-major
-    samples. One bf16 cotangent row in eight is zero (unused budget slots
-    carry zero)."""
+    uniform(-8, 8), at one train step's sample count and at a ragged one;
+    with `timed`, each timed at the step's count on uniform random and on
+    ray-major samples. One bf16 cotangent row in eight is zero (unused
+    budget slots carry zero). `names` picks the kernels."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.utils.bench import cuda_ms
@@ -637,7 +681,7 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
              ).to(torch.bfloat16)
         g[::8] = 0
         rows = _level_rows(x, spec)
-        feats = gather(rows)
+        feats = gather(rows) if "interp_bwd_fused" in names else None
         want_t, want_x = ek.fused_encode_bwd_plain(x, g, rows, table, scales,
                                                    nbs, level_rows, F)
         calls = {
@@ -652,7 +696,8 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
                 lambda: ek.interp_bwd_fused_plain(x, g, feats, rows, scales,
                                                   nbs, level_rows, F)),
         }
-        for name, (kern, plain) in calls.items():
+        for name in names:
+            kern, plain = calls[name]
             d_t, d_x = kern()
             torch.cuda.synchronize()
             errs, err_x = _bwd_errors(f"{name} N={n}", (d_t, d_x),
@@ -663,6 +708,8 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
                    "table_err_frac_per_level": errs, "dx_err_frac": err_x,
                    "d_table_max": want_t.abs().max().item()}
             if n == n_main:
+                results[name] = rec
+            if n == n_main and timed:
                 rec["ms"] = cuda_ms(kern, 20)
                 rec["plain_ms"] = cuda_ms(plain, 3)
                 src_b = (table.numel() * 2 if name == "fused_encode_bwd"
@@ -693,7 +740,6 @@ def backward_kernel_phase(field, n_main, n_ragged, seed):
                             xm, g, fm, rm, scales, nbs, level_rows, F), 20)
                     del fm
                 del xm, rm
-                results[name] = rec
             log(json.dumps({"kernel_check": rec}))
         del feats, want_t, want_x
         torch.cuda.empty_cache()
@@ -856,10 +902,12 @@ def _shell_bins(res, rng, radius=0.55, width=0.2, noise=0.01):
 
 
 def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
-                   step_kw=None):
+                   step_kw=None, density_bias=None):
     """One loss-and-gradients step of `cfg` per route: ("plain", CPU) and
-    each route of `routes` on the card, from the same weights, grid, batch
-    and jitter. {route: (loss, aux floats, gradients on the CPU)}."""
+    each route of `routes` on the card, from the same weights, grid (bins
+    [levels, res, res, res]), batch and jitter; density_bias, if given,
+    replaces the density output's bias. {route: (loss, aux floats,
+    gradients on the CPU)}."""
     import numpy as np
     import torch
     from cednerf_torch.bridge import occ_from_numpy
@@ -868,8 +916,9 @@ def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
     from cednerf_torch.ops.occupancy import create_occ_grid
     from cednerf_torch.utils.bench import load_uniform_tables
 
-    occs = np.where(bins, 0.5, 0.0).astype(np.float32).reshape(1, -1)
-    aabbs = create_occ_grid(cfg.aabb, bins.shape[-1], 1,
+    levels = bins.shape[0]
+    occs = np.where(bins, 0.5, 0.0).astype(np.float32).reshape(levels, -1)
+    aabbs = create_occ_grid(cfg.aabb, bins.shape[-1], levels,
                             device="cpu").aabbs.numpy()
     runs = {}
     for route, dev in (("plain", "cpu"),) + tuple((r, "cuda")
@@ -877,6 +926,9 @@ def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
         c = dataclasses.replace(cfg, interp_impl=route)
         f = build_field(c, flags, device=dev, seed=seed)
         load_uniform_tables([f], seed, 1.0)
+        if density_bias is not None:
+            with torch.no_grad():
+                f.mlp_base.out.bias[0] = density_bias
         state = tt.create_train_state(f, c, device=dev)
         state.occ = occ_from_numpy(occs, bins, aabbs, device=dev)
         loss, aux = tt._make_loss_fn(c, flags, c.sample_budget,
@@ -1157,17 +1209,29 @@ def _sync_checked_chunk(trainer):
 @contextlib.contextmanager
 def _keeping_k4(kept, label):
     """Within the block, K4's wrapper (ops/compact_kernels.py, which the
-    renderer calls through its module) keeps in `kept` the lattice and
-    result of its first call on each (lattice shape, budget), with the
-    label of the path that made it."""
+    renderer calls through its module) keeps in `kept`, for each (lattice
+    shape, budget), the lattice and result of the call that selected the
+    most candidates (the first call's if none selected more), with the
+    label of the path that first made that shape. The choice is made on
+    the card (torch.where on the counts), so keeping adds no host sync."""
+    import torch
     from cednerf_torch.ops import compact_kernels as ck
     real = ck.compact_select_kernel
 
     def keep(valid, budget):
         sel, sel_kept = real(valid, budget)
         key = (tuple(valid.shape), budget)
+        n = sel_kept.sum()
         if key not in kept:
-            kept[key] = (label, valid.clone(), sel.clone(), sel_kept.clone())
+            kept[key] = (label, valid.clone(), sel.clone(), sel_kept.clone(),
+                         n)
+        else:
+            lab, v0, s0, k0, n0 = kept[key]
+            more = n > n0
+            kept[key] = (lab, torch.where(more, valid, v0),
+                         torch.where(more, sel, s0),
+                         torch.where(more, sel_kept, k0),
+                         torch.maximum(n, n0))
         return sel, sel_kept
 
     ck.compact_select_kernel = keep
@@ -1183,7 +1247,7 @@ def _check_k4_kept(kept):
     import torch
     from cednerf_torch.ops import compact_kernels as ck
     recs = []
-    for (shape, budget), (label, valid, sel, sel_kept) in kept.items():
+    for (shape, budget), (label, valid, sel, sel_kept, _) in kept.items():
         want = ck.compact_select_rayfold(valid, budget)
         torch.cuda.synchronize()
         if not (torch.equal(sel, want[0]) and torch.equal(sel_kept, want[1])):
@@ -1407,6 +1471,298 @@ def hash4d_phase(cfg, seed, steps=HASH4D_STEPS):
         "passes_per_chunk": stats["passes_per_chunk"], "launches": launches}
     log(json.dumps({"hash4d_frame": summary["frame"]}))
     return summary
+
+
+def _hyper_frame_check(seed):
+    """Card vs CPU frame of the shrunken HyperNeRF config (HYPER_REF): a
+    32x32 frame through the lattice marcher, budgeted and budgeted=False,
+    from fields given the same uniform(+-REF_TABLE_BOUND) tables and the
+    card field's 2-level grid; reference_phase's limits, and its check that
+    a field with ~0 features moves the frame by more than 5x them. The card
+    runs must launch K4 (budgeted) and K5, no plain version."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.rays import pinhole_rays
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, hypernerf_config
+    from cednerf_torch.engine.renderer import (eval_chunk_for,
+                                               make_eval_render_fn,
+                                               render_image)
+    from cednerf_torch.ops.occupancy import OccGridState
+    from cednerf_torch.utils.bench import (TRAIN_FLAGS, fill_occupancy,
+                                           load_uniform_tables, orbit_c2w)
+
+    cfg = dataclasses.replace(hypernerf_config("vrig_3dprinter"), **HYPER_REF)
+    flags = ModelFlags(**TRAIN_FLAGS)
+    card, cpu, served = (build_field(cfg, flags, device=dev, seed=seed)
+                         for dev in ("cuda", "cpu", "cuda"))
+    load_uniform_tables([card, cpu], seed, REF_TABLE_BOUND)
+    occ = fill_occupancy(card, cfg, seed, "cuda")
+    cpu_occ = OccGridState(*(a.cpu() for a in occ))
+    w = 32
+    K = np.array([[w * 1.1, 0, w / 2], [0, w * 1.1, w / 2], [0, 0, 1]],
+                 np.float32)
+    xx, yy = np.meshgrid(np.arange(w, dtype=np.float32),
+                         np.arange(w, dtype=np.float32), indexing="xy")
+    o, d, _ = pinhole_rays(xx.reshape(-1), yy.reshape(-1), K,
+                           np.broadcast_to(orbit_c2w(), (w * w, 3, 4)), True)
+    bkgd = np.zeros(3, np.float32)
+    rec = {"occupied": occ.binaries.float().mean(dim=(1, 2, 3)).tolist()}
+    for budgeted in (True, False):
+        outs, launches = [], None
+        for f, g in ((card, occ), (cpu, cpu_occ), (served, occ)):
+            fn = make_eval_render_fn(f, cfg, s_max=64, budgeted=budgeted)
+            if f is card:
+                reset_counts()
+            outs.append(render_image(f, g, fn, o, d, 0.5, bkgd,
+                                     chunk=eval_chunk_for(cfg)))
+            if f is card:
+                torch.cuda.synchronize()
+                launches, plain = all_counts()
+                want = {"fused_encode_fwd", "compact_select"} if budgeted \
+                    else {"fused_encode_fwd"}
+                if ({k for k, v in launches.items() if v} != want
+                        or any(plain.values())):
+                    raise AssertionError(
+                        f"hypernerf frame (budgeted={budgeted}): launches "
+                        f"{launches} (want {sorted(want)}), plain {plain}")
+                passes = fn.pass_log
+        rec["budgeted" if budgeted else "dense"] = {
+            "passes": passes,
+            "launches": {k: v for k, v in launches.items() if v},
+            **_compare_frames(f"hypernerf frame (budgeted={budgeted})",
+                              *outs)}
+    return rec
+
+
+def _hyper_step_check(seed):
+    """Card vs CPU train step of the shrunken HyperNeRF config (HYPER_REF:
+    cone_angle 4e-3, 2 grid levels, alpha_thre 1e-2, near 0.2), packed and
+    packed_render=False, from the same weights (tables uniform(-1, 1), the
+    density bias raised to 2 so that samples pass alpha_thre), grid (15% of
+    each level's cells), BallScene batch and jitter: phase 6's limits."""
+    import numpy as np
+    from cednerf_torch.datasets.procedural import BallScene
+    from cednerf_torch.engine.config import ModelFlags, hypernerf_config
+    from cednerf_torch.utils.bench import TRAIN_FLAGS
+
+    cfg = dataclasses.replace(hypernerf_config("vrig_3dprinter"), **HYPER_REF)
+    flags = ModelFlags(**TRAIN_FLAGS)
+    rng = np.random.default_rng(seed)
+    res = cfg.grid_resolution
+    bins = rng.uniform(size=(cfg.grid_nlvl, res, res, res)) < 0.15
+    batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
+    jitter = rng.uniform(size=128).astype(np.float32)
+    rec = {}
+    for name, packed in (("packed", True), ("dense", False)):
+        c = dataclasses.replace(cfg, packed_render=packed)
+        rec[name] = _ref_step_check(
+            f"hypernerf step ({name})",
+            _ref_step_runs(c, flags, bins, batch, jitter, seed, ("xla",),
+                           density_bias=2.0), ("xla",))
+        if not 0.0 < rec[name]["complete_frac"] <= 1.0 \
+                or rec[name]["n_valid"] <= 0:
+            raise AssertionError(f"hypernerf step ({name}): {rec[name]}")
+    return rec
+
+
+def hypernerf_phase(seed, steps=HYPER_STEPS, k=HYPER_K):
+    """The HyperNeRF preset (hypernerf_config("vrig_3dprinter"), -te -ta -f
+    -ae -df -d) at full width on one card:
+
+      1. card vs CPU frame of a shrunken config (_hyper_frame_check);
+      2. card vs CPU train steps, packed and dense (_hyper_step_check);
+      3. K5 and K6 against their plain versions on the full-width field's
+         level layout (max resolution 4096: levels 0-1 dense, 2-7 hashed)
+         at the step's sample count and a ragged one, at phase 1's and
+         phase 2's limits; then one all-cells occupancy update of the 2-level grid, timed, K5 once
+         per 65,536 cells; then Trainer.run(steps) over
+         MonocularOrbitScene's device sampler, k steps a chunk (the 256-step
+         warmup and 64 steps or more after it): finite losses, the last
+         chunk's PSNR above the first's, K6 and K4 once a step and K5 once
+         a step plus the occupancy probes, nothing else, no plain version;
+      4. ViewerServer /render of 400x400 frames at max_samples
+         HYPER_SAMPLES through the lattice marcher on the server's default
+         black background: finite PNGs, K4 and K5 once per pass and nothing else;
+      5. PSNR, SSIM and MS-SSIM of a held-out view (a novel camera angle at
+         a training time, the vrig protocol) against its analytic ground
+         truth, finite;
+      6. K4's result on the first lattice of each (shape, budget) of the
+         training and serving runs, bit-exact against its plain version.
+    Then a steady step's device time under torch.profiler."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.procedural import BG, MonocularOrbitScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, hypernerf_config
+    from cednerf_torch.engine.renderer import (eval_chunk_for,
+                                               make_eval_render_fn,
+                                               render_image)
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.utils import metrics
+    from cednerf_torch.utils.bench import (TRAIN_FLAGS, device_ms,
+                                           fill_occupancy, orbit_c2w)
+    from cednerf_torch.viewer.server import ViewerServer
+
+    t_phase = time.perf_counter()
+    secs = {}
+    out = {"frame_check": _hyper_frame_check(seed)}
+    log(json.dumps({"hypernerf_frame_check": out["frame_check"]}))
+    secs["frame_check"] = time.perf_counter() - t_phase
+    out["step_check"] = _hyper_step_check(seed)
+    log(json.dumps({"hypernerf_step_check": out["step_check"]}))
+    secs["step_check"] = time.perf_counter() - t_phase - secs["frame_check"]
+    torch.cuda.empty_cache()
+
+    cfg = hypernerf_config("vrig_3dprinter")
+    flags = ModelFlags(**TRAIN_FLAGS)
+    scene = MonocularOrbitScene(n_frames=32, wh=128, seed=seed)
+    field = build_field(cfg, flags, device="cuda", seed=seed)
+    n_params = sum(p.numel() for p in field.parameters())
+    out["field_mib"] = n_params * 4 / 2 ** 20
+
+    # 3. K5 and K6 on this field's levels, then the 2-level warmup update
+    # alone, then training
+    t0 = time.perf_counter()
+    out["kernel_checks"] = {
+        **kernel_phase(field, cfg.sample_budget, 100_003, seed,
+                       names=("fused_encode_fwd",), timed=False),
+        **backward_kernel_phase(field, cfg.sample_budget, 100_003, seed,
+                                names=("fused_encode_bwd",), timed=False)}
+    out["kernel_checks"]["level_rows"] = [
+        l["rows"] for l in field.hash_encoder.bspec.level_layout()]
+    log(json.dumps({"hypernerf_kernel_checks": out["kernel_checks"]}))
+    secs["kernel_checks"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    occ0 = fill_occupancy(field, cfg, seed, "cuda")
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    launches, _ = all_counts()
+    cells = cfg.grid_nlvl * cfg.grid_resolution ** 3
+    if launches["fused_encode_fwd"] != -(-cells // 2 ** 16):
+        raise AssertionError(f"2-level all-cells update: {launches}")
+    out["warmup_update"] = {"cells": cells, "ms": warm_ms,
+                            "k5_launches": launches["fused_encode_fwd"],
+                            "occupied": occ0.binaries.float().mean(
+                                dim=(1, 2, 3)).tolist()}
+    del occ0
+    trainer = Trainer(field, cfg, flags, scene, seed=seed, device="cuda",
+                      device_sampler=scene.device_sampler(),
+                      steps_per_call=k)
+    recs, k4 = [], {}
+    _record_chunks(trainer, recs)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _keeping_k4(k4, "hypernerf train"):
+        trainer.run(steps, log_every=0)
+    counts, plain = all_counts()
+    run_s = time.perf_counter() - t0
+    _check_step_launches("hypernerf train", counts, plain, cfg, recs)
+    if not recs[-1]["psnr"] > recs[0]["psnr"]:
+        raise AssertionError(f"hypernerf train: PSNR {recs[0]['psnr']} -> "
+                             f"{recs[-1]['psnr']}")
+    steady = [r for r in recs if not r["warmup"]]
+    if sum(r["steps"] for r in steady) < steps - cfg.occ_warmup_steps:
+        raise AssertionError(f"hypernerf train: fewer than "
+                             f"{steps - cfg.occ_warmup_steps} steady steps")
+    out["train"] = {
+        "steps": trainer.step, "chunks": len(recs), "run_s": run_s,
+        "launches": counts, "psnr_first": recs[0]["psnr"],
+        "psnr_last": recs[-1]["psnr"],
+        "median_ms_per_step_warmup": float(np.median(
+            [r["ms"] / r["steps"] for r in recs if r["warmup"]])),
+        "median_ms_per_step_steady": float(np.median(
+            [r["ms"] / r["steps"] for r in steady])),
+        "buckets": sorted({r["num_rays"] for r in recs}),
+        "last": {x: recs[-1][x] for x in (
+            "num_rays", "n_valid", "n_samples", "complete_frac", "loss",
+            "psnr")}}
+    for r in recs[:1] + recs[15:17] + recs[-1:]:
+        log(json.dumps({"hypernerf_chunk": r}))
+
+    # 4. serving through the lattice marcher
+    t0 = time.perf_counter()
+    t_view = float(scene.times[5])
+    server = ViewerServer(field, trainer.state.occ, cfg, wh=(400, 400))
+    httpd = server.start(port=0, host="127.0.0.1")
+    port = httpd.server_address[1]
+    frames = []
+    try:
+        post_render(port, orbit_c2w(), t_view, 64, 32, False)   # warm-up
+        reset_counts()
+        with _keeping_k4(k4, "hypernerf serve"):
+            for ms in HYPER_SAMPLES:
+                before = all_counts()[0]
+                _, wall_ms, n_bytes = post_render(port, orbit_c2w(), t_view,
+                                                  400, ms, False)
+                after = all_counts()[0]
+                stats = server.last_frame
+                passes = sum(map(sum, stats["passes_per_chunk"]))
+                got = {n: after[n] - before[n] for n in after
+                       if after[n] - before[n]}
+                rec = {"width": 400, "max_samples": ms, "t": t_view,
+                       "render_ms": stats["ms"], "http_ms": wall_ms,
+                       "png_bytes": n_bytes,
+                       "chunks": len(stats["passes_per_chunk"]),
+                       "passes": passes,
+                       "passes_per_chunk": [p[0] for p in
+                                            stats["passes_per_chunk"]],
+                       "launches": got}
+                log(json.dumps({"hypernerf_frame": rec}))
+                if not stats["finite"]:
+                    raise AssertionError(f"hypernerf frame {ms}: non-finite")
+                if got != {"fused_encode_fwd": passes,
+                           "compact_select": passes}:
+                    raise AssertionError(f"hypernerf frame {ms}: launches "
+                                         f"{got}, passes {passes}")
+                frames.append(rec)
+        serve_launches, plain = all_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if any(plain.values()):
+        raise AssertionError(f"hypernerf serving: plain on CUDA {plain}")
+    out["frames"] = frames
+    out["serve_launches"] = serve_launches
+    secs["serve"] = time.perf_counter() - t0
+
+    # 5. a held-out view's metrics
+    gt, o, d = scene.eval_view(0.37, t_view)
+    fn = make_eval_render_fn(field, cfg)
+    rgb, _, _ = render_image(field, trainer.state.occ, fn, o, d, t_view, BG,
+                             chunk=eval_chunk_for(cfg))
+    ev = {"theta": 0.37, "t": t_view, "wh": scene.wh,
+          "psnr": metrics.psnr(rgb, gt).item(),
+          "ssim": metrics.ssim(rgb, gt).item(),
+          "ms_ssim": metrics.ms_ssim(rgb, gt).item()}
+    if not all(np.isfinite(v) for v in ev.values()):
+        raise AssertionError(f"hypernerf eval metrics: {ev}")
+    out["eval"] = ev
+    log(json.dumps({"hypernerf_eval": ev}))
+
+    # 6. K4 on the new lattices
+    out["k4_path_checks"] = [(r["path"], r["lattice"], r["budget"])
+                             for r in _check_k4_kept(k4)]
+
+    # a steady step's device time (after the counted runs): run_step
+    # takes the chunk's step on a host batch; the warm-up call takes the
+    # occupancy update of step 336, the two profiled steps none (profiling
+    # a whole chunk's ~60,000 launches took ~40 s of host time)
+    t0 = time.perf_counter()
+    dev_ms, rows = device_ms(trainer.run_step, 2)      # per call
+    out["train"]["device_ms_per_step"] = dev_ms
+    out["train"]["device_top"] = [(n[:60], c / 2, ms / 2)
+                                  for n, c, ms in rows[:8]]
+    secs["device_ms"] = time.perf_counter() - t0
+    secs["train_run"] = run_s
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["secs"] = secs
+    del trainer, field, server
+    torch.cuda.empty_cache()
+    return out
 
 
 def interp_bwd_kernel_phase(spec, n_main, n_ragged, seed):
@@ -1663,6 +2019,11 @@ def main(argv=None):
     log(json.dumps({"hash4d_training": h4}))
     torch.cuda.empty_cache()
 
+    hyper = hypernerf_phase(args.seed)
+    log(json.dumps({"hypernerf": {k: v for k, v in hyper.items()
+                                  if k not in ("frame_check", "step_check")}}))
+    log(f"hypernerf phase: {hyper['phase_s']:.1f} s")
+
     t0 = time.perf_counter()
     kern["interp_bwd"] = interp_bwd_kernel_phase(spec3d, 262_144, 100_003,
                                                  args.seed)
@@ -1703,6 +2064,8 @@ def main(argv=None):
                    scanned["march_seg"]["launches"].get(name, 0),
                    "train_hash4d": h4["launches"].get(name, 0),
                    "serve_hash4d": h4["frame"]["launches"].get(name, 0),
+                   "train_hypernerf": hyper["train"]["launches"].get(name, 0),
+                   "serve_hypernerf": hyper["serve_launches"].get(name, 0),
                    "probe_interp_enc": probe_enc["launches"].get(name, 0),
                    "probe_row_gather": probe_gather["launches"].get(name, 0)}
         line.append({

@@ -13,9 +13,13 @@ weights from --seed, 128^3 occupancy filled by one all-cells update). Then:
   2. one 400x400 frame at max_samples 128 through ViewerServer.render_frame
      under torch.profiler: device time by kernel name, the sum of device
      time against the frame's wall time (the device's busy share), and the
-     frame's passes and host syncs.
+     frame's passes;
+  3. the same for one 400x400 frame at max_samples 128 of the HyperNeRF
+     preset (hypernerf_config("vrig_3dprinter"), the same flags, random
+     weights, its 2-level 128^3 grid filled by one all-cells update, black
+     background) through the lattice eval marcher.
 
-Prints JSON lines; writes the profiler's table under --out.
+Prints JSON lines; writes the profiler's tables under --out.
 """
 
 import argparse
@@ -23,6 +27,50 @@ import json
 import os
 import sys
 import time
+
+
+def profile_frame(server, label, card, out, width=400, max_samples=128):
+    """One frame of `server` timed plain, then one under torch.profiler:
+    prints the frame's JSON line under `label` and its 15 costliest
+    kernels, and writes the profiler's table to out/<label>_key_averages.txt
+    (the seg frame's keeps its name, key_averages.txt)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cednerf_torch.utils.bench import device_time_by_kernel, orbit_c2w
+
+    c2w = orbit_c2w()
+    server.render_frame(c2w, 0.5, width, max_samples, False)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.render_frame(c2w, 0.5, width, max_samples, False)
+    plain_frame_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.render_frame(c2w, 0.5, width, max_samples, False)
+        torch.cuda.synchronize()
+        prof_frame_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    rows_, device_ms = device_time_by_kernel(prof)
+    passes = server.last_frame["passes_per_chunk"]
+    print(json.dumps({label: {
+        "config": server.cfg.family, "width": width,
+        "max_samples": max_samples, "frame_ms": plain_frame_ms,
+        "profiled_frame_ms": prof_frame_ms, "device_ms": device_ms,
+        "device_busy_share": device_ms / prof_frame_ms,
+        "chunks": len(passes), "passes": sum(map(sum, passes)),
+        "passes_per_chunk": passes}}), flush=True)
+    for key, count, ms in rows_[:15]:
+        print(json.dumps({"kernel": key[:90], "frame": label, "calls": count,
+                          "device_ms": ms,
+                          "share": ms / device_ms if device_ms else None}),
+              flush=True)
+    os.makedirs(out, exist_ok=True)
+    name = ("" if label == "frame" else label + "_") + "key_averages.txt"
+    with open(os.path.join(out, name), "w") as fh:
+        fh.write(card + "\n")
+        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
 
 
 def main(argv=None):
@@ -38,13 +86,12 @@ def main(argv=None):
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cednerf_torch.engine.cli import build_field
-    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.config import (ModelFlags, dnerf_config,
+                                             hypernerf_config)
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops.brick_grid import _level_geom, level_tables
     from cednerf_torch.ops.cuda_build import build_all
-    from cednerf_torch.utils.bench import (card_name, cuda_ms,
-                                           device_time_by_kernel,
-                                           fill_occupancy, orbit_c2w)
+    from cednerf_torch.utils.bench import card_name, cuda_ms, fill_occupancy
     from cednerf_torch.viewer.server import ViewerServer
 
     card = card_name()
@@ -90,40 +137,19 @@ def main(argv=None):
     comp["field_rest_ms"] = comp["field_forward_ms"] - comp["brick_encode_ms"]
     print(json.dumps({"components": comp}), flush=True)
 
-    # 2. one 400x400 frame under the profiler
+    # 2. one 400x400 seg-eval frame under the profiler
     server = ViewerServer(field, occ, cfg, wh=(400, 400),
                           render_bkgd=(1, 1, 1))
-    c2w = orbit_c2w()
-    server.render_frame(c2w, 0.5, 400, 128, False)          # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    server.render_frame(c2w, 0.5, 400, 128, False)
-    plain_frame_ms = (time.perf_counter() - t0) * 1e3
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.render_frame(c2w, 0.5, 400, 128, False)
-        torch.cuda.synchronize()
-        prof_frame_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    rows_, device_ms = device_time_by_kernel(prof)
-    passes = server.last_frame["passes_per_chunk"]
-    print(json.dumps({"frame": {
-        "width": 400, "max_samples": 128, "frame_ms": plain_frame_ms,
-        "profiled_frame_ms": prof_frame_ms, "device_ms": device_ms,
-        "device_busy_share": device_ms / prof_frame_ms,
-        "chunks": len(passes), "passes": sum(map(sum, passes)),
-        "passes_per_chunk": passes}}), flush=True)
-    for key, count, ms in rows_[:15]:
-        print(json.dumps({"kernel": key[:90], "calls": count,
-                          "device_ms": ms,
-                          "share": ms / device_ms if device_ms else None}),
-              flush=True)
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "key_averages.txt"), "w") as fh:
-        fh.write(card + "\n")
-        fh.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+    profile_frame(server, "frame", card, args.out)
+    del server, field, occ
+    torch.cuda.empty_cache()
+
+    # 3. one 400x400 HyperNeRF lattice frame under the profiler
+    hcfg = hypernerf_config("vrig_3dprinter")
+    hfield = build_field(hcfg, flags, device="cuda", seed=args.seed)
+    hocc = fill_occupancy(hfield, hcfg, args.seed, "cuda")
+    profile_frame(ViewerServer(hfield, hocc, hcfg, wh=(400, 400)),
+                  "hypernerf_frame", card, args.out)
     return 0
 
 

@@ -124,12 +124,45 @@ def test_field_internals_match_flax(flags):
 
 
 def test_config_copy_matches_jax():
+    """Every preset and the scene lists, field for field: dnerf_config,
+    hypernerf_config for every HyperNeRF scene (add_cam follows "vrig"),
+    dynerf_config, and config_for_scene for every scene name and the
+    procedural ones (an unknown name raises on both sides)."""
     import dataclasses
-    assert dataclasses.asdict(dnerf_config(123)) == \
-        dataclasses.asdict(j_dnerf_config(123))
+
+    import cednerf_torch.datasets as tds
+    from cednerf_tpu import datasets as jds
+    from cednerf_tpu.engine import config as jcfg
+    from cednerf_torch.engine import config as tcfg
+
+    def same(a, b):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert a.ray_buckets() == b.ray_buckets()
+
+    same(dnerf_config(123), j_dnerf_config(123))
+    same(dnerf_config(), j_dnerf_config())
     assert dataclasses.asdict(ModelFlags()) == dataclasses.asdict(
         JModelFlags())
-    assert dnerf_config().ray_buckets() == j_dnerf_config().ray_buckets()
+    for name in ("DNERF_SYNTHETIC_SCENES", "DYNERF_SCENES",
+                 "HYPERNERF_SCENES"):
+        assert getattr(tds, name) == getattr(jds, name), name
+    for scene in tds.HYPERNERF_SCENES:
+        c = tcfg.hypernerf_config(scene)
+        same(c, jcfg.hypernerf_config(scene))
+        assert c.add_cam == ("vrig" in scene)
+    same(tcfg.hypernerf_config("vrig_broom", 123),
+         jcfg.hypernerf_config("vrig_broom", 123))
+    same(tcfg.dynerf_config(123), jcfg.dynerf_config(123))
+    same(tcfg.dynerf_config(), jcfg.dynerf_config())
+    names = (tds.DNERF_SYNTHETIC_SCENES + tds.DYNERF_SCENES
+             + tds.HYPERNERF_SCENES + ["procedural", "procedural_cloud"])
+    for scene in names:
+        for steps in (None, 77):
+            same(tcfg.config_for_scene(scene, steps),
+                 jcfg.config_for_scene(scene, steps))
+    for mod in (tcfg, jcfg):
+        with pytest.raises(ValueError, match="unknown scene"):
+            mod.config_for_scene("no_such_scene")
 
 
 def test_build_field_matches_flax_shapes_and_init():

@@ -30,8 +30,9 @@ from cednerf_tpu.ops.occupancy import create_occ_grid as j_create_occ
 from cednerf_torch.bridge import occ_from_numpy, params_from_numpy
 from cednerf_torch.datasets.rays import pinhole_rays
 from cednerf_torch.engine.config import dnerf_config
-from cednerf_torch.engine.renderer import (eval_chunk_for, make_eval_render_fn,
-                                           render_image)
+from cednerf_torch.engine.renderer import (LatticeEvalRenderer,
+                                           SegEvalRenderer, eval_chunk_for,
+                                           make_eval_render_fn, render_image)
 from cednerf_torch.models.field import DNGPRadianceField
 
 FIELD_KW = dict(aabb=(-1.5, -1.5, -1.5, 1.5, 1.5, 1.5), n_levels=3,
@@ -119,9 +120,23 @@ def test_render_image_chunks_and_padding():
 
 
 def test_unported_render_paths_raise():
-    _, _, tf, _, _, _, _ = _scene()
+    """The paths that raised before the lattice marcher was ported
+    (budgeted=False, a cone-angle config) now render finite frames through
+    it; what still raises: impl="seg" without a budget, and the segment
+    renderer on a cone-angle config (JAX asserts the same)."""
+    _, _, tf, _, tocc, o, d = _scene(w=16)
     cfg = dataclasses.replace(dnerf_config(), **CFG_KW)
-    with pytest.raises(NotImplementedError, match="lattice"):
-        make_eval_render_fn(tf, cfg, budgeted=False)
-    with pytest.raises(NotImplementedError, match="lattice"):
-        make_eval_render_fn(tf, dataclasses.replace(cfg, cone_angle=4e-3))
+    cone = dataclasses.replace(cfg, cone_angle=4e-3)
+    for c, kw in ((cfg, dict(budgeted=False)), (cone, {}),
+                  (cone, dict(budgeted=False))):
+        fn = make_eval_render_fn(tf, c, **kw)
+        assert isinstance(fn, LatticeEvalRenderer)
+        rgb, opac, depth = render_image(tf, tocc, fn, o, d, 0.5, np.ones(3),
+                                        chunk=eval_chunk_for(c))
+        assert rgb.shape == (16, 16, 3) and depth.shape == (16, 16, 1)
+        assert np.isfinite(rgb).all() and np.isfinite(depth).all()
+        assert 0.0 < opac.mean() < 1.0 and fn.pass_log
+    with pytest.raises(ValueError, match="budgeted"):
+        make_eval_render_fn(tf, cfg, budgeted=False, impl="seg")
+    with pytest.raises(NotImplementedError, match="cone_angle"):
+        SegEvalRenderer(tf, cone)

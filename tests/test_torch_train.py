@@ -31,17 +31,21 @@ import torch
 
 from cednerf_tpu.datasets.procedural import BallCloudScene as JCloud
 from cednerf_tpu.datasets.procedural import BallScene as JBall
+from cednerf_tpu.datasets.procedural import MonocularOrbitScene as JMono
 from cednerf_tpu.engine import train as jt
 from cednerf_tpu.engine.cli import build_field as j_build_field
 from cednerf_tpu.engine.config import ModelFlags as JFlags
 from cednerf_tpu.engine.config import dnerf_config as j_dnerf_config
+from cednerf_tpu.engine.config import hypernerf_config as j_hyper_config
 from cednerf_tpu.ops.occupancy import create_occ_grid as j_create_occ
 from cednerf_torch.bridge import (occ_from_numpy, params_from_numpy,
                                   params_to_numpy)
-from cednerf_torch.datasets.procedural import BallCloudScene, BallScene
+from cednerf_torch.datasets.procedural import (BallCloudScene, BallScene,
+                                               MonocularOrbitScene)
 from cednerf_torch.engine import train as tt
 from cednerf_torch.engine.cli import build_field
-from cednerf_torch.engine.config import ModelFlags, dnerf_config
+from cednerf_torch.engine.config import (ModelFlags, dnerf_config,
+                                         hypernerf_config)
 
 FLAGS = dict(use_div_offsets=True, use_feat_predict=True,
              use_time_embedding=True, use_time_attenuation=True,
@@ -118,20 +122,61 @@ def test_one_train_step_matches_jax(grid_type):
     (the same sums: test_torch_keyframe_encoder.py holds K3 against the
     JAX Pallas kernel)."""
     flags = {**FLAGS, "grid_type": grid_type}
-    jcfg = dataclasses.replace(j_dnerf_config(), grad_accum_dtype="float32",
-                               **SMALL)
-    tcfg = dataclasses.replace(dnerf_config(), grad_accum_dtype="float32",
-                               **SMALL)
+    kw = dict(grad_accum_dtype="float32", **SMALL)
+    _step_parity(dataclasses.replace(j_dnerf_config(), **kw),
+                 dataclasses.replace(dnerf_config(), **kw), flags)
+
+
+# the shrunken HyperNeRF preset: SMALL's field and budget with the preset's
+# cone_angle 4e-3, 2 grid levels, alpha_thre 1e-2 and near plane 0.2; a
+# 1e-2 step (the preset's 1e-3 would need ~1024 lattice steps to cross the
+# +-2 box) and 256 steps
+HYPER_SMALL = dict(SMALL, render_step_size=1e-2, max_march_steps=256)
+
+
+@pytest.mark.parametrize("case", ["dense", "hypernerf", "hypernerf_dense"])
+def test_unpacked_and_hypernerf_steps_match_jax(case):
+    """The dense-lattice step (packed_render=False: render_rays_budget, the
+    unpacked distortion loss) on the D-NeRF config, and a step of the
+    shrunken HyperNeRF preset (packed and dense), against JAX's at the
+    limits of test_one_train_step_matches_jax. The density head's bias is
+    raised so that most samples pass the preset's alpha_thre."""
+    kw = dict(grad_accum_dtype="float32",
+              packed_render=not case.endswith("dense"))
+    if case.startswith("hypernerf"):
+        jcfg = dataclasses.replace(j_hyper_config("vrig_3dprinter"),
+                                   **HYPER_SMALL, **kw)
+        tcfg = dataclasses.replace(hypernerf_config("vrig_3dprinter"),
+                                   **HYPER_SMALL, **kw)
+        assert (tcfg.cone_angle, tcfg.grid_nlvl, tcfg.alpha_thre,
+                tcfg.near_plane) == (4e-3, 2, 1e-2, 0.2)
+        _step_parity(jcfg, tcfg, FLAGS, density_bias=2.0, p_occ=0.15)
+    else:
+        _step_parity(dataclasses.replace(j_dnerf_config(), **SMALL, **kw),
+                     dataclasses.replace(dnerf_config(), **SMALL, **kw),
+                     FLAGS)
+
+
+def _step_parity(jcfg, tcfg, flags, density_bias=None, p_occ=0.3):
+    """One train step of jcfg (JAX) and tcfg (port) from the same weights
+    (tables uniform(-1, 1)), occupancy grid (p_occ of the cells of each
+    level; the HyperNeRF lattice's 2 levels hold about twice the demand),
+    ray batch and march jitter: n_valid and complete_frac exact, loss and
+    mse rtol 1e-3, each gradient within 8% of its L2 norm."""
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
     jfield = j_build_field(jcfg, JFlags(**flags))
-    params = jax.tree_util.tree_map(np.asarray, jt.create_train_state(
+    params = jax.tree_util.tree_map(np.array, jt.create_train_state(
         jfield, jcfg, jax.random.PRNGKey(0)).params)
     rng = np.random.default_rng(0)
     enc = params["params"]["hash_encoder"]
     for k in enc:                      # tables the MLPs feel
         enc[k] = rng.uniform(-1, 1, enc[k].shape).astype(np.float32)
-    occ = j_create_occ(jcfg.aabb, jcfg.grid_resolution, 1)
-    bins = rng.uniform(size=occ.binaries.shape) < 0.3
-    occs = np.where(bins, 0.5, 0.0).astype(np.float32).reshape(1, -1)
+    if density_bias is not None:
+        params["params"]["mlp_base"]["out"]["bias"][0] = density_bias
+    occ = j_create_occ(jcfg.aabb, jcfg.grid_resolution, jcfg.grid_nlvl)
+    bins = rng.uniform(size=occ.binaries.shape) < p_occ
+    occs = np.where(bins, 0.5, 0.0).astype(np.float32).reshape(
+        jcfg.grid_nlvl, -1)
     occ = occ._replace(occs=jnp.asarray(occs), binaries=jnp.asarray(bins))
     batch = JBall(n_cams=4, wh=32, n_times=4).sample(128)
     key = jax.random.PRNGKey(3)
@@ -175,12 +220,18 @@ def test_one_train_step_matches_jax(grid_type):
         assert rel < 0.08, (jax.tree_util.keystr(k), rel)
 
 
-@pytest.mark.parametrize("scene", ["ball", "cloud"])
+@pytest.mark.parametrize("scene", ["ball", "cloud", "mono"])
 def test_procedural_scenes_match_jax(scene):
-    j = JBall(n_cams=4, wh=24, n_times=3, seed=5) if scene == "ball" \
-        else JCloud(n_cams=4, wh=24, n_times=3, n_balls=8, seed=5)
-    t = BallScene(n_cams=4, wh=24, n_times=3, seed=5) if scene == "ball" \
-        else BallCloudScene(n_cams=4, wh=24, n_times=3, n_balls=8, seed=5)
+    if scene == "ball":
+        j = JBall(n_cams=4, wh=24, n_times=3, seed=5)
+        t = BallScene(n_cams=4, wh=24, n_times=3, seed=5)
+    elif scene == "cloud":
+        j = JCloud(n_cams=4, wh=24, n_times=3, n_balls=8, seed=5)
+        t = BallCloudScene(n_cams=4, wh=24, n_times=3, n_balls=8, seed=5)
+    else:
+        j = JMono(n_frames=4, wh=24, n_balls=8, seed=5)
+        t = MonocularOrbitScene(n_frames=4, wh=24, n_balls=8, seed=5)
+        np.testing.assert_array_equal(t.vels, j.vels)
     np.testing.assert_array_equal(t.timestamps_pool, j.timestamps_pool)
     for _ in range(2):
         bj, bt = j.sample(300), t.sample(300)
@@ -193,6 +244,42 @@ def test_procedural_scenes_match_jax(scene):
     it, ij = t.image_rays(1, 0.25), j.image_rays(1, 0.25)
     for k in ("origins", "viewdirs", "pixels"):
         np.testing.assert_array_equal(it[k], ij[k], err_msg=k)
+
+
+def test_monocular_orbit_scene_entangles_cam_and_time():
+    """MonocularOrbitScene (JAX tests/test_datasets.py:629): every sampled
+    ray's camera is its time's camera, on the host and the device sampler,
+    and the device sampler's ground truth is the host's analytic render of
+    the same rays; a multi-view scene keeps (camera, time) independent."""
+    scene = MonocularOrbitScene(n_frames=8, wh=32, n_balls=8)
+    assert scene.monocular and len(scene.c2ws) == len(scene.times)
+
+    def time_index(batch):
+        t = np.asarray(batch["timestamps"]).reshape(-1)
+        return np.argmin(np.abs(t[:, None] - scene.times[None]), axis=1)
+
+    batch = scene.sample(128)
+    np.testing.assert_allclose(batch["origins"],
+                               scene.c2ws[time_index(batch)][:, :, 3],
+                               atol=1e-5)
+    data, fn = scene.device_sampler(device="cpu")
+    db = {k: v.numpy() for k, v in
+          fn(data, torch.Generator().manual_seed(3), 128).items()}
+    ti = time_index(db)
+    np.testing.assert_allclose(db["origins"], scene.c2ws[ti][:, :, 3],
+                               atol=1e-5)
+    gt = np.empty_like(db["pixels"])
+    for k in np.unique(ti):
+        m = ti == k
+        gt[m] = scene._render_gt(db["origins"][m], db["viewdirs"][m],
+                                 scene.times[k])
+    np.testing.assert_allclose(db["pixels"], gt, atol=1e-6)
+    assert 0.1 < (gt == 1.0).all(-1).mean() < 0.9      # hits and misses
+    mv = BallCloudScene(n_cams=8, wh=32, n_times=8, n_balls=8)
+    b2 = mv.sample(256)
+    t2 = b2["timestamps"].reshape(-1)
+    ti2 = np.argmin(np.abs(t2[:, None] - mv.times[None]), axis=1)
+    assert not np.allclose(b2["origins"], mv.c2ws[ti2][:, :, 3])
 
 
 def test_trainer_cpu_run_raises_psnr():
@@ -224,17 +311,23 @@ def test_train_entry_points_refuse_missing_cuda(monkeypatch):
 
 def test_later_slices_raise():
     """What the port still refuses, naming the slice that brings it: the
-    device mesh and the dense-lattice renderer (packed_render=False). The
-    scanned path (device samplers, run_chunk, resume, s_cap, use_seg,
-    empty-space skipping) runs since its slice: test_torch_train_loop.py,
-    test_torch_steady_march.py."""
+    device mesh. The dense-lattice renderer (packed_render=False), which
+    raised here before its slice, now trains: a Trainer step returns finite
+    metrics (test_unpacked_and_hypernerf_steps_match_jax holds it against
+    JAX). The scanned path (device samplers, run_chunk, resume, s_cap,
+    use_seg, empty-space skipping) runs since its slice:
+    test_torch_train_loop.py, test_torch_steady_march.py."""
     cfg = dataclasses.replace(dnerf_config(), **SMALL)
     flags = ModelFlags(**FLAGS)
     field = build_field(cfg, flags, device="cpu")
     scene = BallScene(n_cams=2, wh=8, n_times=2)
     with pytest.raises(NotImplementedError, match="ray-parallel"):
         tt.Trainer(field, cfg, flags, scene, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="dense-lattice"):
-        tt.make_train_step(field, dataclasses.replace(cfg,
-                                                      packed_render=False),
-                           flags)
+    dense = dataclasses.replace(cfg, packed_render=False,
+                                occ_warmup_steps=2, occ_update_interval=2)
+    tr = tt.Trainer(build_field(dense, flags, device="cpu"), dense, flags,
+                    scene, seed=0, device="cpu")
+    for _ in range(3):
+        m = tr.run_step()
+        assert all(np.isfinite(v) for v in m.values()), m
+    assert m["n_samples"] > 0 and tr.step == 3
