@@ -1,6 +1,7 @@
 """Procedural dynamic scenes for training without dataset files, the port's
-copy of cednerf_tpu/datasets/procedural.py's BallScene, BallCloudScene and
-MonocularOrbitScene: host samplers in numpy and device samplers in PyTorch.
+copy of cednerf_tpu/datasets/procedural.py's BallScene, BallCloudScene,
+MonocularOrbitScene and ProceduralLoader: host samplers in numpy and device
+samplers in PyTorch.
 
 BallScene: one opaque coloured ball drifting with time, rendered
 analytically by ray-sphere intersection. BallCloudScene: K drifting balls
@@ -21,7 +22,7 @@ import torch
 
 from ..engine.sampling import pinhole_rays_device
 from ..utils.device import resolve_device
-from .rays import pinhole_rays, viewmatrix
+from .rays import generate_hemispherical_orbit, pinhole_rays, viewmatrix
 
 BALL_COLOR = np.array([0.9, 0.25, 0.1], np.float32)
 BG = np.array([1.0, 1.0, 1.0], np.float32)
@@ -251,3 +252,58 @@ class MonocularOrbitScene(BallCloudScene):
                          n_balls=n_balls, seed=seed)
         # the per-ball drift slowed to what one orbit pass can constrain
         self.vels = (0.5 * self.vels).astype(np.float32)
+
+
+class ProceduralLoader:
+    """Dataset-free loader with the train_real.py dataset protocol (the JAX
+    package's `ProceduralLoader`): `--scene procedural` (one ball) and
+    `--scene procedural_cloud` (the ball cloud) train the whole pipeline,
+    CLI to checkpoint, video and viewer, on analytic ground truth. Test
+    split: 4 held-out camera angles at mid-sequence times."""
+
+    TEST_VIEWS = [(0.21, 0.36), (0.93, 0.5), (1.71, 0.64), (2.6, 0.43)]
+
+    def __init__(self, subject_id: str = "procedural", root_fp: str = "",
+                 split: str = "train", num_rays=None, **_kw):
+        cls = BallCloudScene if "cloud" in subject_id else BallScene
+        self.scene = cls(n_cams=8, wh=128, n_times=8)
+        self.split = split
+        self.width = self.height = self.scene.wh
+        self.K = self.scene.K
+        self.camtoworlds = self.scene.c2ws
+
+    @property
+    def timestamps_pool(self):
+        return self.scene.timestamps_pool
+
+    def sample(self, num_rays: int, key=None) -> dict:
+        return self.scene.sample(num_rays, key)
+
+    def device_sampler(self, device="cuda"):
+        return self.scene.device_sampler(device)
+
+    def __len__(self):
+        return len(self.TEST_VIEWS)
+
+    def image_rays(self, index: int) -> dict:
+        theta, t = self.TEST_VIEWS[index]
+        gt, origins, viewdirs = self.scene.eval_view(theta=theta * np.pi, t=t)
+        return {"origins": origins, "viewdirs": viewdirs, "pixels": gt,
+                "timestamp": t, "color_bkgd": BG.copy()}
+
+    def render_poses(self, n_frames: int = 60) -> dict:
+        return {"c2w": generate_hemispherical_orbit(self.camtoworlds,
+                                                    n_frames)}
+
+    def pose_rays(self, poses: dict, index: int) -> dict:
+        c2w_one = poses["c2w"][index]
+        x, y = np.meshgrid(np.arange(self.width, dtype=np.float32),
+                           np.arange(self.height, dtype=np.float32),
+                           indexing="xy")
+        x, y = x.reshape(-1), y.reshape(-1)
+        c2w = np.broadcast_to(c2w_one, (x.shape[0], 3, 4))
+        origins, viewdirs, _ = pinhole_rays(x, y, self.K, c2w, True)
+        hw = (self.height, self.width)
+        return {"origins": origins.reshape(*hw, 3),
+                "viewdirs": viewdirs.reshape(*hw, 3),
+                "timestamp": index / len(poses["c2w"])}

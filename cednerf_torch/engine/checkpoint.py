@@ -1,5 +1,5 @@
 """Resumable training checkpoints — port of cednerf_tpu/engine/checkpoint.py
-(`save_checkpoint`, `load_checkpoint_full`).
+(`save_checkpoint`, `load_checkpoint`, `load_checkpoint_full`).
 
 A checkpoint is a directory holding one torch.save dict (`state.pt`) with
 the fields of the JAX package's `_ckpt_tree`: the field's state dict,
@@ -55,6 +55,14 @@ def save_checkpoint(path: str, state, step: int,
     os.replace(tmp, os.path.join(path, STATE_FILE))
     with open(os.path.join(path, SHAPES_FILE), "w") as f:
         json.dump(_shape_meta(state.field), f)
+
+
+def load_checkpoint(path: str, state) -> tuple:
+    """Restore into `state` (the --load_model path); returns (state, step).
+    load_checkpoint_full also returns the generator state, bucket and
+    steady lattice."""
+    state, step, _, _, _ = load_checkpoint_full(path, state)
+    return state, step
 
 
 def load_checkpoint_full(path: str, state) -> tuple:

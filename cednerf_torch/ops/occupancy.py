@@ -11,6 +11,7 @@ occs > min(mean(occs), occ_thre), lookups against the finest level
 containing the point, uniform steps with cone-angle growth and a per-ray
 stratified start jitter. Empty-space skipping (`advance_t_min`) moves each
 ray's lattice start past leading empty space for the steady-state step.
+`mark_invisible_cells` culls the cells no training camera sees.
 """
 
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -125,6 +126,42 @@ def update_occ_grid(state: OccGridState,
     thre = torch.clamp(mean_occ, max=occ_thre)
     binaries = (occs > thre).reshape(state.binaries.shape)
     return OccGridState(occs=occs, binaries=binaries, aabbs=state.aabbs)
+
+
+@torch.no_grad()
+def mark_invisible_cells(state: OccGridState, K, c2w, width: int,
+                         height: int, near_plane: float = 0.0
+                         ) -> OccGridState:
+    """Mark cells outside every training camera's frustum invisible (occ =
+    -1), nerfacc's `mark_invisible_cells` (the reference's DyNeRF GUI runs,
+    train_real.py:205-211): a cell is visible if its centre projects inside
+    at least one camera image beyond the near plane. The binaries are left
+    as they are; the next update masks the marked cells out.
+
+    K [3, 3] (or [n_cams, 3, 3]) intrinsics and c2w [n_cams, 3 or 4, 4],
+    numpy arrays."""
+    res = state.resolution
+    dev = state.occs.device
+    K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)[:, :3, :]
+    K = K[None].expand(c2w.shape[0], 3, 3) if K.ndim == 2 else K
+    rot_t = c2w[:, :, :3].transpose(1, 2)          # world->cam rotation
+    cam_pos = c2w[:, :, 3]
+    cells = torch.arange(res ** 3, device=dev)
+    coords = _cell_coords(cells, res).float() + 0.5  # cell centres
+    visible = torch.zeros(state.occs.shape, dtype=torch.bool, device=dev)
+    for lvl in range(state.levels):
+        aabb = state.aabbs[lvl]
+        pts = aabb[:3] + coords / res * (aabb[3:] - aabb[:3])
+        for rt, pos, k in zip(rot_t, cam_pos, K):
+            local = (pts - pos) @ rt.T
+            z = local[:, 2]
+            uvw = local @ k.T
+            zs = torch.where(z == 0, 1.0, z)
+            u, v = uvw[:, 0] / zs, uvw[:, 1] / zs
+            visible[lvl] |= ((z > near_plane) & (u >= 0) & (u < width)
+                             & (v >= 0) & (v < height))
+    return state._replace(occs=torch.where(visible, state.occs, -1.0))
 
 
 def ray_aabb_intersect(origins: torch.Tensor, viewdirs: torch.Tensor,

@@ -3,10 +3,10 @@ profile_training.py: the card's name, CUDA-event timing, the viewer's
 default orbit camera, an occupancy grid filled for a field, hash tables
 drawn at a scale that the MLPs feel, the train step's flags (3D and 4D
 encoder), a profiler table of device time by kernel and a call's device
-time from it, the host syncs a call makes, two sample sets for
-the encoder kernels (ray-major samples of one camera, and points on every
-intra-brick cell and cell boundary of each level), and the match groups
-that K6 and K2 form on a batch."""
+time from it, the host syncs a call makes, the kernel wrappers' launch
+counts, two sample sets for the encoder kernels (ray-major samples of one
+camera, and points on every intra-brick cell and cell boundary of each
+level), and the match groups that K6 and K2 form on a batch."""
 
 import math
 import subprocess
@@ -16,6 +16,8 @@ import numpy as np
 import torch
 
 from ..datasets.rays import pinhole_rays
+from ..ops import (compact_kernels, encode_kernels, gather_kernels,
+                   scatter_kernels)
 from ..ops.encode_kernels import cell_geom
 from ..ops.occupancy import create_occ_grid, update_occ_grid
 
@@ -26,6 +28,21 @@ TRAIN_FLAGS = dict(use_time_embedding=True, use_time_attenuation=True,
 # the same with the 4D keyframe encoder (--grid_type hash4d; the field's
 # time_keyframes default of 4)
 HASH4D_FLAGS = dict(TRAIN_FLAGS, grid_type="hash4d")
+_KERNEL_MODULES = (encode_kernels, compact_kernels, scatter_kernels,
+                   gather_kernels)
+
+
+def reset_kernel_counts():
+    for mod in _KERNEL_MODULES:
+        mod.reset_counts()
+
+
+def kernel_counts():
+    """({kernel: launches}, {kernel: plain-version calls on CUDA}) of every
+    kernel wrapper of the port."""
+    return ({k: v for m in _KERNEL_MODULES for k, v in m.launches.items()},
+            {k: v for m in _KERNEL_MODULES
+             for k, v in m.plain_cuda_calls.items()})
 
 
 def card_name() -> str:

@@ -108,7 +108,25 @@ Phases, each of which must pass (nothing is caught and carried on):
      frames at max_samples 64, 128 and 256 through the lattice marcher (K4
      and K5 once a pass), PSNR / SSIM / MS-SSIM of a held-out view, and
      K4 bit-exact on every lattice shape these runs handed it.
-Phases 5, 7, 7b, 10 and 13 fail if K7 or K8 launched on a serving or
+ 14. train_real: the real-data entry point `python -m
+     cednerf_torch.train_real` on scenes written to a temporary directory
+     in the datasets' own formats: a D-NeRF scene in lego's layout
+     (800x800 RGBA, 50 train and 4 test frames of the procedural ball,
+     rows cycling through PNG filters 0-4, so the C++ unfilter decodes
+     them), its decode time; the full-width D-NeRF preset (-te -ta -f -ae
+     -df -d) trained 1024 steps by a subprocess of the CLI (K5, K6 and K4
+     launched, no plain version on CUDA, finite outputs, the test views'
+     mean PSNR at least 3 dB above an all-white prediction's), a steady
+     step's device ms (run_step, not run_chunk); a --load_model run that
+     re-evaluates to the same PSNR within 1e-4 dB; a 100x100 scene trained
+     80 steps and its 120 video frames; K5 and K6 against their plain
+     versions on the full-width DyNeRF field's level layout (outer +-8
+     aabb, max resolution 8192) at its 2^20-sample budget and a ragged
+     100,003; the HyperNeRF and DyNeRF presets, 80 steps each from vrig
+     and images_x4 fixtures (DyNeRF: ISG weights by the native C++,
+     --isg2ist_step 32, --mark_invisible), with their launches; K4
+     bit-exact on every lattice shape the in-process runs handed it.
+Phases 5, 7, 7b, 10, 13 and 14 fail if K7 or K8 launched on a serving or
 training path.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
@@ -195,24 +213,15 @@ def no_probe_kernels(label, launches):
         raise AssertionError(f"{label} launched a probe kernel: {ran}")
 
 
-def _kernel_modules():
-    from cednerf_torch.ops import compact_kernels as ck
-    from cednerf_torch.ops import encode_kernels as ek
-    from cednerf_torch.ops import gather_kernels as gk
-    from cednerf_torch.ops import scatter_kernels as sk
-    return ek, ck, sk, gk
-
-
 def reset_counts():
-    for mod in _kernel_modules():
-        mod.reset_counts()
+    from cednerf_torch.utils.bench import reset_kernel_counts
+    reset_kernel_counts()
 
 
 def all_counts():
     """(launches, plain-version calls on CUDA) of every kernel wrapper."""
-    mods = _kernel_modules()
-    return ({k: v for mod in mods for k, v in mod.launches.items()},
-            {k: v for mod in mods for k, v in mod.plain_cuda_calls.items()})
+    from cednerf_torch.utils.bench import kernel_counts
+    return kernel_counts()
 
 
 def check_close(name, got, want, rtol, atol):
@@ -242,11 +251,25 @@ def _ray_major_x(n_rays, seed):
     return torch.from_numpy(ray_major_samples(n_rays, 64, seed)[0]).cuda()
 
 
+def _draw_x(n, gen, inner):
+    """n positions uniform over the unit cube (the field's whole aabb);
+    with `inner` = (lo, hi), every other one uniform over [lo, hi)^3
+    instead (where a preset with outer grid levels puts its scene)."""
+    import torch
+    x = torch.rand((n, 3), device="cuda", generator=gen)
+    if inner is not None:
+        lo, hi = inner
+        x[1::2] = lo + x[1::2] * (hi - lo)
+    return x
+
+
 def kernel_phase(field, n_main, n_ragged, seed,
-                 names=("fused_encode_fwd", "interp_fwd"), timed=True):
+                 names=("fused_encode_fwd", "interp_fwd"), timed=True,
+                 inner=None):
     """K5 and K1 against their plain versions on the field's levels and its
-    tables, x uniform over the unit cube, at n_main and at a ragged count;
-    with `timed`, each timed at n_main. `names` picks the kernels."""
+    tables, x uniform over the unit cube (and half of it over `inner`, see
+    _draw_x), at n_main and at a ragged count; with `timed`, each timed at
+    n_main. `names` picks the kernels."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops.brick_grid import level_tables
@@ -265,7 +288,7 @@ def kernel_phase(field, n_main, n_ragged, seed,
     gen = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
     for n in (n_main, n_ragged):
-        x = torch.rand((n, 3), device="cuda", generator=gen)
+        x = _draw_x(n, gen, inner)
         rows = _level_rows(x, spec)
         feats = (torch.stack([tables[l].index_select(0, rows[l].long())
                               for l in range(L)]).contiguous()
@@ -644,10 +667,11 @@ def _frac_err(got, want):
 
 def backward_kernel_phase(field, n_main, n_ragged, seed,
                           names=("fused_encode_bwd", "interp_bwd_fused"),
-                          timed=True):
+                          timed=True, inner=None):
     """K6 and K2 (one kernel body, on the table and on the gathered rows)
     against their plain versions on the full-width field's levels, tables
-    uniform(-8, 8), at one train step's sample count and at a ragged one;
+    uniform(-8, 8), x as kernel_phase draws it (`inner`), at one train
+    step's sample count and at a ragged one;
     with `timed`, each timed at the step's count on uniform random and on
     ray-major samples. One bf16 cotangent row in eight is zero (unused
     budget slots carry zero). `names` picks the kernels."""
@@ -676,7 +700,7 @@ def backward_kernel_phase(field, n_main, n_ragged, seed,
 
     results = {}
     for n in (n_main, n_ragged):
-        x = torch.rand((n, 3), device="cuda", generator=gen)
+        x = _draw_x(n, gen, inner)
         g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
              ).to(torch.bfloat16)
         g[::8] = 0
@@ -1765,6 +1789,503 @@ def hypernerf_phase(seed, steps=HYPER_STEPS, k=HYPER_K):
     return out
 
 
+# the train_real phase (14): a scene in lego's layout (800x800 RGBA, 50
+# train and 4 test frames) trained at full width for TRAIN_REAL_STEPS
+# steps; the video scene and the HyperNeRF / DyNeRF fixtures train
+# SMALL_REAL_STEPS (run while step <= it, so 16 more)
+TRAIN_REAL_STEPS, SMALL_REAL_STEPS = 1024, 64
+LEGO_WH, LEGO_TRAIN, LEGO_TEST = 800, 50, 4
+LEGO_ANGLE_X = 0.6911112070083618            # lego's camera_angle_x
+PUBLISHED = ["-te", "-ta", "-f", "-ae", "-df", "-d"]
+# the eval PSNR must beat an all-white prediction's by this much
+TRAIN_REAL_MARGIN_DB = 3.0
+
+
+def _ball_image(origins, viewdirs, t, center, radius, bkgd):
+    """The port's procedural ball (its colour and drift, ball_center(t))
+    centred at `center` with `radius`, analytic along the given rays
+    (arrays or tensors [N, 3]; computed on the card), `bkgd` where a ray
+    misses: numpy float32 [N, 3]."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.procedural import BALL_COLOR, ball_center
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32) if not isinstance(
+            a, torch.Tensor) else a, dtype=torch.float32, device="cuda")
+
+    o, d = dev(origins), dev(viewdirs)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    oc = o - dev(np.asarray(center, np.float32) + ball_center(t))
+    b = (oc * d).sum(-1)
+    disc = b * b - ((oc * oc).sum(-1) - radius * radius)
+    hit = (disc > 0) & (-b - torch.sqrt(disc.clamp(min=0)) > 0)
+    return torch.where(hit[:, None], dev(BALL_COLOR),
+                       dev(bkgd)).cpu().numpy()
+
+
+def _write_png(path, rgb_float, wh, alpha=False):
+    """The image as an 8-bit PNG whose rows cycle through filters 0-4."""
+    import numpy as np
+    from cednerf_torch.utils.image import encode_png
+
+    img = (rgb_float.reshape(wh, wh, 3) * 255).astype(np.uint8)
+    if alpha:
+        img = np.concatenate([img, np.full((wh, wh, 1), 255, np.uint8)], -1)
+    with open(path, "wb") as fh:
+        fh.write(encode_png(img, filters=(0, 1, 2, 3, 4)))
+
+
+def _write_dnerf_scene(root, wh, n_train, n_test):
+    """A D-NeRF synthetic scene in lego's layout: transforms_{train,test}
+    .json (camera_angle_x, per-frame time and OpenGL transform_matrix) and
+    RGBA PNGs of the ball at the origin, white background, cameras on
+    three rings of radius 3 (test cameras between the train ones)."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.rays import viewmatrix
+    from cednerf_torch.engine.sampling import pinhole_rays_device
+
+    d = os.path.join(root, "lego")
+    focal = 0.5 * wh / np.tan(0.5 * LEGO_ANGLE_X)
+    K = torch.tensor([[focal, 0, wh / 2], [0, focal, wh / 2], [0, 0, 1]],
+                     dtype=torch.float32, device="cuda")
+    px = torch.arange(wh, dtype=torch.float32, device="cuda")
+    y, x = (g.reshape(-1) for g in torch.meshgrid(px, px, indexing="ij"))
+    for split, n, off in (("train", n_train, 0.0), ("test", n_test, 0.5)):
+        os.makedirs(os.path.join(d, split), exist_ok=True)
+        frames = []
+        for i in range(n):
+            th = 2 * np.pi * (i + off) / n
+            pos = np.array([3 * np.cos(th), 3 * np.sin(th),
+                            (0.4, 1.0, 1.6)[i % 3]], np.float32)
+            c2w = np.eye(4)
+            c2w[:3] = viewmatrix(pos, np.array([0.0, 0, 1]), pos)
+            t = i / (n - 1)
+            o, v = pinhole_rays_device(x, y, K, torch.tensor(
+                c2w[:3], dtype=torch.float32, device="cuda").expand(
+                    x.shape[0], 3, 4), True)
+            _write_png(os.path.join(d, split, f"r_{i:03d}.png"),
+                       _ball_image(o, v, t, (0.0, 0.0, 0.0), 0.5,
+                                   (1.0, 1.0, 1.0)), wh, alpha=True)
+            frames.append({"file_path": f"./{split}/r_{i:03d}", "time": t,
+                           "transform_matrix": c2w.tolist()})
+        with open(os.path.join(d, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": LEGO_ANGLE_X, "frames": frames}, f)
+    return d
+
+
+def _focus(ds):
+    """Least-squares closest point to every image's central ray."""
+    import numpy as np
+
+    A, rhs = np.zeros((3, 3)), np.zeros(3)
+    for i in range(len(ds)):
+        r = ds.image_rays(i)
+        o = np.asarray(r["origins"]).reshape(-1, 3)
+        v = np.asarray(r["viewdirs"]).reshape(-1, 3)
+        mid = o.shape[0] // 2
+        dv = v[mid] / np.linalg.norm(v[mid])
+        P = np.eye(3) - np.outer(dv, dv)
+        A += P
+        rhs += P @ o[mid]
+    return np.linalg.solve(A, rhs)
+
+
+def _paint(datasets, paths, center, radius, wh):
+    """Repaint each dataset image (paths[split][i]) with the ball along the
+    loader's own rays, on black (the HyperNeRF and DyNeRF backgrounds)."""
+    import numpy as np
+
+    for split, ds in datasets.items():
+        for i in range(len(ds)):
+            r = ds.image_rays(i)
+            rgb = _ball_image(np.asarray(r["origins"]).reshape(-1, 3),
+                              np.asarray(r["viewdirs"]).reshape(-1, 3),
+                              float(r["timestamp"]), center, radius,
+                              (0.0, 0.0, 0.0))
+            if not (rgb.any(axis=-1)).mean() > 0.02:
+                raise AssertionError(f"{paths[split][i]}: the ball is "
+                                     "hardly in view")
+            _write_png(paths[split][i], rgb, wh)
+
+
+def _write_hypernerf_scene(root, wh, n_imgs):
+    """A HyperNeRF vrig capture (scene.json, metadata.json, dataset.json,
+    camera/<id>.json, rgb/2x/<id>.png) of `n_imgs` frames from 2 rig
+    cameras (two intrinsics) on a ring; even frames train, odd ones are the
+    val split; painted with the ball at the cameras' focus."""
+    import numpy as np
+    from cednerf_torch.datasets.hypernerf import HyperNeRFDataset
+
+    inner = os.path.join(root, "vrig_chicken", "chicken")
+    os.makedirs(os.path.join(inner, "camera"))
+    os.makedirs(os.path.join(inner, "rgb", "2x"))
+    ids = [f"{i:06d}" for i in range(n_imgs)]
+    with open(os.path.join(inner, "scene.json"), "w") as f:
+        json.dump({"near": 0.1, "far": 10.0, "scale": 1.0,
+                   "center": [0.0, 0.0, 0.0]}, f)
+    with open(os.path.join(inner, "metadata.json"), "w") as f:
+        json.dump({i: {"time_id": k, "camera_id": (k // 2) % 2,
+                       "warp_id": k, "appearance_id": k}
+                   for k, i in enumerate(ids)}, f)
+    with open(os.path.join(inner, "dataset.json"), "w") as f:
+        json.dump({"ids": ids, "train_ids": ids[::2], "val_ids": ids[1::2]},
+                  f)
+    for k, i in enumerate(ids):
+        th = 2 * np.pi * k / n_imgs
+        pos = np.array([2.5 * np.cos(th), 2.5 * np.sin(th), 0.5])
+        fwd = -pos / np.linalg.norm(pos)
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        rig = (k // 2) % 2
+        cam = {"orientation": np.stack([right, np.cross(fwd, right),
+                                        fwd]).tolist(),
+               "position": pos.tolist(),
+               "focal_length": 2 * wh * (1.2 if rig == 0 else 1.35),
+               "principal_point": [wh, wh], "skew": 0.0,
+               "pixel_aspect_ratio": 1.0,
+               "radial_distortion": [0.01, 0.001, 0.0],
+               "tangential_distortion": [0.001, 0.0],
+               "image_size": [2 * wh, 2 * wh]}
+        with open(os.path.join(inner, "camera", f"{i}.json"), "w") as f:
+            json.dump(cam, f)
+        _write_png(os.path.join(inner, "rgb", "2x", f"{i}.png"),
+                   np.zeros((wh * wh, 3), np.float32), wh)
+    kw = dict(factor=2, add_cam=True)
+    sets = {"train": HyperNeRFDataset("vrig_chicken", root, "train", **kw),
+            "test": HyperNeRFDataset("vrig_chicken", root, "test", **kw)}
+    paths = {k: v.image_paths for k, v in sets.items()}
+    center = _focus(sets["train"])
+    _paint(sets, paths, center, 0.5, wh)
+    return center
+
+
+def _write_dynerf_scene(root, wh, n_cams, n_frames):
+    """A DyNeRF (Neural 3D Video) scene: poses_bounds.npy (LLFF poses of
+    `n_cams` cameras on an arc converging on the origin) and the
+    images_x4_list.json frame manifest ('weight' is the width, as in the
+    dataset's converter); camera 0 is the test camera, the others train.
+    Painted with the ball at the train cameras' focus."""
+    import numpy as np
+    from cednerf_torch.datasets.dynerf import DyNeRFDataset
+
+    d = os.path.join(root, "cook_spinach")
+    os.makedirs(os.path.join(d, "frames"))
+    rows = []
+    for c in range(n_cams):
+        th = 0.9 * np.pi * (c / max(n_cams - 1, 1) - 0.5)
+        p = np.array([3.0 * np.sin(th), 0.6, 3.0 * np.cos(th)])
+        back = p / np.linalg.norm(p)
+        right = np.cross([0.0, 1.0, 0.0], back)
+        right /= np.linalg.norm(right)
+        down = -np.cross(back, right)
+        pose = np.stack([down, right, back, p], axis=1)
+        hwf = np.array([[wh * 4], [wh * 4], [wh * 8.0]])
+        rows.append(np.concatenate([np.concatenate([pose, hwf], 1).reshape(-1),
+                                    [1.0, 10.0]]))
+    np.save(os.path.join(d, "poses_bounds.npy"), np.stack(rows))
+    manifest = {"scene": "cook_spinach", "videos": []}
+    paths = {"train": [], "test": []}
+    for c in range(n_cams):
+        entries = []
+        for j in range(n_frames):
+            rel = os.path.join("frames", f"c{c}_f{j}.png")
+            _write_png(os.path.join(d, rel),
+                       np.zeros((wh * wh, 3), np.float32), wh)
+            entries.append({"path": rel, "idx": j, "weight": wh,
+                            "height": wh})
+            if c:
+                paths["train"].append(os.path.join(d, rel))
+            elif j % 10 == 0:
+                paths["test"].append(os.path.join(d, rel))
+        manifest["videos"].append({"video_name": f"cam{c:02d}",
+                                   "images": entries})
+    with open(os.path.join(d, "images_x4_list.json"), "w") as f:
+        json.dump(manifest, f)
+    kw = dict(factor=4, sampling="uniform")
+    sets = {"train": DyNeRFDataset("cook_spinach", root, "train",
+                                   num_rays=64, **kw),
+            "test": DyNeRFDataset("cook_spinach", root, "test", **kw)}
+    center = _focus(sets["train"])
+    o0 = np.asarray(sets["train"].image_rays(0)["origins"]).reshape(-1, 3)[0]
+    _paint(sets, paths, center, 0.3 * float(np.linalg.norm(center - o0)), wh)
+    return d
+
+
+def _in_dir(path, fn, *args):
+    """fn(*args) with the working directory at `path` (train_real writes its
+    PNGs there), restored after."""
+    here = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn(*args)
+    finally:
+        os.chdir(here)
+
+
+def _check_real_run(label, summary, lattice_eval, need_train=True):
+    """A train_real summary's checks: finite outputs, no plain version on
+    CUDA, and K5, K6 and K4 launched by the training run; K5 by the
+    evaluation, and K4 too where it runs the lattice marcher (cone-angle
+    presets; the D-NeRF preset's segment renderer compacts without K4)."""
+    log(json.dumps({"train_real_summary": {
+        "label": label, **{k: v for k, v in summary.items()
+                           if k != "eval"},
+        "eval": {k: v for k, v in summary["eval"].items()
+                 if k != "plain_cuda_calls"}}}))
+    if not summary["eval"]["finite"]:
+        raise AssertionError(f"{label}: non-finite eval output")
+    runs = [("eval", summary["eval"], ("fused_encode_fwd",)
+             + (("compact_select",) if lattice_eval else ()))]
+    if need_train:
+        runs.append(("train", summary, ("fused_encode_fwd",
+                                        "fused_encode_bwd", "compact_select")))
+    for what, rec, names in runs:
+        if any(rec["plain_cuda_calls"].values()):
+            raise AssertionError(f"{label} {what}: plain versions on CUDA "
+                                 f"{rec['plain_cuda_calls']}")
+        missing = [n for n in names if not rec["launches"][n]]
+        if missing:
+            raise AssertionError(f"{label} {what}: {missing} never launched "
+                                 f"({rec['launches']})")
+        no_probe_kernels(f"{label} {what}", rec["launches"])
+
+
+def _train_real_cli(args, cwd):
+    """`python -m cednerf_torch.train_real ARGS` in `cwd`: (its last-line
+    summary, seconds). Fails on a non-zero exit."""
+    import subprocess
+
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("CEDNERF_CFG", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "cednerf_torch.train_real"]
+                          + args, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train_real {args} exited {proc.returncode}:"
+                             f"\n{proc.stdout[-6000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["train_real"], \
+        secs
+
+
+def train_real_phase(seed, scanned_steady_ms):
+    """The port's real-data entry point on the card, on scenes written to a
+    temporary directory in the datasets' own formats:
+
+      1. a D-NeRF scene in lego's layout (800x800 RGBA, 50 train and 4
+         test frames, rows cycling through PNG filters 0-4), the decode
+         time of its 50 train frames;
+      2. `python -m cednerf_torch.train_real --scene lego --max_steps 1024
+         -te -ta -f -ae -df -d` (the full dnerf_config: L8 F4, budget 2^18,
+         128^3 grid) as a subprocess: steps a second, warmup and steady ms a
+         step (against the scanned phase's procedural run_chunk), K5, K6
+         and K4 launched by the training and K5 by the evaluation (its
+         segment renderer compacts without K4), no plain version on CUDA, finite outputs, and the mean PSNR over
+         the 4 test views at least TRAIN_REAL_MARGIN_DB above an all-white
+         prediction's; then a steady step's device ms (two run_steps of a
+         Trainer resumed from the run's checkpoint, under torch.profiler);
+      3. the same command with --load_model: the same PSNR within 1e-4 dB;
+      4. a 100x100 scene: SMALL_REAL_STEPS steps, then --load_model
+         --render_video in process: all 120 frames written (mp4, or PNG
+         frames without an mp4 writer);
+      5. K5 and K6 against their plain versions on the full-width DyNeRF
+         field's own level layout (dynerf_config: max resolution 8192 over
+         the outer +-8 aabb, rows 216, 2744, then 16,384 hashed) at its
+         budget of 2^20 samples and at a ragged 100,003, x over the whole
+         outer aabb and half of it in the inner +-1 box, at phase 1's and
+         2's limits;
+      6. the HyperNeRF preset on a vrig fixture (rgb/2x, 2 rig cameras) and
+         the DyNeRF preset on an images_x4 fixture (3 train cameras, ISG
+         weights computed by the native C++, --isg2ist_step 32,
+         --mark_invisible), SMALL_REAL_STEPS steps each in process, their
+         launches per kernel (their lattice evaluation launches K5 and K4);
+      7. K4's result on the first lattice of each (shape, budget) that the
+         in-process runs (4 and 6) made, bit-exact against its plain
+         version.
+    """
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cednerf_torch import train_real
+    from cednerf_torch.datasets.dnerf_synthetic import DNeRFSyntheticDataset
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import (ModelFlags, dnerf_config,
+                                             dynerf_config)
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.utils.bench import TRAIN_FLAGS, device_ms
+    from cednerf_torch.utils.image import read_png
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    out, k4 = {}, {}
+    try:
+        # 1. the lego-layout scene and its decode time
+        t0 = time.perf_counter()
+        lego = _write_dnerf_scene(os.path.join(tmp, "dnerf"), LEGO_WH,
+                                  LEGO_TRAIN, LEGO_TEST)
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stack = [read_png(os.path.join(lego, "train", f"r_{i:03d}.png"))
+                 for i in range(LEGO_TRAIN)]
+        out["decode_s"] = time.perf_counter() - t0
+        out["decoded"] = [len(stack), *stack[0].shape]
+        del stack
+        test = DNeRFSyntheticDataset("lego", os.path.dirname(lego), "test")
+        white = [float(-10 * np.log10(np.mean(
+            (1.0 - test.image_rays(i)["pixels"]) ** 2)))
+            for i in range(len(test))]
+        out["white_psnr_avg"] = float(np.mean(white))
+        log(json.dumps({"train_real_scene": out}))
+
+        # 2. full-width training from disk, as a subprocess
+        run = os.path.join(tmp, "run")
+        os.makedirs(run)
+        ckpt = os.path.join(tmp, "ckpt")
+        base = ["--scene", "lego", "--data_root", os.path.dirname(lego),
+                "--model_path", ckpt] + PUBLISHED
+        s, secs = _train_real_cli(base + ["--max_steps",
+                                          str(TRAIN_REAL_STEPS)], run)
+        _check_real_run("train_real lego", s, lattice_eval=False)
+        psnr = s["eval"]["psnr_avg"]
+        if not psnr >= out["white_psnr_avg"] + TRAIN_REAL_MARGIN_DB:
+            raise AssertionError(
+                f"train_real lego: eval PSNR {psnr} not {TRAIN_REAL_MARGIN_DB}"
+                f" dB above all-white {out['white_psnr_avg']}")
+        out["train"] = {k: s.get(k) for k in (
+            "step", "steps", "train_s", "steps_per_s", "load_s", "warmup_s",
+            "steady_ms_per_step", "sampler", "launches")}
+        out["train"].update(process_s=secs, eval_psnr=psnr,
+                            eval_ms_ssim=s["eval"]["ssim_avg"],
+                            eval_psnrs=s["eval"]["psnrs"],
+                            eval_launches=s["eval"]["launches"],
+                            scanned_procedural_steady_ms=scanned_steady_ms)
+        # a steady step's device time on this scene's device sampler
+        cfg = dnerf_config(TRAIN_REAL_STEPS)
+        flags = ModelFlags(**TRAIN_FLAGS)
+        ds = DNeRFSyntheticDataset("lego", os.path.dirname(lego), "train",
+                                   num_rays=cfg.init_batch_size)
+        trainer = Trainer(build_field(cfg, flags, device="cuda", seed=42),
+                          cfg, flags, ds, seed=42, device="cuda",
+                          device_sampler=ds.device_sampler("cuda"))
+        trainer.resume(ckpt)
+        dev_ms, rows = device_ms(trainer.run_step, 2)
+        out["train"]["device_ms_per_step"] = dev_ms
+        out["train"]["device_top"] = [(n[:60], c / 2, ms / 2)
+                                      for n, c, ms in rows[:6]]
+        del trainer, ds
+        torch.cuda.empty_cache()
+        log(json.dumps({"train_real_lego": out["train"]}))
+
+        # 3. reload
+        s2, secs = _train_real_cli(base + ["--load_model"], run)
+        _check_real_run("train_real lego reload", s2, lattice_eval=False,
+                        need_train=False)
+        if abs(s2["eval"]["psnr_avg"] - psnr) > 1e-4:
+            raise AssertionError(f"train_real reload: PSNR "
+                                 f"{s2['eval']['psnr_avg']} vs {psnr}")
+        out["reload"] = {"step": s2["step"], "process_s": secs,
+                         "eval_psnr": s2["eval"]["psnr_avg"]}
+        log(json.dumps({"train_real_reload": out["reload"]}))
+        for name in ("rgb_test.png", "depth_test.png", "rgb_error.png"):
+            if read_png(os.path.join(run, name)).shape[:2] != (LEGO_WH,
+                                                               LEGO_WH):
+                raise AssertionError(f"train_real: {name}")
+
+        # 4. a 100x100 scene's video
+        t0 = time.perf_counter()
+        small = _write_dnerf_scene(os.path.join(tmp, "small"), 100, 8, 2)
+        vrun = os.path.join(tmp, "vrun")
+        os.makedirs(vrun)
+        vbase = ["--scene", "lego", "--data_root", os.path.dirname(small),
+                 "--model_path", os.path.join(tmp, "vckpt")] + PUBLISHED
+        with _keeping_k4(k4, "train_real video scene"):
+            sv = _in_dir(vrun, train_real.main,
+                         vbase + ["--max_steps", str(SMALL_REAL_STEPS)])
+        _check_real_run("train_real video scene", sv, lattice_eval=False)
+        sv2 = _in_dir(vrun, train_real.main,
+                      vbase + ["--load_model", "--render_video"])
+        frames = sv2["video"]["frames"]
+        written = (os.path.exists(os.path.join(vrun, "rgb_render.mp4"))
+                   if sv2["video"]["mp4"] else
+                   len([f for f in os.listdir(vrun)
+                        if f.startswith("rgb_render_")]))
+        if frames != 120 or written not in (True, 120):
+            raise AssertionError(f"train_real video: {frames} frames, "
+                                 f"written {written}")
+        out["video"] = {"frames": frames, "mp4": sv2["video"]["mp4"],
+                        "step": sv2["step"],
+                        "s": time.perf_counter() - t0}
+        log(json.dumps({"train_real_video": out["video"]}))
+
+        # 5. K5 and K6 on the DyNeRF field's levels
+        t0 = time.perf_counter()
+        dcfg = dynerf_config()
+        dfield = build_field(dcfg, ModelFlags(**TRAIN_FLAGS), device="cuda",
+                             seed=seed)
+        inner = (7 / 16, 9 / 16)              # +-1 of the outer +-8 aabb
+        out["dynerf_kernel_checks"] = {
+            **kernel_phase(dfield, dcfg.sample_budget, 100_003, seed,
+                           names=("fused_encode_fwd",), timed=False,
+                           inner=inner),
+            **backward_kernel_phase(dfield, dcfg.sample_budget, 100_003,
+                                    seed, names=("fused_encode_bwd",),
+                                    timed=False, inner=inner),
+            "level_rows": [l["rows"] for l in
+                           dfield.hash_encoder.bspec.level_layout()],
+            "s": time.perf_counter() - t0}
+        log(json.dumps({"dynerf_kernel_checks":
+                        out["dynerf_kernel_checks"]}))
+        del dfield
+        torch.cuda.empty_cache()
+
+        # 6. the HyperNeRF and DyNeRF presets from disk
+        for scene, write, extra in (
+                ("vrig_chicken",
+                 lambda r: _write_hypernerf_scene(r, 64, 12), []),
+                ("cook_spinach", lambda r: _write_dynerf_scene(r, 64, 4, 8),
+                 ["--isg2ist_step", "32", "--mark_invisible"])):
+            t0 = time.perf_counter()
+            root = os.path.join(tmp, scene)
+            write(root)
+            frun = os.path.join(tmp, scene + "_run")
+            os.makedirs(frun)
+            with _keeping_k4(k4, f"train_real {scene}"):
+                sf = _in_dir(frun, train_real.main, [
+                    "--scene", scene, "--data_root", root, "--max_steps",
+                    str(SMALL_REAL_STEPS), "--model_path",
+                    os.path.join(tmp, scene + "_ckpt")] + PUBLISHED + extra)
+            _check_real_run(f"train_real {scene}", sf, lattice_eval=True)
+            rec = {k: sf.get(k) for k in ("step", "sampler", "train_s",
+                                          "launches")}
+            rec.update(eval_psnr=sf["eval"]["psnr_avg"],
+                       eval_launches=sf["eval"]["launches"],
+                       s=time.perf_counter() - t0)
+            if scene == "cook_spinach":
+                d = os.path.join(root, "cook_spinach")
+                rec["weights"] = sorted(f for f in os.listdir(d)
+                                        if f.endswith("_weights_f4.npy"))
+                if rec["weights"] != ["isg_weights_f4.npy",
+                                      "ist_weights_f4.npy"]:
+                    raise AssertionError(f"dynerf weights: {rec['weights']}")
+            out[scene] = rec
+            log(json.dumps({f"train_real_{scene}": rec}))
+
+        # 7. K4 on the in-process runs' lattices
+        out["k4_path_checks"] = [(r["path"], r["lattice"], r["budget"])
+                                 for r in _check_k4_kept(k4)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def interp_bwd_kernel_phase(spec, n_main, n_ragged, seed):
     """K7 against its plain version on the full-width field's levels,
     tables uniform(-8, 8), f32 update rows, at the probe's sample count and
@@ -2024,6 +2545,9 @@ def main(argv=None):
                                   if k not in ("frame_check", "step_check")}}))
     log(f"hypernerf phase: {hyper['phase_s']:.1f} s")
 
+    real = train_real_phase(args.seed, scanned["median_ms_per_step_steady"])
+    log(f"train_real phase: {real['phase_s']:.1f} s")
+
     t0 = time.perf_counter()
     kern["interp_bwd"] = interp_bwd_kernel_phase(spec3d, 262_144, 100_003,
                                                  args.seed)
@@ -2066,6 +2590,12 @@ def main(argv=None):
                    "serve_hash4d": h4["frame"]["launches"].get(name, 0),
                    "train_hypernerf": hyper["train"]["launches"].get(name, 0),
                    "serve_hypernerf": hyper["serve_launches"].get(name, 0),
+                   "train_real": real["train"]["launches"].get(name, 0),
+                   "eval_real": real["train"]["eval_launches"].get(name, 0),
+                   "train_real_hypernerf":
+                   real["vrig_chicken"]["launches"].get(name, 0),
+                   "train_real_dynerf":
+                   real["cook_spinach"]["launches"].get(name, 0),
                    "probe_interp_enc": probe_enc["launches"].get(name, 0),
                    "probe_row_gather": probe_gather["launches"].get(name, 0)}
         line.append({

@@ -1,6 +1,7 @@
 """Import hygiene of the port: no file of cednerf_torch, and none of
 chip_smoke.py, profile_serving.py and profile_training.py, imports jax,
-flax or the JAX package (cednerf_tpu)."""
+flax or the JAX package (cednerf_tpu); and the port builds only its own
+C++ and CUDA sources."""
 
 import ast
 import pathlib
@@ -34,11 +35,42 @@ def test_port_files_exist():
     for name in ("brick_encode_fwd", "brick_encode_bwd", "compact_select",
                  "scatter_add_rows", "row_gather"):
         assert (ROOT / "cednerf_torch" / "csrc" / f"{name}.cu").exists()
+    for name in ("png_unfilter", "raysampler", "weights"):
+        assert (ROOT / "cednerf_torch" / "csrc" / "host" / f"{name}.cpp"
+                ).exists()
     for mod in ("engine/train.py", "ops/losses.py", "ops/segments.py",
                 "ops/compact_kernels.py", "ops/scatter_kernels.py",
                 "ops/gather_kernels.py", "tools/profile_interp_enc.py",
-                "tools/profile_row_gather.py", "datasets/procedural.py"):
+                "tools/profile_row_gather.py", "datasets/procedural.py",
+                "datasets/camera.py", "datasets/dnerf_synthetic.py",
+                "datasets/hypernerf.py", "datasets/dynerf.py",
+                "datasets/llff.py", "datasets/native.py", "engine/cli.py",
+                "engine/checkpoint.py", "engine/sampling.py",
+                "utils/host_build.py", "utils/image.py", "train_real.py",
+                "tools/validate_synthetic.py"):
         assert (ROOT / "cednerf_torch" / mod).exists()
+
+
+def test_port_builds_only_its_own_sources():
+    """Every C++ / CUDA source the port builds lies under cednerf_torch/csrc
+    (the root csrc/ is the JAX package's), and no module of the port names
+    a path that climbs out of the package to a csrc directory."""
+    from cednerf_torch.datasets import native
+    from cednerf_torch.ops import (compact_kernels, cuda_build,  # noqa: F401
+                                   encode_kernels, gather_kernels,
+                                   scatter_kernels)
+    from cednerf_torch.utils import image
+    own = (ROOT / "cednerf_torch" / "csrc").resolve()
+    libs = list(cuda_build.LIBRARIES) + [native.SAMPLER, native.WEIGHTS,
+                                         image.UNFILTER]
+    assert len(libs) >= 8
+    for lib in libs:
+        src = pathlib.Path(lib.source).resolve()
+        assert own in src.parents and src.exists(), src
+    for path in sorted((ROOT / "cednerf_torch").rglob("*.py")):
+        consts = [n.value for n in ast.walk(ast.parse(path.read_text()))
+                  if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+        assert not ("csrc" in consts and ".." in consts), path
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(ROOT)
