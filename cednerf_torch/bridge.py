@@ -5,7 +5,9 @@ wrapped in {"params": ...}) maps to the port's state dict by path:
 `motion_mlp/hidden_0/kernel` -> `motion_mlp.hidden_0.weight` (transposed:
 flax Dense kernels are [in, out], torch Linear weights [out, in]),
 `.../bias` -> `.../bias`, and `hash_encoder/grid_0` -> `hash_encoder.grid_0`
-(tables keep their layout). Values are copied bit for bit; no framework
+(tables keep their layout; so do the tri-plane's `hash_encoder/planes`,
+the per-corner encoder's `hash_encoder/table` and the hash-grid motion
+warp's `motion_grid/...`). Values are copied bit for bit; no framework
 import crosses over.
 """
 

@@ -11,6 +11,15 @@
 //                                 _build_bwd_fused (public interp_bwd_fused):
 //                                 the same given the gathered rows [L, N, 64F]
 //                                 that the K1 forward saved.
+//   K6c brick_fused_encode_bwd_cell
+//                              <- the cell row layouts' table-gradient
+//                                 scatter (cednerf_tpu/ops/brick_grid.py
+//                                 `_scatter_rows` into [rows*27, 8F], which
+//                                 reaches pallas_scatter.py::
+//                                 scatter_add_rows under scatter_impl
+//                                 "pallas"): K6 with a third accumulation
+//                                 target, see the note above
+//                                 encode_bwd_kernel.
 //   K7 brick_interp_bwd        <- cednerf_tpu/ops/pallas_encoder.py::
 //                                 _build_bwd (public interp_bwd): K1's
 //                                 backward that writes every level's update
@@ -105,6 +114,9 @@ struct Levels {
   int rows[kMaxLevels];          // table rows of the level (row indices are
                                  // clamped to it, as in the plain version)
   long long offset[kMaxLevels];  // first row of the level in the flat table
+  long long cell[kMaxLevels];    // K6c: first row of the level in the cell
+                                 // gradient [sum 27 R_l, 8F], -1 for a
+                                 // level that keeps the brick target
 };
 
 // Cell geometry of one axis, bit-identical to K5's axis_geom and to the
@@ -123,6 +135,11 @@ __device__ __forceinline__ void axis_geom(float xa, float scale, int nb,
   int cell = (int)fminf(fmaxf(pg, -1.0f), (float)(hi + 1));
   cell = min(max(cell, 0), hi);
   intra = cell - (cell / 3) * 3;
+}
+
+// v rounded to bf16 (nearest even) and back.
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 template <int F>
@@ -171,18 +188,33 @@ constexpr int kBwdSamples = 32;  // samples of a K6/K2 block: a warp a level
 // [L, N, 64F] (K2).
 enum class Rows { kTable, kGathered };
 
+// K6c, the cell row layouts' backward (kCell): the JAX package's cell
+// levels accumulate the table gradient per (brick row, cell) into an f32
+// [rows*27, 8F] buffer, lane d*F + f with d = dx*4 + dy*2 + dz, which it
+// rounds to the compute dtype before folding it onto the brick corners
+// (ops/brick_grid.py `_make_level_encode_cell`), each term w * g formed
+// in bf16 as the compute dtype makes it there. So a level whose
+// lv.cell[l] >= 0 adds its 8 corner terms into row lv.cell[l] + r*27 +
+// cell of d_cell in place of brick row r of d_table: the same F-lane
+// vector atomics, now 8 consecutive corners of one 8F-lane row (one
+// 128-byte line at F = 4), and the same match groups, whose key r*27 +
+// cell is exactly the cell row. The fold and the roundings are plain
+// tensor ops in the wrapper's caller, as the fold is an XLA dot in JAX.
+// Levels with lv.cell[l] < 0 keep K6's brick target in the same launch.
+//
 // K6 and K2: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32 (level-local),
 // src the table or the gathered rows (bf16) -> d_table [sum R_l, 64F]
-// (accumulated into), d_x [N, 3].
+// (accumulated into), d_cell [sum 27 R_l, 8F] for K6c (accumulated into),
+// d_x [N, 3].
 // Block (32, L): threadIdx.x is the sample, threadIdx.y the level.
-template <int F, Rows kRows>
+template <int F, Rows kRows, bool kCell>
 __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     encode_bwd_kernel(const float* __restrict__ x,
                       const __nv_bfloat16* __restrict__ g,
                       const int* __restrict__ rows,
                       const __nv_bfloat16* __restrict__ src, Levels lv,
                       int n_levels, long long n, float* __restrict__ d_table,
-                      float* __restrict__ d_x) {
+                      float* __restrict__ d_cell, float* __restrict__ d_x) {
   constexpr int W = 64 * F;
   __shared__ float s_dx[kMaxLevels][3][kBwdSamples];
   const int lane = threadIdx.x;
@@ -221,6 +253,17 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     float* drow = d_table + trow * W;
     float s[3] = {0.0f, 0.0f, 0.0f};
     float upd[8][F];
+    // K6c's cell levels form the update terms as the JAX cell levels do in
+    // bf16: each axis weight bf16(frac) or bf16(1 - bf16(frac)), w =
+    // (wx * wy) * wz and w * g each rounded to bf16 (an f32 product of
+    // two bf16 values is exact, so one rounding gives the bf16 product)
+    const bool cell = kCell && lv.cell[l] >= 0;
+    float wb[3][2];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      wb[a][1] = bf16r(w[a][1]);
+      wb[a][0] = bf16r(1.0f - wb[a][1]);
+    }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int kx = q >> 1, ky = q & 1;
@@ -240,8 +283,10 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
             k == 0 ? hk[0] : (k == 1 ? hk[1] : (k == 2 ? hk[2] : hk[3]));
         const float wyz = w[1][ky] * w[2][kz];
         const float wc = w[0][kx] * wyz;
+        const float wcb = bf16r(bf16r(wb[0][kx] * wb[1][ky]) * wb[2][kz]);
 #pragma unroll
-        for (int f = 0; f < F; ++f) upd[q * 2 + kz][f] = wc * gf[f];
+        for (int f = 0; f < F; ++f)
+          upd[q * 2 + kz][f] = cell ? bf16r(wcb * gf[f]) : wc * gf[f];
         // d w_c / d frac_a = +-(product of the other two axes' weights)
         s[0] += (kx ? h : -h) * wyz;
         s[1] += (ky ? h : -h) * (w[0][kx] * w[2][kz]);
@@ -273,11 +318,17 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
       rank >>= 1;
     }
     if (leader) {
+      if (cell) {
+        float* crow = d_cell + (lv.cell[l] + (long long)key) * (8 * F);
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const int corner = (ia[0] + (c >> 2)) * 16 +
-                           (ia[1] + ((c >> 1) & 1)) * 4 + ia[2] + (c & 1);
-        add_corner<F>(drow + corner * F, upd[c]);
+        for (int c = 0; c < 8; ++c) add_corner<F>(crow + c * F, upd[c]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int corner = (ia[0] + (c >> 2)) * 16 +
+                             (ia[1] + ((c >> 1) & 1)) * 4 + ia[2] + (c & 1);
+          add_corner<F>(drow + corner * F, upd[c]);
+        }
       }
     }
 #pragma unroll
@@ -419,7 +470,7 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 bool fill_levels(Levels& lv, int n_levels, const float* scales, const int* nbs,
-                 const int* level_rows) {
+                 const int* level_rows, const long long* cell_rows = nullptr) {
   if (n_levels < 1 || n_levels > kMaxLevels) return false;
   long long off = 0;
   for (int l = 0; l < n_levels; ++l) {
@@ -427,6 +478,7 @@ bool fill_levels(Levels& lv, int n_levels, const float* scales, const int* nbs,
     lv.nb[l] = nbs[l];
     lv.rows[l] = level_rows ? level_rows[l] : 0;
     lv.offset[l] = off;
+    lv.cell[l] = cell_rows ? cell_rows[l] : -1;
     off += lv.rows[l];
   }
   return true;
@@ -446,18 +498,22 @@ void launch_rows(unsigned grid, cudaStream_t st, const float* x,
 }
 
 bool bwd_args_ok(Levels& lv, long long n, int n_levels, int n_feat,
-                 const float* scales, const int* nbs, const int* level_rows) {
+                 const float* scales, const int* nbs, const int* level_rows,
+                 const long long* cell_rows) {
   return n > 0 && (n_feat == 1 || n_feat == 2 || n_feat == 4) &&
-         fill_levels(lv, n_levels, scales, nbs, level_rows);
+         fill_levels(lv, n_levels, scales, nbs, level_rows, cell_rows);
 }
 
-template <Rows kRows>
+template <Rows kRows, bool kCell = false>
 int launch_bwd(const float* x, const void* g, const int* rows,
                const void* src, int n_levels, long long n, int n_feat,
                const float* scales, const int* nbs, const int* level_rows,
-               float* d_table, float* d_x, void* stream) {
+               float* d_table, float* d_x, void* stream,
+               const long long* cell_rows = nullptr,
+               float* d_cell = nullptr) {
   Levels lv;
-  if (!bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows))
+  if (!bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows,
+                   cell_rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned int grid =
       (unsigned int)((n + kBwdSamples - 1) / kBwdSamples);
@@ -467,16 +523,16 @@ int launch_bwd(const float* x, const void* g, const int* rows,
   const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(src);
   switch (n_feat) {
     case 1:
-      encode_bwd_kernel<1, kRows><<<grid, block, 0, st>>>(
-          x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
+      encode_bwd_kernel<1, kRows, kCell><<<grid, block, 0, st>>>(
+          x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
       break;
     case 2:
-      encode_bwd_kernel<2, kRows><<<grid, block, 0, st>>>(
-          x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
+      encode_bwd_kernel<2, kRows, kCell><<<grid, block, 0, st>>>(
+          x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
       break;
     default:
-      encode_bwd_kernel<4, kRows><<<grid, block, 0, st>>>(
-          x, gb, rows, sb, lv, n_levels, n, d_table, d_x);
+      encode_bwd_kernel<4, kRows, kCell><<<grid, block, 0, st>>>(
+          x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
       break;
   }
   return static_cast<int>(cudaGetLastError());
@@ -501,6 +557,22 @@ int brick_fused_encode_bwd(const float* x, const void* g, const int* rows,
   return launch_bwd<Rows::kTable>(x, g, rows, table, n_levels, n, n_feat,
                                   scales, nbs, level_rows, d_table, d_x,
                                   stream);
+}
+
+// K6c. As K6, and cell_rows [L] i64: level l's first row in d_cell
+// [sum 27 R_l, 8F] f32 (accumulated into: the caller zeroes it), or -1 for
+// a level whose gradient goes to d_table as in K6.
+int brick_fused_encode_bwd_cell(const float* x, const void* g,
+                                const int* rows, const void* table,
+                                int n_levels, long long n, int n_feat,
+                                const float* scales, const int* nbs,
+                                const int* level_rows,
+                                const long long* cell_rows, float* d_table,
+                                float* d_cell, float* d_x, void* stream) {
+  return launch_bwd<Rows::kTable, true>(x, g, rows, table, n_levels, n,
+                                        n_feat, scales, nbs, level_rows,
+                                        d_table, d_x, stream, cell_rows,
+                                        d_cell);
 }
 
 // K2. As K6 with feats [L, N, 64F] bf16 in place of the table.

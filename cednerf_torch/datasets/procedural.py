@@ -1,14 +1,15 @@
 """Procedural dynamic scenes for training without dataset files, the port's
 copy of cednerf_tpu/datasets/procedural.py's BallScene, BallCloudScene,
-MonocularOrbitScene and ProceduralLoader: host samplers in numpy and device
-samplers in PyTorch.
+TexturedCloudScene, MonocularOrbitScene and ProceduralLoader: host samplers
+in numpy and device samplers in PyTorch.
 
 BallScene: one opaque coloured ball drifting with time, rendered
 analytically by ray-sphere intersection. BallCloudScene: K drifting balls
 filling the box, the nearest hit's colour, for a denser per-ray sample load.
-MonocularOrbitScene: the cloud seen by one camera per time (the HyperNeRF
-vrig capture regime).
-Both expose the sampler protocol of engine/train.py's Trainer:
+TexturedCloudScene: smaller balls with a high-frequency surface texture,
+the encoder gate. MonocularOrbitScene: the cloud seen by one camera per
+time (the HyperNeRF vrig capture regime).
+All expose the sampler protocol of engine/train.py's Trainer:
 `sample(num_rays) -> batch dict` of numpy arrays and `timestamps_pool`.
 The same seed gives the same batches as the JAX package's scenes.
 `device_sampler()` returns the scanned train path's (data, sample_fn) pair
@@ -229,6 +230,76 @@ class BallCloudScene(BallScene):
         any_hit = torch.isfinite(torch.gather(tt, 1, k[:, None])[:, 0])
         bg = d["bg"]
         pixels = torch.where(any_hit[:, None], d["colors"][k], bg)
+        return {"origins": origins, "viewdirs": viewdirs, "pixels": pixels,
+                "timestamps": t.reshape(-1, 1), "color_bkgd": bg}
+
+
+class TexturedCloudScene(BallCloudScene):
+    """The encoder gate of the JAX rounds: many spheres whose surface colour
+    is modulated by a per-ball 3D sinusoid of the hit point at 30-120
+    rad/unit, features of ~0.05-0.2 units that only the finest hash levels
+    (res >= ~500) hold. The sphere surfaces cover ~4M+ fine-level cells,
+    far above a capped table's 2^20 corner slots, so the fine levels run
+    deep into hash collisions, where brick-granularity hashing could part
+    from the reference's per-corner hashing."""
+
+    def __init__(self, n_cams: int = 8, wh: int = 128, n_times: int = 8,
+                 n_balls: int = 64, seed: int = 0):
+        super().__init__(n_cams=n_cams, wh=wh, n_times=n_times,
+                         n_balls=n_balls, seed=seed)
+        rng = np.random.default_rng(seed + 7)
+        self.radii = rng.uniform(0.08, 0.22, (n_balls,)).astype(np.float32)
+        self.tex_freq = rng.uniform(30.0, 120.0, (n_balls,)).astype(
+            np.float32)
+        self.tex_phase = rng.uniform(0, 2 * np.pi, (n_balls, 3)).astype(
+            np.float32)
+
+    def _texture(self, xp, k):
+        """Modulation in [0.1, 1.0] from the 3D sinusoid of hit point xp."""
+        f = self.tex_freq[k][:, None]
+        ph = self.tex_phase[k]
+        s = np.sin(xp * f + ph)
+        return (0.55 + 0.45 * s[:, 0] * s[:, 1] * s[:, 2])[:, None]
+
+    def _render_gt(self, origins, viewdirs, t):
+        c = self._centers(t)
+        oc = origins[:, None, :] - c[None]
+        b = np.sum(oc * viewdirs[:, None, :], axis=-1)
+        disc = b ** 2 - (np.sum(oc * oc, -1) - self.radii[None] ** 2)
+        tt = -b - np.sqrt(np.maximum(disc, 0))
+        hit = (disc > 0) & (tt > 0)
+        tt = np.where(hit, tt, np.inf)
+        k = np.argmin(tt, axis=-1)
+        t_hit = tt[np.arange(len(k)), k]
+        any_hit = np.isfinite(t_hit)
+        xp = origins + viewdirs * np.where(any_hit, t_hit, 0.0)[:, None]
+        col = self.colors[k] * self._texture(xp, k)
+        return np.where(any_hit[:, None], col, BG).astype(np.float32)
+
+    def device_data(self, device) -> dict:
+        return {**super().device_data(device),
+                "tex_freq": torch.as_tensor(self.tex_freq, device=device),
+                "tex_phase": torch.as_tensor(self.tex_phase, device=device)}
+
+    def sample_at(self, d: dict, cam, ti, x, y) -> dict:
+        origins, viewdirs = pinhole_rays_device(x, y, d["K"], d["c2ws"][cam],
+                                                True)
+        t = d["times"][ti]
+        c = d["centers0"][None] + d["vels"][None] * (t[:, None, None] - 0.5)
+        oc = origins[:, None, :] - c                       # [N, K, 3]
+        b = (oc * viewdirs[:, None, :]).sum(-1)
+        disc = b ** 2 - ((oc * oc).sum(-1) - d["radii"][None] ** 2)
+        tt = -b - torch.sqrt(torch.clamp(disc, min=0))
+        hit = (disc > 0) & (tt > 0)
+        tt = torch.where(hit, tt, torch.inf)
+        k = torch.argmin(tt, dim=-1)
+        t_hit = torch.gather(tt, 1, k[:, None])[:, 0]
+        any_hit = torch.isfinite(t_hit)
+        xp = origins + viewdirs * torch.where(any_hit, t_hit, 0.0)[:, None]
+        s = torch.sin(xp * d["tex_freq"][k][:, None] + d["tex_phase"][k])
+        tex = (0.55 + 0.45 * s[:, 0] * s[:, 1] * s[:, 2])[:, None]
+        bg = d["bg"]
+        pixels = torch.where(any_hit[:, None], d["colors"][k] * tex, bg)
         return {"origins": origins, "viewdirs": viewdirs, "pixels": pixels,
                 "timestamps": t.reshape(-1, 1), "color_bkgd": bg}
 

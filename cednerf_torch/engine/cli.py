@@ -4,8 +4,8 @@ cednerf_tpu/engine/cli.py (`get_model_args`, `apply_perf_overrides`,
 and choices, so that one command line means the same run in both packages.
 
 A value whose path the port does not have yet raises NotImplementedError
-naming its ROADMAP.md item (`--grid_type triplane`, `--hash4motion`,
-`--row_layout cell`, `--remat_feats`); nothing is ignored. Every
+naming its ROADMAP.md item (`not_ported`; today only `--dp`, in
+train_real.py); nothing is ignored. Every
 `--scatter_impl`, `--interp_impl` and `--compact_impl` choice computes the
 same sums, so each takes the port's kernels (ops/brick_grid.py,
 engine/renderer.py).
@@ -61,10 +61,9 @@ def get_model_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         choices=["hash3d", "hash4d", "triplane"],
                         help="spatial encoder: motion-warped 3D hash grid "
                              "(reference default), 4D xyz+t keyframe grid, "
-                             "or factored tri-planes (not ported yet)")
+                             "or factored tri-planes")
     parser.add_argument("--hash4motion", action="store_true",
-                        help="hash-grid motion net variant (model.py:165-199;"
-                             " not ported yet)")
+                        help="hash-grid motion net variant (model.py:165-199)")
     parser.add_argument("--hash_levels", type=int, default=None,
                         help="override encoder level count (preset default 8; "
                              "reference parity: 16)")
@@ -94,11 +93,13 @@ def get_model_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                              "(default 16384 = 2^20 corner slots/level)")
     parser.add_argument("--remat_feats", action="store_true",
                         help="re-gather encoder rows in the backward instead "
-                             "of saving [N, 64F] residuals (not ported yet)")
+                             "of saving [N, 64F] residuals (the K1/K2 route; "
+                             "the K5/K6 route saves none)")
     parser.add_argument("--row_layout", type=str, default=None,
                         choices=["brick", "cell"],
-                        help="hashed-level hot-row layout ('cell' is not "
-                             "ported yet)")
+                        help="hashed-level hot-row layout: 'cell' keeps the "
+                             "JAX cell levels' bf16 table-gradient rounding "
+                             "(ops/brick_grid.py)")
     parser.add_argument("--steady_march_steps", type=int, default=None,
                         help="empty-space-skipping steady-state lattice "
                              "slots (0 = full max_march_steps; "
@@ -108,10 +109,6 @@ def get_model_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 def apply_perf_overrides(cfg: SceneConfig, args) -> SceneConfig:
     """Apply the optional perf-knob CLI overrides to a SceneConfig."""
-    if getattr(args, "remat_feats", False):
-        raise not_ported("--remat_feats", 6)
-    if getattr(args, "row_layout", None) not in (None, "brick"):
-        raise not_ported(f"--row_layout {args.row_layout}", 6)
     upd = {}
     if getattr(args, "sample_budget", None):
         upd["target_sample_batch_size"] = args.sample_budget
@@ -125,6 +122,8 @@ def apply_perf_overrides(cfg: SceneConfig, args) -> SceneConfig:
         upd["compact_impl"] = args.compact_impl
     if getattr(args, "fine_table_rows", None):
         upd["fine_table_rows"] = args.fine_table_rows
+    if getattr(args, "remat_feats", False):
+        upd["remat_feats"] = True
     if getattr(args, "row_layout", None):
         upd["row_layout"] = args.row_layout
     if getattr(args, "steady_march_steps", None) is not None:
@@ -133,10 +132,6 @@ def apply_perf_overrides(cfg: SceneConfig, args) -> SceneConfig:
 
 
 def flags_from_args(args) -> ModelFlags:
-    if getattr(args, "grid_type", "hash3d") == "triplane":
-        raise not_ported("--grid_type triplane", 6)
-    if getattr(args, "hash4motion", False):
-        raise not_ported("--hash4motion", 6)
     return ModelFlags(
         use_div_offsets=args.use_div_offsets,
         use_feat_predict=args.use_feat_predict,
@@ -153,11 +148,13 @@ def flags_from_args(args) -> ModelFlags:
 
 
 def build_field(cfg: SceneConfig, flags: ModelFlags, device="cuda",
-                seed: int = 0) -> DNGPRadianceField:
+                seed: int = 0, encoder_impl: str = "brick"
+                ) -> DNGPRadianceField:
     """Flagship model for a scene preset (train_real.py:253-265: the field's
     aabb is the *outermost* grid level's), initialised from `seed` with a
     CPU torch.Generator (so the weights do not depend on the device) and
-    moved to `device`."""
+    moved to `device`. encoder_impl "gather" takes the exact per-corner
+    encoder (the JAX validator's `.clone(encoder_impl=...)`)."""
     dev = resolve_device(device)
     aabb = np.asarray(cfg.aabb, np.float32)
     center = (aabb[:3] + aabb[3:]) / 2
@@ -187,6 +184,7 @@ def build_field(cfg: SceneConfig, flags: ModelFlags, device="cuda",
         remat_feats=cfg.remat_feats,
         row_layout=cfg.row_layout,
         cell_rows_cap=cfg.cell_rows_cap,
+        encoder_impl=encoder_impl,
     )
     field.reset_parameters(torch.Generator().manual_seed(seed))
     return field.to(dev).eval()

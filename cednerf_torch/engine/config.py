@@ -57,10 +57,11 @@ class SceneConfig:
     hash_n_features: int = 4
     # Encoder implementation knobs (see BrickGridSpec in ops/brick_grid.py).
     # The 3D encoder reads interp_impl ("interp" takes kernels K1/K2, every
-    # other value K5/K6), max_table_rows, fine_table_rows, fine_from_level
-    # and row_layout; grad_accum_dtype rounds the f32 table gradient once;
+    # other value K5/K6), max_table_rows, fine_table_rows, fine_from_level,
+    # row_layout with cell_rows_cap (the cell levels' backward on K6c) and
+    # remat_feats; grad_accum_dtype rounds the f32 table gradient once;
     # the 4D encoder's table gradient takes kernel K3 for every
-    # scatter_impl; remat_feats and cell_rows_cap arrive with later slices.
+    # scatter_impl.
     grad_accum_dtype: str = "bfloat16"  # table-gradient accumulator dtype
     scatter_impl: str = "xla"           # table-gradient scatter route
     interp_impl: str = "xla"
@@ -69,7 +70,7 @@ class SceneConfig:
     fine_from_level: int = 5
     cell_rows_cap: int = 524288         # cell layout row guard
     remat_feats: bool = False           # re-gather rows in the backward
-    row_layout: str = "brick"           # "brick" | "cell" | "cellz"
+    row_layout: str = "brick"           # brick|cell|cellz|cellfused
     # training-step knobs (budget compaction, per-slot assembly, packed
     # compositing), read by the training slice
     compact_impl: str = "rayfold"

@@ -44,7 +44,7 @@ from ..ops.occupancy import (OccGridState, RayCandidates, RaySamples,
 from ..ops.render import (composite, reduce_along_rays,
                           render_weights_from_density)
 from ..ops.segments import segment_broadcast
-from ..utils.math import exclusive_cumsum
+from ..utils.math import exclusive_cumsum, row_cumsum
 from .config import SceneConfig
 
 
@@ -716,7 +716,7 @@ class SegEvalRenderer:
                 * keep_f
             lane_sd = torch.cumsum(sdelta, 1)
             row_sd = lane_sd[:, -1]
-            row_sd_cum = torch.cumsum(row_sd, 0)
+            row_sd_cum = row_cumsum(row_sd)
             row_sd_ext = torch.cat([row_sd_cum.new_zeros(1), row_sd_cum])
             base_sd = row_sd_ext[starts_c]
             ex_sd = (row_sd_cum - row_sd)[:, None] + (lane_sd - sdelta)

@@ -10,9 +10,16 @@ transposed), so bridge.py moves weights across unchanged.
 
 `return_internal=True` adds the loss internals of the train step (move,
 selector, the feat-prediction and weight-prediction heads' outputs).
-`grid_type` "hash3d" (the motion-warped 3D brick grid) and "hash4d" (the
-same grid with `time_keyframes` keyframes per table row, queried at (xn, t))
-are ported; "triplane" and `hash4motion` raise until their slices.
+`grid_type`: "hash3d" (the motion-warped 3D grid), "hash4d" (the same grid
+with `time_keyframes` keyframes per table row, queried at (xn, t)) or
+"triplane" (the factored tri-plane encoder, ops/triplane.py, at
+plane_res = dst_resolution and F = n_features_per_level).
+`encoder_impl`: "brick" (ops/brick_grid.py, the kernels) or "gather" (the
+exact per-corner encoder, ops/hash_grid.py, a `table` parameter).
+`hash4motion`: the motion warp reads a brick `motion_grid` (L8 F2,
+16 -> 2048, 2^19, the JAX defaults otherwise: on CUDA K5 and K6 at F = 2)
+of the field-normalised position, concatenated with the time's frequency
+encoding, into a 1-hidden-layer `motion_mlp` (reference model.py:165-199).
 """
 
 import math
@@ -25,7 +32,8 @@ from torch import nn
 from ..ops.brick_grid import BrickGridSpec, brick_encode
 from ..ops.encoders import (sh_encode_deg2, sinusoidal_encode,
                             sinusoidal_encode_with_exp, sinusoidal_latent_dim)
-from ..ops.hash_grid import HashGridSpec
+from ..ops.hash_grid import HashGridSpec, hash_encode, hash_encode_4d
+from ..ops.triplane import TriPlaneSpec, triplane_encode
 from ..utils.math import trunc_exp
 
 DEFAULT_MOVING_STEP = 1.0 / 4096.0  # model.py:26
@@ -79,17 +87,17 @@ class MLP(nn.Module):
 
 
 class HashGridEncoder(nn.Module):
-    """Brick-layout multires grid with its tables as parameters
-    (`grid_{l}` for dense levels, `bricks_{l}` for hashed ones)."""
+    """Multires grid with its tables as parameters: impl "brick" (the brick
+    layout: `grid_{l}` for dense levels, `bricks_{l}` for hashed ones) or
+    "gather" (the exact per-corner layout: one `table` [total_rows, F*K])."""
 
     def __init__(self, spec: HashGridSpec, dtype=torch.bfloat16,
                  impl: str = "brick"):
         super().__init__()
-        if impl != "brick":
-            raise NotImplementedError(
-                f"HashGridEncoder impl={impl!r}: the per-corner 'gather' "
-                "layout comes with a later slice of the port")
-        self.dtype = dtype
+        if impl not in ("brick", "gather"):
+            raise ValueError(f"HashGridEncoder: impl {impl!r} is not "
+                             "'brick' or 'gather'")
+        self.dtype, self.impl, self.spec = dtype, impl, spec
         self.bspec = BrickGridSpec(
             n_levels=spec.n_levels, n_features=spec.n_features,
             base_res=spec.base_res, max_res=spec.max_res,
@@ -102,8 +110,10 @@ class HashGridEncoder(nn.Module):
             fine_from_level=spec.fine_from_level,
             remat_feats=spec.remat_feats, row_layout=spec.row_layout,
             cell_rows_cap=spec.cell_rows_cap)
+        shapes = (self.bspec.param_shapes() if impl == "brick" else
+                  [("table", (spec.total_rows, spec.row_features))])
         self._names = []
-        for name, shape in self.bspec.param_shapes():
+        for name, shape in shapes:
             self.register_parameter(name, nn.Parameter(torch.empty(shape)))
             self._names.append(name)
 
@@ -111,14 +121,46 @@ class HashGridEncoder(nn.Module):
         return {name: getattr(self, name) for name in self._names}
 
     def reset_parameters(self, generator: torch.Generator):
+        """Uniform(-1e-4, 1e-4) tables (the JAX distribution)."""
         with torch.no_grad():
-            for name, t in self.bspec.init_params(generator).items():
-                getattr(self, name).copy_(t)
+            for name in self._names:
+                getattr(self, name).uniform_(-1e-4, 1e-4,
+                                             generator=generator)
 
     def forward(self, x: torch.Tensor,
                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return brick_encode(x, self.tables(), self.bspec, t=t,
-                            compute_dtype=self.dtype)
+        if self.impl == "brick":
+            return brick_encode(x, self.tables(), self.bspec, t=t,
+                                compute_dtype=self.dtype)
+        if self.spec.time_keyframes:
+            if t is None:
+                raise ValueError("HashGridEncoder: a 4D spec needs t")
+            return hash_encode_4d(x, t, self.table, self.spec,
+                                  compute_dtype=self.dtype)
+        return hash_encode(x, self.table, self.spec, compute_dtype=self.dtype)
+
+
+class TriPlaneEncoderModule(nn.Module):
+    """Tri-plane factored encoder with its `planes` [3*R*R, F] parameter
+    (the reference's TriPlaneEncoder swap option, model.py:253-260)."""
+
+    def __init__(self, spec: TriPlaneSpec, dtype=torch.bfloat16):
+        super().__init__()
+        self.spec, self.dtype = spec, dtype
+        self.planes = nn.Parameter(torch.empty(spec.total_rows,
+                                               spec.n_features))
+
+    def tables(self):
+        return {"planes": self.planes}
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.planes.uniform_(-1e-4, 1e-4, generator=generator)
+
+    def forward(self, x: torch.Tensor,
+                t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return triplane_encode(x, self.planes, self.spec,
+                               compute_dtype=self.dtype)
 
 
 class DNGPRadianceField(nn.Module):
@@ -148,13 +190,9 @@ class DNGPRadianceField(nn.Module):
                  remat_feats: bool = False, row_layout: str = "brick",
                  cell_rows_cap: int = 524288, density_clamp: float = 0.0):
         super().__init__()
-        if grid_type not in ("hash3d", "hash4d"):
-            raise NotImplementedError(
-                f"grid_type={grid_type!r} comes with a later slice of the "
-                "port; 'hash3d' and 'hash4d' are ported")
-        if hash4motion:
-            raise NotImplementedError(
-                "hash4motion comes with a later slice of the port")
+        if grid_type not in ("hash3d", "hash4d", "triplane"):
+            raise ValueError(f"grid_type {grid_type!r} is not 'hash3d', "
+                             "'hash4d' or 'triplane'")
         self.aabb = tuple(float(v) for v in aabb)
         # on the field's device, so that no call uploads it (a host sync)
         self.register_buffer("_aabb_t", torch.tensor(self.aabb,
@@ -171,6 +209,7 @@ class DNGPRadianceField(nn.Module):
         self.use_viewdirs = use_viewdirs
         self.density_clamp = density_clamp
         self.grid_type = grid_type
+        self.hash4motion = hash4motion
         self.hash_spec = HashGridSpec(
             n_levels=n_levels, n_features=n_features_per_level,
             base_res=base_resolution, max_res=dst_resolution,
@@ -181,15 +220,34 @@ class DNGPRadianceField(nn.Module):
             fine_table_rows=fine_table_rows, fine_from_level=fine_from_level,
             remat_feats=remat_feats, row_layout=row_layout,
             cell_rows_cap=cell_rows_cap)
-        enc_dim = self.hash_spec.output_dim
+        self.triplane_spec = TriPlaneSpec(plane_res=dst_resolution,
+                                          n_features=n_features_per_level)
+        enc_dim = (self.triplane_spec.output_dim if grid_type == "triplane"
+                   else self.hash_spec.output_dim)
         xt_dim = sinusoidal_latent_dim(4, 0, 4)
         t_dim = sinusoidal_latent_dim(1, 0, 4) if use_time_embedding else 0
         before = t_dim if time_inject_before_sigma else 0
         after = 0 if time_inject_before_sigma else t_dim
 
-        self.motion_mlp = MLP(xt_dim, 6 if use_div_offsets else 3,
-                              hidden_layers=3)
-        self.hash_encoder = HashGridEncoder(self.hash_spec, impl=encoder_impl)
+        motion_out = 6 if use_div_offsets else 3
+        if hash4motion:
+            # HashGrid(xyz, 8 levels, 16 -> 2048) + Frequency(t) -> a
+            # 1-hidden-layer MLP (model.py:165-199)
+            self.motion_grid = HashGridEncoder(
+                HashGridSpec(n_levels=8, n_features=2, base_res=16,
+                             max_res=2048, log2_hashmap_size=19),
+                impl=encoder_impl)
+            self.motion_mlp = MLP(
+                self.motion_grid.spec.output_dim
+                + sinusoidal_latent_dim(1, 0, 4), motion_out, hidden_layers=1)
+        else:
+            # Frequency(xyzt, 4 octaves) -> a 3-hidden-layer MLP
+            self.motion_mlp = MLP(xt_dim, motion_out, hidden_layers=3)
+        if grid_type == "triplane":
+            self.hash_encoder = TriPlaneEncoderModule(self.triplane_spec)
+        else:
+            self.hash_encoder = HashGridEncoder(self.hash_spec,
+                                                impl=encoder_impl)
         self.mlp_base = MLP(enc_dim + before, 1 + geo_feat_dim,
                             hidden_layers=1)
         self.mlp_head = MLP((4 if use_viewdirs else 0) + geo_feat_dim + after,
@@ -214,7 +272,14 @@ class DNGPRadianceField(nn.Module):
 
     def query_move(self, x, t):
         """Motion warp: (x, t) -> (x + move, move). Reference model.py:354-365."""
-        h = sinusoidal_encode(torch.cat([x, t], dim=-1), 0, 4)
+        if self.hash4motion:
+            aabb_min, aabb_max = self._aabb(x)
+            xn = (x - aabb_min) / (aabb_max - aabb_min)
+            h = torch.cat([self.motion_grid(xn),
+                           sinusoidal_encode(t, 0, 4).to(torch.bfloat16)],
+                          dim=-1)
+        else:
+            h = sinusoidal_encode(torch.cat([x, t], dim=-1), 0, 4)
         offsets = self.motion_mlp(h).float()
         if self.use_div_offsets:
             grid_move = offsets[:, 0:3] * self.moving_step

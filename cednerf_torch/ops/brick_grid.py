@@ -39,8 +39,30 @@ builds the keyframe-split update rows (w * g * (1 - t_frac) for keyframe
 lo, w * g * t_frac for lo + 1) in one [2N, 64F] f32 buffer and sends them
 through K3 (ops/scatter_kernels.py) on CUDA, for every `scatter_impl`, or
 its plain index_add on the CPU; plus the edge-gated d_x and
-d_t = sum(w * (hi - lo) * g) * (K - 1) when t needs a gradient. The cell
-layouts, 3D and 4D, arrive with later slices and raise NotImplementedError.
+d_t = sum(w * (hi - lo) * g) * (K - 1) when t needs a gradient.
+
+Row layouts `cell`, `cellz` and `cellfused` (JAX `row_layout`). JAX
+expands a level's bf16-cast brick table into one row per (brick, cell)
+([rows*27, 8F]; cellz packs the 3 cells of a z-column into one 24F row,
+the same buffer reshaped) and runs the level on those rows. Which levels
+take it follows JAX's rule (`cell_levels`): 3D hashed levels with rows*27
+<= cell_rows_cap (rows*9 for cellz), and every 4D level with rows*K*27 <=
+cap (cellz and cellfused mean cell there). The expansion is a 0/1
+selection, so the forward is the brick forward (K5 on CUDA). The backward
+is where the layouts differ from brick: the per-cell f32 sums are rounded
+to the compute dtype, folded onto the brick corners (the expansion
+matmul's transpose, a sum over the cells that share a corner) with the
+result in the compute dtype, and only then cast to the f32 master, where
+the brick route keeps its f32 sum. The port keeps those rounding points:
+on the 3D route K6c (`fused_encode_bwd_cell`) accumulates the cell rows,
+on the 4D route K3 scatters the keyframe-split cell update rows, and
+`_fold_cells` rounds and folds.
+
+`remat_feats`: the K1/K2 route keeps (x, rows, tables) in place of the
+gathered rows [L, N, 64F] and gathers them again in the backward with the
+same index_select; the 4D levels gather their corner values again. The
+K5/K6 route saves no per-sample rows in the first place (K6 re-gathers
+from the flat table), so the flag changes nothing there.
 """
 
 import dataclasses
@@ -52,10 +74,13 @@ import torch
 
 from . import encode_kernels as ek
 from . import scatter_kernels as sk
-from .encode_kernels import BRICK_CELLS, CORNERS_PER_BRICK
+from .encode_kernels import (BRICK_CELLS, BRICK_CORNERS, CELL_CORNERS,
+                             CELLS_PER_BRICK, CORNERS_PER_BRICK)
 from .hash_grid import _PRIMES, level_resolution, level_scale
 
 _U32 = 0xFFFFFFFF
+ROW_LAYOUTS = ("brick", "cell", "cellz", "cellfused")
+ZROWS_PER_BRICK = BRICK_CELLS * BRICK_CELLS   # cellz rows of a brick
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +167,20 @@ class BrickGridSpec:
                 shapes.append((f"grid_{lvl}", (n, n, n, k * self.n_features)))
         return shapes
 
+    def cell_levels(self) -> List[bool]:
+        """Per level: does it take the cell route? (the JAX dispatch,
+        cednerf_tpu/ops/brick_grid.py brick_encode)"""
+        lays = self.level_layout()
+        if self.row_layout == "brick":
+            return [False] * len(lays)
+        if self.time_keyframes:
+            return [lay["rows"] * self.keyframes * CELLS_PER_BRICK
+                    <= self.cell_rows_cap for lay in lays]
+        per = ZROWS_PER_BRICK if self.row_layout == "cellz" \
+            else CELLS_PER_BRICK
+        return [lay["hashed"] and lay["rows"] * per <= self.cell_rows_cap
+                for lay in lays]
+
     def init_params(self, generator: torch.Generator,
                     device="cpu") -> Dict[str, torch.Tensor]:
         """Uniform(-1e-4, 1e-4) tables, drawn from `generator` in level
@@ -223,12 +262,63 @@ def _flat_table(tables, dtype) -> torch.Tensor:
     return flat
 
 
-def _table_grads(d_flat, geom, dtypes):
-    """Kernel output [sum R_l, 64F] f32 -> one gradient per level table."""
+_FOLD = {}
+
+
+def _fold_index(device) -> torch.Tensor:
+    """[64 * 8] int64: for each brick corner, the (cell*8 + d) slots of a
+    brick's 27 cell rows that replicate it, padded to 8 with slot 216 (a
+    zero slot); corner = (cx+dx)*16 + (cy+dy)*4 + (cz+dz), d = dx*4 + dy*2
+    + dz."""
+    if device not in _FOLD:
+        slots = [[] for _ in range(CORNERS_PER_BRICK)]
+        for cell in range(CELLS_PER_BRICK):
+            cx, cy, cz = cell // 9, (cell // 3) % 3, cell % 3
+            for d in range(CELL_CORNERS):
+                corner = ((cx + (d >> 2)) * BRICK_CORNERS + cy + ((d >> 1) & 1)
+                          ) * BRICK_CORNERS + cz + (d & 1)
+                slots[corner].append(cell * CELL_CORNERS + d)
+        pad = CELLS_PER_BRICK * CELL_CORNERS
+        idx = [s + [pad] * (CELL_CORNERS - len(s)) for s in slots]
+        _FOLD[device] = torch.tensor(idx, dtype=torch.int64,
+                                     device=device).reshape(-1)
+    return _FOLD[device]
+
+
+def _fold_cells(d_cell: torch.Tensor, n_feat: int, compute_dtype,
+                accum_bf16: bool) -> torch.Tensor:
+    """Per-cell gradient [rows*27, 8F] f32 -> brick gradient [rows, 64F]
+    with JAX's rounding points: the f32 cell sums rounded to the
+    accumulator dtype and to the cell table's dtype (the compute dtype),
+    the fold (each corner's <= 8 cell slots summed in f32 in a fixed order)
+    rounded to the compute dtype, returned in f32."""
+    if accum_bf16:
+        d_cell = d_cell.to(torch.bfloat16)
+    rows = d_cell.shape[0] // CELLS_PER_BRICK
+    d = d_cell.to(compute_dtype).float().view(
+        rows, CELLS_PER_BRICK * CELL_CORNERS, n_feat)
+    d = torch.cat([d, d.new_zeros(rows, 1, n_feat)], dim=1)
+    folded = d.index_select(1, _fold_index(d.device)).view(
+        rows, CORNERS_PER_BRICK, CELL_CORNERS, n_feat).sum(2)
+    return folded.to(compute_dtype).float().view(rows, -1)
+
+
+def _table_grads(d_flat, geom, dtypes, d_cell=None):
+    """Kernel outputs -> one gradient per level table: the brick levels'
+    rows of d_flat [sum R_l, 64F] f32, the cell levels' folded from
+    d_cell."""
     if geom.accum_bf16:
         d_flat = d_flat.to(torch.bfloat16)
-    return tuple(d.to(dt) for d, dt in
-                 zip(d_flat.split(list(geom.level_rows)), dtypes))
+    grads, off = [], 0
+    for d, dt, cell in zip(d_flat.split(list(geom.level_rows)), dtypes,
+                           geom.cells):
+        if cell:
+            n = d.shape[0] * CELLS_PER_BRICK
+            d = _fold_cells(d_cell[off:off + n], geom.n_feat,
+                            geom.compute_dtype, geom.accum_bf16)
+            off += n
+        grads.append(d.to(dt))
+    return tuple(grads)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,49 +329,75 @@ class _Geom:
     n_feat: int
     compute_dtype: torch.dtype
     accum_bf16: bool
+    cells: Tuple[bool, ...]       # the levels on the cell route
+    remat: bool                   # remat_feats (the K1/K2 route)
+
+
+def _gather_rows(x, rows, tables, dtype) -> torch.Tensor:
+    """[L, N, 64F] brick rows of every level in `dtype` (K1's input)."""
+    src = torch.empty((len(tables), x.shape[0], tables[0].shape[1]),
+                      dtype=dtype, device=x.device)
+    for lvl, table in enumerate(tables):
+        torch.index_select(table.to(dtype), 0, rows[lvl].long(),
+                           out=src[lvl])
+    return src
 
 
 class _BrickEncode(torch.autograd.Function):
     """Two kernel routes. `interp=False`: forward K5 (fused_encode_fwd) on
-    the flat table, backward K6 (fused_encode_bwd) re-gathering from it.
+    the flat table, backward K6 (fused_encode_bwd) re-gathering from it, or
+    K6c (fused_encode_bwd_cell) when some level takes the cell route.
     `interp=True`: forward K1 (interp_fwd) on [L, N, 64F] rows gathered
-    here, backward K2 (interp_bwd_fused) on the same saved rows."""
+    here, backward K2 (interp_bwd_fused) on the same rows: saved, or
+    gathered again under remat_feats."""
 
     @staticmethod
     def forward(ctx, x, rows, geom, interp, *tables):
         if interp:
-            src = torch.empty((len(tables), x.shape[0], tables[0].shape[1]),
-                              dtype=geom.compute_dtype, device=x.device)
-            for lvl, table in enumerate(tables):
-                torch.index_select(table.to(geom.compute_dtype), 0,
-                                   rows[lvl].long(), out=src[lvl])
+            src = _gather_rows(x, rows, tables, geom.compute_dtype)
             out = ek.interp_fwd(x, src, geom.scales, geom.nbs, geom.n_feat,
                                 out_dtype=geom.compute_dtype)
+            if geom.remat:
+                ctx.save_for_backward(x, rows, *tables)
+            else:
+                ctx.save_for_backward(x, rows, src)
         else:
             src = _flat_table(tables, geom.compute_dtype)
             out = ek.fused_encode_fwd(x, src, rows, geom.scales, geom.nbs,
                                       geom.level_rows, geom.n_feat,
                                       out_dtype=geom.compute_dtype)
-        ctx.save_for_backward(x, rows, src)
+            ctx.save_for_backward(x, rows, src)
         ctx.geom, ctx.interp = geom, interp
         ctx.dtypes = [t.dtype for t in tables]
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, rows, src = ctx.saved_tensors
+        x, rows, *saved = ctx.saved_tensors
         geom = ctx.geom
-        g = g.to(src.dtype).contiguous()
+        g = g.to(geom.compute_dtype).contiguous()
+        d_cell = None
         if ctx.interp:
+            src = (_gather_rows(x, rows, saved, geom.compute_dtype)
+                   if geom.remat else saved[0])
             d_flat, d_x = ek.interp_bwd_fused(
                 x, g, src, rows, geom.scales, geom.nbs, geom.level_rows,
                 geom.n_feat)
+        elif any(geom.cells):
+            cell_rows, off = [], 0
+            for n_rows, cell in zip(geom.level_rows, geom.cells):
+                cell_rows.append(off if cell else -1)
+                off += CELLS_PER_BRICK * n_rows if cell else 0
+            d_flat, d_cell, d_x = ek.fused_encode_bwd_cell(
+                x, g, rows, saved[0], geom.scales, geom.nbs,
+                geom.level_rows, geom.n_feat, cell_rows,
+                bf16_terms=geom.compute_dtype == torch.bfloat16)
         else:
             d_flat, d_x = ek.fused_encode_bwd(
-                x, g, rows, src, geom.scales, geom.nbs, geom.level_rows,
-                geom.n_feat)
+                x, g, rows, saved[0], geom.scales, geom.nbs,
+                geom.level_rows, geom.n_feat)
         return (d_x, None, None, None,
-                *_table_grads(d_flat, geom, ctx.dtypes))
+                *_table_grads(d_flat, geom, ctx.dtypes, d_cell))
 
 
 def keyframe_tables(params: Dict[str, torch.Tensor],
@@ -326,6 +442,8 @@ class _KeyLevel:
     keyframes: int
     compute_dtype: torch.dtype
     accum_bf16: bool
+    cell: bool = False            # the cell route's backward
+    remat: bool = False           # remat_feats: gather lo/hi again
 
 
 # a corner's F values in the compute dtype, moved as one machine word
@@ -371,10 +489,13 @@ class _KeyframeLevelEncode(torch.autograd.Function):
 
     Forward: the cell's 8 corners (j = 4*bx + 2*by + bz) of keyframes lo and
     lo + 1, one gather of [2, N, 8, F] in the compute dtype, the lerp and the
-    trilinear sum; the corner values and the geometry are saved for the
-    backward (under no_grad the node, and with it what it saved, is dropped
-    when the forward returns). Backward: K3 on the keyframe-split update
-    rows, d_x and d_t."""
+    trilinear sum; the corner values (or, under remat_feats, the table, to
+    gather them again) and the geometry are saved for the backward (under
+    no_grad the node, and with it what it saved, is dropped when the
+    forward returns). Backward: K3 on the keyframe-split update rows (brick
+    rows [2N, 64F], or on the cell route cell rows [2N, 8F] that are then
+    rounded and folded as JAX's `_make_level_encode_cell_4d`), d_x and
+    d_t."""
 
     @staticmethod
     def forward(ctx, flat, x, t, idx_lo, t_frac, lv: _KeyLevel):
@@ -388,38 +509,62 @@ class _KeyframeLevelEncode(torch.autograd.Function):
                          1.0 - frac[:, :, None])                   # [N, 3, 8]
         w = (w3[:, 0] * w3[:, 1]) * w3[:, 2]
         lo_row = rows.long() * lv.keyframes + idx_lo
-        base = lo_row[:, None] * CORNERS_PER_BRICK + corner
-        lohi = _gather_corners(
-            flat.to(lv.compute_dtype).reshape(-1, lv.n_feat),
-            torch.stack([base, base + CORNERS_PER_BRICK]))    # [2, N, 8, F]
+        lohi = _keyframe_corners(flat, lo_row, corner, lv)    # [2, N, 8, F]
         out = (_keyframe_feats(lohi, t_frac, lv.compute_dtype)
                * w[:, :, None]).sum(1)
-        ctx.save_for_backward(lo_row, corner, w3, w, ok, t_frac, lohi)
+        saved = flat if lv.remat else lohi
+        ctx.save_for_backward(lo_row, corner, w3, w, ok, t_frac, saved)
         ctx.lv, ctx.flat_dtype, ctx.t_shape = lv, flat.dtype, t.shape
         return out.to(lv.compute_dtype)
 
     @staticmethod
     def backward(ctx, g_out):
-        lo_row, corner, w3, w, ok, t_frac, lohi = ctx.saved_tensors
+        lo_row, corner, w3, w, ok, t_frac, saved = ctx.saved_tensors
         lv = ctx.lv
+        lohi = (_keyframe_corners(saved, lo_row, corner, lv) if lv.remat
+                else saved)
         g = g_out.float()
         n, f = g.shape
         d_flat = d_x = d_t = None
         if ctx.needs_input_grad[0]:
             upd = w[:, :, None] * g[:, None, :]                   # [N, 8, F]
             tf = t_frac[:, None, None]
-            rows_buf = torch.zeros((2, n, CORNERS_PER_BRICK, f),
-                                   dtype=torch.float32, device=g.device)
-            at = corner[:, :, None].expand(n, 8, f)
-            rows_buf[0].scatter_(1, at, upd * (1.0 - tf))
-            rows_buf[1].scatter_(1, at, upd * tf)
-            rows = torch.cat([lo_row, lo_row + 1]).to(torch.int32)
-            d_flat = sk.scatter_add_rows(
-                rows, rows_buf.view(2 * n, CORNERS_PER_BRICK * f),
-                lv.n_rows * lv.keyframes)
-            del rows_buf
-            if lv.accum_bf16:
-                d_flat = d_flat.to(torch.bfloat16)
+            if lv.cell:
+                if lv.compute_dtype == torch.bfloat16:
+                    # the JAX cell level's terms w * g in bf16 (see
+                    # encode_kernels.cell_updates); w3[:, :, 7] is frac
+                    fa = w3[:, :, 7].to(torch.bfloat16)[:, :, None]
+                    wb = torch.where(_corner_bits(g.device) == 1, fa,
+                                     1.0 - fa)                     # [N, 3, 8]
+                    upd = (((wb[:, 0] * wb[:, 1]) * wb[:, 2])[:, :, None]
+                           * g_out.to(torch.bfloat16)[:, None, :]).float()
+                c0 = corner[:, 0]
+                cidx = ((c0 // 16) * BRICK_CELLS + (c0 // 4) % 4) \
+                    * BRICK_CELLS + c0 % 4
+                crow = lo_row * CELLS_PER_BRICK + cidx
+                rows = torch.cat([crow, crow + CELLS_PER_BRICK]).to(
+                    torch.int32)
+                upd_rows = torch.cat([upd * (1.0 - tf), upd * tf]).view(
+                    2 * n, CELL_CORNERS * f)
+                d_cell = sk.scatter_add_rows(
+                    rows, upd_rows,
+                    lv.n_rows * lv.keyframes * CELLS_PER_BRICK)
+                del upd_rows
+                d_flat = _fold_cells(d_cell, f, lv.compute_dtype,
+                                     lv.accum_bf16)
+            else:
+                rows_buf = torch.zeros((2, n, CORNERS_PER_BRICK, f),
+                                       dtype=torch.float32, device=g.device)
+                at = corner[:, :, None].expand(n, 8, f)
+                rows_buf[0].scatter_(1, at, upd * (1.0 - tf))
+                rows_buf[1].scatter_(1, at, upd * tf)
+                rows = torch.cat([lo_row, lo_row + 1]).to(torch.int32)
+                d_flat = sk.scatter_add_rows(
+                    rows, rows_buf.view(2 * n, CORNERS_PER_BRICK * f),
+                    lv.n_rows * lv.keyframes)
+                del rows_buf
+                if lv.accum_bf16:
+                    d_flat = d_flat.to(torch.bfloat16)
             d_flat = d_flat.to(ctx.flat_dtype)
         if ctx.needs_input_grad[1]:
             h = (_keyframe_feats(lohi, t_frac, lv.compute_dtype)
@@ -438,9 +583,19 @@ class _KeyframeLevelEncode(torch.autograd.Function):
         return d_flat, d_x, d_t, None, None, None
 
 
+def _keyframe_corners(flat, lo_row, corner, lv: _KeyLevel) -> torch.Tensor:
+    """[2, N, 8, F]: the cell's corners of keyframes lo and lo + 1 in the
+    compute dtype (one gather of words, _gather_corners)."""
+    base = lo_row[:, None] * CORNERS_PER_BRICK + corner
+    return _gather_corners(
+        flat.to(lv.compute_dtype).reshape(-1, lv.n_feat),
+        torch.stack([base, base + CORNERS_PER_BRICK]))
+
+
 def _encode_keyframes(x, t, params, spec: BrickGridSpec, compute_dtype):
     layouts = spec.level_layout()
     scales = spec.level_scales()
+    cells = spec.cell_levels()
     tables = keyframe_tables(params, spec)
     with torch.no_grad():
         idx_lo, t_frac = _time_geom(t, spec.keyframes)
@@ -451,7 +606,8 @@ def _encode_keyframes(x, t, params, spec: BrickGridSpec, compute_dtype):
                        hashed=lay["hashed"], n_rows=lay["rows"],
                        n_feat=spec.n_features, keyframes=spec.keyframes,
                        compute_dtype=compute_dtype,
-                       accum_bf16=spec.grad_accum_dtype == "bfloat16")
+                       accum_bf16=spec.grad_accum_dtype == "bfloat16",
+                       cell=cells[lvl], remat=spec.remat_feats)
         outs.append(_KeyframeLevelEncode.apply(flat, x, t, idx_lo, t_frac,
                                                lv))
     return torch.cat(outs, dim=-1)
@@ -469,10 +625,9 @@ def brick_encode(x: torch.Tensor, params: Dict[str, torch.Tensor],
     compute_dtype before the gather, as in the JAX encoder; the lane math
     and the sums run in f32. On CUDA the 3D route's compute dtype must be
     bfloat16 (the kernels read bf16 rows)."""
-    if spec.row_layout != "brick":
-        raise NotImplementedError(
-            f"brick_encode: row_layout={spec.row_layout!r} comes with a later "
-            "slice of the port; this slice has the 'brick' layout")
+    if spec.row_layout not in ROW_LAYOUTS:
+        raise ValueError(f"brick_encode: row_layout {spec.row_layout!r} is "
+                         f"not one of {ROW_LAYOUTS}")
     if spec.grad_accum_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"brick_encode: grad_accum_dtype "
                          f"{spec.grad_accum_dtype!r} is not float32/bfloat16")
@@ -496,11 +651,15 @@ def brick_encode(x: torch.Tensor, params: Dict[str, torch.Tensor],
                  nbs=tuple(lay["n_bricks_axis"] for lay in layouts),
                  level_rows=tuple(lay["rows"] for lay in layouts),
                  n_feat=spec.n_features, compute_dtype=compute_dtype,
-                 accum_bf16=spec.grad_accum_dtype == "bfloat16")
+                 accum_bf16=spec.grad_accum_dtype == "bfloat16",
+                 cells=tuple(spec.cell_levels()), remat=spec.remat_feats)
     with torch.no_grad():
         rows = torch.stack([
             _level_geom(x, scales[lvl], geom.nbs[lvl], lay["hashed"],
                         lay["rows"])[0]
             for lvl, lay in enumerate(layouts)])                 # [L, N]
-    return _BrickEncode.apply(x, rows, geom, spec.interp_impl == "interp",
+    # JAX's all-levels Pallas route (the port's K1/K2) is the brick
+    # layout's only; the cell layouts run per level on XLA ops there
+    interp = spec.interp_impl == "interp" and spec.row_layout == "brick"
+    return _BrickEncode.apply(x, rows, geom, interp,
                               *level_tables(params, spec))

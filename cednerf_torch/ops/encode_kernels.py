@@ -11,6 +11,13 @@ their plain versions.
     re-gathering the rows from the table. Replaces pallas_fused.py
     `_build_fused_bwd` / `fused_encode_bwd` (one level per call there, all
     levels in one launch here).
+  * `fused_encode_bwd_cell` (K6c) — K6 for the cell row layouts: the levels
+    the caller names accumulate their table gradient per (brick row, cell)
+    into [rows*27, 8F] f32, the buffer that the JAX package's cell levels
+    scatter into (cednerf_tpu/ops/brick_grid.py `_make_level_encode_cell`,
+    `_scatter_rows`, whose "pallas" route is pallas_scatter.py
+    `scatter_add_rows`); the other levels keep K6's brick target. The
+    caller rounds and folds the cell rows (ops/brick_grid.py).
   * `interp_bwd_fused` (K2) — K1's backward, given the gathered rows.
     Replaces pallas_encoder.py `_build_bwd_fused` / `interp_bwd_fused`.
   * `interp_bwd` (K7) — K1's backward that returns every level's update
@@ -44,11 +51,13 @@ from .cuda_build import KernelLibrary
 BRICK_CELLS = 3          # cells per brick edge
 BRICK_CORNERS = 4        # corners per brick edge
 CORNERS_PER_BRICK = 64   # 4^3
+CELLS_PER_BRICK = 27     # 3^3
+CELL_CORNERS = 8
 MAX_LEVELS = 16          # kMaxLevels in the CUDA sources
 KERNEL_FEATURES = (1, 2, 4)
 
 _NAMES = ("interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
-          "interp_bwd_fused", "interp_bwd")
+          "fused_encode_bwd_cell", "interp_bwd_fused", "interp_bwd")
 launches = dict.fromkeys(_NAMES, 0)
 plain_cuda_calls = dict.fromkeys(_NAMES, 0)
 
@@ -79,6 +88,9 @@ def _bind_bwd(lib):
         fn.argtypes = [_P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P,
                        _P]
         fn.restype = _I32
+    lib.brick_fused_encode_bwd_cell.argtypes = [
+        _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P]
+    lib.brick_fused_encode_bwd_cell.restype = _I32
     lib.brick_interp_bwd.argtypes = [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P,
                                      _I32, _P, _P]
     lib.brick_interp_bwd.restype = _I32
@@ -250,6 +262,66 @@ def fused_encode_bwd_plain(x, g, rows, table, scales: Sequence[float],
         level_rows, scales, nbs, n_feat)
 
 
+def cell_index(x, scale: float, nb: int) -> torch.Tensor:
+    """[N] int64: the intra-brick cell (ix*3 + iy)*3 + iz of each point."""
+    _, _, intra, _ = cell_geom(x, scale, nb)
+    return (intra[:, 0] * BRICK_CELLS + intra[:, 1]) * BRICK_CELLS \
+        + intra[:, 2]
+
+
+def cell_updates(x, g, scale: float, nb: int, bf16_terms: bool):
+    """[N, 8, F] f32: one level's update terms w_d * g of a cell row (d =
+    dx*4 + dy*2 + dz), w_d = (wx * wy) * wz as the JAX cell levels form it.
+    bf16_terms: in bf16 as a bf16 compute dtype forms them there (each axis
+    weight bf16(frac) or bf16(1 - bf16(frac)), each product rounded),
+    else in f32."""
+    _, _, _, frac = cell_geom(x, scale, nb)
+    d = torch.arange(CELL_CORNERS, device=x.device)
+    bits = torch.stack([(d >> 2) & 1, (d >> 1) & 1, d & 1], dim=1) == 1
+    dt = torch.bfloat16 if bf16_terms else torch.float32
+    fa = frac.to(dt)[:, None, :]
+    w3 = torch.where(bits, fa, 1.0 - fa)                           # [N, 8, 3]
+    w = (w3[..., 0] * w3[..., 1]) * w3[..., 2]
+    return (w[:, :, None] * g.to(dt)[:, None, :]).float()
+
+
+def fused_encode_bwd_cell_plain(x, g, rows, table, scales: Sequence[float],
+                                nbs: Sequence[int], level_rows: Sequence[int],
+                                n_feat: int, cell_rows: Sequence[int],
+                                bf16_terms: bool = True):
+    """Plain K6c: (d_table [sum R_l, 64F] f32, d_cell [sum 27 R_l of the
+    cell levels, 8F] f32, d_x [N, 3] f32). Level l adds its update terms
+    (cell_updates) into d_cell from row cell_rows[l] (row + r*27 + cell,
+    lane d*F + f) when cell_rows[l] >= 0, else into d_table as K6 does.
+    The kernel forms the terms in bf16 (bf16_terms=True, the bf16 compute
+    dtype it serves); bf16_terms=False is the f32 compute dtype's form."""
+    if x.is_cuda:
+        plain_cuda_calls["fused_encode_bwd_cell"] += 1
+    n_cell = sum(27 * r for r, c in zip(level_rows, cell_rows) if c >= 0)
+    d_table = torch.zeros((sum(level_rows), CORNERS_PER_BRICK * n_feat),
+                          dtype=torch.float32, device=x.device)
+    d_cell = torch.zeros((n_cell, CELL_CORNERS * n_feat), dtype=torch.float32,
+                         device=x.device)
+    d_x = torch.zeros((x.shape[0], 3), dtype=torch.float32, device=x.device)
+    off = 0
+    for lvl in range(len(scales)):
+        r = rows[lvl].long().clamp(0, level_rows[lvl] - 1)
+        vals = table[off:off + level_rows[lvl]].index_select(0, r)
+        upd, dx = _bwd_rows(vals, x, g[:, lvl * n_feat:(lvl + 1) * n_feat],
+                            scales[lvl], nbs[lvl], n_feat)
+        if cell_rows[lvl] >= 0:
+            cupd = cell_updates(x, g[:, lvl * n_feat:(lvl + 1) * n_feat],
+                                scales[lvl], nbs[lvl], bf16_terms)
+            crow = cell_rows[lvl] + r * CELLS_PER_BRICK + cell_index(
+                x, scales[lvl], nbs[lvl])
+            d_cell.index_add_(0, crow, cupd.reshape(x.shape[0], -1))
+        else:
+            d_table[off:off + level_rows[lvl]].index_add_(0, r, upd)
+        d_x += dx
+        off += level_rows[lvl]
+    return d_table, d_cell, d_x
+
+
 def interp_bwd_fused_plain(x, g, feats, rows, scales: Sequence[float],
                            nbs: Sequence[int], level_rows: Sequence[int],
                            n_feat: int):
@@ -407,6 +479,53 @@ def fused_encode_bwd(x, g, rows, table, scales: Sequence[float],
                       len(level_rows), n_feat)
     return _launch_bwd("brick_fused_encode_bwd", "fused_encode_bwd", x, g,
                        rows, table, scales, nbs, level_rows, n_feat)
+
+
+def fused_encode_bwd_cell(x, g, rows, table, scales: Sequence[float],
+                          nbs: Sequence[int], level_rows: Sequence[int],
+                          n_feat: int, cell_rows: Sequence[int],
+                          bf16_terms: bool = True):
+    """K6c: fused_encode_bwd with a per-cell target. cell_rows [L]: level
+    l's first row in the cell gradient, or -1 to keep the brick target.
+    The cell levels' update terms w * g are formed in bf16 as the JAX cell
+    levels form them at a bf16 compute dtype (cell_updates); on CUDA
+    bf16_terms must be True (the kernel reads bf16 rows, so the compute
+    dtype is bf16).
+    Returns (d_table [sum R_l, 64F] f32, zero on the cell levels' rows;
+    d_cell [sum 27 R_l over the cell levels, 8F] f32, row cell_rows[l] +
+    r*27 + cell, lane (dx*4 + dy*2 + dz)*F + f; d_x [N, 3] f32)."""
+    if not x.is_cuda:
+        return fused_encode_bwd_cell_plain(x, g, rows, table, scales, nbs,
+                                           level_rows, n_feat, cell_rows,
+                                           bf16_terms)
+    if not bf16_terms:
+        raise ValueError("fused_encode_bwd_cell: the kernel forms bf16 terms")
+    L = len(level_rows)
+    _check_bwd_inputs("fused_encode_bwd_cell", x, g, rows, table,
+                      (sum(level_rows), CORNERS_PER_BRICK * n_feat), L,
+                      n_feat)
+    if len(cell_rows) != L:
+        raise ValueError("fused_encode_bwd_cell: one cell row offset a level")
+    n = x.shape[0]
+    n_cell = sum(27 * r for r, c in zip(level_rows, cell_rows) if c >= 0)
+    d_table = torch.zeros((sum(level_rows), CORNERS_PER_BRICK * n_feat),
+                          dtype=torch.float32, device=x.device)
+    d_cell = torch.zeros((n_cell, CELL_CORNERS * n_feat), dtype=torch.float32,
+                         device=x.device)
+    d_x = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return d_table, d_cell, d_x
+    lib = _BWD.get()
+    sc, nb, lr = _level_arrays(scales, nbs, level_rows)
+    cr = (ctypes.c_longlong * L)(*[int(c) for c in cell_rows])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.brick_fused_encode_bwd_cell(
+        x.data_ptr(), g.data_ptr(), rows.data_ptr(), table.data_ptr(), L, n,
+        n_feat, sc, nb, lr, cr, d_table.data_ptr(), d_cell.data_ptr(),
+        d_x.data_ptr(), stream)
+    _BWD.check(rc, "fused_encode_bwd_cell")
+    launches["fused_encode_bwd_cell"] += 1
+    return d_table, d_cell, d_x
 
 
 def interp_bwd_fused(x, g, feats, rows, scales: Sequence[float],

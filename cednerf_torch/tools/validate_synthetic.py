@@ -2,7 +2,9 @@
 JAX package's tools/validate_synthetic.py.
 
     python -m cednerf_torch.tools.validate_synthetic [--steps 2000]
-        [--levels 16] [--features 2] [--scene ball|cloud|mono]
+        [--levels 16] [--features 2] [--scene ball|cloud|texture|mono]
+        [--impl brick|gather] [--grid_type hash3d|hash4d|triplane]
+        [--row_layout brick|cell|cellz|cellfused] [--remat_feats]
         [--device cuda] [--out DIR] [...]
 
 Trains the flagship field (the published flags -te -ta -f -ae -df -d) on
@@ -15,10 +17,9 @@ t = 0.43; for the monocular scene at the nearest training time, the vrig
 protocol). --ttq_db adds the seconds to each PSNR threshold. --out writes
 the rendered and ground-truth PNGs and result.json.
 
-Not ported yet, raising NotImplementedError that names its ROADMAP.md
-item: --scene texture (the textured cloud scene, Queue 1 item 5's
-leftovers); --impl gather, --grid_type triplane, --row_layout other than
-brick and --remat_feats (item 6). The JAX tool's --scatter_impl,
+--scene texture is the textured cloud, the encoder gate of the JAX
+rounds; --impl gather the exact per-corner encoder. The JAX tool's
+--scatter_impl,
 --interp_impl and --compact_impl pick among its TPU routes; the port takes
 no such flag, runs the preset's kernels and reports the preset's values
 under the same keys.
@@ -33,8 +34,8 @@ import time
 import numpy as np
 
 from ..datasets.procedural import (BallCloudScene, BallScene,
-                                   MonocularOrbitScene)
-from ..engine.cli import build_field, not_ported
+                                   MonocularOrbitScene, TexturedCloudScene)
+from ..engine.cli import build_field
 from ..engine.config import ModelFlags, dnerf_config
 from ..engine.renderer import eval_chunk_for, make_eval_render_fn, render_image
 from ..engine.train import Trainer
@@ -116,16 +117,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _config(args):
-    if args.scene == "texture":
-        raise not_ported("--scene texture (the textured cloud scene)", 5)
-    if args.impl != "brick":
-        raise not_ported(f"--impl {args.impl}", 6)
-    if args.grid_type == "triplane":
-        raise not_ported("--grid_type triplane", 6)
-    if args.remat_feats:
-        raise not_ported("--remat_feats", 6)
-    if args.row_layout not in (None, "brick"):
-        raise not_ported(f"--row_layout {args.row_layout}", 6)
     cfg = dnerf_config(max_steps=args.steps)
     if args.mini:
         # render_step_size scales with the march-step cut so rays still
@@ -141,7 +132,8 @@ def _config(args):
                      ("fine_table_rows", args.fine_table_rows),
                      ("fine_from_level", args.fine_from_level),
                      ("steady_march_steps", args.steady_march),
-                     ("row_layout", args.row_layout)):
+                     ("row_layout", args.row_layout),
+                     ("remat_feats", args.remat_feats)):
         if val:
             upd[key] = val
     if args.march_seg >= 0:
@@ -158,13 +150,15 @@ def run(args) -> dict:
         use_div_offsets=True, use_feat_predict=True, use_time_embedding=True,
         use_time_attenuation=True, distortion_loss=True,
         acc_entropy_loss=True, grid_type=args.grid_type)
-    field = build_field(cfg, flags, device=dev, seed=args.seed)
+    field = build_field(cfg, flags, device=dev, seed=args.seed,
+                        encoder_impl=args.impl)
     wh = 64 if args.mini else 128
     if args.scene == "mono":
         # the vrig capture regime: one camera per time (a 32-frame orbit)
         scene = MonocularOrbitScene(n_frames=32, wh=wh)
     else:
-        scene = {"ball": BallScene, "cloud": BallCloudScene}[args.scene](
+        scene = {"ball": BallScene, "cloud": BallCloudScene,
+                 "texture": TexturedCloudScene}[args.scene](
             n_cams=8, wh=wh, n_times=8)
     trainer = Trainer(field, cfg, flags, scene, seed=args.seed, device=dev,
                       device_sampler=scene.device_sampler(dev),

@@ -13,8 +13,10 @@ the loader's device sampler); DyNeRF samples on the host (the native C++
 importance sampler) and runs the same path on stacked host batches. Then a
 final checkpoint in --model_path, PSNR and MS-SSIM over every test image,
 and rgb_test.png, depth_test.png and rgb_error.png of the first test image
-in the working directory. `--load_model` loads --model_path and evaluates
-it the same way (the JAX CLI skips that evaluation); `--render_video`
+in the working directory. `--load_model` loads --model_path and goes on to
+--render_video / --gui without evaluating, as the JAX CLI does;
+`evaluate_checkpoint(argv)` evaluates a checkpoint in the calling process
+through the train branch's evaluation (the reload checks); `--render_video`
 renders the loader's render path into rgb_render / depth_render (mp4, or
 per-frame PNGs without an mp4 writer); `--gui` serves the viewer on port
 8890. The environment variable CEDNERF_CFG holds SceneConfig overrides as
@@ -192,17 +194,12 @@ def _render_video(field, occ, cfg, test_dataset) -> dict:
     return {"frames": len(rgb_frames), "mp4": mp4}
 
 
-def main(argv=None) -> dict:
-    """Run the CLI on `argv` (sys.argv by default); returns the summary
-    that the last printed line carries."""
-    args = build_parser().parse_args(argv)
+def _prepare(args):
+    """(device, cfg, flags, field, (Loader, train kwargs), test dataset) of
+    a parsed command line."""
     if args.dp:
         raise not_ported("--dp (ray data parallelism over several cards)", 8)
     device = resolve_device(args.device)
-
-    from .engine.checkpoint import load_checkpoint
-    from .engine.train import Trainer, create_train_state
-
     cfg = config_for_scene(args.scene, args.max_steps)
     if args.hash_levels or args.hash_features:
         cfg = dataclasses.replace(
@@ -219,18 +216,52 @@ def main(argv=None) -> dict:
         print(f"cfg overrides from CEDNERF_CFG: {env_cfg}")
     flags = flags_from_args(args)
     field = build_field(cfg, flags, device=device, seed=42)
-
     Loader, loader_kw, test_kw = _loader(args.scene, cfg, device)
     test_dataset = Loader(subject_id=args.scene, root_fp=args.data_root,
                           split="test", num_rays=None, **test_kw)
-    summary = {"scene": args.scene, "device": str(device)}
+    return device, cfg, flags, field, (Loader, loader_kw), test_dataset
 
+
+def _load(args, cfg, field, device):
+    """The train state of --model_path (the --load_model path): (state,
+    step)."""
+    from .engine.checkpoint import load_checkpoint
+    from .engine.train import create_train_state
+
+    state = create_train_state(field, cfg, device=device)
+    state, step = load_checkpoint(args.model_path, state)
+    print(f"loaded checkpoint at step {step} from {args.model_path}")
+    return state, step
+
+
+def evaluate_checkpoint(argv) -> dict:
+    """Load --model_path of the command line `argv` as --load_model does
+    and evaluate it in this process with the train branch's evaluation
+    (PSNR and MS-SSIM over every test image, the three PNGs): the check
+    that a reload reproduces the trained run's metrics."""
+    args = build_parser().parse_args(argv)
+    device, cfg, _, field, _, test_dataset = _prepare(args)
+    state, step = _load(args, cfg, field, device)
+    reset_kernel_counts()
+    out = _evaluate(state.field, state.occ, cfg, test_dataset)
+    out["step"] = step
+    out["launches"], out["plain_cuda_calls"] = kernel_counts()
+    return out
+
+
+def main(argv=None) -> dict:
+    """Run the CLI on `argv` (sys.argv by default); returns the summary
+    that the last printed line carries."""
+    args = build_parser().parse_args(argv)
+    device, cfg, flags, field, (Loader, loader_kw), test_dataset = \
+        _prepare(args)
+    from .engine.train import Trainer
+
+    summary = {"scene": args.scene, "device": str(device)}
     train_dataset = None
     if args.load_model:
-        state = create_train_state(field, cfg, device=device)
-        state, step = load_checkpoint(args.model_path, state)
-        print(f"loaded checkpoint at step {step} from {args.model_path}")
-        summary["step"] = step
+        # as the JAX CLI: load, then --render_video / --gui; no evaluation
+        state, summary["step"] = _load(args, cfg, field, device)
     else:
         tic = time.time()
         train_dataset = Loader(subject_id=args.scene, root_fp=args.data_root,
@@ -307,10 +338,11 @@ def main(argv=None) -> dict:
                        steps_per_s=steps / train_s if train_s else None,
                        launches=launches, plain_cuda_calls=plain)
 
-    reset_kernel_counts()
-    summary["eval"] = _evaluate(state.field, state.occ, cfg, test_dataset)
-    summary["eval"]["launches"], summary["eval"]["plain_cuda_calls"] = \
-        kernel_counts()
+        reset_kernel_counts()
+        summary["eval"] = _evaluate(state.field, state.occ, cfg,
+                                    test_dataset)
+        summary["eval"]["launches"], summary["eval"]["plain_cuda_calls"] = \
+            kernel_counts()
 
     if args.render_video:
         summary["video"] = _render_video(state.field, state.occ, cfg,

@@ -98,19 +98,30 @@ def fill_occupancy(field, cfg, seed: int, device):
                                ema_decay=cfg.occ_ema_decay, all_cells=True)
 
 
+def _encoder_tables(field) -> dict:
+    """{name: table} of the field's encoder (and its motion grid's)."""
+    out = {f"hash_encoder.{k}": v
+           for k, v in field.hash_encoder.tables().items()}
+    if getattr(field, "hash4motion", False):
+        out.update({f"motion_grid.{k}": v
+                    for k, v in field.motion_grid.tables().items()})
+    return out
+
+
 def load_uniform_tables(fields, seed: int, bound: float):
-    """Set the hash tables of every field in `fields` (same spec) to one
-    draw of uniform(-bound, bound) from numpy's `seed`.
+    """Set the encoder tables (the motion grid's too) of every field in
+    `fields` (same spec) to one draw of uniform(-bound, bound) from numpy's
+    `seed`.
 
     The initial +-1e-4 tables leave the encoder's features at ~1e-4, too
     small to move a frame; a large enough bound makes a wrong encoder
     change the frame."""
     rng = np.random.default_rng(seed)
     draws = {name: rng.uniform(-bound, bound, tuple(t.shape)).astype(
-        np.float32) for name, t in fields[0].hash_encoder.tables().items()}
+        np.float32) for name, t in _encoder_tables(fields[0]).items()}
     with torch.no_grad():
         for f in fields:
-            for name, t in f.hash_encoder.tables().items():
+            for name, t in _encoder_tables(f).items():
                 t.copy_(torch.from_numpy(draws[name]))
 
 

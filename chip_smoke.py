@@ -7,7 +7,7 @@ Phases, each of which must pass (nothing is caught and carried on):
 
   1. device: needs CUDA (exits 1 without it, printing no result); prints
      the card's name and power limit as nvidia-smi reports them;
-  2. build: nvcc builds the port's five CUDA sources from the checkout,
+  2. build: nvcc builds the port's CUDA sources from the checkout,
      one nvcc per source, all started together;
   3. kernels: K1 (interp_fwd) and K5 (fused_encode_fwd) against their plain
      PyTorch versions at one full seg-eval pass (eval_chunk_seg 32768 x
@@ -118,7 +118,10 @@ Phases, each of which must pass (nothing is caught and carried on):
      launched, no plain version on CUDA, finite outputs, the test views'
      mean PSNR at least 3 dB above an all-white prediction's), a steady
      step's device ms (run_step, not run_chunk); a --load_model run that
-     re-evaluates to the same PSNR within 1e-4 dB; a 100x100 scene trained
+     loads without evaluating (as the JAX CLI), then the loaded checkpoint
+     evaluated in this process by train_real.evaluate_checkpoint (the
+     train branch's evaluation) to the same PSNR within 1e-4 dB; a
+     100x100 scene trained
      80 steps and its 120 video frames; K5 and K6 against their plain
      versions on the full-width DyNeRF field's level layout (outer +-8
      aabb, max resolution 8192) at its 2^20-sample budget and a ragged
@@ -126,8 +129,18 @@ Phases, each of which must pass (nothing is caught and carried on):
      and images_x4 fixtures (DyNeRF: ISG weights by the native C++,
      --isg2ist_step 32, --mark_invisible), with their launches; K4
      bit-exact on every lattice shape the in-process runs handed it.
-Phases 5, 7, 7b, 10, 13 and 14 fail if K7 or K8 launched on a serving or
-training path.
+ 15. secondary: the secondary encoders and row layouts at the full width
+     of dnerf_config (secondary_phase): row_layout "cell" with
+     fine_table_rows 65536 (K5 and K6c against their plain versions, K6c
+     also for "cellz" and "cellfused", the reference step card vs CPU,
+     Trainer.run past the warmup on TexturedCloudScene's device sampler,
+     K6c once a step), hash4motion (K5 and K6 on the motion grid's F = 2
+     levels, a short run), --grid_type triplane and encoder_impl "gather"
+     (a reference step and a short run each; a tri-plane frame of full
+     seg passes and its peak memory) and remat_feats (bit-identical
+     gradients on the K5/K6 and K1/K2 routes).
+Phases 5, 7, 7b, 10, 13, 14 and 15 fail if K7 or K8 launched on a serving
+or training path.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
@@ -265,17 +278,19 @@ def _draw_x(n, gen, inner):
 
 def kernel_phase(field, n_main, n_ragged, seed,
                  names=("fused_encode_fwd", "interp_fwd"), timed=True,
-                 inner=None):
+                 inner=None, encoder=None):
     """K5 and K1 against their plain versions on the field's levels and its
-    tables, x uniform over the unit cube (and half of it over `inner`, see
-    _draw_x), at n_main and at a ragged count; with `timed`, each timed at
-    n_main. `names` picks the kernels."""
+    tables (those of `encoder`, the field's hash_encoder by default), x
+    uniform over the unit cube (and half of it over `inner`, see _draw_x),
+    at n_main and at a ragged count; with `timed`, each timed at n_main.
+    `names` picks the kernels."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops.brick_grid import level_tables
     from cednerf_torch.utils.bench import cuda_ms
 
-    spec = field.hash_encoder.bspec
+    encoder = encoder or field.hash_encoder
+    spec = encoder.bspec
     lay = spec.level_layout()
     scales = spec.level_scales()
     nbs = [l["n_bricks_axis"] for l in lay]
@@ -283,7 +298,7 @@ def kernel_phase(field, n_main, n_ragged, seed,
     L, F = spec.n_levels, spec.n_features
     with torch.no_grad():
         tables = [t.to(torch.bfloat16) for t in
-                  level_tables(field.hash_encoder.tables(), spec)]
+                  level_tables(encoder.tables(), spec)]
     table = torch.cat(tables).contiguous()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
@@ -667,11 +682,12 @@ def _frac_err(got, want):
 
 def backward_kernel_phase(field, n_main, n_ragged, seed,
                           names=("fused_encode_bwd", "interp_bwd_fused"),
-                          timed=True, inner=None):
+                          timed=True, inner=None, encoder=None):
     """K6 and K2 (one kernel body, on the table and on the gathered rows)
-    against their plain versions on the full-width field's levels, tables
-    uniform(-8, 8), x as kernel_phase draws it (`inner`), at one train
-    step's sample count and at a ragged one;
+    against their plain versions on the full-width field's levels (those of
+    `encoder`, the field's hash_encoder by default), tables uniform(-8, 8),
+    x as kernel_phase draws it (`inner`), at one train step's sample count
+    and at a ragged one;
     with `timed`, each timed at the step's count on uniform random and on
     ray-major samples. One bf16 cotangent row in eight is zero (unused
     budget slots carry zero). `names` picks the kernels."""
@@ -679,7 +695,7 @@ def backward_kernel_phase(field, n_main, n_ragged, seed,
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.utils.bench import cuda_ms
 
-    spec = field.hash_encoder.bspec
+    spec = (encoder or field.hash_encoder).bspec
     lay = spec.level_layout()
     scales = spec.level_scales()
     nbs = [l["n_bricks_axis"] for l in lay]
@@ -926,12 +942,14 @@ def _shell_bins(res, rng, radius=0.55, width=0.2, noise=0.01):
 
 
 def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
-                   step_kw=None, density_bias=None):
+                   step_kw=None, density_bias=None, encoder_impl="brick",
+                   compute_dtype=None):
     """One loss-and-gradients step of `cfg` per route: ("plain", CPU) and
     each route of `routes` on the card, from the same weights, grid (bins
     [levels, res, res, res]), batch and jitter; density_bias, if given,
-    replaces the density output's bias. {route: (loss, aux floats,
-    gradients on the CPU)}."""
+    replaces the density output's bias; compute_dtype, if given, is every
+    module's compute dtype (the MLPs' and the encoder's) on both sides.
+    {route: (loss, aux floats, gradients on the CPU)}."""
     import numpy as np
     import torch
     from cednerf_torch.bridge import occ_from_numpy
@@ -948,8 +966,13 @@ def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
     for route, dev in (("plain", "cpu"),) + tuple((r, "cuda")
                                                  for r in routes):
         c = dataclasses.replace(cfg, interp_impl=route)
-        f = build_field(c, flags, device=dev, seed=seed)
+        f = build_field(c, flags, device=dev, seed=seed,
+                        encoder_impl=encoder_impl)
         load_uniform_tables([f], seed, 1.0)
+        if compute_dtype is not None:
+            for m in f.modules():
+                if hasattr(m, "dtype"):
+                    m.dtype = compute_dtype
         if density_bias is not None:
             with torch.no_grad():
                 f.mlp_base.out.bias[0] = density_bias
@@ -1186,19 +1209,24 @@ def _record_chunks(trainer, recs):
     trainer.run_chunk = recorded
 
 
-def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1):
-    """K6 once a step, K4 k4_per_step times, K5 once a step plus the
-    occupancy probes, nothing else, no plain version on CUDA."""
+def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
+                         bwd="fused_encode_bwd", encoders=1):
+    """The backward kernel `bwd` (K6, or K6c on the cell layouts) `encoders`
+    times a step (the brick encoders a step runs: 2 with the hash-grid
+    motion warp, 0 for the tri-plane and per-corner encoders), K4
+    k4_per_step times, K5 `encoders` times a step and as often per
+    occupancy probe, nothing else, no plain version on CUDA."""
     if any(plain.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
     no_probe_kernels(label, counts)
     steps = sum(r["steps"] for r in recs)
-    want = {"fused_encode_fwd": steps + sum(
+    want = {"fused_encode_fwd": encoders * (steps + sum(
                 _occ_probe_launches(cfg, r["step0"], r["steps"], r["warmup"])
-                for r in recs),
-            "fused_encode_bwd": steps,
+                for r in recs)),
+            "fused_encode_bwd": 0, "fused_encode_bwd_cell": 0,
             "compact_select": k4_per_step * steps,
             "interp_fwd": 0, "interp_bwd_fused": 0, "scatter_add_rows": 0}
+    want[bwd] = encoders * steps
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
@@ -2089,7 +2117,9 @@ def train_real_phase(seed, scanned_steady_ms):
          the 4 test views at least TRAIN_REAL_MARGIN_DB above an all-white
          prediction's; then a steady step's device ms (two run_steps of a
          Trainer resumed from the run's checkpoint, under torch.profiler);
-      3. the same command with --load_model: the same PSNR within 1e-4 dB;
+      3. the same command with --load_model: it loads and does not
+         evaluate; train_real.evaluate_checkpoint here gives the same PSNR
+         within 1e-4 dB;
       4. a 100x100 scene: SMALL_REAL_STEPS steps, then --load_model
          --render_video in process: all 120 frames written (mp4, or PNG
          frames without an mp4 writer);
@@ -2183,15 +2213,26 @@ def train_real_phase(seed, scanned_steady_ms):
         torch.cuda.empty_cache()
         log(json.dumps({"train_real_lego": out["train"]}))
 
-        # 3. reload
+        # 3. reload: --load_model loads and does not evaluate (as the JAX
+        # CLI); the loaded checkpoint, evaluated here through the train
+        # branch's evaluation, gives the trained run's PSNR
+        for name in ("rgb_test.png", "depth_test.png", "rgb_error.png"):
+            os.remove(os.path.join(run, name))
         s2, secs = _train_real_cli(base + ["--load_model"], run)
-        _check_real_run("train_real lego reload", s2, lattice_eval=False,
-                        need_train=False)
-        if abs(s2["eval"]["psnr_avg"] - psnr) > 1e-4:
-            raise AssertionError(f"train_real reload: PSNR "
-                                 f"{s2['eval']['psnr_avg']} vs {psnr}")
+        if "eval" in s2 or os.path.exists(os.path.join(run,
+                                                       "rgb_test.png")):
+            raise AssertionError("train_real --load_model evaluated")
+        t0 = time.perf_counter()
+        ev = _in_dir(run, train_real.evaluate_checkpoint, base)
+        _check_real_run("train_real lego reload", {"eval": ev},
+                        lattice_eval=False, need_train=False)
+        if ev["step"] != s2["step"] or abs(ev["psnr_avg"] - psnr) > 1e-4:
+            raise AssertionError(f"train_real reload: step {ev['step']} "
+                                 f"PSNR {ev['psnr_avg']} vs {psnr}")
         out["reload"] = {"step": s2["step"], "process_s": secs,
-                         "eval_psnr": s2["eval"]["psnr_avg"]}
+                         "eval_s": time.perf_counter() - t0,
+                         "eval_psnr": ev["psnr_avg"],
+                         "psnr_diff_db": ev["psnr_avg"] - psnr}
         log(json.dumps({"train_real_reload": out["reload"]}))
         for name in ("rgb_test.png", "depth_test.png", "rgb_error.png"):
             if read_png(os.path.join(run, name)).shape[:2] != (LEGO_WH,
@@ -2284,6 +2325,404 @@ def train_real_phase(seed, scanned_steady_ms):
         shutil.rmtree(tmp, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+# the secondary-encoder phase: the texture scene's cell-layout run (the
+# 256-step warmup and 32 after it; runs while step <= 272, 18 chunks), the
+# short runs of the other options (4 warmup chunks), and the remat check's
+# batch (one sample a brick row on every level: level 0 has 216 rows)
+CELL_STEPS, SHORT_STEPS, REMAT_N = 272, 48, 128
+
+
+def _cell_offsets(spec):
+    """K6c's cell_rows argument: each cell level's first row in the cell
+    gradient, -1 for a brick level."""
+    offs, off = [], 0
+    for lay, cell in zip(spec.level_layout(), spec.cell_levels()):
+        offs.append(off if cell else -1)
+        off += 27 * lay["rows"] if cell else 0
+    return offs
+
+
+def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
+    """K6c (fused_encode_bwd_cell) against its plain version on the
+    full-width cell-layout field's levels (its spec's cell levels take the
+    per-cell target, the others K6's brick target), tables uniform(-8, 8),
+    x uniform over the unit cube, at one train step's sample count and at a
+    ragged one: the brick levels' table gradient and each cell level's
+    cell rows within BWD_TABLE_FRAC of that level's largest entry, d_x
+    within BWD_DX_FRAC (K6's limits: both sum f32 terms, the kernel with
+    atomics in another order). With `timed`, timed at n_main beside its
+    bound, the plain version and K6 on the same inputs."""
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.utils.bench import cuda_ms
+
+    spec = field.hash_encoder.bspec
+    lay = spec.level_layout()
+    scales = spec.level_scales()
+    nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    offs = _cell_offsets(spec)
+    L, F = spec.n_levels, spec.n_features
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = ((torch.rand((sum(level_rows), 64 * F), device="cuda",
+                         generator=gen) * 2 - 1) * REF_TABLE_BOUND
+             ).to(torch.bfloat16)
+    rec = None
+    for n in (n_main, n_ragged):
+        x = torch.rand((n, 3), device="cuda", generator=gen)
+        g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
+             ).to(torch.bfloat16)
+        g[::8] = 0
+        rows = _level_rows(x, spec)
+        args = (x, g, rows, table, scales, nbs, level_rows, F, offs)
+        want = ek.fused_encode_bwd_cell_plain(*args)
+        got = ek.fused_encode_bwd_cell(*args)
+        torch.cuda.synchronize()
+        errs, row0 = [], 0
+        for lvl, off in enumerate(offs):
+            if off >= 0:
+                sl = slice(off, off + 27 * level_rows[lvl])
+                errs.append(_frac_err(got[1][sl], want[1][sl]))
+            else:
+                sl = slice(row0, row0 + level_rows[lvl])
+                errs.append(_frac_err(got[0][sl], want[0][sl]))
+            row0 += level_rows[lvl]
+        err_x = _frac_err(got[2], want[2])
+        if max(errs) > BWD_TABLE_FRAC or err_x > BWD_DX_FRAC:
+            raise AssertionError(
+                f"fused_encode_bwd_cell N={n}: table errors per level {errs}"
+                f" (limit {BWD_TABLE_FRAC}), d_x {err_x} (limit "
+                f"{BWD_DX_FRAC})")
+        r = {"name": "fused_encode_bwd_cell", "n": n, "levels": L,
+             "n_feat": F, "row_layout": spec.row_layout,
+             "cell_levels": [o >= 0 for o in offs],
+             "max_abs_err": max((a - b).abs().max().item()
+                                for a, b in zip(got, want)),
+             "table_err_frac_per_level": errs, "dx_err_frac": err_x}
+        if n == n_main:
+            rec = r
+        if n == n_main and timed:
+            r["ms"] = cuda_ms(lambda: ek.fused_encode_bwd_cell(*args), 20)
+            r["plain_ms"] = cuda_ms(lambda: ek.fused_encode_bwd_cell_plain(
+                *args), 3)
+            r["k6_same_inputs_ms"] = cuda_ms(lambda: ek.fused_encode_bwd(
+                x, g, rows, table, scales, nbs, level_rows, F), 20)
+            in_b = x.numel() * 4 + g.numel() * 2 + rows.numel() * 4 \
+                + table.numel() * 2
+            # written once: the brick levels' table gradient, the cell
+            # levels' cell rows and d_x
+            out_b = (sum(r_ for r_, o in zip(level_rows, offs) if o < 0)
+                     * 64 * F + want[1].numel() + want[2].numel()) * 4
+            t_bytes = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
+            t_ops = n * L * 8 * F * 2 * 2 / F32_FLOPS * 1e3
+            r["bound_ms"] = max(t_bytes, t_ops)
+            r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        log(json.dumps({"kernel_check": r}))
+        del want, got
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _unique_row_batch(spec, n, seed):
+    """n points of the unit cube no two of which share a brick row on any
+    level of `spec` (drawn uniformly, kept greedily): each table address
+    of the backward then takes at most one atomic add, so the kernels'
+    table gradients do not depend on the atomics' order."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((1 << 16, 3), device="cuda", generator=gen)
+    rows = _level_rows(x, spec).cpu().numpy()
+    used = [set() for _ in range(rows.shape[0])]
+    keep = []
+    for i in range(rows.shape[1]):
+        if all(rows[lvl, i] not in used[lvl] for lvl in range(len(used))):
+            keep.append(i)
+            for lvl in range(len(used)):
+                used[lvl].add(rows[lvl, i])
+            if len(keep) == n:
+                break
+    return x[torch.tensor(keep, device="cuda")]
+
+
+def remat_check(cfg, seed):
+    """remat_feats against the run without it, brick_encode alone on the
+    full-width field's tables (uniform(-8, 8)), on the K5/K6 route and on
+    the K1/K2 route: outputs, every table gradient and d_x equal bit for
+    bit, on a batch of one sample a brick row (_unique_row_batch)."""
+    import torch
+    from cednerf_torch.ops.brick_grid import BrickGridSpec, brick_encode
+
+    base = BrickGridSpec(n_levels=cfg.hash_n_levels,
+                         n_features=cfg.hash_n_features,
+                         max_res=cfg.hash_dst_resolution,
+                         log2_hashmap_size=cfg.log2_hashmap_size,
+                         max_table_rows=cfg.max_table_rows)
+    x = _unique_row_batch(base, REMAT_N, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tables = {k: ((torch.rand(s, device="cuda", generator=gen) * 2 - 1)
+                  * REF_TABLE_BOUND) for k, s in base.param_shapes()}
+    cot = torch.randn((x.shape[0], base.output_dim), device="cuda",
+                      generator=gen)
+    out = {"n": x.shape[0]}
+    for route in ("xla", "interp"):
+        runs = []
+        for remat in (False, True):
+            spec = dataclasses.replace(base, interp_impl=route,
+                                       remat_feats=remat)
+            p = {k: v.clone().requires_grad_() for k, v in tables.items()}
+            xr = x.clone().requires_grad_()
+            y = brick_encode(xr, p, spec)
+            (y.float() * cot).sum().backward()
+            runs.append([y.detach(), xr.grad] + [p[k].grad for k in p])
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(*runs)]
+        if not all(same):
+            raise AssertionError(f"remat_feats on the {route} route: "
+                                 f"outputs / d_x / tables equal {same}")
+        out[route] = {"bit_identical": True, "tensors": len(same)}
+    log(json.dumps({"remat_check": out}))
+    return out
+
+
+def triplane_encoder_check(seed, n=65_536):
+    """The full-width tri-plane encoder (dnerf_config: plane_res 1024, F =
+    4, 8 levels) on the card against the CPU, bf16, planes uniform(-1, 1),
+    x over the unit cube and a little outside it: the output equal bit for
+    bit (the same PyTorch ops), d_x within BWD_DX_FRAC of its largest
+    entry (f32 sums in another order), each entry of the plane gradient
+    within one bf16 step of the CPU's plus BWD_TABLE_FRAC of the largest
+    entry (f32 sums in another order, with atomics, as K6's and K3's
+    table gradients, then each rounded to bf16 once)."""
+    import torch
+    from cednerf_torch.engine.config import dnerf_config
+    from cednerf_torch.ops.triplane import TriPlaneSpec, triplane_encode
+
+    cfg = dnerf_config()
+    spec = TriPlaneSpec(plane_res=cfg.hash_dst_resolution,
+                        n_features=cfg.hash_n_features)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((n, 3), generator=gen) * 1.1 - 0.05
+    planes = torch.rand((spec.total_rows, spec.n_features),
+                        generator=gen) * 2 - 1
+    cot = torch.randn((n, spec.output_dim), generator=gen)
+    res = []
+    for dev in ("cpu", "cuda"):
+        xt = x.to(dev).detach().requires_grad_()
+        p = planes.to(dev).detach().requires_grad_()
+        y = triplane_encode(xt, p, spec)
+        (y.float() * cot.to(dev)).sum().backward()
+        res.append((y.detach().cpu(), xt.grad.cpu(), p.grad.cpu()))
+    torch.cuda.synchronize()
+    (y0, dx0, dp0), (y1, dx1, dp1) = res
+    step = torch.ldexp(torch.ones_like(dp0),
+                       torch.frexp(dp0).exponent - 8)     # a bf16 step
+    rec = {"n": n, "out_equal": bool(torch.equal(y0, y1)),
+           "dx_err_frac": _frac_err(dx1, dx0),
+           "planes_err_frac": _frac_err(dp1, dp0),
+           "planes_max_bf16_steps": ((dp1 - dp0).abs() / step).max().item(),
+           "planes_differ": int((dp1 != dp0).sum())}
+    bad = (dp1 - dp0).abs() > step + BWD_TABLE_FRAC * dp0.abs().max()
+    if (not rec["out_equal"] or rec["dx_err_frac"] > BWD_DX_FRAC
+            or bool(bad.any())):
+        raise AssertionError(f"tri-plane encoder card vs CPU: {rec}")
+    log(json.dumps({"triplane_encoder_check": rec}))
+    return rec
+
+
+def _short_run(label, cfg, flags, scene, seed, steps, encoders, bwd,
+               encoder_impl="brick"):
+    """Trainer.run(steps) through run_chunk on the scene's device sampler
+    (16 steps a chunk), counted: finite losses, the last chunk's PSNR above
+    the first's, the launches that _check_step_launches expects."""
+    import torch
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.train import Trainer
+
+    trainer = Trainer(build_field(cfg, flags, device="cuda", seed=seed,
+                                  encoder_impl=encoder_impl), cfg, flags,
+                      scene, seed=seed, device="cuda",
+                      device_sampler=scene.device_sampler(),
+                      steps_per_call=16)
+    recs = []
+    _record_chunks(trainer, recs)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.run(steps, log_every=0)
+    counts, plain = all_counts()
+    run_s = time.perf_counter() - t0
+    _check_step_launches(label, counts, plain, cfg, recs, bwd=bwd,
+                         encoders=encoders)
+    if not recs[-1]["psnr"] > recs[0]["psnr"]:
+        raise AssertionError(f"{label}: PSNR {recs[0]['psnr']} -> "
+                             f"{recs[-1]['psnr']}")
+    out = {"steps": trainer.step, "chunks": len(recs), "run_s": run_s,
+           "psnr_first": recs[0]["psnr"], "psnr_last": recs[-1]["psnr"],
+           "psnr_by_chunk": [round(r["psnr"], 3) for r in recs],
+           "ms_per_step_last": recs[-1]["ms"] / recs[-1]["steps"],
+           "launches": counts}
+    log(json.dumps({label: out}))
+    return out, trainer
+
+
+def secondary_phase(seed):
+    """Phase 15, the secondary encoders and row layouts at the full width
+    of dnerf_config (-te -ta -f -ae -df -d):
+      1. row_layout "cell" with fine_table_rows 65536 (the JAX bench
+         default: levels 3-4 cell, 5-7 brick): K5 and K6c against their
+         plain versions at 262,144 samples and a ragged 100,003 (phase 1's
+         and 2's limits), K6c once more at 262,144 for "cellz" and
+         "cellfused"; the reference step card vs CPU for the cell layout
+         (its CPU side rounds and folds), 3D and hash4d (K3 into the cell
+         rows), at phase 6's limits;
+         Trainer.run(CELL_STEPS) on TexturedCloudScene's device sampler
+         past the 256-step warmup: finite losses, rising PSNR, K6c once a
+         step, K5 once a step plus the probes, K4 once a step, no K6;
+      2. hash4motion: K5 and K6 against their plain versions on the motion
+         grid's own levels (L8 F2, 16 -> 2048: levels 0-2 dense), then a
+         short run (K5 and K6 twice a step);
+      3. --grid_type triplane and encoder_impl "gather": the reference step
+         card vs CPU each (the tri-plane's with every module in f32: in
+         bf16 its 137-wide MLP input carries the card's and the CPU's
+         GEMM roundings past 1%, read and logged; its bf16 encoder is held
+         card vs CPU at full width by triplane_encoder_check), a short run
+         each (K4 alone), and for the tri-plane one 256x256 frame (2 seg
+         passes of 2,097,152 samples) with its peak memory;
+      4. remat_feats: remat_check."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.procedural import TexturedCloudScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.renderer import (eval_chunk_for,
+                                               make_eval_render_fn,
+                                               render_image)
+    from cednerf_torch.utils.bench import TRAIN_FLAGS
+    from cednerf_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    flags = ModelFlags(**TRAIN_FLAGS)
+    out, kern = {}, {}
+    cell_cfg = dataclasses.replace(dnerf_config(), row_layout="cell",
+                                   fine_table_rows=65536)
+    field = build_field(cell_cfg, flags, device="cuda", seed=seed)
+    spec = field.hash_encoder.bspec
+    out["cell_levels"] = spec.cell_levels()
+    kern.update(kernel_phase(field, cell_cfg.sample_budget, 100_003, seed,
+                             names=("fused_encode_fwd",), timed=False))
+    kern["fused_encode_bwd_cell"] = cell_backward_kernel_phase(
+        field, cell_cfg.sample_budget, 100_003, seed)
+    for layout in ("cellz", "cellfused"):
+        f = build_field(dataclasses.replace(cell_cfg, row_layout=layout),
+                        flags, device="cuda", seed=seed)
+        out[layout] = cell_backward_kernel_phase(f, cell_cfg.sample_budget,
+                                                 100_003, seed, timed=False)
+        del f
+    del field
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(seed)
+    ref_cfg = dataclasses.replace(dnerf_config(), **SMALL)
+    bins = rng.uniform(size=(1,) + (ref_cfg.grid_resolution,) * 3) < 0.3
+    from cednerf_torch.datasets.procedural import BallScene
+    batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
+    jitter = rng.uniform(size=128).astype(np.float32)
+    out["reference_steps"] = {}
+    tri = dict(grid_type="triplane")
+    for label, cfg_kw, flag_kw, impl, dtype in (
+            ("cell", dict(row_layout="cell"), {}, "brick", None),
+            ("hash4d_cell", dict(row_layout="cell"),
+             dict(grid_type="hash4d"), "brick", None),
+            ("triplane_f32", {}, tri, "brick", torch.float32),
+            ("gather", {}, {}, "gather", None)):
+        c = dataclasses.replace(ref_cfg, **cfg_kw)
+        fl = ModelFlags(**TRAIN_FLAGS, **flag_kw)
+        out["reference_steps"][label] = _ref_step_check(
+            f"reference step {label}", _ref_step_runs(
+                c, fl, bins, batch, jitter, seed, ("xla",),
+                encoder_impl=impl, compute_dtype=dtype), ("xla",))
+    # the tri-plane step in bf16, read and not held to the limits: its
+    # encoder agrees (triplane_encoder_check; in f32 the whole step does,
+    # above), but its 137-wide mlp_base input (128 encoder features
+    # against hash3d's 16) carries the card's and the CPU's bf16 GEMM
+    # roundings further than phase 6's 1% was set for (PERF.md §6)
+    runs = _ref_step_runs(dataclasses.replace(ref_cfg),
+                          ModelFlags(**TRAIN_FLAGS, **tri), bins, batch,
+                          jitter, seed, ("xla",))
+    g0, g1 = runs["plain"][2], runs["xla"][2]
+    rels = {n: ((g1[n] - g0[n]).norm() / g0[n].norm()).item()
+            for n in g0 if g0[n].norm() > 0}
+    worst = max(rels, key=rels.get)
+    out["reference_steps"]["triplane_bf16_reading"] = {
+        "loss_rel_err": abs(runs["xla"][0] - runs["plain"][0])
+        / runs["plain"][0], "worst_grad": worst,
+        "worst_grad_rel_err": rels[worst],
+        "planes_grad_rel_err": rels["hash_encoder.planes"]}
+    log(json.dumps({"secondary_reference_steps": out["reference_steps"]}))
+    out["triplane_encoder_check"] = triplane_encoder_check(seed)
+
+    scene = TexturedCloudScene(seed=seed)
+    out["train_cell_texture"], tr = _short_run(
+        "train_cell_texture", cell_cfg, flags, scene, seed, CELL_STEPS, 1,
+        "fused_encode_bwd_cell")
+    del tr
+    torch.cuda.empty_cache()
+
+    h4m = ModelFlags(**TRAIN_FLAGS, hash4motion=True)
+    cfg = dnerf_config()
+    field = build_field(cfg, h4m, device="cuda", seed=seed)
+    mg = field.motion_grid
+    kern["motion_grid_fwd"] = kernel_phase(
+        field, cfg.sample_budget, 100_003, seed, names=("fused_encode_fwd",),
+        encoder=mg)["fused_encode_fwd"]
+    kern["motion_grid_bwd"] = backward_kernel_phase(
+        field, cfg.sample_budget, 100_003, seed, names=("fused_encode_bwd",),
+        encoder=mg)["fused_encode_bwd"]
+    out["motion_grid_levels"] = [
+        (l["rows"], l["hashed"]) for l in mg.bspec.level_layout()]
+    del field
+    out["train_hash4motion"], tr = _short_run(
+        "train_hash4motion", cfg, h4m, scene, seed, SHORT_STEPS, 2,
+        "fused_encode_bwd")
+    del tr
+    torch.cuda.empty_cache()
+
+    tri = ModelFlags(**TRAIN_FLAGS, grid_type="triplane")
+    out["train_triplane"], tr = _short_run(
+        "train_triplane", cfg, tri, scene, seed, SHORT_STEPS, 0,
+        "fused_encode_bwd")
+    # one frame of 2 full seg passes (256x256 rays, 64 samples a ray)
+    big = TexturedCloudScene(wh=256, seed=seed)
+    gt, origins, viewdirs = big.eval_view(theta=0.33 * np.pi, t=0.43)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rgb, _, depth = render_image(tr.state.field, tr.state.occ,
+                                 make_eval_render_fn(tr.state.field, cfg),
+                                 origins, viewdirs, 0.43,
+                                 np.ones(3, np.float32),
+                                 chunk=eval_chunk_for(cfg))
+    if not (np.isfinite(rgb).all() and np.isfinite(depth).all()):
+        raise AssertionError("triplane frame: non-finite values")
+    out["train_triplane"]["frame"] = {
+        "wh": 256, "chunk": eval_chunk_for(cfg),
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "psnr": psnr(rgb, gt).item()}
+    log(json.dumps({"triplane_frame": out["train_triplane"]["frame"]}))
+    del tr
+    torch.cuda.empty_cache()
+
+    out["train_gather"], tr = _short_run(
+        "train_gather", cfg, flags, scene, seed, SHORT_STEPS, 0,
+        "fused_encode_bwd", encoder_impl="gather")
+    del tr
+    torch.cuda.empty_cache()
+
+    out["remat"] = remat_check(cfg, seed)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out, kern
 
 
 def interp_bwd_kernel_phase(spec, n_main, n_ragged, seed):
@@ -2548,6 +2987,12 @@ def main(argv=None):
     real = train_real_phase(args.seed, scanned["median_ms_per_step_steady"])
     log(f"train_real phase: {real['phase_s']:.1f} s")
 
+    sec, sec_kern = secondary_phase(args.seed)
+    kern["fused_encode_bwd_cell"] = sec_kern["fused_encode_bwd_cell"]
+    log(json.dumps({"secondary": {k: v for k, v in sec.items()
+                                  if k != "reference_steps"}}))
+    log(f"secondary phase: {sec['phase_s']:.1f} s")
+
     t0 = time.perf_counter()
     kern["interp_bwd"] = interp_bwd_kernel_phase(spec3d, 262_144, 100_003,
                                                  args.seed)
@@ -2561,6 +3006,9 @@ def main(argv=None):
         "fused_encode_fwd": "cednerf_tpu/ops/pallas_fused.py:138",
         "interp_fwd": "cednerf_tpu/ops/pallas_encoder.py:136",
         "fused_encode_bwd": "cednerf_tpu/ops/pallas_fused.py:244",
+        # the cell levels' table-gradient scatter: JAX's _scatter_rows into
+        # [rows*27, 8F] (its Pallas route: scatter_add_rows)
+        "fused_encode_bwd_cell": "cednerf_tpu/ops/pallas_scatter.py:87",
         "interp_bwd_fused": "cednerf_tpu/ops/pallas_encoder.py:307",
         "compact_select": "cednerf_tpu/ops/pallas_compact.py:47",
         "scatter_add_rows": "cednerf_tpu/ops/pallas_scatter.py:87",
@@ -2571,6 +3019,7 @@ def main(argv=None):
         "fused_encode_fwd": "cednerf_torch/csrc/brick_encode_fwd.cu",
         "interp_fwd": "cednerf_torch/csrc/brick_encode_fwd.cu",
         "fused_encode_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
+        "fused_encode_bwd_cell": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "interp_bwd_fused": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "compact_select": "cednerf_torch/csrc/compact_select.cu",
         "scatter_add_rows": "cednerf_torch/csrc/scatter_add_rows.cu",
@@ -2596,6 +3045,14 @@ def main(argv=None):
                    real["vrig_chicken"]["launches"].get(name, 0),
                    "train_real_dynerf":
                    real["cook_spinach"]["launches"].get(name, 0),
+                   "train_cell_texture":
+                   sec["train_cell_texture"]["launches"].get(name, 0),
+                   "train_hash4motion":
+                   sec["train_hash4motion"]["launches"].get(name, 0),
+                   "train_triplane":
+                   sec["train_triplane"]["launches"].get(name, 0),
+                   "train_gather":
+                   sec["train_gather"]["launches"].get(name, 0),
                    "probe_interp_enc": probe_enc["launches"].get(name, 0),
                    "probe_row_gather": probe_gather["launches"].get(name, 0)}
         line.append({
@@ -2610,6 +3067,15 @@ def main(argv=None):
                          if k in r})
         if name == "fused_encode_bwd":
             line[-1]["one_brick_ms"] = cells[-1]["ms"]
+        if name == "fused_encode_bwd_cell":
+            line[-1]["k6_same_inputs_ms"] = r["k6_same_inputs_ms"]
+        mg = {"fused_encode_fwd": "motion_grid_fwd",
+              "fused_encode_bwd": "motion_grid_bwd"}.get(name)
+        if mg:       # the hash4motion grid's levels (F = 2)
+            line[-1]["motion_grid"] = {
+                k: sec_kern[mg][k] for k in ("n", "n_feat", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "max_abs_err")}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card_name())
     print(json.dumps({"kernels": line}))

@@ -136,18 +136,28 @@ def test_brick_encode_matches_jax_bf16():
 
 
 def test_brick_encode_unported_options_raise():
+    """The cell layouts, which raised until they were ported, give the
+    brick forward bit for bit (a 0/1 expansion of the same bf16 rows);
+    an unknown layout and the cases below still raise."""
     spec = _tspec()
     params = {k: torch.from_numpy(v) for k, v in _params(3, spec).items()}
     x = torch.rand(8, 3)
-    with torch.no_grad():
-        with pytest.raises(NotImplementedError, match="row_layout"):
-            tbg.brick_encode(x, params, dataclasses.replace(
-                spec, row_layout="cell"))
-        with pytest.raises(NotImplementedError, match="row_layout"):
-            tbg.brick_encode(x, params, dataclasses.replace(
-                spec, row_layout="cell", time_keyframes=4),
-                t=torch.rand(8, 1))
     spec4 = dataclasses.replace(spec, time_keyframes=4)
+    params4 = {k: torch.from_numpy(v) for k, v in _params(3, spec4).items()}
+    t = torch.rand(8, 1)
+    with torch.no_grad():
+        for layout in ("cell", "cellz", "cellfused"):
+            assert torch.equal(
+                tbg.brick_encode(x, params, dataclasses.replace(
+                    spec, row_layout=layout)),
+                tbg.brick_encode(x, params, spec))
+            assert torch.equal(
+                tbg.brick_encode(x, params4, dataclasses.replace(
+                    spec4, row_layout=layout), t=t),
+                tbg.brick_encode(x, params4, spec4, t=t))
+        with pytest.raises(ValueError, match="row_layout"):
+            tbg.brick_encode(x, params, dataclasses.replace(
+                spec, row_layout="diagonal"))
     params4 = spec4.init_params(torch.Generator().manual_seed(3))
     with pytest.raises(ValueError, match="needs t"):
         tbg.brick_encode(x, params4, spec4)

@@ -2,7 +2,7 @@
 short forms, defaults and choices (engine/cli.py and train_real.py's own),
 and for a set of command lines the same ModelFlags and the same SceneConfig
 after apply_perf_overrides, field by field. A value the port does not have
-yet raises NotImplementedError naming its ROADMAP.md item."""
+yet raises NotImplementedError naming its ROADMAP.md item (today --dp)."""
 
 import argparse
 import dataclasses
@@ -128,19 +128,25 @@ def test_flags_and_config_match_jax(name, scene):
     (["--grid_type", "triplane"], 6), (["--hash4motion"], 6),
     (["--row_layout", "cell"], 6), (["--remat_feats"], 6)])
 def test_unported_values_raise(argv, item):
-    """In the CLI chain (flags, then the perf overrides) and in main()."""
+    """The four values that raised until ROADMAP.md Queue 1 item `item`
+    ported them: the CLI chain (flags, then the perf overrides) gives the
+    JAX package's ModelFlags and SceneConfig, the field builds from them,
+    and train_real.main gets past them to the dataset (missing here)."""
     args = cli.get_model_args(argparse.ArgumentParser()).parse_args(argv)
-
-    def chain():
-        cli.flags_from_args(args)
-        cli.apply_perf_overrides(config_for_scene("lego", None), args)
-
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        chain()
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP.md Queue 1 item {item}"):
-        train_real.main(["--scene", "lego", "--device", "cpu"] + argv)
+    jargs = j_cli.get_model_args(argparse.ArgumentParser()).parse_args(argv)
+    flags = cli.flags_from_args(args)
+    assert (dataclasses.asdict(flags)
+            == dataclasses.asdict(j_cli.flags_from_args(jargs)))
+    cfg = _cfg("lego", args, cli, config_for_scene)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        _cfg("lego", jargs, j_cli, j_config_for_scene)), item
+    field = cli.build_field(cfg, flags, device="cpu")
+    assert (field.grid_type, field.hash4motion) == (flags.grid_type,
+                                                    flags.hash4motion)
+    with pytest.raises(FileNotFoundError, match="transforms_test.json"):
+        train_real.main(["--scene", "lego", "--device", "cpu",
+                         "--data_root", str(REPO / "no_such_dataset")]
+                        + argv)
 
 
 def test_dp_raises():
@@ -182,8 +188,36 @@ def test_validate_synthetic_prints_the_jax_keys(monkeypatch, tmp_path):
     assert np.isfinite([res["train_view_psnr"], res["eval_psnr"]]).all()
     for name in ("eval_rgb", "eval_gt", "train_view_rgb", "train_view_gt"):
         assert (tmp_path / f"{name}.png").exists()
+    # the values that raised until they were ported take the JAX
+    # validator's config (the JAX tool's own chain, re-run on the port's
+    # config copy)
     for argv in (["--scene", "texture"], ["--impl", "gather"],
                  ["--grid_type", "triplane"], ["--remat_feats"],
-                 ["--row_layout", "cell"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            vs.run(vs.build_parser().parse_args(argv + ["--device", "cpu"]))
+                 ["--row_layout", "cell"], ["--row_layout", "cellz"],
+                 ["--row_layout", "cellfused"]):
+        a = vs.build_parser().parse_args(argv + ["--device", "cpu"])
+        cfg = vs._config(a)
+        assert cfg.remat_feats == a.remat_feats
+        assert cfg.row_layout == (a.row_layout or "brick")
+
+
+def test_validate_synthetic_texture_scene(monkeypatch, tmp_path):
+    """--scene texture --row_layout cell --remat_feats at --mini on the
+    CPU, the textured cloud shrunk to 16x16 pixels: the JAX tool's keys,
+    finite PSNRs, the scene it asked for. (--impl gather and --grid_type
+    triplane train in tests/test_torch_train.py.)"""
+    import numpy as np
+
+    from cednerf_torch.datasets.procedural import TexturedCloudScene
+    from cednerf_torch.tools import validate_synthetic as vs
+
+    monkeypatch.setattr(vs, "TexturedCloudScene",
+                        lambda n_cams, wh, n_times: TexturedCloudScene(
+                            n_cams=4, wh=16, n_times=4, n_balls=16))
+    res = vs.run(vs.build_parser().parse_args(
+        ["--steps", "16", "--mini", "--levels", "4", "--features", "4",
+         "--budget", "4096", "--eval_chunk", "256", "--scene", "texture",
+         "--row_layout", "cell", "--remat_feats", "--device", "cpu"]))
+    assert set(res) == _jax_validator_keys() | {"device"}
+    assert res["scene"] == "texture" and res["impl"] == "brick"
+    assert np.isfinite([res["train_view_psnr"], res["eval_psnr"]]).all()

@@ -35,10 +35,20 @@ FLAG_SETS = [
     dict(),
     dict(grid_type="hash4d", use_div_offsets=True, use_feat_predict=True,
          use_time_embedding=True, use_time_attenuation=True),
+    # the secondary encoders and options
+    dict(hash4motion=True, use_div_offsets=True, use_feat_predict=True,
+         use_time_embedding=True, use_time_attenuation=True),
+    dict(grid_type="triplane", use_div_offsets=True, use_feat_predict=True,
+         use_time_embedding=True, use_time_attenuation=True),
+    dict(encoder_impl="gather", use_div_offsets=True, use_feat_predict=True,
+         use_time_embedding=True, use_time_attenuation=True),
+    dict(grid_type="hash4d", encoder_impl="gather", use_time_embedding=True),
+    dict(row_layout="cell", hash4motion=True, use_feat_predict=True,
+         use_time_embedding=True),
 ]
 
 
-def _jax_params(flags, seed=0, table_scale=1.0):
+def _jax_params(flags, seed=0, table_scale=1.0, motion_scale=None):
     jf = JField(**FIELD_KW, **flags)
     params = jf.init(jax.random.PRNGKey(seed), jnp.zeros((4, 3)),
                      jnp.zeros((4, 1)), jnp.ones((4, 3)),
@@ -46,10 +56,12 @@ def _jax_params(flags, seed=0, table_scale=1.0):
     params = jax.tree_util.tree_map(np.asarray, params)
     # lift the tables off their +-1e-4 init so the encoder moves the output
     rng = np.random.default_rng(seed)
-    enc = params["params"]["hash_encoder"]
-    for k in enc:
-        enc[k] = rng.uniform(-table_scale, table_scale,
-                             enc[k].shape).astype(np.float32)
+    for mod, scale in (("hash_encoder", table_scale),
+                       ("motion_grid", motion_scale)):
+        enc = params["params"].get(mod, {}) if scale else {}
+        for k in enc:
+            enc[k] = rng.uniform(-scale, scale,
+                                 enc[k].shape).astype(np.float32)
     return jf, params
 
 
@@ -91,6 +103,29 @@ def test_field_forward_matches_flax(flags):
     # well outside the aabb (beyond any warp) the selector zeroes density
     out = np.any(np.abs(pos) >= 1.7, axis=-1)
     assert out.any() and np.all(res_t["density"].numpy()[out] == 0)
+
+
+@pytest.mark.parametrize("flags", [f for f in FLAG_SETS
+                                   if f.get("hash4motion")])
+def test_hash4motion_move_matches_flax(flags):
+    """The hash-grid motion warp with its motion_grid tables at +-1: the
+    move within the internals test's limits. (The whole field's output is
+    compared with the motion grid at its +-1e-4 init: a bf16-sized
+    difference of the move can carry a sample across a hashed brick's
+    edge, where the brick layout's features jump.)"""
+    jf, params = _jax_params(flags, seed=2, motion_scale=1.0)
+    rng = np.random.default_rng(2)
+    n = 1024
+    pos = rng.uniform(-1.6, 1.6, (n, 3)).astype(np.float32)
+    t = rng.uniform(0, 1, (n, 1)).astype(np.float32)
+    move_j = jax.jit(lambda p, a, b: jf.apply(p, a, b, method=jf.query_move))(
+        params, pos, t)[1]
+    with torch.no_grad():
+        move_t = _port(flags, params).query_move(torch.from_numpy(pos),
+                                                 torch.from_numpy(t))[1]
+    move_j = np.asarray(move_j)
+    assert np.abs(move_j).max() > 1e-2          # the grid moves the warp
+    np.testing.assert_allclose(move_t.numpy(), move_j, rtol=3e-2, atol=2e-4)
 
 
 @pytest.mark.parametrize("flags", FLAG_SETS[:2])
@@ -208,17 +243,26 @@ def test_entry_points_refuse_missing_cuda():
 
 
 def test_unported_field_options_raise():
-    with pytest.raises(NotImplementedError):
-        DNGPRadianceField(**FIELD_KW, hash4motion=True)
-    with pytest.raises(NotImplementedError):
-        DNGPRadianceField(**FIELD_KW, grid_type="triplane")
-    with pytest.raises(NotImplementedError):
-        DNGPRadianceField(**FIELD_KW, grid_type="hash4d", hash4motion=True)
-    with pytest.raises(NotImplementedError, match="row_layout"):
-        f = DNGPRadianceField(**FIELD_KW, grid_type="hash4d",
-                              row_layout="cell")
+    """The options that raised before they were ported build the flax
+    field's parameter tree (names and shapes), and query_density runs;
+    values that neither package has still raise."""
+    for kw in (dict(hash4motion=True), dict(grid_type="triplane"),
+               dict(grid_type="hash4d", hash4motion=True),
+               dict(grid_type="hash4d", row_layout="cell"),
+               dict(encoder_impl="gather", hash4motion=True)):
+        _, params = _jax_params(kw)
+        want = params_from_numpy(params)
+        f = DNGPRadianceField(**FIELD_KW, **kw)
+        got = f.state_dict()
+        assert {k: tuple(v.shape) for k, v in got.items()} == {
+            k: tuple(v.shape) for k, v in want.items()}, kw
         with torch.no_grad():
-            f.query_density(torch.zeros(4, 3), torch.zeros(4, 1))
+            d = f.query_density(torch.zeros(4, 3), torch.zeros(4, 1))
+        assert d["density"].shape == (4, 1)
+    with pytest.raises(ValueError, match="grid_type"):
+        DNGPRadianceField(**FIELD_KW, grid_type="hash5d")
+    with pytest.raises(ValueError, match="impl"):
+        DNGPRadianceField(**FIELD_KW, encoder_impl="dense")
 
 
 def test_occ_from_numpy():

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K5, K6, K2, K4, K3, K7 and K8 against their plain
+"""The CUDA kernels K1, K5, K6, K6c, K2, K4, K3, K7 and K8 against their plain
 versions, K4's cached scratch across calls, and the 4D keyframe encoder
 (whose backward runs K3) against the CPU, on the card.
 
@@ -187,6 +187,37 @@ def test_backward_kernels_match_plain(n_feat, n, levels, points):
                                          level_rows, n_feat)
     _close_to_scale(k2_plain[0], want_t)
     _close_to_scale(k2_plain[1], want_x)
+
+
+@pytest.mark.parametrize("n_feat,n,levels,points", [
+    (4, 1001, 8, None), (2, 4099, 8, None), (1, 33, 3, None),
+    (4, 101, 8, "cells"), (4, 20000, 8, "one brick"),
+    (4, 20000, 8, "ray major")])
+def test_k6c_matches_plain(n_feat, n, levels, points):
+    """K6c (the cell layouts' backward) against its plain version, the
+    hashed levels on the per-cell target and the dense ones on K6's: each
+    array within 1e-5 of its largest entry, as K6 (the same bf16 terms,
+    f32 atomics in another order)."""
+    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        3, n_feat, n, levels, points)
+    spec = tbg.BrickGridSpec(n_levels=levels, n_features=n_feat,
+                             base_res=16, max_res=512, log2_hashmap_size=16,
+                             max_table_rows=2048)
+    offs, off = [], 0
+    for lay in spec.level_layout():
+        offs.append(off if lay["hashed"] else -1)
+        off += 27 * lay["rows"] if lay["hashed"] else 0
+    assert off > 0
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn((x.shape[0], levels * n_feat), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    g[::7] = 0
+    args = (x, g, rows, table, scales, nbs, level_rows, n_feat, offs)
+    want = ek.fused_encode_bwd_cell_plain(*args)
+    got = ek.fused_encode_bwd_cell(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        _close_to_scale(a, b)
 
 
 @pytest.mark.parametrize("n_feat,points", [(4, "ray major"), (2, None)])

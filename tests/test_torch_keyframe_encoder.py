@@ -345,10 +345,12 @@ def test_no_grad_forward_matches_and_bad_specs_raise():
     np.testing.assert_array_equal(out.float().numpy(), full)
     with pytest.raises(ValueError, match="needs t"):
         tbg.brick_encode(torch.from_numpy(x), pt, spec)
-    with pytest.raises(NotImplementedError, match="row_layout"):
-        tbg.brick_encode(torch.from_numpy(x), pt,
-                         dataclasses.replace(spec, row_layout="cell"),
-                         t=torch.from_numpy(t))
+    # the cell layout (which raised until it was ported) forwards the same
+    with torch.no_grad():
+        cell = tbg.brick_encode(torch.from_numpy(x), pt,
+                                dataclasses.replace(spec, row_layout="cell"),
+                                t=torch.from_numpy(t))
+    np.testing.assert_array_equal(cell.float().numpy(), full)
 
 
 def test_k3_reaches_the_4d_backward_once_per_level(monkeypatch):

@@ -127,6 +127,30 @@ def test_one_train_step_matches_jax(grid_type):
                  dataclasses.replace(dnerf_config(), **kw), flags)
 
 
+STEP_OPTIONS = {
+    "cell": (dict(row_layout="cell"), {}, "brick"),
+    "cellz_remat": (dict(row_layout="cellz", remat_feats=True), {}, "brick"),
+    "hash4d_cell": (dict(row_layout="cell"), dict(grid_type="hash4d"),
+                    "brick"),
+    "hash4motion": ({}, dict(hash4motion=True), "brick"),
+    "triplane": ({}, dict(grid_type="triplane"), "brick"),
+    "gather": ({}, {}, "gather"),
+    "hash4d_gather": ({}, dict(grid_type="hash4d"), "gather"),
+}
+
+
+@pytest.mark.parametrize("case", list(STEP_OPTIONS))
+def test_train_step_options_match_jax(case):
+    """One train step with each secondary encoder or option against the
+    JAX step (f32 table-gradient accumulation, _step_parity's limits); the
+    cell layouts' backward reaches K6c's plain version (3D) or K3's (4D)."""
+    cfg_kw, flag_kw, impl = STEP_OPTIONS[case]
+    kw = dict(grad_accum_dtype="float32", **SMALL, **cfg_kw)
+    _step_parity(dataclasses.replace(j_dnerf_config(), **kw),
+                 dataclasses.replace(dnerf_config(), **kw),
+                 {**FLAGS, **flag_kw}, encoder_impl=impl)
+
+
 # the shrunken HyperNeRF preset: SMALL's field and budget with the preset's
 # cone_angle 4e-3, 2 grid levels, alpha_thre 1e-2 and near plane 0.2; a
 # 1e-2 step (the preset's 1e-3 would need ~1024 lattice steps to cross the
@@ -157,14 +181,16 @@ def test_unpacked_and_hypernerf_steps_match_jax(case):
                      FLAGS)
 
 
-def _step_parity(jcfg, tcfg, flags, density_bias=None, p_occ=0.3):
+def _step_parity(jcfg, tcfg, flags, density_bias=None, p_occ=0.3,
+                 encoder_impl="brick"):
     """One train step of jcfg (JAX) and tcfg (port) from the same weights
     (tables uniform(-1, 1)), occupancy grid (p_occ of the cells of each
     level; the HyperNeRF lattice's 2 levels hold about twice the demand),
     ray batch and march jitter: n_valid and complete_frac exact, loss and
     mse rtol 1e-3, each gradient within 8% of its L2 norm."""
     assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
-    jfield = j_build_field(jcfg, JFlags(**flags))
+    jfield = j_build_field(jcfg, JFlags(**flags)).clone(
+        encoder_impl=encoder_impl)
     params = jax.tree_util.tree_map(np.array, jt.create_train_state(
         jfield, jcfg, jax.random.PRNGKey(0)).params)
     rng = np.random.default_rng(0)
@@ -192,7 +218,8 @@ def _step_parity(jcfg, tcfg, flags, density_bias=None, p_occ=0.3):
                                     for k, v in batch.items()}, key)
     jgrads = jax.tree_util.tree_map(np.asarray, out.opt_state["g"])
 
-    tfield = build_field(tcfg, ModelFlags(**flags), device="cpu")
+    tfield = build_field(tcfg, ModelFlags(**flags), device="cpu",
+                         encoder_impl=encoder_impl)
     tfield.load_state_dict(params_from_numpy(params), strict=True)
     state = tt.create_train_state(tfield, tcfg, device="cpu")
     state.occ = occ_from_numpy(occs, bins, np.asarray(occ.aabbs),

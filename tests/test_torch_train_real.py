@@ -4,8 +4,10 @@ DyNeRF scenes in the real file formats, painted with a ball along each
 loader's own rays (tests/test_e2e_disk.py's painters), at a tiny
 CEDNERF_CFG. Per family: train (its eval PSNR, the three PNGs and the
 checkpoint), --resume from the saved step (training on raises the eval
-PSNR by more than 1 dB), --load_model (re-evaluates to the same PSNR
-within 1e-4 dB). tests/test_torch_jax_checkpoint.py renders a checkpoint
+PSNR by more than 1 dB), --load_model (loads without evaluating, as the
+JAX CLI; `train_real.evaluate_checkpoint`, the train branch's evaluation
+of the loaded checkpoint in this process, gives the same PSNR within 1e-4
+dB). tests/test_torch_jax_checkpoint.py renders a checkpoint
 of the JAX package's Trainer through the same entry point.
 """
 
@@ -185,9 +187,15 @@ def test_train_resume_reload(scene, tmp_path, monkeypatch, capsys):
     video = ["--render_video"] if scene == "cook_spinach" else []
     if video:
         _short_render_path(monkeypatch)
+    for name in ("rgb_test.png", "depth_test.png", "rgb_error.png"):
+        os.remove(work / name)
     reloaded, out = _run(capsys, base + ["--load_model"] + video)
     assert "loaded checkpoint at step 96" in out
-    assert abs(reloaded["eval"]["psnr_avg"]
+    assert reloaded["step"] == 96 and "eval" not in reloaded
+    assert not (work / "rgb_test.png").exists()
+    evaluated = train_real.evaluate_checkpoint(base + ["--device", "cpu"])
+    assert evaluated["step"] == 96 and evaluated["finite"]
+    assert abs(evaluated["psnr_avg"]
                - resumed["eval"]["psnr_avg"]) <= PSNR_RELOAD_DB
     if video:
         assert reloaded["video"]["frames"] == 2
