@@ -8,7 +8,10 @@ flax Dense kernels are [in, out], torch Linear weights [out, in]),
 (tables keep their layout; so do the tri-plane's `hash_encoder/planes`,
 the per-corner encoder's `hash_encoder/table` and the hash-grid motion
 warp's `motion_grid/...`). Values are copied bit for bit; no framework
-import crosses over.
+import crosses over. The proposal path's tree {"field": ..., "props":
+(...,)} (the JAX create_prop_train_state's params) maps the same way onto
+the field and each NGPDensityField (`grid/grid_0` -> `grid.grid_0`,
+`mlp/hidden_0/kernel` -> `mlp.hidden_0.weight`).
 """
 
 from typing import Dict, Mapping
@@ -57,6 +60,20 @@ def params_to_numpy(state_dict: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = np.array(arr)
     return {"params": tree}
+
+
+def prop_params_from_numpy(tree: Mapping):
+    """JAX prop params {"field": ..., "props": (...,)} (numpy leaves) ->
+    (the field's state dict, [each proposal field's state dict])."""
+    return (params_from_numpy(tree["field"]),
+            [params_from_numpy(p) for p in tree["props"]])
+
+
+def prop_params_to_numpy(field, props) -> dict:
+    """The port's field and proposal fields -> the JAX prop params tree
+    {"field": {"params": ...}, "props": ({"params": ...}, ...)} of numpy."""
+    return {"field": params_to_numpy(field.state_dict()),
+            "props": tuple(params_to_numpy(p.state_dict()) for p in props)}
 
 
 def occ_from_numpy(occs, binaries, aabbs, device="cuda") -> OccGridState:

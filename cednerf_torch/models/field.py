@@ -1,4 +1,5 @@
-"""Dynamic NGP radiance field — port of cednerf_tpu/models/field.py.
+"""Dynamic NGP radiance field and the proposal sampler's density field —
+port of cednerf_tpu/models/field.py.
 
 Same modules, names and math as the flax version (reference
 cednerf/model.py:97-488): a frequency-encoded motion-warp MLP, the brick
@@ -49,6 +50,18 @@ def huber(pred, target, delta: float = 1.0):
     abs_d = d.abs()
     return torch.where(abs_d < delta, 0.5 * d * d,
                        delta * (abs_d - 0.5 * delta))
+
+
+def contract_to_unisphere(x, aabb_min, aabb_max, eps: float = 1e-7):
+    """nerfacc's unbounded-scene contraction (the proposal density fields'):
+    the aabb maps to [0.25, 0.75] and all of space into [0, 1]."""
+    x = (x - aabb_min) / (aabb_max - aabb_min)
+    x = x * 2.0 - 1.0
+    mag = torch.linalg.norm(x, dim=-1, keepdim=True)
+    safe_mag = torch.clamp(mag, min=eps)
+    contracted = (2.0 - 1.0 / safe_mag) * (x / safe_mag)
+    x = torch.where(mag > 1.0, contracted, x)
+    return x / 4.0 + 0.5
 
 
 class MLP(nn.Module):
@@ -161,6 +174,56 @@ class TriPlaneEncoderModule(nn.Module):
                 t: Optional[torch.Tensor] = None) -> torch.Tensor:
         return triplane_encode(x, self.planes, self.spec,
                                compute_dtype=self.dtype)
+
+
+class NGPDensityField(nn.Module):
+    """Instant-NGP density field of the proposal sampler (reference
+    cednerf/model.py:28-94): the brick encoder `grid` (L `n_levels`, F 2,
+    base_resolution -> max_resolution, 2^log2_hashmap_size; on CUDA K5
+    and K6) and a 1-hidden-layer bf16 `mlp`; density trunc_exp(raw - 1),
+    raw capped at density_clamp when it is > 0, times the in-AABB selector
+    (bounded) or on the contracted position (unbounded). Constructor
+    arguments are the flax module's fields; parameters are uninitialised
+    until `reset_parameters(generator)` or a state dict."""
+
+    def __init__(self, aabb: Tuple[float, ...], unbounded: bool = False,
+                 base_resolution: int = 16, max_resolution: int = 128,
+                 n_levels: int = 5, log2_hashmap_size: int = 17,
+                 encoder_impl: str = "brick", density_clamp: float = 0.0):
+        super().__init__()
+        self.aabb = tuple(float(v) for v in aabb)
+        self.register_buffer("_aabb_t", torch.tensor(self.aabb,
+                                                     dtype=torch.float32),
+                             persistent=False)
+        self.unbounded = unbounded
+        self.density_clamp = density_clamp
+        self.grid = HashGridEncoder(
+            HashGridSpec(n_levels=n_levels, n_features=2,
+                         base_res=base_resolution, max_res=max_resolution,
+                         log2_hashmap_size=log2_hashmap_size),
+            impl=encoder_impl)
+        self.mlp = MLP(self.grid.spec.output_dim, 1, hidden_layers=1)
+
+    def reset_parameters(self, generator: torch.Generator):
+        """Tables uniform +-1e-4, Dense lecun-normal with zero bias."""
+        for mod in self.children():
+            mod.reset_parameters(generator)
+        return self
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        aabb_min, aabb_max = self._aabb_t[:3], self._aabb_t[3:]
+        if self.unbounded:
+            x = contract_to_unisphere(positions, aabb_min, aabb_max)
+            selector = torch.ones(x.shape[:-1], dtype=torch.bool,
+                                  device=x.device)
+        else:
+            x = (positions - aabb_min) / (aabb_max - aabb_min)
+            selector = torch.all((x > 0.0) & (x < 1.0), dim=-1)
+        h = self.grid(x.reshape(-1, 3))
+        raw = self.mlp(h).float() - 1.0
+        if self.density_clamp > 0:
+            raw = torch.clamp(raw, max=self.density_clamp)
+        return trunc_exp(raw) * selector[..., None]
 
 
 class DNGPRadianceField(nn.Module):

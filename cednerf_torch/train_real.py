@@ -138,23 +138,21 @@ def _loader(scene: str, cfg, device):
     return Loader, kw, test_kw
 
 
-def _evaluate(field, occ, cfg, test_dataset) -> dict:
-    """PSNR and MS-SSIM over every test image (train_real.py:443-520), the
-    first image's rgb / depth / error PNGs written to the working
+def _evaluate(field, occ, render_chunk, chunk: int, test_dataset) -> dict:
+    """PSNR and MS-SSIM over every test image (train_real.py:443-520)
+    rendered by render_image through `render_chunk` in chunks of `chunk`
+    rays, the first image's rgb / depth / error PNGs written to the working
     directory."""
-    from .engine.renderer import (eval_chunk_for, make_eval_render_fn,
-                                  render_image)
+    from .engine.renderer import render_image
     from .utils.image import write_png
     from .utils.metrics import depth_to_img, ms_ssim, psnr
 
-    render_chunk = make_eval_render_fn(field, cfg)
     psnrs, ssims, finite = [], [], True
     for i in range(len(test_dataset)):
         data = test_dataset.image_rays(i)
         rgb, _, depth = render_image(
             field, occ, render_chunk, data["origins"], data["viewdirs"],
-            float(data["timestamp"]), data["color_bkgd"],
-            chunk=eval_chunk_for(cfg))
+            float(data["timestamp"]), data["color_bkgd"], chunk=chunk)
         finite &= bool(np.isfinite(rgb).all() and np.isfinite(depth).all())
         psnrs.append(psnr(rgb, data["pixels"]).item())
         ssims.append(ms_ssim(rgb, data["pixels"]).item())
@@ -170,15 +168,15 @@ def _evaluate(field, occ, cfg, test_dataset) -> dict:
             "n_test": len(psnrs), "finite": finite}
 
 
-def _render_video(field, occ, cfg, test_dataset) -> dict:
-    """The loader's render path (train_real.py:523-558) on a black
-    background, frames flipped left-right as the reference writes them."""
-    from .engine.renderer import (eval_chunk_for, make_eval_render_fn,
-                                  render_image)
+def _render_video(field, occ, render_chunk, chunk: int,
+                  test_dataset) -> dict:
+    """The loader's render path (train_real.py:523-558) through
+    `render_chunk` on a black background, frames flipped left-right as the
+    reference writes them."""
+    from .engine.renderer import render_image
     from .utils.image import write_video
     from .utils.metrics import depth_to_img
 
-    render_chunk = make_eval_render_fn(field, cfg)
     poses = test_dataset.render_poses()
     bkgd = np.zeros(3, np.float32)
     rgb_frames, depth_frames = [], []
@@ -186,7 +184,7 @@ def _render_video(field, occ, cfg, test_dataset) -> dict:
         data = test_dataset.pose_rays(poses, i)
         rgb, _, depth = render_image(
             field, occ, render_chunk, data["origins"], data["viewdirs"],
-            float(data["timestamp"]), bkgd, chunk=eval_chunk_for(cfg))
+            float(data["timestamp"]), bkgd, chunk=chunk)
         rgb_frames.append(np.flip((rgb * 255).astype(np.uint8), axis=1))
         depth_frames.append(np.flip(depth_to_img(depth), axis=1))
     mp4 = write_video("rgb_render.mp4", rgb_frames, fps=20)
@@ -194,9 +192,17 @@ def _render_video(field, occ, cfg, test_dataset) -> dict:
     return {"frames": len(rgb_frames), "mp4": mp4}
 
 
+def _eval_renderer(field, cfg):
+    """(chunk renderer, rays a chunk) of the occupancy-grid evaluation."""
+    from .engine.renderer import eval_chunk_for, make_eval_render_fn
+
+    return make_eval_render_fn(field, cfg), eval_chunk_for(cfg)
+
+
 def _prepare(args):
     """(device, cfg, flags, field, (Loader, train kwargs), test dataset) of
-    a parsed command line."""
+    a parsed command line; stops at once when --render_video is asked of a
+    loader without a render path."""
     if args.dp:
         raise not_ported("--dp (ray data parallelism over several cards)", 8)
     device = resolve_device(args.device)
@@ -219,6 +225,12 @@ def _prepare(args):
     Loader, loader_kw, test_kw = _loader(args.scene, cfg, device)
     test_dataset = Loader(subject_id=args.scene, root_fp=args.data_root,
                           split="test", num_rays=None, **test_kw)
+    if args.render_video and not hasattr(test_dataset, "render_poses"):
+        # before any training: the video needs the loader's render path
+        raise SystemExit(
+            f"--render_video: the {type(test_dataset).__name__} loader of "
+            f"--scene {args.scene} has no render path (render_poses); run "
+            "without --render_video")
     return device, cfg, flags, field, (Loader, loader_kw), test_dataset
 
 
@@ -243,7 +255,8 @@ def evaluate_checkpoint(argv) -> dict:
     device, cfg, _, field, _, test_dataset = _prepare(args)
     state, step = _load(args, cfg, field, device)
     reset_kernel_counts()
-    out = _evaluate(state.field, state.occ, cfg, test_dataset)
+    out = _evaluate(state.field, state.occ, *_eval_renderer(state.field, cfg),
+                    test_dataset)
     out["step"] = step
     out["launches"], out["plain_cuda_calls"] = kernel_counts()
     return out
@@ -339,13 +352,15 @@ def main(argv=None) -> dict:
                        launches=launches, plain_cuda_calls=plain)
 
         reset_kernel_counts()
-        summary["eval"] = _evaluate(state.field, state.occ, cfg,
+        summary["eval"] = _evaluate(state.field, state.occ,
+                                    *_eval_renderer(state.field, cfg),
                                     test_dataset)
         summary["eval"]["launches"], summary["eval"]["plain_cuda_calls"] = \
             kernel_counts()
 
     if args.render_video:
-        summary["video"] = _render_video(state.field, state.occ, cfg,
+        summary["video"] = _render_video(state.field, state.occ,
+                                         *_eval_renderer(state.field, cfg),
                                          test_dataset)
 
     print(json.dumps({"train_real": summary}))

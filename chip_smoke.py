@@ -139,8 +139,22 @@ Phases, each of which must pass (nothing is caught and carried on):
      (a reference step and a short run each; a tri-plane frame of full
      seg passes and its peak memory) and remat_feats (bit-identical
      gradients on the K5/K6 and K1/K2 routes).
-Phases 5, 7, 7b, 10, 13, 14 and 15 fail if K7 or K8 launched on a serving
-or training path.
+ 16. proposal: the proposal path (engine/train_prop.py) at the full width
+     of dnerf_config with -te -ta -f (proposal_phase): K5 and K6 against
+     their plain versions at the proposal fields' layouts (L5 F2, 2^17:
+     16 -> 128 at 1,048,576 points, 16 -> 256 at 2,097,152, uniform and
+     contracted inputs), one prop step card vs CPU (phase 6's limits),
+     PropTrainer on TexturedCloudScene (8,192 rays, 256 steps in 16-step
+     chunks: finite losses, rising PSNR, K6 once a step per field and
+     proposal field and nothing but K5 and K6, one chunk under
+     set_sync_debug_mode("error") and one with exactly one host sync,
+     device ms a step), an eval frame with occupancy culling and the same
+     frame from a reloaded prop checkpoint (within 1e-4 dB), the HyperNeRF
+     family's two unbounded nets for 64 steps, and `python -m
+     cednerf_torch.train_prop_real` from disk, then --load_model
+     --render_video.
+Phases 5, 7, 7b, 10, 13, 14, 15 and 16 fail if K7 or K8 launched on a
+serving or training path.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
@@ -278,12 +292,12 @@ def _draw_x(n, gen, inner):
 
 def kernel_phase(field, n_main, n_ragged, seed,
                  names=("fused_encode_fwd", "interp_fwd"), timed=True,
-                 inner=None, encoder=None):
+                 inner=None, encoder=None, draw=None):
     """K5 and K1 against their plain versions on the field's levels and its
     tables (those of `encoder`, the field's hash_encoder by default), x
-    uniform over the unit cube (and half of it over `inner`, see _draw_x),
-    at n_main and at a ragged count; with `timed`, each timed at n_main.
-    `names` picks the kernels."""
+    uniform over the unit cube (and half of it over `inner`, see _draw_x;
+    or draw(n, generator)), at n_main and at a ragged count; with `timed`,
+    each timed at n_main. `names` picks the kernels."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops.brick_grid import level_tables
@@ -303,7 +317,7 @@ def kernel_phase(field, n_main, n_ragged, seed,
     gen = torch.Generator(device="cuda").manual_seed(seed)
     results = {}
     for n in (n_main, n_ragged):
-        x = _draw_x(n, gen, inner)
+        x = draw(n, gen) if draw else _draw_x(n, gen, inner)
         rows = _level_rows(x, spec)
         feats = (torch.stack([tables[l].index_select(0, rows[l].long())
                               for l in range(L)]).contiguous()
@@ -682,12 +696,12 @@ def _frac_err(got, want):
 
 def backward_kernel_phase(field, n_main, n_ragged, seed,
                           names=("fused_encode_bwd", "interp_bwd_fused"),
-                          timed=True, inner=None, encoder=None):
+                          timed=True, inner=None, encoder=None, draw=None):
     """K6 and K2 (one kernel body, on the table and on the gathered rows)
     against their plain versions on the full-width field's levels (those of
     `encoder`, the field's hash_encoder by default), tables uniform(-8, 8),
-    x as kernel_phase draws it (`inner`), at one train step's sample count
-    and at a ragged one;
+    x as kernel_phase draws it (`inner`, `draw`), at one train step's
+    sample count and at a ragged one;
     with `timed`, each timed at the step's count on uniform random and on
     ray-major samples. One bf16 cotangent row in eight is zero (unused
     budget slots carry zero). `names` picks the kernels."""
@@ -716,7 +730,7 @@ def backward_kernel_phase(field, n_main, n_ragged, seed,
 
     results = {}
     for n in (n_main, n_ragged):
-        x = _draw_x(n, gen, inner)
+        x = draw(n, gen) if draw else _draw_x(n, gen, inner)
         g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
              ).to(torch.bfloat16)
         g[::8] = 0
@@ -2080,9 +2094,10 @@ def _check_real_run(label, summary, lattice_eval, need_train=True):
         no_probe_kernels(f"{label} {what}", rec["launches"])
 
 
-def _train_real_cli(args, cwd):
-    """`python -m cednerf_torch.train_real ARGS` in `cwd`: (its last-line
-    summary, seconds). Fails on a non-zero exit."""
+def _train_real_cli(args, cwd, module="train_real"):
+    """`python -m cednerf_torch.MODULE ARGS` in `cwd` (train_real or
+    train_prop_real): (its last-line summary, seconds). Fails on a non-zero
+    exit."""
     import subprocess
 
     env = dict(os.environ)
@@ -2090,15 +2105,14 @@ def _train_real_cli(args, cwd):
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("CEDNERF_CFG", None)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "cednerf_torch.train_real"]
+    proc = subprocess.run([sys.executable, "-m", f"cednerf_torch.{module}"]
                           + args, cwd=cwd, env=env, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True, timeout=600)
     secs = time.perf_counter() - t0
     if proc.returncode != 0:
-        raise AssertionError(f"train_real {args} exited {proc.returncode}:"
+        raise AssertionError(f"{module} {args} exited {proc.returncode}:"
                              f"\n{proc.stdout[-6000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])["train_real"], \
-        secs
+    return json.loads(proc.stdout.strip().splitlines()[-1])[module], secs
 
 
 def train_real_phase(seed, scanned_steady_ms):
@@ -2725,6 +2739,401 @@ def secondary_phase(seed):
     return out, kern
 
 
+# the proposal phase (16): the D-NeRF family's PropTrainer run (16-step
+# chunks while step < 256), the HyperNeRF family's 64 steps, and the CLI's
+# short run from disk (32 steps on a 100x100 lego-layout scene)
+PROP_STEPS, PROP_K, PROP_HYPER_STEPS, PROP_REAL_STEPS = 256, 16, 64, 32
+PROP_RAYS = 8192                     # train_prop_real's --num_rays default
+PROP_FLAGS = dict(use_time_embedding=True, use_time_attenuation=True,
+                  use_feat_predict=True)          # -te -ta -f (README)
+PROP_PUBLISHED = ["-te", "-ta", "-f"]
+
+
+def _contracted_draw(aabb):
+    """draw(n, gen) for kernel_phase: an unbounded scene's proposal inputs,
+    positions in random directions at distances uniform in disparity
+    (1 / U, U in (1e-4, 1], as lindisp samples a ray), contracted by
+    contract_to_unisphere: the far ones pile up in the outer shell."""
+    def draw(n, gen):
+        import torch
+        from cednerf_torch.models.field import contract_to_unisphere
+        a = torch.tensor(aabb, dtype=torch.float32, device="cuda")
+        d = torch.randn((n, 3), device="cuda", generator=gen)
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        r = 1.0 / (1e-4 + (1.0 - 1e-4) * torch.rand(
+            (n, 1), device="cuda", generator=gen))
+        return contract_to_unisphere(d * r, a[:3], a[3:]).contiguous()
+    return draw
+
+
+def _prop_kernel_checks(seed):
+    """K5 and K6 against their plain versions at the proposal fields'
+    layouts (L5 F2, 2^17): 16 -> 128 (D-NeRF, bounded: dense levels 0-2,
+    hashed 3-4) at 1,048,576 points (8,192 rays x 128 samples) and 16 ->
+    256 (HyperNeRF's second net, unbounded) at 2,097,152 (8,192 x 256),
+    each on uniform and on contracted inputs, plus a ragged 100,003;
+    phase 1's and 2's limits; the first input of each layout timed."""
+    import torch
+    from cednerf_torch.engine.config import dnerf_config
+    from cednerf_torch.models.field import NGPDensityField
+
+    aabb = dnerf_config().aabb
+    out = {}
+    for res, n, unbounded in ((128, 1_048_576, False),
+                              (256, 2_097_152, True)):
+        net = NGPDensityField(aabb=aabb, unbounded=unbounded,
+                              max_resolution=res).reset_parameters(
+            torch.Generator().manual_seed(seed)).cuda()
+        draws = (("uniform", None), ("contracted", _contracted_draw(aabb)))
+        if unbounded:
+            draws = draws[::-1]
+        for i, (label, draw) in enumerate(draws):
+            key = f"prop_{res}_{label}"
+            fwd = kernel_phase(net, n, 100_003, seed,
+                               names=("fused_encode_fwd",), timed=i == 0,
+                               encoder=net.grid, draw=draw)
+            bwd = backward_kernel_phase(net, n, 100_003, seed,
+                                        names=("fused_encode_bwd",),
+                                        timed=i == 0, encoder=net.grid,
+                                        draw=draw)
+            out[key] = {"fused_encode_fwd": fwd["fused_encode_fwd"],
+                        "fused_encode_bwd": bwd["fused_encode_bwd"],
+                        "level_rows": [l["rows"] for l in
+                                       net.grid.bspec.level_layout()]}
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
+def _prop_reference_step(seed):
+    """One prop step of the shrunken config (SMALL's field, the D-NeRF
+    PropConfig) on the card and on the CPU from the same weights (the
+    field's tables uniform(-1, 1); the proposal field at its init, its
+    MLP's bias 2), batch and jitters, at a step past the anneal: n_samples
+    exact, the loss within STEP_LOSS_RTOL and every gradient of the field
+    and the proposal field within STEP_GRAD_REL of its norm (phase 6's
+    limits)."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.procedural import BallScene
+    from cednerf_torch.engine import train_prop as tp
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.ops.proposal import draw_jitter
+    from cednerf_torch.utils.bench import load_uniform_tables
+
+    cfg = dataclasses.replace(dnerf_config(), **SMALL)
+    pcfg = tp.PropConfig.for_family("dnerf")
+    flags = ModelFlags(**PROP_FLAGS)
+    batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
+    gen = torch.Generator().manual_seed(seed)
+    jitters = [draw_jitter(128, n, gen, "cpu") for n in
+               list(pcfg.prop_samples) + [pcfg.n_final]]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        field = build_field(cfg, flags, device=dev, seed=seed)
+        load_uniform_tables([field], seed, 1.0)
+        props = tp.build_prop_networks(cfg, pcfg, device=dev, seed=seed)
+        with torch.no_grad():
+            for p in props:
+                p.mlp.out.bias[0] = 2.0
+        state = tp.create_prop_train_state(field, props, cfg, pcfg,
+                                           device=dev)
+        loss, aux = tp._make_prop_loss_fn(field, cfg, flags, pcfg)(
+            state, {k: torch.as_tensor(np.asarray(v)).to(dev)
+                    for k, v in batch.items()},
+            torch.tensor(pcfg.anneal_steps + 13, device=dev),
+            jitters=[j.to(dev) for j in jitters])
+        grads = {f"{i}.{n}": q.grad.detach().float().cpu()
+                 for i, m in enumerate(state.modules())
+                 for n, q in m.named_parameters()}
+        runs[dev] = (loss.item(), aux["n_samples"].item(), grads)
+    (l0, n0, g0), (l1, n1, g1) = runs["cpu"], runs["cuda"]
+    rels = {n: ((g1[n] - g0[n]).norm() / g0[n].norm()).item()
+            for n in g0 if g0[n].norm() > 0}
+    worst = max(rels, key=rels.get)
+    rec = {"cpu_loss": l0, "loss": l1, "loss_rel_err": abs(l1 - l0) / l0,
+           "n_samples": n1, "worst_grad": worst,
+           "worst_grad_rel_err": rels[worst],
+           "prop_grad_rel_err": max(v for k, v in rels.items()
+                                    if k.startswith("1."))}
+    if n1 != n0 or rec["loss_rel_err"] > STEP_LOSS_RTOL \
+            or rels[worst] > STEP_GRAD_REL:
+        raise AssertionError(f"prop reference step: {rec}")
+    log(json.dumps({"prop_reference_step": rec}))
+    return rec
+
+
+def _prop_frame(trainer, cfg, pcfg, view, t):
+    """One eval frame of the trainer's state through
+    make_prop_eval_render_fn with its occupancy grid: (rgb, opacity, depth,
+    ms, launches)."""
+    import numpy as np
+    import torch
+    from cednerf_torch.engine.renderer import render_image
+    from cednerf_torch.engine.train_prop import make_prop_eval_render_fn
+
+    fn = make_prop_eval_render_fn(trainer.state.field, trainer.state.props,
+                                  cfg, pcfg)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, opac, depth = render_image(trainer.state.field, trainer.occ, fn,
+                                    view[1], view[2], t,
+                                    np.ones(3, np.float32),
+                                    chunk=cfg.eval_chunk)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts, plain = all_counts()
+    if any(plain.values()) or not counts["fused_encode_fwd"]:
+        raise AssertionError(f"prop eval frame: launches {counts}, plain "
+                             f"{plain}")
+    if not (np.isfinite(rgb).all() and np.isfinite(depth).all()):
+        raise AssertionError("prop eval frame: non-finite values")
+    return rgb, opac, depth, ms, counts
+
+
+PROP_PROFILE_STEPS = 2     # steps of the profiled loop after each run
+
+
+def _prop_run(label, trainer, steps, sync_check=False):
+    """Train `trainer` for `steps` steps in chunks, counted: per chunk its
+    metrics and host ms; with `sync_check`, one chunk dispatched under
+    set_sync_debug_mode("error") and one run_chunk whose host syncs are
+    counted (must be 1, the metrics read). Fails on a non-finite loss or a
+    plain version on CUDA; K6 must run once a step per field and proposal
+    field, K5 at least as often, nothing but K5 and K6. Then, outside the
+    counts, PROP_PROFILE_STEPS more steps of the same loop under
+    torch.profiler (device ms a step; few, because the profiler reads its
+    trace back on the host after the run)."""
+    import numpy as np
+    import torch
+    from cednerf_torch.engine.train_prop import make_prop_train_loop
+    from cednerf_torch.utils.bench import device_ms, sync_calls
+
+    chunks = steps // trainer.steps_per_call
+    recs = []
+    reset_counts()
+    for _ in range(chunks - (2 if sync_check else 0)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.run_chunk()
+        torch.cuda.synchronize()
+        m["ms"] = (time.perf_counter() - t0) * 1e3
+        if not np.isfinite(m["loss"]):
+            raise AssertionError(f"{label} step {trainer.step}: loss "
+                                 f"{m['loss']}")
+        recs.append(m)
+    out = {}
+    if sync_check:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = trainer.dispatch_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not np.isfinite(metrics.cpu().numpy()[:, 0]).all():
+            raise AssertionError(f"{label}: sync-checked chunk {metrics}")
+        m, syncs = sync_calls(trainer.run_chunk)
+        if len(syncs) != 1 or not np.isfinite(m["loss"]):
+            raise AssertionError(f"{label} run_chunk: {len(syncs)} host "
+                                 f"syncs (want 1): {syncs}")
+        out["host_syncs_per_chunk"] = len(syncs)
+    counts, plain = all_counts()
+    n_mods = 1 + len(trainer.props)
+    if any(plain.values()):
+        raise AssertionError(f"{label}: plain versions on CUDA {plain}")
+    others = {k: v for k, v in counts.items()
+              if v and k not in ("fused_encode_fwd", "fused_encode_bwd")}
+    if (counts["fused_encode_bwd"] != n_mods * steps
+            or counts["fused_encode_fwd"] < n_mods * steps or others):
+        raise AssertionError(f"{label}: launches {counts} over {steps} "
+                             f"steps of {n_mods} encoders")
+    k = PROP_PROFILE_STEPS
+    t0 = time.perf_counter()
+    loop = make_prop_train_loop(trainer.field, trainer.props, trainer.cfg,
+                                trainer.flags, trainer.pcfg, trainer.n_rays,
+                                trainer.device_sampler[1], k)
+    dev, rows = device_ms(lambda: loop(trainer.state,
+                                       trainer.device_sampler[0],
+                                       trainer.generator, trainer.step), 1)
+    ms = [r["ms"] / r["steps"] for r in recs]
+    out.update(device_ms_per_step=dev / k,
+               profile_s=time.perf_counter() - t0,
+               device_top=[(n[:60], c / k, t / k) for n, c, t in rows[:8]],
+               steps=trainer.step, chunks=chunks,
+               psnr_by_chunk=[round(r["psnr"], 3) for r in recs],
+               psnr_first=recs[0]["psnr"], psnr_last=recs[-1]["psnr"],
+               loss_last=recs[-1]["loss"],
+               host_ms_per_step_median=float(np.median(ms[1:] or ms)),
+               host_ms_per_step_first_chunk=ms[0],
+               n_samples_per_step=recs[-1]["n_samples"],
+               launches=counts,
+               launches_per_step={k: v / steps for k, v in counts.items()
+                                  if v})
+    log(json.dumps({label: out}))
+    return out
+
+
+def proposal_phase(seed):
+    """Phase 16, the proposal path (engine/train_prop.py) at the full width
+    of dnerf_config (L8 F4, 2^21) with -te -ta -f:
+      1. _prop_kernel_checks: K5 and K6 at the proposal fields' layouts;
+      2. _prop_reference_step: one prop step card vs CPU;
+      3. the D-NeRF family (PropConfig.for_family("dnerf"): one bounded
+         128-resolution net, 128 + 64 samples a ray, the prop entry point's
+         density clamp) on TexturedCloudScene's device sampler, PROP_RAYS
+         rays, PROP_STEPS steps in PROP_K-step chunks (_prop_run with the
+         sync checks, then PROP_PROFILE_STEPS profiled steps): the last
+         timed chunk's PSNR above the first's;
+      4. one 200x200 eval frame with occupancy culling through
+         make_prop_eval_render_fn; save_prop_checkpoint, a fresh state
+         loaded by load_prop_checkpoint renders the frame again: PSNR
+         within 1e-4 dB, bit-equality reported;
+      5. the HyperNeRF family (two unbounded lindisp nets, 128 / 256
+         resolution, 256 + 96 + 48 samples) on MonocularOrbitScene,
+         PROP_HYPER_STEPS steps (then PROP_PROFILE_STEPS profiled):
+         finite;
+      6. `python -m cednerf_torch.train_prop_real` as a subprocess on a
+         100x100 lego-layout scene (8 train, 2 test frames): PROP_REAL_STEPS
+         steps (K5 and K6 launched, K5 by the evaluation, no plain version
+         on CUDA, finite), then its main() in this process with
+         --load_model --render_video: no evaluation, 120 frames."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from cednerf_torch import train_prop_real
+    from cednerf_torch.datasets.procedural import (MonocularOrbitScene,
+                                                   TexturedCloudScene)
+    from cednerf_torch.engine import train_prop as tp
+    from cednerf_torch.engine.checkpoint import (load_prop_checkpoint,
+                                                 save_prop_checkpoint)
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import (ModelFlags, dnerf_config,
+                                             hypernerf_config)
+    from cednerf_torch.utils.metrics import psnr
+
+    t_phase = time.perf_counter()
+    out = {"kernel_checks": _prop_kernel_checks(seed)}
+    out["reference_step"] = _prop_reference_step(seed)
+    out["checks_s"] = time.perf_counter() - t_phase
+    flags = ModelFlags(**PROP_FLAGS)
+
+    def trainer_for(cfg, pcfg, scene, field_seed):
+        field = build_field(cfg, flags, device="cuda", seed=field_seed)
+        props = tp.build_prop_networks(cfg, pcfg, device="cuda",
+                                       seed=field_seed)
+        for mod in (field,) + props:          # the entry point's clamp
+            mod.density_clamp = pcfg.density_clamp
+        return tp.PropTrainer(field, props, cfg, flags, pcfg,
+                              scene.device_sampler(), n_rays=PROP_RAYS,
+                              seed=seed, steps_per_call=PROP_K,
+                              dataset=scene)
+
+    # 3. the D-NeRF family
+    cfg = dnerf_config(PROP_STEPS)
+    pcfg = tp.PropConfig.for_family("dnerf")
+    scene = TexturedCloudScene(seed=seed)
+    trainer = trainer_for(cfg, pcfg, scene, seed)
+    t0 = time.perf_counter()
+    out["train"] = _prop_run("train_prop", trainer, PROP_STEPS,
+                             sync_check=True)
+    out["train"]["run_s"] = time.perf_counter() - t0
+    if not out["train"]["psnr_last"] > out["train"]["psnr_first"]:
+        raise AssertionError(f"train_prop: PSNR {out['train']['psnr_first']}"
+                             f" -> {out['train']['psnr_last']}")
+
+    # 4. an eval frame, and again from a reloaded checkpoint
+    tv = TexturedCloudScene(wh=200, seed=seed)
+    t = 0.43
+    view = tv.eval_view(theta=0.33 * np.pi, t=t)
+    rgb, _, _, ms, launches = _prop_frame(trainer, cfg, pcfg, view, t)
+    frame = {"wh": 200, "ms": ms, "psnr": psnr(rgb, view[0]).item(),
+             "launches": launches}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prop_")
+    try:
+        ckpt = os.path.join(tmp, "prop_ckpt")
+        save_prop_checkpoint(ckpt, trainer.state, trainer.occ, trainer.step,
+                             trainer.generator.get_state())
+        step, occ0 = trainer.step, trainer.occ
+        del trainer
+        torch.cuda.empty_cache()
+        fresh = trainer_for(cfg, pcfg, scene, seed + 1)
+        fresh.state, fresh.occ, fresh.step, _ = load_prop_checkpoint(
+            ckpt, fresh.state, fresh.occ)
+        if fresh.step != step or not torch.equal(fresh.occ.binaries,
+                                                 occ0.binaries):
+            raise AssertionError("prop checkpoint: step or grid lost")
+        rgb2, _, _, ms2, _ = _prop_frame(fresh, cfg, pcfg, view, t)
+        frame["reload"] = {"ms": ms2, "psnr": psnr(rgb2, view[0]).item(),
+                           "bit_equal": bool(np.array_equal(rgb, rgb2))}
+        frame["reload"]["psnr_diff_db"] = (frame["reload"]["psnr"]
+                                           - frame["psnr"])
+        if abs(frame["reload"]["psnr_diff_db"]) > 1e-4:
+            raise AssertionError(f"prop reload frame: {frame}")
+        out["frame"] = frame
+        log(json.dumps({"prop_frame": frame}))
+        del fresh, occ0
+        torch.cuda.empty_cache()
+
+        # 5. the HyperNeRF family
+        hcfg = hypernerf_config("vrig_3dprinter", PROP_HYPER_STEPS)
+        hpcfg = tp.PropConfig.for_family("hypernerf")
+        hscene = MonocularOrbitScene(n_frames=32, wh=128, seed=seed)
+        htr = trainer_for(hcfg, hpcfg, hscene, seed)
+        t0 = time.perf_counter()
+        out["hypernerf"] = _prop_run("train_prop_hypernerf", htr,
+                                     PROP_HYPER_STEPS)
+        out["hypernerf"]["run_s"] = time.perf_counter() - t0
+        del htr
+        torch.cuda.empty_cache()
+
+        # 6. the entry point from disk
+        t0 = time.perf_counter()
+        small = _write_dnerf_scene(os.path.join(tmp, "small"), 100, 8, 2)
+        run = os.path.join(tmp, "run")
+        os.makedirs(run)
+        base = ["--scene", "lego", "--data_root", os.path.dirname(small),
+                "--model_path", os.path.join(tmp, "cli_ckpt")] \
+            + PROP_PUBLISHED
+        s, secs = _train_real_cli(base + ["--max_steps",
+                                          str(PROP_REAL_STEPS)], run,
+                                  module="train_prop_real")
+        _check_real_run("train_prop_real", s, lattice_eval=False,
+                        need_train=False)
+        if (any(s["plain_cuda_calls"].values())
+                or not s["launches"]["fused_encode_bwd"]
+                or not s["launches"]["fused_encode_fwd"]):
+            raise AssertionError(f"train_prop_real: launches {s['launches']}"
+                                 f" plain {s['plain_cuda_calls']}")
+        t1 = time.perf_counter()
+        s2 = _in_dir(run, train_prop_real.main,
+                     base + ["--load_model", "--render_video"])
+        secs2 = time.perf_counter() - t1
+        written = (os.path.exists(os.path.join(run, "rgb_render.mp4"))
+                   if s2["video"]["mp4"] else
+                   len([f for f in os.listdir(run)
+                        if f.startswith("rgb_render_")]))
+        if (s2["step"] != s["step"] or "eval" in s2
+                or s2["video"]["frames"] != 120 or written not in (True, 120)):
+            raise AssertionError(f"train_prop_real --load_model "
+                                 f"--render_video: {s2}, written {written}")
+        out["cli"] = {"step": s["step"], "train_s": s["train_s"],
+                      "ms_per_step": s["ms_per_step"],
+                      "process_s": secs, "launches": s["launches"],
+                      "eval_psnr": s["eval"]["psnr_avg"],
+                      "eval_launches": s["eval"]["launches"],
+                      "video_frames": s2["video"]["frames"],
+                      "video_s": secs2,
+                      "s": time.perf_counter() - t0}
+        log(json.dumps({"train_prop_real": out["cli"]}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def interp_bwd_kernel_phase(spec, n_main, n_ragged, seed):
     """K7 against its plain version on the full-width field's levels,
     tables uniform(-8, 8), f32 update rows, at the probe's sample count and
@@ -2993,6 +3402,11 @@ def main(argv=None):
                                   if k != "reference_steps"}}))
     log(f"secondary phase: {sec['phase_s']:.1f} s")
 
+    prop = proposal_phase(args.seed)
+    log(json.dumps({"proposal": {k: v for k, v in prop.items()
+                                 if k != "kernel_checks"}}))
+    log(f"proposal phase: {prop['phase_s']:.1f} s")
+
     t0 = time.perf_counter()
     kern["interp_bwd"] = interp_bwd_kernel_phase(spec3d, 262_144, 100_003,
                                                  args.seed)
@@ -3053,6 +3467,13 @@ def main(argv=None):
                    sec["train_triplane"]["launches"].get(name, 0),
                    "train_gather":
                    sec["train_gather"]["launches"].get(name, 0),
+                   "train_prop": prop["train"]["launches"].get(name, 0),
+                   "eval_prop": prop["frame"]["launches"].get(name, 0),
+                   "train_prop_hypernerf":
+                   prop["hypernerf"]["launches"].get(name, 0),
+                   "train_prop_real": prop["cli"]["launches"].get(name, 0),
+                   "eval_prop_real":
+                   prop["cli"]["eval_launches"].get(name, 0),
                    "probe_interp_enc": probe_enc["launches"].get(name, 0),
                    "probe_row_gather": probe_gather["launches"].get(name, 0)}
         line.append({
@@ -3076,6 +3497,14 @@ def main(argv=None):
                 k: sec_kern[mg][k] for k in ("n", "n_feat", "ms", "plain_ms",
                                              "bound_ms", "bound_by",
                                              "max_abs_err")}
+        if name in ("fused_encode_fwd", "fused_encode_bwd"):
+            # the proposal fields' layouts (L5 F2, 2^17), each input
+            for key, rec in prop["kernel_checks"].items():
+                r = rec[name]
+                line[-1][key] = {k: r[k] for k in (
+                    "n", "n_feat", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "table_err_frac_per_level")
+                    if k in r}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card_name())
     print(json.dumps({"kernels": line}))

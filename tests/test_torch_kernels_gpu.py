@@ -1,6 +1,7 @@
 """The CUDA kernels K1, K5, K6, K6c, K2, K4, K3, K7 and K8 against their plain
-versions, K4's cached scratch across calls, and the 4D keyframe encoder
-(whose backward runs K3) against the CPU, on the card.
+versions (K5 and K6 also at the proposal density fields' layout), K4's
+cached scratch across calls, and the 4D keyframe encoder (whose backward
+runs K3) against the CPU, on the card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither jax nor the JAX package, so it runs on a machine that has only the
@@ -153,6 +154,69 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 def _close_to_scale(got, want):
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale + 1e-30)
+
+
+@pytest.mark.parametrize("res,unbounded", [(128, False), (256, True)])
+def test_prop_layout_kernels_match_plain(res, unbounded):
+    """K5 and K6 at the proposal density fields' layout (NGPDensityField:
+    L5 F2, 2^17, 16 -> res): the field's own tables for K5 (both output
+    dtypes, test_kernels_match_plain's limits), tables of +-1 for K6
+    (test_backward_kernels_match_plain's), on 262,144 positions uniform
+    over the unit cube and as many contracted ones (random directions at
+    distances uniform in disparity, contract_to_unisphere), where the far
+    samples pile up in the outer shell."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cednerf_torch.models.field import (NGPDensityField,
+                                            contract_to_unisphere)
+
+    aabb = (-1.5, -1.5, -1.5, 1.5, 1.5, 1.5)
+    net = NGPDensityField(aabb=aabb, unbounded=unbounded,
+                          max_resolution=res).reset_parameters(
+        torch.Generator().manual_seed(0)).cuda()
+    spec = net.grid.bspec
+    lay = spec.level_layout()
+    scales = spec.level_scales()
+    nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    gen = torch.Generator(device="cuda").manual_seed(res)
+    n = 262_144
+    d = torch.randn((n, 3), device="cuda", generator=gen)
+    r = 1.0 / (1e-4 + (1 - 1e-4) * torch.rand((n, 1), device="cuda",
+                                             generator=gen))
+    a = net._aabb_t
+    inputs = {"uniform": torch.rand((n, 3), device="cuda", generator=gen),
+              "contracted": contract_to_unisphere(
+                  d / torch.linalg.norm(d, dim=-1, keepdim=True) * r,
+                  a[:3], a[3:]).contiguous()}
+    with torch.no_grad():
+        table = torch.cat(tbg.level_tables(net.grid.tables(), spec)).to(
+            torch.bfloat16).contiguous()
+    big = ((torch.rand(table.shape, device="cuda", generator=gen) * 2 - 1)
+           .to(torch.bfloat16))
+    for x in inputs.values():
+        rows = torch.stack([tbg._level_geom(x, scales[i], nbs[i],
+                                            l["hashed"], l["rows"])[0]
+                            for i, l in enumerate(lay)]).contiguous()
+        want = ek.fused_encode_fwd_plain(x, table, rows, scales, nbs,
+                                         level_rows, 2, torch.float32)
+        for out_dtype, rtol, atol in ((torch.float32, 1e-5, 1e-9),
+                                      (torch.bfloat16, 2.0 ** -7, 1e-9)):
+            got = ek.fused_encode_fwd(x, table, rows, scales, nbs,
+                                      level_rows, 2, out_dtype)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                       atol=atol)
+        g = torch.randn((n, 10), device="cuda", generator=gen).to(
+            torch.bfloat16)
+        g[::7] = 0
+        want_t, want_x = ek.fused_encode_bwd_plain(x, g, rows, big, scales,
+                                                   nbs, level_rows, 2)
+        got_t, got_x = ek.fused_encode_bwd(x, g, rows, big, scales, nbs,
+                                           level_rows, 2)
+        torch.cuda.synchronize()
+        _close_to_scale(got_t, want_t)
+        _close_to_scale(got_x, want_x)
 
 
 @pytest.mark.parametrize("n_feat,n,levels,points", [
