@@ -20,6 +20,13 @@
 //                                 "pallas"): K6 with a third accumulation
 //                                 target, see the note above
 //                                 encode_bwd_kernel.
+//   fold_cells brick_fold_cells
+//                              <- the backward of the cell layouts'
+//                                 expansion (cednerf_tpu/ops/brick_grid.py
+//                                 `_expand_cell_table`, an XLA dot there:
+//                                 its transpose folds K6c's per-cell sums
+//                                 onto the brick corners); see the note
+//                                 above fold_cells_kernel.
 //   K7 brick_interp_bwd        <- cednerf_tpu/ops/pallas_encoder.py::
 //                                 _build_bwd (public interp_bwd): K1's
 //                                 backward that writes every level's update
@@ -181,6 +188,23 @@ __device__ __forceinline__ void add_corner<1>(float* dst,
   atomicAdd(dst, v[0]);
 }
 
+// kBytes of f32 in this thread's shared-memory slot src added into dst with
+// one bulk reduction (sm_90). The fence makes the slot's generic-proxy
+// stores visible to the async proxy; the wait keeps the slot alive until
+// the copy engine has read it.
+template <int kBytes>
+__device__ __forceinline__ void bulk_add_row(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
+      "[%1], %2;" ::"l"(dst),
+      "r"(s), "r"(kBytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
 constexpr int kBwdSamples = 32;  // samples of a K6/K2 block: a warp a level
 
 // Where the brick row of (sample i, level l) lies: row offset_l + r of the
@@ -195,18 +219,40 @@ enum class Rows { kTable, kGathered };
 // (ops/brick_grid.py `_make_level_encode_cell`), each term w * g formed
 // in bf16 as the compute dtype makes it there. So a level whose
 // lv.cell[l] >= 0 adds its 8 corner terms into row lv.cell[l] + r*27 +
-// cell of d_cell in place of brick row r of d_table: the same F-lane
-// vector atomics, now 8 consecutive corners of one 8F-lane row (one
-// 128-byte line at F = 4), and the same match groups, whose key r*27 +
-// cell is exactly the cell row. The fold and the roundings are plain
-// tensor ops in the wrapper's caller, as the fold is an XLA dot in JAX.
+// cell of d_cell in place of brick row r of d_table: 8 consecutive
+// corners of one 8F-lane row (one 128-byte line at F = 4), with the same
+// match groups as K6, whose key r*27 + cell is exactly the cell row.
 // Levels with lv.cell[l] < 0 keep K6's brick target in the same launch.
+// d_cell is a buffer that the wrapper keeps resident and all zero between
+// calls: K6c adds into it and fold_cells (below), which rounds and folds
+// the cell rows as JAX's expansion transpose does, writes the zeros back
+// as it reads them, so no call fills the 113 MB (2 x 16,384 rows x 27 x
+// 128 B at the bench encoder's cell levels) and the brick table gradient
+// is filled only on the brick levels.
+//
+// The cell levels' adds. A match group's leader stages its 8F-lane row in
+// its own shared-memory slot and adds it with one bulk reduction
+// (cp.reduce.async.bulk .add.f32, sm_90, one 128-B reduce through the
+// async proxy at F = 4). It was measured against 8 F-lane vector atomics
+// a row, in turns in one run (chip_smoke.py phase 15 as it stood while
+// both forms were built: the bench encoder's cell field, N = 262,144
+// uniform, an H100 80GB HBM3 at 700 W): atomics 0.4273 and 0.4278 ms,
+// bulk reductions 0.3854 and 0.3850 ms, the cell rows equal to the plain
+// version's within 7.1e-9 of the largest entry either way. The bulk form
+// is the one kept.
+//
+// What bounds K6c: as K6, the brick levels' atomics in the L2. Its needed
+// bytes (x, g, rows and the table read; the brick levels' table gradient
+// and d_x written once, the cell levels' rows being fold_cells' output and
+// the cell rows an intermediate) take 0.108 ms at 3.35 TB/s at that input,
+// its corner reads plus atomic payload 0.160 ms.
 //
 // K6 and K2: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32 (level-local),
 // src the table or the gathered rows (bf16) -> d_table [sum R_l, 64F]
 // (accumulated into), d_cell [sum 27 R_l, 8F] for K6c (accumulated into),
 // d_x [N, 3].
-// Block (32, L): threadIdx.x is the sample, threadIdx.y the level.
+// Block (32, L): threadIdx.x is the sample, threadIdx.y the level; with
+// kCell, 32 * L * 8F floats of dynamic shared memory (a slot a thread).
 template <int F, Rows kRows, bool kCell>
 __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     encode_bwd_kernel(const float* __restrict__ x,
@@ -320,8 +366,15 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     if (leader) {
       if (cell) {
         float* crow = d_cell + (lv.cell[l] + (long long)key) * (8 * F);
+        extern __shared__ float4 s_bulk[];
+        float* slot = reinterpret_cast<float*>(s_bulk) +
+                      (l * kBwdSamples + lane) * (8 * F);
 #pragma unroll
-        for (int c = 0; c < 8; ++c) add_corner<F>(crow + c * F, upd[c]);
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+          for (int f = 0; f < F; ++f) slot[c * F + f] = upd[c][f];
+        }
+        bulk_add_row<8 * F * 4>(crow, slot);
       } else {
 #pragma unroll
         for (int c = 0; c < 8; ++c) {
@@ -469,6 +522,121 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// fold_cells. The backward of the JAX cell layouts' expansion: brick row b
+// of a cell level owns the 27 cell rows [b*27, b*27 + 27) of the per-cell
+// gradient, 8F f32 lanes each (lane d*F + f, d = dx*4 + dy*2 + dz), and
+// brick corner (X, Y, Z) is replicated in slot d = (X-cx)*4 + (Y-cy)*2 +
+// (Z-cz) of every cell (cx, cy, cz) with c_a in {A-1, A} ∩ [0, 2]: 1 to 8
+// slots. The kernel rounds each cell sum to the accumulator dtype (bf16
+// when accum_bf16) and then to the compute dtype (bf16 when compute_bf16),
+// as JAX casts the scatter's f32 result to its cell table's dtype; sums
+// each corner's slots in f32 from 0, in ascending cell order (the order of
+// brick_grid's fold index, which the plain version follows slot by slot,
+// so the two agree bit for bit); rounds the sum to the compute dtype (the
+// dot's result dtype) and writes it into the level's brick row of d_table
+// as f32. As it reads the cell rows it writes zeros back over them: d_cell
+// is the resident buffer that K6c (3D) or K3 (4D) adds into, all zero
+// between calls.
+//
+// What bounds it: bytes. A brick row is read once (27 x 8F f32, 3.4 KB at
+// F = 4, as coalesced float4 loads by the whole block), zeroed once and
+// its 64F f32 lanes written once: at the bench encoder's two cell levels
+// of 16,384 rows, 113 MB read + 113 MB zeroed + 33.5 MB written, ~0.078 ms
+// at 3.35 TB/s. A block takes kFoldRows consecutive brick rows: it loads
+// their cell rows into shared memory (27.6 KB at F = 4), every load issued
+// before any store, then writes the zeros, then each thread forms output
+// lanes from shared memory, neighbouring threads writing neighbouring
+// lanes. All cell levels go in one launch (FoldLevels). On an H100 80GB
+// HBM3 at 700 W (chip_smoke.py phase 15) it takes 0.099 ms there, against
+// 0.68 ms for the torch.zeros fill and the plain tensor ops it replaced.
+// Its first form stored each zero right after loading that float4 and took
+// 0.42 ms: a thread's store to the address it has just loaded waits for
+// that load, so each thread had one load in flight at a time. Skipping
+// the brick rows K6c left untouched (a flag a row, set by K6c) was not
+// taken: on a real train step's batch of the cell field (chip_smoke.py
+// phase 15, train_cell_texture) K6c touches 39% and 74% of the two cell
+// levels' rows, over half of them together, so at most ~40% of the
+// fold's bytes could go, for a store a group in K6c.
+constexpr int kFoldRows = 8;
+constexpr int kFoldThreads = 256;
+
+struct FoldLevels {
+  int n;                              // cell levels of the launch
+  long long first[kMaxLevels + 1];    // first brick row of level k in the
+                                      // launch (first[n]: the total)
+  long long cell[kMaxLevels];         // its first row in d_cell
+  long long table[kMaxLevels];        // its first row in d_table
+};
+
+template <int F>
+__global__ void __launch_bounds__(kFoldThreads)
+    fold_cells_kernel(float* __restrict__ d_cell, float* __restrict__ d_table,
+                      FoldLevels fl, int accum_bf16, int compute_bf16) {
+  constexpr int kIn = 27 * 8 * F;   // f32 cell values of a brick row
+  constexpr int kIn4 = kIn / 4;
+  constexpr int kOut = 64 * F;      // f32 lanes of a brick row
+  constexpr int kLoads = (kFoldRows * kIn4 + kFoldThreads - 1) / kFoldThreads;
+  __shared__ float4 s_in[kFoldRows * kIn4];
+  __shared__ long long s_src[kFoldRows], s_dst[kFoldRows];
+  const long long b0 = (long long)blockIdx.x * kFoldRows;
+  const int rows = (int)min((long long)kFoldRows, fl.first[fl.n] - b0);
+  if ((int)threadIdx.x < rows) {
+    const long long b = b0 + threadIdx.x;
+    int k = 0;
+    while (k + 1 < fl.n && b >= fl.first[k + 1]) ++k;
+    s_src[threadIdx.x] = (fl.cell[k] + (b - fl.first[k]) * 27) * (8 * F);
+    s_dst[threadIdx.x] = (fl.table[k] + (b - fl.first[k])) * kOut;
+  }
+  __syncthreads();
+  // every load of the block is issued before any store to d_cell (see the
+  // note above)
+  float4 v[kLoads];
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const int j = threadIdx.x + u * kFoldThreads;
+    if (j < rows * kIn4) {
+      const int r = j / kIn4;
+      v[u] = reinterpret_cast<const float4*>(d_cell + s_src[r])[j - r * kIn4];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kLoads; ++u) {
+    const int j = threadIdx.x + u * kFoldThreads;
+    if (j < rows * kIn4) {
+      if (accum_bf16) {
+        v[u].x = bf16r(v[u].x); v[u].y = bf16r(v[u].y);
+        v[u].z = bf16r(v[u].z); v[u].w = bf16r(v[u].w);
+      }
+      if (compute_bf16) {
+        v[u].x = bf16r(v[u].x); v[u].y = bf16r(v[u].y);
+        v[u].z = bf16r(v[u].z); v[u].w = bf16r(v[u].w);
+      }
+      s_in[j] = v[u];
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < rows * kIn4; j += kFoldThreads) {
+    const int r = j / kIn4;
+    reinterpret_cast<float4*>(d_cell + s_src[r])[j - r * kIn4] =
+        make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (int j = threadIdx.x; j < rows * kOut; j += kFoldThreads) {
+    const int r = j / kOut;
+    const int lane = j - r * kOut;
+    const int c = lane / F, f = lane - c * F;
+    const int X = c >> 4, Y = (c >> 2) & 3, Z = c & 3;
+    const float* s = reinterpret_cast<const float*>(s_in) + r * kIn;
+    float acc = 0.0f;
+    for (int cx = max(X - 1, 0); cx <= min(X, 2); ++cx)
+      for (int cy = max(Y - 1, 0); cy <= min(Y, 2); ++cy)
+        for (int cz = max(Z - 1, 0); cz <= min(Z, 2); ++cz) {
+          const int d = (X - cx) * 4 + (Y - cy) * 2 + (Z - cz);
+          acc = __fadd_rn(acc, s[((cx * 9 + cy * 3 + cz) * 8 + d) * F + f]);
+        }
+    d_table[s_dst[r] + lane] = compute_bf16 ? bf16r(acc) : acc;
+  }
+}
+
 bool fill_levels(Levels& lv, int n_levels, const float* scales, const int* nbs,
                  const int* level_rows, const long long* cell_rows = nullptr) {
   if (n_levels < 1 || n_levels > kMaxLevels) return false;
@@ -518,20 +686,36 @@ int launch_bwd(const float* x, const void* g, const int* rows,
   const unsigned int grid =
       (unsigned int)((n + kBwdSamples - 1) / kBwdSamples);
   const dim3 block(kBwdSamples, n_levels);
+  // kCell: a thread's shared-memory slot of 8F f32 (its cell row); above
+  // the default 48 KB (L * F > 12) the kernel has to be allowed more
+  constexpr int kDefaultSmem = 48 * 1024;
+  const int smem = kCell ? kBwdSamples * n_levels * 8 * n_feat * 4 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
   const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(src);
   switch (n_feat) {
     case 1:
-      encode_bwd_kernel<1, kRows, kCell><<<grid, block, 0, st>>>(
+      if (smem > kDefaultSmem)
+        cudaFuncSetAttribute(encode_bwd_kernel<1, kRows, kCell>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+      encode_bwd_kernel<1, kRows, kCell><<<grid, block, smem, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
       break;
     case 2:
-      encode_bwd_kernel<2, kRows, kCell><<<grid, block, 0, st>>>(
+      if (smem > kDefaultSmem)
+        cudaFuncSetAttribute(encode_bwd_kernel<2, kRows, kCell>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+      encode_bwd_kernel<2, kRows, kCell><<<grid, block, smem, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
       break;
     default:
-      encode_bwd_kernel<4, kRows, kCell><<<grid, block, 0, st>>>(
+      if (smem > kDefaultSmem)
+        cudaFuncSetAttribute(encode_bwd_kernel<4, kRows, kCell>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+      encode_bwd_kernel<4, kRows, kCell><<<grid, block, smem, st>>>(
           x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
       break;
   }
@@ -560,8 +744,9 @@ int brick_fused_encode_bwd(const float* x, const void* g, const int* rows,
 }
 
 // K6c. As K6, and cell_rows [L] i64: level l's first row in d_cell
-// [sum 27 R_l, 8F] f32 (accumulated into: the caller zeroes it), or -1 for
-// a level whose gradient goes to d_table as in K6.
+// [sum 27 R_l, 8F] f32 (accumulated into: zero on entry, the wrapper's
+// resident buffer), or -1 for a level whose gradient goes to d_table as in
+// K6.
 int brick_fused_encode_bwd_cell(const float* x, const void* g,
                                 const int* rows, const void* table,
                                 int n_levels, long long n, int n_feat,
@@ -573,6 +758,46 @@ int brick_fused_encode_bwd_cell(const float* x, const void* g,
                                         n_feat, scales, nbs, level_rows,
                                         d_table, d_x, stream, cell_rows,
                                         d_cell);
+}
+
+// fold_cells. n_levels cell levels; level k has brick_rows[k] rows, its
+// cell rows from row cell_rows[k] of d_cell [*, 8F] f32 (read, then
+// zeroed) and its brick rows from row table_rows[k] of d_table [*, 64F]
+// f32 (written). Returns cudaGetLastError().
+int brick_fold_cells(float* d_cell, float* d_table, int n_levels,
+                     const long long* brick_rows, const long long* cell_rows,
+                     const long long* table_rows, int n_feat, int accum_bf16,
+                     int compute_bf16, void* stream) {
+  if (n_levels < 1 || n_levels > kMaxLevels ||
+      !(n_feat == 1 || n_feat == 2 || n_feat == 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FoldLevels fl;
+  fl.n = n_levels;
+  fl.first[0] = 0;
+  for (int k = 0; k < n_levels; ++k) {
+    fl.first[k + 1] = fl.first[k] + brick_rows[k];
+    fl.cell[k] = cell_rows[k];
+    fl.table[k] = table_rows[k];
+  }
+  if (fl.first[n_levels] <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned int grid =
+      (unsigned int)((fl.first[n_levels] + kFoldRows - 1) / kFoldRows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (n_feat) {
+    case 1:
+      fold_cells_kernel<1><<<grid, kFoldThreads, 0, st>>>(
+          d_cell, d_table, fl, accum_bf16, compute_bf16);
+      break;
+    case 2:
+      fold_cells_kernel<2><<<grid, kFoldThreads, 0, st>>>(
+          d_cell, d_table, fl, accum_bf16, compute_bf16);
+      break;
+    default:
+      fold_cells_kernel<4><<<grid, kFoldThreads, 0, st>>>(
+          d_cell, d_table, fl, accum_bf16, compute_bf16);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K2. As K6 with feats [L, N, 64F] bf16 in place of the table.

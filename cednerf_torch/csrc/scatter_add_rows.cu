@@ -104,16 +104,19 @@ const char* cednerf_error_string(int code) {
 }
 
 // rows [m] i32, upd [m, w] (upd_bf16: bf16, else f32), out [n_rows, w] f32.
-// Zeroes out, then adds. Returns cudaGetLastError() after the launches
-// (0 on success).
+// Zeroes out (unless add: then out keeps what it holds), then adds.
+// Returns cudaGetLastError() after the launches (0 on success).
 int scatter_add_rows(const int* rows, const void* upd, long long m, int w,
-                     int n_rows, float* out, int upd_bf16, void* stream) {
+                     int n_rows, float* out, int upd_bf16, int add,
+                     void* stream) {
   if (m < 0 || w <= 0 || n_rows <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      out, 0, (size_t)n_rows * (size_t)w * sizeof(float), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!add) {
+    cudaError_t err = cudaMemsetAsync(
+        out, 0, (size_t)n_rows * (size_t)w * sizeof(float), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (m == 0) return static_cast<int>(cudaGetLastError());
   const bool vec = !upd_bf16 && w % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(upd) % 16 == 0 &&

@@ -55,8 +55,11 @@ matmul's transpose, a sum over the cells that share a corner) with the
 result in the compute dtype, and only then cast to the f32 master, where
 the brick route keeps its f32 sum. The port keeps those rounding points:
 on the 3D route K6c (`fused_encode_bwd_cell`) accumulates the cell rows,
-on the 4D route K3 scatters the keyframe-split cell update rows, and
-`_fold_cells` rounds and folds.
+on the 4D route K3 scatters the keyframe-split cell update rows, each into
+a buffer that stays resident and all zero between calls
+(`encode_kernels.cell_buffer`), and `fold_cells` (a kernel on CUDA, one
+launch for every cell level of the 3D route) rounds and folds them into
+the cell levels' rows of the table gradient, zeroing what it read.
 
 `remat_feats`: the K1/K2 route keeps (x, rows, tables) in place of the
 gathered rows [L, N, 64F] and gathers them again in the backward with the
@@ -74,8 +77,8 @@ import torch
 
 from . import encode_kernels as ek
 from . import scatter_kernels as sk
-from .encode_kernels import (BRICK_CELLS, BRICK_CORNERS, CELL_CORNERS,
-                             CELLS_PER_BRICK, CORNERS_PER_BRICK)
+from .encode_kernels import (BRICK_CELLS, CELL_CORNERS, CELLS_PER_BRICK,
+                             CORNERS_PER_BRICK)
 from .hash_grid import _PRIMES, level_resolution, level_scale
 
 _U32 = 0xFFFFFFFF
@@ -262,63 +265,16 @@ def _flat_table(tables, dtype) -> torch.Tensor:
     return flat
 
 
-_FOLD = {}
-
-
-def _fold_index(device) -> torch.Tensor:
-    """[64 * 8] int64: for each brick corner, the (cell*8 + d) slots of a
-    brick's 27 cell rows that replicate it, padded to 8 with slot 216 (a
-    zero slot); corner = (cx+dx)*16 + (cy+dy)*4 + (cz+dz), d = dx*4 + dy*2
-    + dz."""
-    if device not in _FOLD:
-        slots = [[] for _ in range(CORNERS_PER_BRICK)]
-        for cell in range(CELLS_PER_BRICK):
-            cx, cy, cz = cell // 9, (cell // 3) % 3, cell % 3
-            for d in range(CELL_CORNERS):
-                corner = ((cx + (d >> 2)) * BRICK_CORNERS + cy + ((d >> 1) & 1)
-                          ) * BRICK_CORNERS + cz + (d & 1)
-                slots[corner].append(cell * CELL_CORNERS + d)
-        pad = CELLS_PER_BRICK * CELL_CORNERS
-        idx = [s + [pad] * (CELL_CORNERS - len(s)) for s in slots]
-        _FOLD[device] = torch.tensor(idx, dtype=torch.int64,
-                                     device=device).reshape(-1)
-    return _FOLD[device]
-
-
-def _fold_cells(d_cell: torch.Tensor, n_feat: int, compute_dtype,
-                accum_bf16: bool) -> torch.Tensor:
-    """Per-cell gradient [rows*27, 8F] f32 -> brick gradient [rows, 64F]
-    with JAX's rounding points: the f32 cell sums rounded to the
-    accumulator dtype and to the cell table's dtype (the compute dtype),
-    the fold (each corner's <= 8 cell slots summed in f32 in a fixed order)
-    rounded to the compute dtype, returned in f32."""
-    if accum_bf16:
-        d_cell = d_cell.to(torch.bfloat16)
-    rows = d_cell.shape[0] // CELLS_PER_BRICK
-    d = d_cell.to(compute_dtype).float().view(
-        rows, CELLS_PER_BRICK * CELL_CORNERS, n_feat)
-    d = torch.cat([d, d.new_zeros(rows, 1, n_feat)], dim=1)
-    folded = d.index_select(1, _fold_index(d.device)).view(
-        rows, CORNERS_PER_BRICK, CELL_CORNERS, n_feat).sum(2)
-    return folded.to(compute_dtype).float().view(rows, -1)
-
-
-def _table_grads(d_flat, geom, dtypes, d_cell=None):
-    """Kernel outputs -> one gradient per level table: the brick levels'
-    rows of d_flat [sum R_l, 64F] f32, the cell levels' folded from
-    d_cell."""
-    if geom.accum_bf16:
-        d_flat = d_flat.to(torch.bfloat16)
-    grads, off = [], 0
-    for d, dt, cell in zip(d_flat.split(list(geom.level_rows)), dtypes,
-                           geom.cells):
-        if cell:
-            n = d.shape[0] * CELLS_PER_BRICK
-            d = _fold_cells(d_cell[off:off + n], geom.n_feat,
-                            geom.compute_dtype, geom.accum_bf16)
-            off += n
-        grads.append(d.to(dt))
-    return tuple(grads)
+def _table_grads(d_flat, geom, dtypes):
+    """Kernel output d_flat [sum R_l, 64F] f32 -> one gradient per level
+    table, cast to its table's dtype: a brick level's f32 sums rounded to
+    bf16 under a bf16 accumulator (one cast of the whole table, the
+    fewest launches), a cell level's folded rows (already in the compute
+    dtype) as they are."""
+    rounded = d_flat.to(torch.bfloat16) if geom.accum_bf16 else d_flat
+    split = list(geom.level_rows)
+    return tuple((d if cell else r).to(dt) for d, r, dt, cell in zip(
+        d_flat.split(split), rounded.split(split), dtypes, geom.cells))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -376,7 +332,6 @@ class _BrickEncode(torch.autograd.Function):
         x, rows, *saved = ctx.saved_tensors
         geom = ctx.geom
         g = g.to(geom.compute_dtype).contiguous()
-        d_cell = None
         if ctx.interp:
             src = (_gather_rows(x, rows, saved, geom.compute_dtype)
                    if geom.remat else saved[0])
@@ -388,16 +343,16 @@ class _BrickEncode(torch.autograd.Function):
             for n_rows, cell in zip(geom.level_rows, geom.cells):
                 cell_rows.append(off if cell else -1)
                 off += CELLS_PER_BRICK * n_rows if cell else 0
-            d_flat, d_cell, d_x = ek.fused_encode_bwd_cell(
+            d_flat, d_x = ek.fused_encode_bwd_cell(
                 x, g, rows, saved[0], geom.scales, geom.nbs,
-                geom.level_rows, geom.n_feat, cell_rows,
-                bf16_terms=geom.compute_dtype == torch.bfloat16)
+                geom.level_rows, geom.n_feat, cell_rows, geom.compute_dtype,
+                geom.accum_bf16)
         else:
             d_flat, d_x = ek.fused_encode_bwd(
                 x, g, rows, saved[0], geom.scales, geom.nbs,
                 geom.level_rows, geom.n_feat)
         return (d_x, None, None, None,
-                *_table_grads(d_flat, geom, ctx.dtypes, d_cell))
+                *_table_grads(d_flat, geom, ctx.dtypes))
 
 
 def keyframe_tables(params: Dict[str, torch.Tensor],
@@ -546,12 +501,22 @@ class _KeyframeLevelEncode(torch.autograd.Function):
                     torch.int32)
                 upd_rows = torch.cat([upd * (1.0 - tf), upd * tf]).view(
                     2 * n, CELL_CORNERS * f)
-                d_cell = sk.scatter_add_rows(
-                    rows, upd_rows,
-                    lv.n_rows * lv.keyframes * CELLS_PER_BRICK)
-                del upd_rows
-                d_flat = _fold_cells(d_cell, f, lv.compute_dtype,
-                                     lv.accum_bf16)
+                # K3 adds into the resident cell buffer, which the fold
+                # leaves all zero again (ek.cell_buffer)
+                n_rows = lv.n_rows * lv.keyframes
+                d_cell = ek.cell_buffer(g.device, [n_rows], f)
+                try:
+                    sk.scatter_add_rows(rows, upd_rows, d_cell.shape[0],
+                                        out=d_cell)
+                    del upd_rows
+                    d_flat = ek.fold_cells(
+                        d_cell, torch.empty(
+                            (n_rows, CORNERS_PER_BRICK * f),
+                            dtype=torch.float32, device=g.device),
+                        [n_rows], [0], f, lv.compute_dtype, lv.accum_bf16)
+                except BaseException:
+                    d_cell.zero_()
+                    raise
             else:
                 rows_buf = torch.zeros((2, n, CORNERS_PER_BRICK, f),
                                        dtype=torch.float32, device=g.device)

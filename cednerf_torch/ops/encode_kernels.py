@@ -17,7 +17,15 @@ their plain versions.
     scatter into (cednerf_tpu/ops/brick_grid.py `_make_level_encode_cell`,
     `_scatter_rows`, whose "pallas" route is pallas_scatter.py
     `scatter_add_rows`); the other levels keep K6's brick target. The
-    caller rounds and folds the cell rows (ops/brick_grid.py).
+    wrapper then folds the cell rows (fold_cells) and returns the table
+    gradient: it is the cell layouts' 3D backward (ops/brick_grid.py). On
+    CUDA the cell rows go into a buffer that stays resident and all zero
+    between calls (`cell_buffer`).
+  * `fold_cells` — the cell rows rounded and folded onto the brick corners
+    with JAX's rounding points (the transpose of cednerf_tpu/ops/
+    brick_grid.py `_expand_cell_table`, an XLA dot there), written into
+    the cell levels' rows of the table gradient; it writes zeros back over
+    the cell rows it read. The 4D cell route folds K3's cell rows with it.
   * `interp_bwd_fused` (K2) — K1's backward, given the gathered rows.
     Replaces pallas_encoder.py `_build_bwd_fused` / `interp_bwd_fused`.
   * `interp_bwd` (K7) — K1's backward that returns every level's update
@@ -57,7 +65,8 @@ MAX_LEVELS = 16          # kMaxLevels in the CUDA sources
 KERNEL_FEATURES = (1, 2, 4)
 
 _NAMES = ("interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
-          "fused_encode_bwd_cell", "interp_bwd_fused", "interp_bwd")
+          "fused_encode_bwd_cell", "fold_cells", "interp_bwd_fused",
+          "interp_bwd")
 launches = dict.fromkeys(_NAMES, 0)
 plain_cuda_calls = dict.fromkeys(_NAMES, 0)
 
@@ -91,6 +100,9 @@ def _bind_bwd(lib):
     lib.brick_fused_encode_bwd_cell.argtypes = [
         _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P]
     lib.brick_fused_encode_bwd_cell.restype = _I32
+    lib.brick_fold_cells.argtypes = [_P, _P, _I32, _P, _P, _P, _I32, _I32,
+                                     _I32, _P]
+    lib.brick_fold_cells.restype = _I32
     lib.brick_interp_bwd.argtypes = [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P,
                                      _I32, _P, _P]
     lib.brick_interp_bwd.restype = _I32
@@ -322,6 +334,76 @@ def fused_encode_bwd_cell_plain(x, g, rows, table, scales: Sequence[float],
     return d_table, d_cell, d_x
 
 
+_FOLD = {}
+
+
+def fold_index(device) -> torch.Tensor:
+    """[64 * 8] int64: for each brick corner, the (cell*8 + d) slots of a
+    brick's 27 cell rows that replicate it, in ascending cell order, padded
+    to 8 with slot 216 (a zero slot); corner = (cx+dx)*16 + (cy+dy)*4 +
+    (cz+dz), d = dx*4 + dy*2 + dz."""
+    if device not in _FOLD:
+        slots = [[] for _ in range(CORNERS_PER_BRICK)]
+        for cell in range(CELLS_PER_BRICK):
+            cx, cy, cz = cell // 9, (cell // 3) % 3, cell % 3
+            for d in range(CELL_CORNERS):
+                corner = ((cx + (d >> 2)) * BRICK_CORNERS + cy + ((d >> 1) & 1)
+                          ) * BRICK_CORNERS + cz + (d & 1)
+                slots[corner].append(cell * CELL_CORNERS + d)
+        pad = CELLS_PER_BRICK * CELL_CORNERS
+        idx = [s + [pad] * (CELL_CORNERS - len(s)) for s in slots]
+        _FOLD[device] = torch.tensor(idx, dtype=torch.int64,
+                                     device=device).reshape(-1)
+    return _FOLD[device]
+
+
+def _fold_rows(d_cell, n_feat, compute_dtype, accum_bf16):
+    """One level's cell rows [rows*27, 8F] f32 -> brick rows [rows, 64F]
+    f32 with JAX's rounding points: each cell sum rounded to the
+    accumulator dtype and to the cell table's dtype (the compute dtype),
+    each corner's <= 8 slots summed in f32 from 0 slot by slot (the zero
+    pad slots last), the sum rounded to the compute dtype."""
+    if accum_bf16:
+        d_cell = d_cell.to(torch.bfloat16)
+    rows = d_cell.shape[0] // CELLS_PER_BRICK
+    d = d_cell.to(compute_dtype).float().view(
+        rows, CELLS_PER_BRICK * CELL_CORNERS, n_feat)
+    d = torch.cat([d, d.new_zeros(rows, 1, n_feat)], dim=1)
+    slots = d.index_select(1, fold_index(d.device)).view(
+        rows, CORNERS_PER_BRICK, CELL_CORNERS, n_feat)
+    acc = torch.zeros_like(slots[:, :, 0])
+    for s in range(CELL_CORNERS):
+        acc = acc + slots[:, :, s]
+    return acc.to(compute_dtype).float().view(rows, -1)
+
+
+def _cell_spans(level_rows, cell_rows):
+    """[(first table row, first cell row, rows)] of the cell levels."""
+    spans, off = [], 0
+    for r, c in zip(level_rows, cell_rows):
+        if c >= 0:
+            spans.append((off, int(c), int(r)))
+        off += int(r)
+    return spans
+
+
+def fold_cells_plain(d_cell, d_table, level_rows: Sequence[int],
+                     cell_rows: Sequence[int], n_feat: int, compute_dtype,
+                     accum_bf16: bool):
+    """Plain fold_cells: each level l with cell_rows[l] >= 0 gets its rows
+    of d_table [sum R_l, 64F] f32 (from row sum(level_rows[:l])) folded
+    from its cell rows d_cell[cell_rows[l]:][:27 R_l] (_fold_rows), which
+    are then zeroed. Returns d_table."""
+    if d_cell.is_cuda:
+        plain_cuda_calls["fold_cells"] += 1
+    for t0, c0, r in _cell_spans(level_rows, cell_rows):
+        cells = d_cell[c0:c0 + CELLS_PER_BRICK * r]
+        d_table[t0:t0 + r] = _fold_rows(cells, n_feat, compute_dtype,
+                                        accum_bf16)
+        cells.zero_()
+    return d_table
+
+
 def interp_bwd_fused_plain(x, g, feats, rows, scales: Sequence[float],
                            nbs: Sequence[int], level_rows: Sequence[int],
                            n_feat: int):
@@ -481,51 +563,185 @@ def fused_encode_bwd(x, g, rows, table, scales: Sequence[float],
                        rows, table, scales, nbs, level_rows, n_feat)
 
 
-def fused_encode_bwd_cell(x, g, rows, table, scales: Sequence[float],
-                          nbs: Sequence[int], level_rows: Sequence[int],
-                          n_feat: int, cell_rows: Sequence[int],
-                          bf16_terms: bool = True):
-    """K6c: fused_encode_bwd with a per-cell target. cell_rows [L]: level
-    l's first row in the cell gradient, or -1 to keep the brick target.
-    The cell levels' update terms w * g are formed in bf16 as the JAX cell
-    levels form them at a bf16 compute dtype (cell_updates); on CUDA
-    bf16_terms must be True (the kernel reads bf16 rows, so the compute
-    dtype is bf16).
-    Returns (d_table [sum R_l, 64F] f32, zero on the cell levels' rows;
-    d_cell [sum 27 R_l over the cell levels, 8F] f32, row cell_rows[l] +
-    r*27 + cell, lane (dx*4 + dy*2 + dz)*F + f; d_x [N, 3] f32)."""
-    if not x.is_cuda:
-        return fused_encode_bwd_cell_plain(x, g, rows, table, scales, nbs,
-                                           level_rows, n_feat, cell_rows,
-                                           bf16_terms)
-    if not bf16_terms:
-        raise ValueError("fused_encode_bwd_cell: the kernel forms bf16 terms")
+# The resident cell-gradient buffers of the cell layouts' backward, one
+# per (device, cell levels' rows, F): f32 [sum 27 R_l, 8F], all zero between
+# calls. K6c (3D) or K3 (4D) adds into one and fold_cells zeroes what it
+# reads, so no call allocates or fills it. They are used on PyTorch's
+# current stream only (the stream the backward runs on), which keeps the
+# zero-between-calls order; a caller that runs the cell backward on two
+# streams at once must not share one. A fixed buffer is also what a
+# captured CUDA graph replays. release_cell_buffers frees them.
+_CELL_BUFFERS = {}
+
+
+def cell_buffer(device, rows: Sequence[int], n_feat: int) -> torch.Tensor:
+    """The resident cell-gradient buffer of (device, the cell levels' brick
+    rows, F), allocated all zero at its first use. Whoever adds into it
+    folds it (fold_cells, which zeroes it) before the next user, and
+    zeroes it if that fails."""
+    key = (torch.device(device), tuple(int(r) for r in rows), n_feat)
+    if key not in _CELL_BUFFERS:
+        _CELL_BUFFERS[key] = torch.zeros(
+            (CELLS_PER_BRICK * sum(key[1]), CELL_CORNERS * n_feat),
+            dtype=torch.float32, device=device)
+    return _CELL_BUFFERS[key]
+
+
+def cell_buffers():
+    """The resident cell-gradient buffers allocated so far."""
+    return list(_CELL_BUFFERS.values())
+
+
+def release_cell_buffers():
+    """Frees the resident cell-gradient buffers (the next cell backward
+    allocates its buffer again)."""
+    _CELL_BUFFERS.clear()
+
+
+def _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows):
+    """K6c's input checks; returns its cell levels' spans (_cell_spans)."""
     L = len(level_rows)
     _check_bwd_inputs("fused_encode_bwd_cell", x, g, rows, table,
                       (sum(level_rows), CORNERS_PER_BRICK * n_feat), L,
                       n_feat)
     if len(cell_rows) != L:
         raise ValueError("fused_encode_bwd_cell: one cell row offset a level")
-    n = x.shape[0]
-    n_cell = sum(27 * r for r, c in zip(level_rows, cell_rows) if c >= 0)
-    d_table = torch.zeros((sum(level_rows), CORNERS_PER_BRICK * n_feat),
-                          dtype=torch.float32, device=x.device)
-    d_cell = torch.zeros((n_cell, CELL_CORNERS * n_feat), dtype=torch.float32,
-                         device=x.device)
-    d_x = torch.empty((n, 3), dtype=torch.float32, device=x.device)
+    spans = _cell_spans(level_rows, cell_rows)
+    off = 0
+    for _, c, r in spans:
+        if c != off:
+            raise ValueError("fused_encode_bwd_cell: the cell levels' rows "
+                             "must lie back to back in level order, got "
+                             f"{list(cell_rows)}")
+        off += CELLS_PER_BRICK * r
+    return spans
+
+
+def _launch_k6c(x, g, rows, table, scales, nbs, level_rows, n_feat,
+                cell_rows, d_table, d_cell, d_x):
+    """K6c into buffers the caller supplies, each accumulated into: d_table
+    [sum R_l, 64F] f32 (the brick levels' rows), d_cell [sum 27 R_l over
+    the cell levels, 8F] f32 (row cell_rows[l] + r*27 + cell, lane
+    (dx*4 + dy*2 + dz)*F + f), d_x [N, 3] f32 (written). CUDA tensors
+    only; d_cell is zeroed if the launch fails."""
+    _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows)
+    L, n = len(level_rows), x.shape[0]
     if n == 0:
-        return d_table, d_cell, d_x
+        return
     lib = _BWD.get()
     sc, nb, lr = _level_arrays(scales, nbs, level_rows)
     cr = (ctypes.c_longlong * L)(*[int(c) for c in cell_rows])
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.brick_fused_encode_bwd_cell(
-        x.data_ptr(), g.data_ptr(), rows.data_ptr(), table.data_ptr(), L, n,
-        n_feat, sc, nb, lr, cr, d_table.data_ptr(), d_cell.data_ptr(),
-        d_x.data_ptr(), stream)
-    _BWD.check(rc, "fused_encode_bwd_cell")
+    try:
+        rc = lib.brick_fused_encode_bwd_cell(
+            x.data_ptr(), g.data_ptr(), rows.data_ptr(), table.data_ptr(), L,
+            n, n_feat, sc, nb, lr, cr, d_table.data_ptr(), d_cell.data_ptr(),
+            d_x.data_ptr(), stream)
+        _BWD.check(rc, "fused_encode_bwd_cell")
+    except BaseException:
+        d_cell.zero_()
+        raise
     launches["fused_encode_bwd_cell"] += 1
-    return d_table, d_cell, d_x
+
+
+def fold_cells(d_cell, d_table, level_rows: Sequence[int],
+               cell_rows: Sequence[int], n_feat: int, compute_dtype,
+               accum_bf16: bool):
+    """The cell levels' rows of the table gradient d_table [sum R_l, 64F]
+    f32 from their cell rows d_cell [*, 8F] f32 (level l's from row
+    cell_rows[l], -1 for a brick level, whose rows are left as they are),
+    with JAX's rounding points (fold_cells_plain); the cell rows read are
+    zeroed. One launch for every cell level. Returns d_table. On CUDA,
+    d_cell and d_table must be contiguous float32 and compute_dtype
+    bfloat16 or float32."""
+    if not d_cell.is_cuda:
+        return fold_cells_plain(d_cell, d_table, level_rows, cell_rows,
+                                n_feat, compute_dtype, accum_bf16)
+    if n_feat not in KERNEL_FEATURES:
+        raise ValueError(f"fold_cells: kernel takes n_feat in "
+                         f"{KERNEL_FEATURES}")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError("fold_cells: compute_dtype must be bfloat16 or "
+                         "float32")
+    for name, t, w in (("d_cell", d_cell, CELL_CORNERS * n_feat),
+                       ("d_table", d_table, CORNERS_PER_BRICK * n_feat)):
+        if (t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != w
+                or not t.is_contiguous() or t.data_ptr() % 16
+                or t.device != d_cell.device):
+            raise ValueError(f"fold_cells: {name} must be contiguous, "
+                             f"16-byte aligned float32 [*, {w}] on "
+                             f"{d_cell.device}")
+    if len(cell_rows) != len(level_rows):
+        raise ValueError("fold_cells: one cell row offset a level")
+    if d_table.shape[0] != sum(level_rows):
+        raise ValueError(f"fold_cells: d_table has {d_table.shape[0]} rows, "
+                         f"the levels {sum(level_rows)}")
+    spans = _cell_spans(level_rows, cell_rows)
+    if any(c + CELLS_PER_BRICK * r > d_cell.shape[0] for _, c, r in spans):
+        raise ValueError("fold_cells: a cell level's rows lie past d_cell")
+    if not spans:
+        return d_table
+    k = len(spans)
+    if k > MAX_LEVELS:
+        raise ValueError(f"fold_cells: kernel takes 1..{MAX_LEVELS} levels")
+    arr = ctypes.c_longlong * k
+    lib = _BWD.get()
+    stream = torch.cuda.current_stream(d_cell.device).cuda_stream
+    rc = lib.brick_fold_cells(
+        d_cell.data_ptr(), d_table.data_ptr(), k,
+        arr(*[r for _, _, r in spans]), arr(*[c for _, c, _ in spans]),
+        arr(*[t for t, _, _ in spans]), n_feat, int(accum_bf16),
+        int(compute_dtype == torch.bfloat16), stream)
+    _BWD.check(rc, "fold_cells")
+    launches["fold_cells"] += 1
+    return d_table
+
+
+def fused_encode_bwd_cell(x, g, rows, table, scales: Sequence[float],
+                          nbs: Sequence[int], level_rows: Sequence[int],
+                          n_feat: int, cell_rows: Sequence[int],
+                          compute_dtype, accum_bf16: bool):
+    """The cell layouts' backward: K6c (fused_encode_bwd with a per-cell
+    target), then fold_cells over its cell rows. cell_rows [L]: level l's
+    first row in the cell gradient (the cell levels' rows back to back, in
+    level order), or -1 to keep K6's brick target. The cell levels' update
+    terms w * g are formed in bf16 as the JAX cell levels form them at a
+    bf16 compute dtype (cell_updates); on CUDA compute_dtype must be
+    bfloat16 (the kernel reads bf16 rows).
+    Returns (d_table [sum R_l, 64F] f32: the brick levels' f32 sums, the
+    cell levels' folded values in the compute dtype; d_x [N, 3] f32).
+    On CUDA the cell rows go into the resident buffer of (device, cell
+    levels' rows, F), which the fold leaves all zero again (and which is
+    zeroed if either step raises); d_table is filled only over the brick
+    levels' rows, the fold writes the others."""
+    if not x.is_cuda:
+        d_table, d_cell, d_x = fused_encode_bwd_cell_plain(
+            x, g, rows, table, scales, nbs, level_rows, n_feat, cell_rows,
+            bf16_terms=compute_dtype == torch.bfloat16)
+        return fold_cells(d_cell, d_table, level_rows, cell_rows, n_feat,
+                          compute_dtype, accum_bf16), d_x
+    if compute_dtype != torch.bfloat16:
+        raise ValueError("fused_encode_bwd_cell: the kernel forms bf16 terms")
+    spans = _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows)
+    total = sum(level_rows)
+    d_table = torch.empty((total, CORNERS_PER_BRICK * n_feat),
+                          dtype=torch.float32, device=x.device)
+    t = 0      # each run of adjacent brick levels' rows: K6's atomics add
+    for t0, _, r in spans + [(total, 0, 0)]:
+        if t0 > t:
+            d_table[t:t0].zero_()
+        t = t0 + r
+    d_cell = cell_buffer(x.device, [r for _, _, r in spans], n_feat)
+    d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+    _launch_k6c(x, g, rows, table, scales, nbs, level_rows, n_feat,
+                cell_rows, d_table, d_cell, d_x)
+    try:
+        fold_cells(d_cell, d_table, level_rows, cell_rows, n_feat,
+                   compute_dtype, accum_bf16)
+    except BaseException:
+        d_cell.zero_()
+        raise
+    return d_table, d_x
 
 
 def interp_bwd_fused(x, g, feats, rows, scales: Sequence[float],

@@ -132,10 +132,17 @@ Phases, each of which must pass (nothing is caught and carried on):
  15. secondary: the secondary encoders and row layouts at the full width
      of dnerf_config (secondary_phase): row_layout "cell" with
      fine_table_rows 65536 (K5 and K6c against their plain versions, K6c
-     also for "cellz" and "cellfused", the reference step card vs CPU,
+     also for "cellz" and "cellfused"; fold_cells bit-equal to its plain
+     version, K6c + fold against the plain pair, the resident cell
+     buffers zero after every backward; K6c, the fold, the path they
+     replaced and K6 timed at 262,144 uniform and ray-major and 1,048,576
+     samples; the reference steps card vs CPU, 3D and hash4d, through the
+     fold kernel;
      Trainer.run past the warmup on TexturedCloudScene's device sampler,
-     K6c once a step), hash4motion (K5 and K6 on the motion grid's F = 2
-     levels, a short run), --grid_type triplane and encoder_impl "gather"
+     K6c and fold_cells once a step, a chunk's device ms and the touched
+     share of the cell levels' brick rows), hash4motion (K5 and K6 on the
+     motion grid's F = 2 levels, a short run), --grid_type triplane and
+     encoder_impl "gather"
      (a reference step and a short run each; a tri-plane frame of full
      seg passes and its peak memory) and remat_feats (bit-identical
      gradients on the K5/K6 and K1/K2 routes).
@@ -1225,11 +1232,12 @@ def _record_chunks(trainer, recs):
 
 def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
                          bwd="fused_encode_bwd", encoders=1):
-    """The backward kernel `bwd` (K6, or K6c on the cell layouts) `encoders`
-    times a step (the brick encoders a step runs: 2 with the hash-grid
-    motion warp, 0 for the tri-plane and per-corner encoders), K4
-    k4_per_step times, K5 `encoders` times a step and as often per
-    occupancy probe, nothing else, no plain version on CUDA."""
+    """The backward kernel `bwd` (K6, or K6c on the cell layouts, with
+    fold_cells as often: one launch for every cell level) `encoders` times
+    a step (the brick encoders a step runs: 2 with the hash-grid motion
+    warp, 0 for the tri-plane and per-corner encoders), K4 k4_per_step
+    times, K5 `encoders` times a step and as often per occupancy probe,
+    nothing else, no plain version on CUDA."""
     if any(plain.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
     no_probe_kernels(label, counts)
@@ -1238,9 +1246,11 @@ def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
                 _occ_probe_launches(cfg, r["step0"], r["steps"], r["warmup"])
                 for r in recs)),
             "fused_encode_bwd": 0, "fused_encode_bwd_cell": 0,
-            "compact_select": k4_per_step * steps,
+            "fold_cells": 0, "compact_select": k4_per_step * steps,
             "interp_fwd": 0, "interp_bwd_fused": 0, "scatter_add_rows": 0}
     want[bwd] = encoders * steps
+    if bwd == "fused_encode_bwd_cell":
+        want["fold_cells"] = encoders * steps
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
@@ -2358,16 +2368,72 @@ def _cell_offsets(spec):
     return offs
 
 
+def old_fold_ops(d_cell, n_feat, compute_dtype, accum_bf16):
+    """One cell level's fold as the port ran it before fold_cells, for the
+    A/B against the kernel (and for the CPU test that the wrapper returns
+    what it returned before): plain tensor ops (the casts, a cat with a
+    zero slot, the slot gather into [rows, 64, 8, F], one sum over the
+    slots, the casts back)."""
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    if accum_bf16:
+        d_cell = d_cell.to(torch.bfloat16)
+    rows = d_cell.shape[0] // 27
+    d = d_cell.to(compute_dtype).float().view(rows, 216, n_feat)
+    d = torch.cat([d, d.new_zeros(rows, 1, n_feat)], dim=1)
+    folded = d.index_select(1, ek.fold_index(d.device)).view(
+        rows, 64, 8, n_feat).sum(2)
+    return folded.to(compute_dtype).float().view(rows, -1)
+
+
+def _touched_share(d_cell, spans, n_feat):
+    """Per cell level (spans: fold spans), the share of its brick rows
+    with a nonzero cell sum, as a device tensor."""
+    import torch
+    return torch.stack([
+        (d_cell[c:c + 27 * r].view(r, 27 * 8 * n_feat) != 0).any(1)
+        .float().mean() for _, c, r in spans])
+
+
+def _fold_bf16_steps(got, want, frac):
+    """Each folded entry within one bf16 step of want's plus `frac` of
+    want's largest entry: (max steps off, max |got - want| / max |want|,
+    ok)."""
+    import torch
+    step = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    diff = (got - want).abs()
+    ok = not bool((diff > step + frac * want.abs().max()).any())
+    return (diff / step).max().item(), _frac_err(got, want), ok
+
+
 def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
-    """K6c (fused_encode_bwd_cell) against its plain version on the
-    full-width cell-layout field's levels (its spec's cell levels take the
-    per-cell target, the others K6's brick target), tables uniform(-8, 8),
-    x uniform over the unit cube, at one train step's sample count and at a
-    ragged one: the brick levels' table gradient and each cell level's
-    cell rows within BWD_TABLE_FRAC of that level's largest entry, d_x
-    within BWD_DX_FRAC (K6's limits: both sum f32 terms, the kernel with
-    atomics in another order). With `timed`, timed at n_main beside its
-    bound, the plain version and K6 on the same inputs."""
+    """K6c and fold_cells against their plain versions on the full-width
+    cell-layout field's levels (its spec's cell levels take the per-cell
+    target, the others K6's brick target), tables uniform(-8, 8), x
+    uniform over the unit cube, at one train step's sample count and at a
+    ragged one:
+      * K6c launched into zeroed buffers (ek._launch_k6c): the brick
+        levels' table gradient and each cell level's cell rows within
+        BWD_TABLE_FRAC of that level's largest entry, d_x within
+        BWD_DX_FRAC (K6's limits: both sum f32 terms, the kernel with
+        atomics in another order);
+      * fold_cells on those cell rows against its plain version on a copy
+        of them: bit for bit, and the rows it read zero after it;
+      * the cell layouts' backward, fused_encode_bwd_cell (K6c into the
+        resident buffer, then the fold), against the plain pair: the brick
+        levels' rows and d_x at K6c's limits, each folded entry within one
+        bf16 step of the plain one plus BWD_TABLE_FRAC of the level's
+        largest entry (the fold rounds to bf16 sums that K6c's atomics
+        added in another order), and the resident buffer all zero after.
+    With `timed`, on n_main uniform, n_main ray-major and 1,048,576
+    uniform samples: K6c's kernel alone, fold_cells, the wrapper that runs
+    both, the path they replace (K6c's kernel into torch.zeros buffers,
+    then the fold's plain tensor ops as the port ran them before:
+    old_fold_ops) and K6 on the same inputs; on n_main uniform also the
+    plain versions, the share of the cell levels' brick rows that K6c
+    touched, a matmul by the expansion matrix's transpose (the fold's
+    library yardstick) and the bounds.
+    Returns (K6c's record, fold_cells' record) at n_main."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.utils.bench import cuda_ms
@@ -2378,12 +2444,54 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
     nbs = [l["n_bricks_axis"] for l in lay]
     level_rows = [l["rows"] for l in lay]
     offs = _cell_offsets(spec)
+    spans = ek._cell_spans(level_rows, offs)
+    accum = spec.grad_accum_dtype == "bfloat16"
     L, F = spec.n_levels, spec.n_features
+    bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(seed)
     table = ((torch.rand((sum(level_rows), 64 * F), device="cuda",
                          generator=gen) * 2 - 1) * REF_TABLE_BOUND
              ).to(torch.bfloat16)
-    rec = None
+    brick = torch.repeat_interleave(
+        torch.tensor([o < 0 for o in offs]),
+        torch.tensor(level_rows)).cuda()
+    n_cell = sum(27 * r for _, _, r in spans)
+
+    def k6c_buffers(n):
+        """Zeroed buffers for K6c alone: (d_table, d_cell, d_x)."""
+        return (torch.zeros((sum(level_rows), 64 * F), device="cuda"),
+                torch.zeros((n_cell, 8 * F), device="cuda"),
+                torch.empty((n, 3), device="cuda"))
+
+    def old_fold(d_c):
+        return [old_fold_ops(d_c[c:c + 27 * r], F, bf16, accum)
+                for _, c, r in spans]
+
+    def old_k6c(args):
+        """K6c as the port called it before: torch.zeros buffers of the
+        whole table gradient and of the cell rows, then the kernel."""
+        bufs = k6c_buffers(args[0].shape[0])
+        ek._launch_k6c(*args, *bufs)
+        return bufs
+
+    def times(args):
+        bufs = k6c_buffers(args[0].shape[0])
+        t = {"ms": cuda_ms(lambda: ek._launch_k6c(*args, *bufs), 20)}
+        t["fold_ms"] = cuda_ms(lambda: ek.fold_cells(
+            bufs[1], bufs[0], level_rows, offs, F, bf16, accum), 20)
+        t["pair_ms"] = cuda_ms(lambda: ek.fused_encode_bwd_cell(
+            *args, bf16, accum), 20)
+        _cell_buffers_zero("timing")
+        t["old_k6c_ms"] = cuda_ms(lambda: old_k6c(args), 20)
+        d_c0 = old_k6c(args)[1]
+        t["old_fold_pair_ms"] = cuda_ms(lambda: (
+            torch.zeros((n_cell, 8 * F), device="cuda"), old_fold(d_c0)), 20)
+        t["old_pair_ms"] = cuda_ms(lambda: old_fold(old_k6c(args)[1]), 20)
+        t["k6_same_inputs_ms"] = cuda_ms(lambda: ek.fused_encode_bwd(
+            *args[:8]), 20)
+        return t
+
+    rec = fold_rec = None
     for n in (n_main, n_ragged):
         x = torch.rand((n, 3), device="cuda", generator=gen)
         g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
@@ -2392,7 +2500,8 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
         rows = _level_rows(x, spec)
         args = (x, g, rows, table, scales, nbs, level_rows, F, offs)
         want = ek.fused_encode_bwd_cell_plain(*args)
-        got = ek.fused_encode_bwd_cell(*args)
+        got = k6c_buffers(n)
+        ek._launch_k6c(*args, *got)
         torch.cuda.synchronize()
         errs, row0 = [], 0
         for lvl, off in enumerate(offs):
@@ -2409,34 +2518,115 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
                 f"fused_encode_bwd_cell N={n}: table errors per level {errs}"
                 f" (limit {BWD_TABLE_FRAC}), d_x {err_x} (limit "
                 f"{BWD_DX_FRAC})")
+        touched = _touched_share(got[1], spans, F).tolist()
+        max_err = max((got[0][brick] - want[0][brick]).abs().max().item(),
+                      (got[1] - want[1]).abs().max().item(),
+                      (got[2] - want[2]).abs().max().item())
+        want_cell = want[1].clone()
+        # the fold: kernel on K6c's cell rows, plain version on a copy
+        d_c, d_t = got[1].clone(), got[0].clone()
+        ek.fold_cells_plain(d_c, d_t, level_rows, offs, F, bf16, accum)
+        ek.fold_cells(got[1], got[0], level_rows, offs, F, bf16, accum)
+        torch.cuda.synchronize()
+        fold_equal = torch.equal(got[0].view(torch.int32),
+                                 d_t.view(torch.int32))
+        fold_err = (got[0] - d_t).abs().max().item()
+        if not fold_equal or got[1].any():
+            raise AssertionError(f"fold_cells N={n}: not bit-equal to its "
+                                 f"plain version (max |diff| {fold_err}) or "
+                                 "the cell rows it read not zero")
+        # the wrapper (K6c into the resident buffer, then the fold)
+        # against the plain pair
+        _cell_buffers_zero(f"fused_encode_bwd_cell N={n} (before)")
+        pair_t, pair_x = ek.fused_encode_bwd_cell(*args, bf16, accum)
+        _cell_buffers_zero(f"fused_encode_bwd_cell N={n}")
+        ek.fold_cells_plain(want[1], want[0], level_rows, offs, F, bf16,
+                            accum)
+        pair_errs = (_frac_err(pair_t[brick], want[0][brick]),
+                     _frac_err(pair_x, want[2]))
+        folded, row0 = [], 0
+        for lvl, off in enumerate(offs):
+            if off >= 0:
+                sl = slice(row0, row0 + level_rows[lvl])
+                folded.append(_fold_bf16_steps(pair_t[sl], want[0][sl],
+                                               BWD_TABLE_FRAC))
+            row0 += level_rows[lvl]
+        if (not all(ok for _, _, ok in folded)
+                or pair_errs[0] > BWD_TABLE_FRAC
+                or pair_errs[1] > BWD_DX_FRAC):
+            raise AssertionError(
+                f"K6c + fold_cells N={n}: folded rows off by {folded} (bf16 "
+                f"steps, fraction of the largest entry; limit one step + "
+                f"{BWD_TABLE_FRAC}), brick rows and d_x by {pair_errs}")
         r = {"name": "fused_encode_bwd_cell", "n": n, "levels": L,
              "n_feat": F, "row_layout": spec.row_layout,
-             "cell_levels": [o >= 0 for o in offs],
-             "max_abs_err": max((a - b).abs().max().item()
-                                for a, b in zip(got, want)),
-             "table_err_frac_per_level": errs, "dx_err_frac": err_x}
+             "cell_levels": [o >= 0 for o in offs], "max_abs_err": max_err,
+             "table_err_frac_per_level": errs, "dx_err_frac": err_x,
+             "pair_brick_dx_err_frac": pair_errs,
+             "folded_bf16_steps_per_level": [f[0] for f in folded],
+             "folded_err_frac_per_level": [f[1] for f in folded],
+             "touched_brick_row_share": touched}
+        fr = {"name": "fold_cells", "n_brick_rows": sum(r_ for _, _, r_
+                                                          in spans),
+              "n_feat": F, "accum_bf16": accum, "bit_equal": fold_equal,
+              "max_abs_err": fold_err}
         if n == n_main:
-            rec = r
+            rec, fold_rec = r, fr
         if n == n_main and timed:
-            r["ms"] = cuda_ms(lambda: ek.fused_encode_bwd_cell(*args), 20)
+            r.update(times(args))
+            fr.update({"ms": r["fold_ms"],
+                       "old_fold_pair_ms": r["old_fold_pair_ms"]})
             r["plain_ms"] = cuda_ms(lambda: ek.fused_encode_bwd_cell_plain(
                 *args), 3)
-            r["k6_same_inputs_ms"] = cuda_ms(lambda: ek.fused_encode_bwd(
-                x, g, rows, table, scales, nbs, level_rows, F), 20)
+            d_c = want_cell.clone()
+            fr["plain_ms"] = cuda_ms(lambda: ek.fold_cells_plain(
+                d_c, want[0], level_rows, offs, F, bf16, accum), 3)
+            # the fold as one product by the expansion matrix's transpose
+            # [216F, 64F] (JAX's dot), on the cell rows as they lie
+            e_t = torch.zeros((216 * F, 64 * F), device="cuda")
+            idx = ek.fold_index("cuda").view(64, 8)
+            for c in range(64):
+                for s_ in idx[c].tolist():
+                    if s_ < 216:
+                        for f in range(F):
+                            e_t[s_ * F + f, c * F + f] = 1.0
+            cells = want_cell.view(-1, 216 * F)
+            fr["library_ms"] = cuda_ms(lambda: torch.matmul(cells, e_t), 20)
+            fold_b = n_cell * 8 * F * 4 * 2 + fr["n_brick_rows"] * 64 * F * 4
+            fr["bound_ms"] = fold_b / HBM_BYTES_PER_S * 1e3
+            fr["bound_by"] = "bytes"
+            # K6c's bounds: the bytes of its inputs and of what it must
+            # write once, the brick levels' table gradient and d_x (the
+            # cell levels' rows are the fold's output, the cell rows an
+            # intermediate), and the operations; beside them its corner
+            # reads plus atomic payload (K6's second bound)
             in_b = x.numel() * 4 + g.numel() * 2 + rows.numel() * 4 \
                 + table.numel() * 2
-            # written once: the brick levels' table gradient, the cell
-            # levels' cell rows and d_x
-            out_b = (sum(r_ for r_, o in zip(level_rows, offs) if o < 0)
-                     * 64 * F + want[1].numel() + want[2].numel()) * 4
+            brick_rows = sum(r_ for r_, o in zip(level_rows, offs) if o < 0)
+            out_b = (brick_rows * 64 * F + n * 3) * 4
             t_bytes = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
             t_ops = n * L * 8 * F * 2 * 2 / F32_FLOPS * 1e3
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            r["corner_atomic_bound_ms"] = (n * L * (4 * 8 * F + 8 * F * 4)
+                                           / HBM_BYTES_PER_S * 1e3)
+            for label, xs in (("ray_major", _ray_major_x(n // 64, seed)),
+                              ("n_1m", torch.rand((1 << 20, 3),
+                                                  device="cuda",
+                                                  generator=gen))):
+                gs = g if xs.shape[0] == n else (
+                    torch.randn((xs.shape[0], L * F), device="cuda",
+                                generator=gen) * 1e-3).to(torch.bfloat16)
+                r[label] = times((xs, gs, _level_rows(xs, spec), table,
+                                  scales, nbs, level_rows, F, offs))
+                r[label]["n"] = xs.shape[0]
+            del e_t, cells
         log(json.dumps({"kernel_check": r}))
-        del want, got
+        log(json.dumps({"kernel_check": fr}))
+        del want, want_cell, got, d_c, d_t, pair_t, pair_x
         torch.cuda.empty_cache()
-    return rec
+    _cell_buffers_zero("cell backward kernel phase")
+    return rec, fold_rec
 
 
 def _unique_row_batch(spec, n, seed):
@@ -2580,19 +2770,83 @@ def _short_run(label, cfg, flags, scene, seed, steps, encoders, bwd,
     return out, trainer
 
 
+def _cell_buffers_zero(label):
+    """Fails unless every resident cell buffer (ek.cell_buffer) is all
+    zero."""
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    torch.cuda.synchronize()
+    if any(buf.any() for buf in ek.cell_buffers()):
+        raise AssertionError(f"{label}: the resident cell buffer is not all "
+                             "zero")
+
+
+def _cell_step_readings(trainer, spec):
+    """A cell-layout trainer's steady chunk: its device ms and kernels a
+    step and K6c's and fold_cells' share of it (profiler, one chunk after
+    a warm one), then, over one more chunk, the share of each cell level's
+    brick rows that K6c touched: the rows of the samples whose cotangent
+    on that level is not all zero (the samples K6c adds), read by a hook
+    on the encoder's output."""
+    import torch
+    from cednerf_torch.utils.bench import device_ms
+
+    k = trainer.steps_per_call
+    dev, rows = device_ms(trainer.run_chunk, 1)
+    out = {"device_ms_per_step": dev / k,
+           "kernels_per_step": sum(calls for _, calls, _ in rows) / k,
+           "k6c_device_ms_per_step": sum(
+               ms for name, _, ms in rows if "encode_bwd_kernel" in name) / k,
+           "fold_device_ms_per_step": sum(
+               ms for name, _, ms in rows if "fold_cells_kernel" in name) / k}
+    level_rows = [l["rows"] for l in spec.level_layout()]
+    cells = [lvl for lvl, c in enumerate(spec.cell_levels()) if c]
+    F, shares = spec.n_features, []
+
+    def touched(x, g):
+        brick = _level_rows(x, spec)
+        hit = []
+        for lvl in cells:
+            live = (g[:, lvl * F:(lvl + 1) * F] != 0).any(1).float()
+            seen = torch.zeros(level_rows[lvl], device=x.device)
+            seen.index_add_(0, brick[lvl].long(), live)
+            hit.append((seen > 0).float().mean())
+        shares.append(torch.stack(hit))
+
+    def on_forward(module, args, enc):
+        if enc.requires_grad:
+            x = args[0].detach()
+            enc.register_hook(lambda g: touched(x, g))
+
+    handle = trainer.state.field.hash_encoder.register_forward_hook(
+        on_forward)
+    try:
+        trainer.run_chunk()
+    finally:
+        handle.remove()
+    out["touched_brick_row_share"] = torch.stack(shares).mean(0).tolist()
+    out["touched_steps"] = len(shares)
+    _cell_buffers_zero("cell step readings")
+    return out
+
+
 def secondary_phase(seed):
     """Phase 15, the secondary encoders and row layouts at the full width
     of dnerf_config (-te -ta -f -ae -df -d):
       1. row_layout "cell" with fine_table_rows 65536 (the JAX bench
-         default: levels 3-4 cell, 5-7 brick): K5 and K6c against their
-         plain versions at 262,144 samples and a ragged 100,003 (phase 1's
-         and 2's limits), K6c once more at 262,144 for "cellz" and
-         "cellfused"; the reference step card vs CPU for the cell layout
-         (its CPU side rounds and folds), 3D and hash4d (K3 into the cell
-         rows), at phase 6's limits;
-         Trainer.run(CELL_STEPS) on TexturedCloudScene's device sampler
-         past the 256-step warmup: finite losses, rising PSNR, K6c once a
-         step, K5 once a step plus the probes, K4 once a step, no K6;
+         default: levels 3-4 cell, 5-7 brick): K5, K6c and fold_cells
+         against their plain versions at 262,144 samples and a ragged
+         100,003 (phase 1's and 2's limits; the fold bit for bit), timed
+         (cell_backward_kernel_phase), K6c and the fold once more at
+         262,144 for "cellz" and "cellfused"; the reference step card vs
+         CPU for the cell layout (its CPU side rounds and folds), 3D and
+         hash4d (K3 into the cell rows), through fold_cells, at phase 6's
+         limits; Trainer.run(CELL_STEPS) on TexturedCloudScene's device
+         sampler past the 256-step warmup: finite losses, rising PSNR, K6c
+         and fold_cells once a step, K5 once a step plus the probes, K4
+         once a step, no K6; the resident cell buffers (K6c's, and K3's
+         on the 4D route) all zero after each of these, then freed; one
+         chunk's device ms and the touched brick-row share;
       2. hash4motion: K5 and K6 against their plain versions on the motion
          grid's own levels (L8 F2, 16 -> 2048: levels 0-2 dense), then a
          short run (K5 and K6 twice a step);
@@ -2612,6 +2866,7 @@ def secondary_phase(seed):
     from cednerf_torch.engine.renderer import (eval_chunk_for,
                                                make_eval_render_fn,
                                                render_image)
+    from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.utils.bench import TRAIN_FLAGS
     from cednerf_torch.utils.metrics import psnr
 
@@ -2625,8 +2880,9 @@ def secondary_phase(seed):
     out["cell_levels"] = spec.cell_levels()
     kern.update(kernel_phase(field, cell_cfg.sample_budget, 100_003, seed,
                              names=("fused_encode_fwd",), timed=False))
-    kern["fused_encode_bwd_cell"] = cell_backward_kernel_phase(
-        field, cell_cfg.sample_budget, 100_003, seed)
+    kern["fused_encode_bwd_cell"], kern["fold_cells"] = \
+        cell_backward_kernel_phase(field, cell_cfg.sample_budget, 100_003,
+                                   seed)
     for layout in ("cellz", "cellfused"):
         f = build_field(dataclasses.replace(cell_cfg, row_layout=layout),
                         flags, device="cuda", seed=seed)
@@ -2652,10 +2908,23 @@ def secondary_phase(seed):
             ("gather", {}, {}, "gather", None)):
         c = dataclasses.replace(ref_cfg, **cfg_kw)
         fl = ModelFlags(**TRAIN_FLAGS, **flag_kw)
+        reset_counts()
         out["reference_steps"][label] = _ref_step_check(
             f"reference step {label}", _ref_step_runs(
                 c, fl, bins, batch, jitter, seed, ("xla",),
                 encoder_impl=impl, compute_dtype=dtype), ("xla",))
+        if "cell" in label:
+            # the card's backward went through fold_cells (3D: once, after
+            # K6c; 4D: once a cell level, after K3) and left the cell buffers
+            # all zero
+            counts, _ = all_counts()
+            out["reference_steps"][label]["launches"] = {
+                k: counts[k] for k in ("fused_encode_bwd_cell", "fold_cells",
+                                       "scatter_add_rows")}
+            _cell_buffers_zero(f"reference step {label}")
+            if not counts["fold_cells"]:
+                raise AssertionError(f"reference step {label}: fold_cells "
+                                     f"was not launched: {counts}")
     # the tri-plane step in bf16, read and not held to the limits: its
     # encoder agrees (triplane_encoder_check; in f32 the whole step does,
     # above), but its 137-wide mlp_base input (128 encoder features
@@ -2680,7 +2949,17 @@ def secondary_phase(seed):
     out["train_cell_texture"], tr = _short_run(
         "train_cell_texture", cell_cfg, flags, scene, seed, CELL_STEPS, 1,
         "fused_encode_bwd_cell")
+    _cell_buffers_zero("train_cell_texture")
+    out["train_cell_texture"].update(_cell_step_readings(tr, spec))
+    log(json.dumps({"train_cell_texture_step": {
+        k: out["train_cell_texture"][k] for k in (
+            "device_ms_per_step", "kernels_per_step",
+            "k6c_device_ms_per_step",
+            "fold_device_ms_per_step", "touched_brick_row_share")}}))
     del tr
+    # the cell layouts are done: free their resident buffers, which would
+    # count toward the later peak-memory readings
+    ek.release_cell_buffers()
     torch.cuda.empty_cache()
 
     h4m = ModelFlags(**TRAIN_FLAGS, hash4motion=True)
@@ -3398,6 +3677,7 @@ def main(argv=None):
 
     sec, sec_kern = secondary_phase(args.seed)
     kern["fused_encode_bwd_cell"] = sec_kern["fused_encode_bwd_cell"]
+    kern["fold_cells"] = sec_kern["fold_cells"]
     log(json.dumps({"secondary": {k: v for k, v in sec.items()
                                   if k != "reference_steps"}}))
     log(f"secondary phase: {sec['phase_s']:.1f} s")
@@ -3423,6 +3703,8 @@ def main(argv=None):
         # the cell levels' table-gradient scatter: JAX's _scatter_rows into
         # [rows*27, 8F] (its Pallas route: scatter_add_rows)
         "fused_encode_bwd_cell": "cednerf_tpu/ops/pallas_scatter.py:87",
+        # the transpose of the cell layouts' expansion dot (its backward)
+        "fold_cells": "cednerf_tpu/ops/brick_grid.py:684",
         "interp_bwd_fused": "cednerf_tpu/ops/pallas_encoder.py:307",
         "compact_select": "cednerf_tpu/ops/pallas_compact.py:47",
         "scatter_add_rows": "cednerf_tpu/ops/pallas_scatter.py:87",
@@ -3434,6 +3716,7 @@ def main(argv=None):
         "interp_fwd": "cednerf_torch/csrc/brick_encode_fwd.cu",
         "fused_encode_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "fused_encode_bwd_cell": "cednerf_torch/csrc/brick_encode_bwd.cu",
+        "fold_cells": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "interp_bwd_fused": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "compact_select": "cednerf_torch/csrc/compact_select.cu",
         "scatter_add_rows": "cednerf_torch/csrc/scatter_add_rows.cu",
@@ -3489,7 +3772,21 @@ def main(argv=None):
         if name == "fused_encode_bwd":
             line[-1]["one_brick_ms"] = cells[-1]["ms"]
         if name == "fused_encode_bwd_cell":
-            line[-1]["k6_same_inputs_ms"] = r["k6_same_inputs_ms"]
+            line[-1].update({k: r[k] for k in (
+                "k6_same_inputs_ms", "corner_atomic_bound_ms", "old_k6c_ms",
+                "pair_ms", "old_pair_ms", "touched_brick_row_share")})
+            line[-1]["ray_major_ms"] = r["ray_major"]["ms"]
+            line[-1]["n_1m"] = {k: r["n_1m"][k] for k in (
+                "n", "ms", "fold_ms", "pair_ms", "old_pair_ms",
+                "k6_same_inputs_ms")}
+        if name == "fold_cells":
+            k6c = kern["fused_encode_bwd_cell"]
+            line[-1].update({
+                "old_fold_pair_ms": r["old_fold_pair_ms"],
+                "ray_major_ms": k6c["ray_major"]["fold_ms"],
+                "n_1m_ms": k6c["n_1m"]["fold_ms"],
+                "train_cell_texture_device_ms_per_step":
+                sec["train_cell_texture"]["fold_device_ms_per_step"]})
         mg = {"fused_encode_fwd": "motion_grid_fwd",
               "fused_encode_bwd": "motion_grid_bwd"}.get(name)
         if mg:       # the hash4motion grid's levels (F = 2)

@@ -12,14 +12,21 @@ cednerf_tpu/ops/brick_grid.py.
     terms per cell row in f32, round the sums to bf16, fold them onto the
     brick corners (the expansion matmul's transpose) with a bf16 result and
     cast that to the f32 master. The port keeps those points (K6c's plain
-    version and the 4D route's fold), so its cell-level gradients equal
+    version and fold_cells), so its cell-level gradients equal
     JAX's bit for bit when JAX runs op by op; the brick route's f32
     gradients differ from them by more than a bf16 ulp on a large share of
     entries, which is what shows the rounding was carried over. Under jit
     XLA keeps some of the bf16 products of a fusion in f32 (excess
     precision), so the jitted JAX gradients are not the reference here.
+  * fold_cells' plain version against the vjp of JAX's
+    `_expand_cell_table`, F 1, 2 and 4, bf16 and f32 accumulators; the cell
+    layouts' backward wrapper (K6c and the fold) on CPU tensors against the
+    plain versions and the fold as it was written before its kernel.
   * remat_feats: bit-identical outputs and gradients on every route.
 """
+
+import importlib.util
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -183,28 +190,102 @@ def test_cell_bf16_grads_keep_jax_rounding(spec_kw):
         assert far.mean() > 0.1, (name, far.mean())
 
 
-def test_fold_matches_jax_expansion_transpose():
-    """_fold_cells against the vjp of JAX's _expand_cell_table (bf16),
-    given the same bf16 per-cell gradient: equal."""
+@pytest.mark.parametrize("accum", ["float32", "bfloat16"])
+@pytest.mark.parametrize("f", [1, 2, 4])
+def test_fold_matches_jax_expansion_transpose(f, accum):
+    """fold_cells (its plain version, which the wrapper runs on CPU tensors)
+    against the vjp of JAX's _expand_cell_table, given the same per-cell
+    gradient in the accumulator's dtype (JAX's _scatter_rows result): at a
+    bf16 compute dtype equal; at f32 f32 sums of <= 8 terms of size ~1 in
+    another order (rtol 1e-6). The fold writes the cell level's rows of
+    the table gradient alone and zeroes the cell rows it read."""
     rng = np.random.default_rng(5)
-    for f in (2, 4):
-        rows = 7
-        d_cell = rng.normal(0, 1, (rows * 27, 8 * f)).astype(np.float32)
-        d_cell[rng.uniform(size=d_cell.shape) < 0.3] = 0
-        table = jnp.zeros((rows, 64 * f), jnp.bfloat16)
-        _, vjp = jax.vjp(lambda tb: jbg._expand_cell_table(tb, f), table)
-        want = np.asarray(vjp(jnp.asarray(d_cell).astype(jnp.bfloat16))[0],
-                          np.float32)
-        got = tbg._fold_cells(torch.from_numpy(d_cell), f, torch.bfloat16,
-                              False).numpy()
-        np.testing.assert_array_equal(got, want)
-        # f32 compute: f32 sums of <= 8 terms of size ~1, in another order
-        _, vjp32 = jax.vjp(lambda tb: jbg._expand_cell_table(tb, f),
-                           jnp.zeros((rows, 64 * f), jnp.float32))
-        np.testing.assert_allclose(
-            tbg._fold_cells(torch.from_numpy(d_cell), f, torch.float32,
-                            False).numpy(),
-            np.asarray(vjp32(jnp.asarray(d_cell))[0]), rtol=1e-6, atol=1e-6)
+    rows = 7
+    d_cell = rng.normal(0, 1, (rows * 27, 8 * f)).astype(np.float32)
+    d_cell[rng.uniform(size=d_cell.shape) < 0.3] = 0
+    accum_bf16 = accum == "bfloat16"
+    sums = jnp.asarray(d_cell).astype(jnp.dtype(accum))
+    level_rows = [3, rows, 2]            # the cell level between two others
+    ek.reset_counts()
+    for dtype, jdt in ((torch.bfloat16, jnp.bfloat16),
+                       (torch.float32, jnp.float32)):
+        _, vjp = jax.vjp(lambda tb: jbg._expand_cell_table(tb, f),
+                         jnp.zeros((rows, 64 * f), jdt))
+        want = np.asarray(vjp(sums.astype(jdt))[0], np.float32)
+        cells = torch.from_numpy(d_cell.copy())
+        d_table = torch.full((sum(level_rows), 64 * f), 7.0)
+        got = ek.fold_cells(cells, d_table, level_rows, [-1, 0, -1], f,
+                            dtype, accum_bf16)
+        assert got is d_table and not cells.any()
+        assert (d_table[:3] == 7).all() and (d_table[3 + rows:] == 7).all()
+        if dtype == torch.bfloat16:
+            np.testing.assert_array_equal(d_table[3:3 + rows].numpy(), want)
+        else:
+            np.testing.assert_allclose(d_table[3:3 + rows].numpy(), want,
+                                       rtol=1e-6, atol=1e-6)
+    assert ek.launches["fold_cells"] == 0
+    assert ek.plain_cuda_calls["fold_cells"] == 0
+
+
+def _old_fold_ops():
+    """chip_smoke.py's old_fold_ops: the fold as the port ran it before its
+    kernel (the slots gathered by the fold index, one .sum over them),
+    kept there for the card's A/B and loaded from there."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.old_fold_ops
+
+
+@pytest.mark.parametrize("accum", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cell_backward_wrappers_on_cpu(dtype, accum):
+    """On CPU tensors the cell layouts' backward (fused_encode_bwd_cell:
+    K6c, then the fold) returns its plain version's brick levels' rows and
+    d_x, and the cell levels' rows folded as before the fold kernel (a
+    .sum over the slots: equal at a bf16 compute dtype, f32 sums in
+    another order at f32); no kernel launches."""
+    spec = tbg.BrickGridSpec(**dict(SPEC3, row_layout="cell"))
+    lay = spec.level_layout()
+    scales, nbs = spec.level_scales(), [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    F, L = spec.n_features, spec.n_levels
+    offs, off = [], 0
+    for r, cell in zip(level_rows, spec.cell_levels()):
+        offs.append(off if cell else -1)
+        off += 27 * r if cell else 0
+    assert off and min(offs) < 0
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.uniform(0, 1, (500, 3)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(0, 1, (500, L * F)).astype(np.float32)
+                         ).to(torch.bfloat16)
+    table = torch.from_numpy(rng.normal(0, 1, (sum(level_rows), 64 * F))
+                             .astype(np.float32)).to(torch.bfloat16)
+    rows = torch.stack([tbg._level_geom(x, s, b, l["hashed"], l["rows"])[0]
+                        for s, b, l in zip(scales, nbs, lay)])
+    args = (x, g, rows, table, scales, nbs, level_rows, F, offs)
+    bf16 = dtype == torch.bfloat16
+    ek.reset_counts()
+    want = ek.fused_encode_bwd_cell_plain(*args, bf16_terms=bf16)
+    d_t, d_x = ek.fused_encode_bwd_cell(*args, dtype, accum == "bfloat16")
+    assert torch.equal(d_x, want[2])
+    old_fold, t0 = _old_fold_ops(), 0
+    for r, c in zip(level_rows, offs):
+        if c < 0:
+            assert torch.equal(d_t[t0:t0 + r], want[0][t0:t0 + r])
+        else:
+            old = old_fold(want[1][c:c + 27 * r], F, dtype,
+                           accum == "bfloat16")
+            assert old.abs().max() > 0
+            if bf16:
+                assert torch.equal(d_t[t0:t0 + r], old)
+            else:
+                torch.testing.assert_close(d_t[t0:t0 + r], old, rtol=1e-6,
+                                           atol=1e-6)
+        t0 += r
+    assert not any(ek.launches.values())
 
 
 def test_k6c_plain_targets():
@@ -236,9 +317,8 @@ def test_k6c_plain_targets():
         x, g, rows, table, scales, nbs, level_rows, F, offs,
         bf16_terms=False)
     assert not d_t.any() and torch.equal(d_x, want_x)
-    folded = torch.cat([
-        tbg._fold_cells(d_c[o:o + 27 * r], F, torch.float32, False)
-        for o, r in zip(offs, level_rows)])
+    folded = ek.fold_cells(d_c, torch.zeros_like(want_t), level_rows, offs,
+                           F, torch.float32, False)
     torch.testing.assert_close(folded, want_t, rtol=1e-5, atol=1e-6)
 
 

@@ -170,11 +170,11 @@ def test_wrappers_on_cpu_take_the_plain_version():
     d_t1, _ = ek.interp_bwd_fused(xt, g, feats, rows_t, scales, nbs,
                                   level_rows, 2)
     upd, d_x7 = ek.interp_bwd(xt, g, feats, scales, nbs, 2)
-    d_tc, d_c, d_xc = ek.fused_encode_bwd_cell(
+    d_tc, d_xc = ek.fused_encode_bwd_cell(
         xt, g, rows_t, table, scales, nbs, level_rows, 2,
-        [-1] * (len(lay) - 1) + [0])
-    assert d_c.shape == (27 * level_rows[-1], 16)
-    assert not d_tc[sum(level_rows[:-1]):].any()
+        [-1] * (len(lay) - 1) + [0], torch.bfloat16, False)
+    assert d_tc.shape == (sum(level_rows), 128)
+    assert d_tc[sum(level_rows[:-1]):].any()
     torch.testing.assert_close(d_xc, d_x)
     assert out.shape == (64, 8) and out.dtype == torch.bfloat16
     assert out1.shape == (0, 8)
@@ -183,6 +183,7 @@ def test_wrappers_on_cpu_take_the_plain_version():
     assert upd.shape == (len(lay), 64, 128) and upd.dtype == torch.float32
     torch.testing.assert_close(d_x7, d_x)
     names = {"interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
-             "fused_encode_bwd_cell", "interp_bwd_fused", "interp_bwd"}
+             "fused_encode_bwd_cell", "fold_cells", "interp_bwd_fused",
+             "interp_bwd"}
     assert ek.launches == dict.fromkeys(names, 0)
     assert ek.plain_cuda_calls == dict.fromkeys(names, 0)

@@ -1,7 +1,8 @@
-"""The CUDA kernels K1, K5, K6, K6c, K2, K4, K3, K7 and K8 against their plain
-versions (K5 and K6 also at the proposal density fields' layout), K4's
-cached scratch across calls, and the 4D keyframe encoder (whose backward
-runs K3) against the CPU, on the card.
+"""The CUDA kernels K1, K5, K6, K6c, fold_cells, K2, K4, K3, K7 and K8
+against their plain versions (K5 and K6 also at the proposal density
+fields' layout), K4's cached scratch across calls, the cell layouts'
+backward and its resident buffer, and the 4D keyframe encoder (whose
+backward runs K3) against the CPU, on the card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither jax nor the JAX package, so it runs on a machine that has only the
@@ -14,7 +15,11 @@ Tolerances: f32 output rtol 1e-5, atol 1e-9 (summation order only, at the
 kernels (K6, K2: one kernel body, on the table or on the gathered rows):
 their f32 atomics add in another order than the plain version's index_add,
 so each gradient is held to 1e-5 of its largest entry (plus rtol 1e-5);
-K2's d_x, summed in level order, is bit-equal across two launches. K4
+K2's d_x, summed in level order, is bit-equal across two launches.
+fold_cells against its plain version: bit for bit (the same roundings and
+f32 sums in the same order); K6c + fold against the plain pair: each
+folded entry within one bf16 step plus 1e-4 of the largest (the fold
+rounds to bf16 sums that atomics added in another order). K4
 (compaction) is integer work: bit-exact. K3 (row scatter-add) sums with
 f32 atomics against index_add's order: 1e-5 of the largest entry, as K6.
 The 4D encoder on the card against the CPU: the
@@ -253,35 +258,166 @@ def test_backward_kernels_match_plain(n_feat, n, levels, points):
     _close_to_scale(k2_plain[1], want_x)
 
 
-@pytest.mark.parametrize("n_feat,n,levels,points", [
-    (4, 1001, 8, None), (2, 4099, 8, None), (1, 33, 3, None),
-    (4, 101, 8, "cells"), (4, 20000, 8, "one brick"),
-    (4, 20000, 8, "ray major")])
-def test_k6c_matches_plain(n_feat, n, levels, points):
-    """K6c (the cell layouts' backward) against its plain version, the
-    hashed levels on the per-cell target and the dense ones on K6's: each
-    array within 1e-5 of its largest entry, as K6 (the same bf16 terms,
-    f32 atomics in another order)."""
-    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
-        3, n_feat, n, levels, points)
-    spec = tbg.BrickGridSpec(n_levels=levels, n_features=n_feat,
-                             base_res=16, max_res=512, log2_hashmap_size=16,
-                             max_table_rows=2048)
+def _cell_offsets(spec):
+    """K6c's and fold_cells' cell_rows: the hashed levels' cell rows back
+    to back, -1 for the dense levels (which keep K6's brick target)."""
     offs, off = [], 0
     for lay in spec.level_layout():
         offs.append(off if lay["hashed"] else -1)
         off += 27 * lay["rows"] if lay["hashed"] else 0
     assert off > 0
+    return offs
+
+
+def _bf16_close(got, want):
+    """Each entry within one bf16 step of want's plus 1e-4 of its largest
+    entry: a fold's bf16 rounding of f32 sums that atomics added in
+    another order."""
+    step = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8)
+    bad = (got - want).abs() > step + 1e-4 * want.abs().max()
+    assert not bool(bad.any()), (got[bad][:8], want[bad][:8])
+
+
+@pytest.mark.parametrize("n_feat,n,levels,points", [
+    (4, 1001, 8, None), (2, 4099, 8, None), (1, 33, 3, None),
+    (4, 3001, 16, None), (4, 101, 8, "cells"), (4, 20000, 8, "one brick"),
+    (4, 20000, 8, "ray major")])
+def test_k6c_matches_plain(n_feat, n, levels, points):
+    """K6c (the cell layouts' backward) against its plain version, the
+    hashed levels on the per-cell target and the dense ones on K6's: K6c
+    launched into zeroed buffers, its brick levels' table gradient, its
+    cell rows and d_x each within 1e-5 of its largest entry, as K6 (the
+    same bf16 terms, f32 atomics in another order); then the wrapper (K6c
+    into the resident buffer, then fold_cells): the brick levels' rows and
+    d_x as K6c's, the cell levels' rows against the plain fold of the plain
+    cell rows (_bf16_close), and the resident buffer zero again. At L16 F4
+    the bulk reductions' staging needs more than 48 KB of shared memory."""
+    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        3, n_feat, n, levels, points)
+    spec = tbg.BrickGridSpec(n_levels=levels, n_features=n_feat,
+                             base_res=16, max_res=512, log2_hashmap_size=16,
+                             max_table_rows=2048)
+    offs = _cell_offsets(spec)
     gen = torch.Generator(device="cuda").manual_seed(5)
     g = torch.randn((x.shape[0], levels * n_feat), device="cuda",
                     generator=gen).to(torch.bfloat16)
     g[::7] = 0
     args = (x, g, rows, table, scales, nbs, level_rows, n_feat, offs)
     want = ek.fused_encode_bwd_cell_plain(*args)
-    got = ek.fused_encode_bwd_cell(*args)
+    ek.reset_counts()
+    d_t, d_c = torch.zeros_like(want[0]), torch.zeros_like(want[1])
+    d_x = torch.empty_like(want[2])
+    ek._launch_k6c(*args, d_t, d_c, d_x)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        _close_to_scale(a, b)
+    brick = torch.repeat_interleave(torch.tensor([o < 0 for o in offs]),
+                                    torch.tensor(level_rows)).cuda()
+    _close_to_scale(d_t[brick], want[0][brick])
+    _close_to_scale(d_c, want[1])
+    _close_to_scale(d_x, want[2])
+    got_t, got_x = ek.fused_encode_bwd_cell(*args, torch.bfloat16, False)
+    ek.fold_cells_plain(want[1], want[0], level_rows, offs, n_feat,
+                        torch.bfloat16, False)
+    torch.cuda.synchronize()
+    assert all(not b.any() for b in ek.cell_buffers())
+    _close_to_scale(got_t[brick], want[0][brick])
+    _close_to_scale(got_x, want[2])
+    _bf16_close(got_t[~brick], want[0][~brick])
+    assert ek.launches["fused_encode_bwd_cell"] == 2
+    assert ek.launches["fold_cells"] == 1
+
+
+@pytest.mark.parametrize("n_feat", [4, 2, 1])
+@pytest.mark.parametrize("accum_bf16", [False, True])
+@pytest.mark.parametrize("compute", [torch.bfloat16, torch.float32])
+def test_fold_cells_matches_plain(n_feat, accum_bf16, compute):
+    """fold_cells against its plain version on the same card tensors: the
+    folded rows bit for bit, every other row of the table gradient left as
+    it was, the cell rows it read zero. Two cell levels with a brick level
+    between them, of row counts that split the kernel's blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    level_rows, offs = [13, 5, 2051], [0, -1, 27 * 13]
+    gen = torch.Generator(device="cuda").manual_seed(n_feat)
+    d_cell = torch.randn((27 * (13 + 2051), 8 * n_feat), device="cuda",
+                         generator=gen) * 100
+    d_cell[torch.rand(d_cell.shape, device="cuda", generator=gen) < 0.3] = 0
+    fill = torch.randn((sum(level_rows), 64 * n_feat), device="cuda",
+                       generator=gen)
+    want_c, want_t = d_cell.clone(), fill.clone()
+    ek.fold_cells_plain(want_c, want_t, level_rows, offs, n_feat, compute,
+                        accum_bf16)
+    got_t = fill.clone()
+    ek.reset_counts()
+    assert ek.fold_cells(d_cell, got_t, level_rows, offs, n_feat, compute,
+                         accum_bf16) is got_t
+    torch.cuda.synchronize()
+    assert ek.launches["fold_cells"] == 1
+    assert not d_cell.any() and not want_c.any()
+    assert torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
+    assert torch.equal(got_t[13:18], fill[13:18])
+
+
+def _unique_row_x(spec, n, seed):
+    """Up to n points of the unit cube no two of which share a brick row
+    on any level of spec: each address of the backward then takes at most
+    one atomic add, so its gradients do not depend on the adds' order."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((1 << 16, 3), device="cuda", generator=gen)
+    rows = torch.stack([tbg._level_geom(x, s, l["n_bricks_axis"],
+                                        l["hashed"], l["rows"])[0]
+                        for s, l in zip(spec.level_scales(),
+                                        spec.level_layout())]).cpu().numpy()
+    used = [set() for _ in range(rows.shape[0])]
+    keep = []
+    for i in range(rows.shape[1]):
+        if all(rows[l, i] not in used[l] for l in range(len(used))):
+            keep.append(i)
+            for l in range(len(used)):
+                used[l].add(rows[l, i])
+            if len(keep) == n:
+                break
+    return x[torch.tensor(keep, device="cuda")]
+
+
+@pytest.mark.parametrize("keyframes", [0, 4], ids=["3d", "4d"])
+def test_cell_backward_leaves_its_buffer_zero(keyframes):
+    """brick_encode's backward on the cell layout: K6c once and fold_cells
+    once (3D, every cell level in one launch) or K3 and fold_cells once a
+    cell level (4D), and the resident cell buffers all zero after each
+    backward; two backwards in a row on a batch of one sample a brick row
+    give the same gradients bit for bit (a buffer left unzeroed would add
+    the first into the second)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    spec = tbg.BrickGridSpec(n_levels=8, n_features=4, base_res=16,
+                             max_res=512, log2_hashmap_size=16,
+                             max_table_rows=2048, row_layout="cell",
+                             grad_accum_dtype="bfloat16",
+                             time_keyframes=keyframes)
+    cells = spec.cell_levels()
+    assert any(cells) and not all(cells) or keyframes
+    x = _unique_row_x(spec, 200, 11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    t = torch.rand((x.shape[0], 1), device="cuda", generator=gen)
+    cot = torch.randn((x.shape[0], spec.output_dim), device="cuda",
+                      generator=gen)
+    params = {k: torch.rand(s, device="cuda", generator=gen) * 2 - 1
+              for k, s in spec.param_shapes()}
+    runs = []
+    for _ in range(2):
+        ek.reset_counts()
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xr = x.clone().requires_grad_()
+        out = tbg.brick_encode(xr, p, spec, t=t if keyframes else None)
+        (out.float() * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert all(not b.any() for b in ek.cell_buffers())
+        assert ek.launches["fold_cells"] == (sum(cells) if keyframes else 1)
+        assert ek.launches["fused_encode_bwd_cell"] == (0 if keyframes
+                                                        else 1)
+        runs.append([xr.grad] + [p[k].grad for k in sorted(p)])
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.parametrize("n_feat,points", [(4, "ray major"), (2, None)])
@@ -394,6 +530,28 @@ def test_k3_matches_plain(m, w, n_rows, bf16):
     _close_to_scale(got, want)
     with pytest.raises(ValueError):
         sk.scatter_add_rows(rows.long(), upd, n_rows)
+
+
+@pytest.mark.parametrize("m,w,n_rows", [(20000, 32, 864 * 27),
+                                         (777, 30, 50)])
+def test_k3_adds_into_out(m, w, n_rows):
+    """K3 given `out` (the 4D cell levels' resident buffer): added into,
+    not zeroed first: out + the plain version's sums within 1e-5 of the
+    largest entry, the buffer returned."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    rows = torch.randint(-2, n_rows + 3, (m,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    upd = torch.randn((m, w), device="cuda", generator=gen)
+    base = torch.randn((n_rows, w), device="cuda", generator=gen)
+    want = base + sk.scatter_add_rows_plain(rows, upd, n_rows)
+    out = base.clone()
+    sk.reset_counts()
+    assert sk.scatter_add_rows(rows, upd, n_rows, out=out) is out
+    torch.cuda.synchronize()
+    assert sk.launches["scatter_add_rows"] == 1
+    _close_to_scale(out, want)
 
 
 def test_keyframe_encoder_card_matches_cpu():

@@ -126,6 +126,27 @@ def test_k3_plain_takes_bf16_rows():
                                atol=1e-5)
 
 
+def test_k3_plain_adds_into_out():
+    """Given `out` (the 4D cell levels' resident buffer), the plain K3 adds
+    into it and returns it: out + the rows' sums, rows past the table
+    dropped; an out of another shape raises."""
+    rows, upd = _k3_case(6, 1003, 32, 200)
+    rows[::50] = 200 + np.arange(len(rows[::50])) % 7
+    rows[1::50] = -1
+    base = np.random.default_rng(7).normal(size=(200, 32)).astype(np.float32)
+    out = torch.from_numpy(base.copy())
+    got = sk.scatter_add_rows(torch.from_numpy(rows), torch.from_numpy(upd),
+                              200, out=out)
+    assert got is out
+    keep = (rows >= 0) & (rows < 200)
+    want = base.astype(np.float64)
+    np.add.at(want, rows[keep], upd[keep])
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    with pytest.raises(ValueError):
+        sk.scatter_add_rows(torch.from_numpy(rows), torch.from_numpy(upd),
+                            200, out=torch.zeros((199, 32)))
+
+
 # --------------------------------------------------------------------- #
 # The 4D keyframe encoder
 
