@@ -13,6 +13,18 @@
 // n; kept [n] bool: valid & (rank < B), rank being the number of valid
 // candidates before it. This is a stream compaction with a cut-off.
 //
+// With n_blocks > 1 (the ray-parallel layout of
+// cednerf_tpu/engine/renderer.py::compact_select, compact_blocks > 1) the
+// lattice is n_blocks contiguous blocks of nb = n / n_blocks candidates
+// (whole rays), each compacted on its own into its bb = B / n_blocks slots
+// of sel: block b's slots [b*bb, (b+1)*bb) hold its candidates' flat
+// indices (ascending), then the sentinel n; rank counts within the block.
+// Each block has its own tiles, status words and look-back, so the grid's
+// claims run over (block, tile) pairs, block-major; a block's fill blocks
+// wait on that block's last tile only. Block starts need not be 16-byte
+// aligned (nb is any multiple of M): a thread whose 32 candidates do not
+// start on a 16-byte boundary loads and stores them one byte at a time.
+//
 // The TPU kernel walks the lattice in tiles on one core, carrying the
 // running count in scratch memory, and builds each tile's ranks and
 // placement with triangular, permutation and shift matmuls on the MXU, which
@@ -119,12 +131,14 @@ struct alignas(16) Items {
   uint8_t v[kItems];
 };
 
-// This thread's 32 candidates (0 past the end). `valid` is 16-byte aligned
-// (the wrapper checks), so a whole chunk is two vector loads.
+// This thread's 32 candidates (0 at `end` and past it). `valid` is 16-byte
+// aligned (the wrapper checks), so a whole chunk at an aligned `base` is
+// two vector loads; an unaligned one (a block start off 16 bytes) is read
+// byte by byte.
 __device__ __forceinline__ Items load_items(const uint8_t* __restrict__ valid,
-                                            long long base, long long n) {
+                                            long long base, long long end) {
   Items it;
-  if (base + kItems <= n) {
+  if (base + kItems <= end && (base & 15) == 0) {
 #pragma unroll
     for (int j = 0; j < kVecs; ++j)
       reinterpret_cast<uint4*>(it.v)[j] =
@@ -132,7 +146,7 @@ __device__ __forceinline__ Items load_items(const uint8_t* __restrict__ valid,
   } else {
 #pragma unroll
     for (int k = 0; k < kItems; ++k)
-      it.v[k] = base + k < n ? valid[base + k] : 0;
+      it.v[k] = base + k < end ? valid[base + k] : 0;
   }
   return it;
 }
@@ -175,11 +189,13 @@ __device__ __forceinline__ unsigned look_back(const u64* status, int tile,
   }
 }
 
+// Grid: n_blocks * n_tiles tile claims (n_tiles per block, block-major),
+// then n_blocks * n_fill fill claims. budget and nb are per block.
 __global__ void __launch_bounds__(kThreads)
     compact_select_kernel(const uint8_t* __restrict__ valid, long long n,
-                          int n_tiles, int budget, int* __restrict__ sel,
-                          uint8_t* __restrict__ kept, u64* status,
-                          u64* counter) {
+                          long long nb, int n_tiles, int n_fill, int budget,
+                          int* __restrict__ sel, uint8_t* __restrict__ kept,
+                          u64* status, u64* counter) {
   __shared__ int s_warp[32];
   __shared__ int s_total;
   __shared__ int s_tile;
@@ -198,14 +214,16 @@ __global__ void __launch_bounds__(kThreads)
     s_epoch = epoch;
   }
   __syncthreads();
-  const int tile = s_tile;
   const unsigned tag_count = s_epoch << 1, tag_prefix = tag_count | 1u;
+  const int n_blocks = (int)(n / nb);
 
-  if (tile >= n_tiles) {
-    // fill: sentinel from the grand total up to the budget
-    const long long first = (long long)(tile - n_tiles) * kFill;
+  if (s_tile >= n_blocks * n_tiles) {
+    // fill: sentinel from the block's grand total up to its budget
+    const int f = s_tile - n_blocks * n_tiles;
+    const int blk = f / n_fill;
+    const long long first = (long long)(f % n_fill) * kFill;
     if (threadIdx.x == 0) {
-      const u64* last = status + (n_tiles - 1);
+      const u64* last = status + ((long long)blk * n_tiles + n_tiles - 1);
       u64 w;
       while ((unsigned)((w = load_status(last)) >> 32) != tag_prefix)
         __nanosleep(64);
@@ -213,17 +231,22 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     const long long total = s_total;
+    int* sel_b = sel + (long long)blk * budget;
 #pragma unroll
     for (int k = 0; k < kFillPerThread; ++k) {
       const long long j = first + k * kThreads + threadIdx.x;
-      if (j < budget && j >= total) sel[j] = (int)n;
+      if (j < budget && j >= total) sel_b[j] = (int)n;
     }
     return;
   }
 
+  const int blk = s_tile / n_tiles, tile = s_tile % n_tiles;
+  status += (long long)blk * n_tiles;       // this block's status words
+  sel += (long long)blk * budget;
+  const long long start = (long long)blk * nb, end = start + nb;
   const long long base =
-      (long long)tile * kTile + (long long)threadIdx.x * kItems;
-  const Items it = load_items(valid, base, n);
+      start + (long long)tile * kTile + (long long)threadIdx.x * kItems;
+  const Items it = load_items(valid, base, end);
   const int c = count_items(it);
   const int thread_excl = block_exclusive_scan(c, s_warp, &s_total);
   const unsigned agg = (unsigned)s_total;
@@ -258,14 +281,14 @@ __global__ void __launch_bounds__(kThreads)
       rank += on;
     }
   }
-  if (base + kItems <= n) {
+  if (base + kItems <= end && (base & 15) == 0) {
 #pragma unroll
     for (int j = 0; j < kVecs; ++j)
       __stcs(reinterpret_cast<uint4*>(kept + base) + j,
              reinterpret_cast<const uint4*>(out.v)[j]);
   } else {
     for (int k = 0; k < kItems; ++k)
-      if (base + k < n) kept[base + k] = out.v[k];
+      if (base + k < end) kept[base + k] = out.v[k];
   }
 }
 
@@ -278,21 +301,28 @@ const char* cednerf_error_string(int code) {
 }
 
 // Scratch from the wrapper, kept across calls: status [status_len] u64
-// (one word per tile, at least ceil(n / 8192)), counter [1] u64 (starts
-// at 1 << 32: epoch 1, no claims). Returns cudaGetLastError() after the
-// launch (0 on success).
-int compact_select(const uint8_t* valid, long long n, int budget, int* sel,
-                   uint8_t* kept, unsigned long long* status,
-                   long long status_len, unsigned long long* counter,
-                   void* stream) {
-  if (n <= 0 || n >= (1LL << 31) || budget <= 0)
+// (one word per tile of every block, at least n_blocks * ceil(n /
+// n_blocks / 8192)), counter [1] u64 (starts at 1 << 32: epoch 1, no
+// claims). n and budget split into n_blocks equal blocks. Returns
+// cudaGetLastError() after the launch (0 on success).
+int compact_select(const uint8_t* valid, long long n, int budget,
+                   int n_blocks, int* sel, uint8_t* kept,
+                   unsigned long long* status, long long status_len,
+                   unsigned long long* counter, void* stream) {
+  if (n <= 0 || n >= (1LL << 31) || budget <= 0 || n_blocks <= 0 ||
+      n % n_blocks || budget % n_blocks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  const long long n_fill = ((long long)budget + kFill - 1) / kFill;
-  if (n_tiles > status_len) return static_cast<int>(cudaErrorInvalidValue);
+  const long long nb = n / n_blocks;
+  const long long bb = budget / n_blocks;
+  const long long n_tiles = (nb + kTile - 1) / kTile;
+  const long long n_fill = (bb + kFill - 1) / kFill;
+  const long long grid = n_blocks * (n_tiles + n_fill);
+  if (n_blocks * n_tiles > status_len || grid >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  compact_select_kernel<<<(unsigned)(n_tiles + n_fill), kThreads, 0, st>>>(
-      valid, n, (int)n_tiles, budget, sel, kept, status, counter);
+  compact_select_kernel<<<(unsigned)grid, kThreads, 0, st>>>(
+      valid, n, nb, (int)n_tiles, (int)n_fill, (int)bb, sel, kept, status,
+      counter);
   return static_cast<int>(cudaGetLastError());
 }
 

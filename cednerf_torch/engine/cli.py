@@ -3,9 +3,8 @@ cednerf_tpu/engine/cli.py (`get_model_args`, `apply_perf_overrides`,
 `flags_from_args`, `build_field`): the same flags, short forms, defaults
 and choices, so that one command line means the same run in both packages.
 
-A value whose path the port does not have yet raises NotImplementedError
-naming its ROADMAP.md item (`not_ported`; today only `--dp`, in
-train_real.py); nothing is ignored. Every
+Every value of the JAX flag surface has its path in the port; nothing
+is ignored. Every
 `--scatter_impl`, `--interp_impl` and `--compact_impl` choice computes the
 same sums, so each takes the port's kernels (ops/brick_grid.py,
 engine/renderer.py).
@@ -20,13 +19,6 @@ import torch
 from ..models.field import DNGPRadianceField
 from ..utils.device import resolve_device
 from .config import ModelFlags, SceneConfig
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    """The error for a CLI value whose path is ROADMAP.md Queue 1 `item`."""
-    return NotImplementedError(
-        f"{what} is not ported to cednerf_torch yet (ROADMAP.md Queue 1 "
-        f"item {item})")
 
 
 def get_model_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:

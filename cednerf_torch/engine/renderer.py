@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..ops import compact_kernels as ck
-from ..ops.compact_kernels import compact_select_rayfold  # noqa: F401
+from ..ops.compact_kernels import (compact_select,  # noqa: F401
+                                    compact_select_rayfold)
 from ..ops.occupancy import (OccGridState, RayCandidates, RaySamples,
                              coarse_lookup, march_candidates, march_rays,
                              march_t_lattice, occupancy_lookup,
@@ -78,52 +79,14 @@ class RenderResult(NamedTuple):
     extras: dict
 
 
-def compact_select(valid: torch.Tensor, budget: int, n_blocks: int = 1):
-    """Select up to `budget` valid candidates in flat (ray-major) order, in
-    `n_blocks` contiguous ray blocks compacted to budget / n_blocks each.
-
-    valid [R, M] bool -> (sel [budget] int32, ascending per block, R*M in
-    unused slots; kept [R, M] bool; rank [R, M] int32, each kept
-    candidate's slot). The plain form of the JAX function (one cumsum per
-    block and a scatter of the unique destinations); the multi-block
-    layout serves the CPU. Slots past a block's budget are written into a
-    dropped spare column (JAX's mode="drop")."""
-    r, m = valid.shape
-    n = r * m
-    if r % n_blocks or budget % n_blocks:
-        raise ValueError(f"compact_select: {r} rays / budget {budget} do not "
-                         f"split into {n_blocks} blocks")
-    nb, bb = n // n_blocks, budget // n_blocks
-    flat = valid.reshape(n_blocks, nb)
-    dest = torch.cumsum(flat.to(torch.int64), dim=1) - 1
-    write = flat & (dest < bb)
-    col = torch.where(write, dest, torch.full_like(dest, bb))
-    src = torch.arange(nb, device=valid.device).expand(n_blocks, nb)
-    sel_b = torch.full((n_blocks, bb + 1), nb, dtype=torch.int64,
-                       device=valid.device).scatter_(1, col, src)[:, :bb]
-    blk = torch.arange(n_blocks, device=valid.device)[:, None]
-    sel = torch.where(sel_b < nb, sel_b + blk * nb, torch.full_like(sel_b, n))
-    rank = dest + blk * bb
-    return (sel.reshape(-1).to(torch.int32), write.reshape(r, m),
-            rank.reshape(r, m).to(torch.int32))
-
-
 def _compact_sel_kept(valid: torch.Tensor, budget: int, n_blocks: int,
                       impl: str):
     """compact_select minus its rank output. Every single-block impl of the
-    JAX dispatch ("rayfold", "xla", "pallas") returns the same bits, so one
-    block always takes K4 (ops/compact_kernels.py): the kernel on CUDA, its
-    plain version on the CPU; `impl` is kept for the JAX signature. Several
-    blocks (the ray-parallel layout) run the plain compact_select on the CPU
-    and raise on CUDA until the ray-parallel slice of the port."""
-    if n_blocks == 1:
-        return ck.compact_select_kernel(valid, budget)
-    if valid.is_cuda:
-        raise NotImplementedError(
-            "compact_blocks > 1 (the multi-device compaction layout) comes "
-            "with the ray-parallel slice of the port")
-    sel, kept, _ = compact_select(valid, budget, n_blocks=n_blocks)
-    return sel, kept
+    JAX dispatch ("rayfold", "xla", "pallas") returns the same bits, so
+    every call takes K4 (ops/compact_kernels.py), one block or several (the
+    ray-parallel layout, compact_blocks > 1): the kernel on CUDA, its plain
+    version on the CPU; `impl` is kept for the JAX signature."""
+    return ck.compact_select_kernel(valid, budget, n_blocks)
 
 
 def pack_candidates(cand: RayCandidates, s_cap: int):
@@ -215,6 +178,14 @@ def pack_budget_samples(origins, viewdirs, cand: RayCandidates, timestamps,
                          n_valid=cand.valid.sum())
 
 
+def seg_slot_budget(budget: int, overcommit: float, seg: int,
+                    n_blocks: int = 1) -> int:
+    """march_segments' segment-slot budget: budget * overcommit / seg,
+    at least and a multiple of 8 * n_blocks."""
+    sb = max(int(budget * overcommit) // seg, n_blocks * 8)
+    return -(-sb // (8 * n_blocks)) * (8 * n_blocks)
+
+
 def march_segments(occ_state: OccGridState, origins, viewdirs, timestamps,
                    *, budget: int, near_plane: float, far_plane: float,
                    render_step_size: float, cone_angle: float = 0.0,
@@ -222,7 +193,9 @@ def march_segments(occ_state: OccGridState, origins, viewdirs, timestamps,
                    overcommit: float = 1.5, pool: int = 4, n_blocks: int = 1,
                    jitter: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   compact_impl: str = "xla") -> PackedSamples:
+                   compact_impl: str = "xla",
+                   seg_budget: Optional[int] = None,
+                   reduce=None) -> PackedSamples:
     """Two-stage (segment -> sample) budgeted marching into PackedSamples.
 
     Stage A tests each `seg`-step segment once against the pooled, dilated
@@ -235,7 +208,13 @@ def march_segments(occ_state: OccGridState, origins, viewdirs, timestamps,
     The march jitter is `jitter` [R] in [0, 1) if given, else drawn from
     `generator` (march_t_lattice). n_valid extrapolates the fine-valid
     count over the segments that stage A cut. Single-level grids and
-    uniform steps only, as in the JAX package."""
+    uniform steps only, as in the JAX package.
+
+    For one rank of a ray-sharded mesh (one block of the global program):
+    seg_budget is the rank's share of the global segment-slot budget
+    (seg_slot_budget of the global budget and block count, divided by the
+    ranks), and `reduce` sums a tensor over the ranks, so that n_valid
+    extrapolates the global counts."""
     if occ_state.levels != 1 or max_march_steps % seg:
         raise ValueError("march_segments: single-level grids and "
                          "max_march_steps % seg == 0 only")
@@ -244,9 +223,7 @@ def march_segments(occ_state: OccGridState, origins, viewdirs, timestamps,
     m = max_march_steps
     ms = m // seg
     nseg = r * ms
-    # segment-slot budget: a multiple of 8 * n_blocks
-    sb = max(int(budget * overcommit) // seg, n_blocks * 8)
-    sb = -(-sb // (8 * n_blocks)) * (8 * n_blocks)
+    sb = seg_budget or seg_slot_budget(budget, overcommit, seg, n_blocks)
 
     t0, dt, t_max = march_t_lattice(
         occ_state, origins, viewdirs, near_plane=near_plane,
@@ -305,9 +282,11 @@ def march_segments(occ_state: OccGridState, origins, viewdirs, timestamps,
         0, seg_ray, drop_b_seg.to(torch.int64), reduce="amax") > 0
     complete = torch.logical_not(drop_a | drop_b)
     # demand feedback: fine-valid density extrapolated over cut segments
-    nv_fine = fine_valid.sum().float()
-    segs_valid = seg_valid.sum().float()
-    segs_kept = (seg_valid & seg_kept).sum().float()
+    counts3 = torch.stack([fine_valid.sum(), seg_valid.sum(),
+                           (seg_valid & seg_kept).sum()])
+    if reduce is not None:
+        counts3 = reduce(counts3)
+    nv_fine, segs_valid, segs_kept = counts3.float().unbind()
     n_valid = (nv_fine * segs_valid
                / torch.clamp(segs_kept, min=1.0)).to(torch.int32)
     return PackedSamples(pos=pos_p, dirs=d_p, ts=ts_p, t_starts=t0_p,
@@ -946,19 +925,31 @@ def make_eval_render_fn(field, cfg: SceneConfig, s_max: Optional[int] = None,
 
 
 def render_image(field, occ_state, render_chunk_fn, origins, viewdirs,
-                 timestamp, render_bkgd, chunk: int = 4096):
+                 timestamp, render_bkgd, chunk: int = 4096, mesh=None):
     """Host loop: render a full [H, W] image chunk by chunk.
 
     origins/viewdirs: numpy or tensors [..., 3]. The last chunk is padded
     (origins with 0, viewdirs with 1.0) to the chunk size, and a small frame
     is never padded past its own 8-aligned ray count. Returns numpy
-    (rgb [..., 3], opacity [..., 1], depth [..., 1])."""
+    (rgb [..., 3], opacity [..., 1], depth [..., 1]).
+
+    mesh (parallel/mesh.py): every rank calls this with the same frame;
+    each renders its rows of every chunk (chunk % mesh.size == 0, the
+    chunk rounded to lcm(8, size) rows as JAX's), its pass loops on its
+    own rows alone, and one all-gather after the last chunk gives every
+    rank the whole frame."""
     dev = next(field.parameters()).device
     shape = tuple(origins.shape[:-1])
     o = torch.as_tensor(np.asarray(origins, np.float32).reshape(-1, 3))
     d = torch.as_tensor(np.asarray(viewdirs, np.float32).reshape(-1, 3))
     n = o.shape[0]
-    chunk = min(chunk, -(-n // 8) * 8)
+    q = 8
+    if mesh is not None:
+        if chunk % mesh.size:
+            raise ValueError(f"render_image: chunk {chunk} does not split "
+                             f"over {mesh.size} ranks")
+        q = math.lcm(8, mesh.size)
+    chunk = min(chunk, -(-n // q) * q)
     rgbs, opacs, depths = [], [], []
     for i in range(0, n, chunk):
         co, cd = o[i:i + chunk], d[i:i + chunk]
@@ -966,13 +957,25 @@ def render_image(field, occ_state, render_chunk_fn, origins, viewdirs,
         if pad:
             co = torch.cat([co, torch.zeros(pad, 3)])
             cd = torch.cat([cd, torch.ones(pad, 3)])
+        keep = chunk - pad
+        if mesh is not None:
+            rows = mesh.rows(chunk)
+            co, cd, keep = co[rows], cd[rows], None
         rgb, opac, depth = render_chunk_fn(occ_state, co.to(dev), cd.to(dev),
                                            timestamp, render_bkgd)
-        keep = chunk - pad
         rgbs.append(rgb[:keep])
         opacs.append(opac[:keep])
         depths.append(depth[:keep])
-    rgb = torch.cat(rgbs).cpu().numpy().reshape(*shape, 3)
-    opac = torch.cat(opacs).cpu().numpy().reshape(*shape, 1)
-    depth = torch.cat(depths).cpu().numpy().reshape(*shape, 1)
+    rgb, opac, depth = torch.cat(rgbs), torch.cat(opacs), torch.cat(depths)
+    if mesh is not None:
+        from ..parallel.mesh import all_gather_rows
+
+        mine = torch.cat([rgb, opac, depth], dim=-1)     # [chunks * C/size, 5]
+        every = all_gather_rows(mine, mesh).reshape(
+            mesh.size, -1, chunk // mesh.size, 5).transpose(0, 1)
+        every = every.reshape(-1, 5)[:n]
+        rgb, opac, depth = every[:, :3], every[:, 3:4], every[:, 4:5]
+    rgb = rgb.cpu().numpy().reshape(*shape, 3)
+    opac = opac.cpu().numpy().reshape(*shape, 1)
+    depth = depth.cpu().numpy().reshape(*shape, 1)
     return rgb, opac, depth

@@ -20,8 +20,13 @@ its metrics back once a step (the JAX Trainer's `int(metrics["n_valid"])`);
 and reads the chunk's stacked metrics back once.
 
 With cfg.packed_render=False the step composites on the dense [R, M]
-lattice instead (render_rays_budget, the unpacked losses). Not ported yet,
-raising where it is asked for: the device mesh.
+lattice instead (render_rays_budget, the unpacked losses).
+
+With a mesh (parallel/mesh.py) each rank runs block `rank` of the
+one-process program with cfg.compact_blocks = mesh.size: it draws the
+global batch and jitter, keeps its rows, compacts them to budget / size,
+divides its losses by the global counts, and sums the gradients over the
+ranks before Adam; the metrics and so the host's decisions are global.
 """
 
 import dataclasses
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from ..ops import losses as L
+from ..parallel import mesh as pm
 from ..ops.occupancy import (SKIP_DILATE, SKIP_POOL_DEFAULT, SKIP_SEG_DEFAULT,
                              OccGridState, create_occ_grid, march_candidates,
                              update_occ_grid)
@@ -41,17 +47,13 @@ from ..utils.device import resolve_device
 from .checkpoint import load_checkpoint_full, save_checkpoint
 from .config import ModelFlags, SceneConfig
 from .renderer import (march_segments, pack_candidates, render_packed,
-                       render_rays_budget, render_rays_budget_packed)
+                       render_rays_budget, render_rays_budget_packed,
+                       seg_slot_budget)
 from .sampling import make_stacked_sampler, upload_stacked
 
 # the step's metrics, in the column order of make_train_loop's [K, M] stack
 METRICS = ("loss", "mse", "n_samples", "n_valid", "max_depth",
            "complete_frac", "span_slots", "psnr")
-
-
-def _later(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} comes with the {slice_name} slice of the port")
 
 
 @dataclasses.dataclass
@@ -147,53 +149,69 @@ def _span_slots(valid: torch.Tensor) -> torch.Tensor:
 
 
 def _packed_regularizers(loss, extras: dict, batch: dict, flags: ModelFlags,
-                         budget: int, complete, n_blocks: int):
+                         budget: int, complete, n_blocks: int, denom=None):
     """`loss` plus the opt-in ray regularizers on the packed buffer
-    (render_rays_budget_packed / render_packed extras), complete-masked."""
+    (render_rays_budget_packed / render_packed extras), complete-masked;
+    denom: a mesh's global count of complete rays."""
     starts, counts = extras["starts"], extras["counts"]
     if flags.distortion_loss:
         loss = loss + L.packed_distortion_loss(
             extras["weights_p"], extras["t_starts_p"], extras["dts_p"],
-            starts, counts, budget, complete, n_blocks=n_blocks) * 1e-3
+            starts, counts, budget, complete, n_blocks=n_blocks,
+            denom=denom) * 1e-3
     if flags.weight_rgbper:
         loss = loss + L.packed_rgbper_loss(
             extras["rgbs_p"], batch["pixels"], extras["weights_p"].detach(),
-            starts, counts, budget, complete) * 1e-3
+            starts, counts, budget, complete, denom) * 1e-3
     if flags.use_feat_predict:
         loss = loss + L.packed_ray_sum_mean(
             extras["latent_p"] * extras["weights_p"].detach(), starts,
-            counts, budget, complete)
+            counts, budget, complete, denom)
     if flags.use_weight_predict:
         loss = loss + L.packed_per_ray_mean(
             extras["weight_loss_p"] * extras["weights_p"], extras["valid_p"],
-            starts, counts, budget, complete)
+            starts, counts, budget, complete, denom)
     return loss
 
 
 def _dense_regularizers(loss, extras: dict, batch: dict, flags: ModelFlags,
-                        complete):
+                        complete, denom=None):
     """`loss` plus the same regularizers on the dense [R, M] lattice
     (render_rays_budget extras), complete-masked."""
     if flags.distortion_loss:
         loss = loss + L.distortion_loss(
             extras["weights"], extras["t_starts"], extras["t_ends"],
-            extras["mask"], ray_weights=complete) * 1e-3
+            extras["mask"], ray_weights=complete, denom=denom) * 1e-3
     if flags.weight_rgbper:
         loss = loss + L.rgbper_loss(
             extras["rgbs"], batch["pixels"], extras["weights"].detach(),
-            extras["mask"], ray_weights=complete) * 1e-3
+            extras["mask"], ray_weights=complete, denom=denom) * 1e-3
     if flags.use_feat_predict:
         loss = loss + L.ray_mean(extras["latent_losses"].reshape(-1),
-                                 complete)
+                                 complete, denom)
     if flags.use_weight_predict:
         loss = loss + L.ray_mean(extras["weight_losses"].reshape(-1),
-                                 complete)
+                                 complete, denom)
     return loss
+
+
+def _rank_blocks(cfg: SceneConfig, budget: int, mesh):
+    """(this rank's budget, its compaction blocks): the whole budget and
+    cfg.compact_blocks without a mesh; with one, the rank's share of both
+    (block `rank` of the one-process program)."""
+    if mesh is None:
+        return budget, cfg.compact_blocks
+    if cfg.compact_blocks % mesh.size:
+        raise ValueError(
+            f"a mesh of {mesh.size} ranks needs cfg.compact_blocks to be a "
+            f"multiple of it (got {cfg.compact_blocks}): each rank compacts "
+            "its own rays, as JAX's blocks aligned to the mesh")
+    return budget // mesh.size, cfg.compact_blocks // mesh.size
 
 
 def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
                   s_cap: int = 0, use_seg: bool = False,
-                  steady_march: bool = False):
+                  steady_march: bool = False, mesh=None):
     """loss_and_grads(state, batch, jitter=None, generator=None) ->
     (loss, aux): march, budgeted render (packed; on the dense lattice with
     cfg.packed_render=False), losses, and backward into
@@ -212,7 +230,14 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
         a steady_march_steps lattice from each ray's first occupied
         segment, probing max_march_steps slots; rays whose span outruns it
         are incomplete.
-    aux["span_slots"] is the occupied-span telemetry (0 under use_seg)."""
+    aux["span_slots"] is the occupied-span telemetry (0 under use_seg).
+
+    mesh: the batch and jitter are the global ones; the rank keeps its rows
+    (the jitter, when not given, drawn for every ray from `generator`, as
+    the one-process step draws it), compacts them as its share of the
+    budget, divides its losses by the global count of complete rays and
+    sums the gradients over the ranks. aux["n_valid"] is then global, the
+    other aux values the rank's own."""
     use_seg = bool(use_seg and cfg.march_seg and cfg.packed_render
                    and cfg.grid_nlvl == 1 and cfg.cone_angle == 0.0)
     skip_empty = bool(steady_march and cfg.steady_march_steps
@@ -221,23 +246,42 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
     march_steps = (cfg.steady_march_steps if skip_empty
                    else cfg.max_march_steps)
     capped = bool(s_cap and s_cap < cfg.max_march_steps)
+    budget_r, n_blocks = _rank_blocks(cfg, budget, mesh)
+    reduce = None
+    seg_budget = None
+    if mesh is not None:
+        def reduce(t):
+            return pm.global_sum(t, mesh)
+    if mesh is not None and use_seg:
+        seg_budget = seg_slot_budget(budget, cfg.seg_overcommit,
+                                     cfg.march_seg, cfg.compact_blocks
+                                     ) // mesh.size
 
     def loss_and_grads(state: TrainState, batch: dict, jitter=None,
                        generator: Optional[torch.Generator] = None):
         field = state.field
         occ_mean = occ_mean_value(state.occ)
+        if mesh is not None:
+            n = batch["origins"].shape[0]
+            if jitter is None and generator is not None:
+                jitter = torch.rand(n, device=batch["origins"].device,
+                                    generator=generator)
+            batch = pm.shard_batch(batch, mesh, n_rows=n)
+            if jitter is not None:
+                jitter = jitter[mesh.rows(n)]
         with torch.no_grad():
             if use_seg:
                 ps = march_segments(
                     state.occ, batch["origins"], batch["viewdirs"],
-                    batch["timestamps"], budget=budget,
+                    batch["timestamps"], budget=budget_r,
                     near_plane=cfg.near_plane, far_plane=cfg.far_plane,
                     render_step_size=cfg.render_step_size,
                     cone_angle=cfg.cone_angle,
                     max_march_steps=cfg.max_march_steps, seg=cfg.march_seg,
                     overcommit=cfg.seg_overcommit, pool=cfg.seg_pool,
-                    n_blocks=cfg.compact_blocks, jitter=jitter,
-                    generator=generator, compact_impl=cfg.compact_impl)
+                    n_blocks=n_blocks, jitter=jitter,
+                    generator=generator, compact_impl=cfg.compact_impl,
+                    seg_budget=seg_budget, reduce=reduce)
                 n_valid_full = ps.n_valid
                 span_slots = torch.zeros((), device=occ_mean.device)
             else:
@@ -257,9 +301,9 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
         field.zero_grad(set_to_none=False)
         if use_seg:
             out = render_packed(
-                field, ps, batch["color_bkgd"], occ_mean, budget=budget,
+                field, ps, batch["color_bkgd"], occ_mean, budget=budget_r,
                 alpha_thre=cfg.alpha_thre, train=True,
-                n_blocks=cfg.compact_blocks, assembly_impl=cfg.assembly_impl)
+                n_blocks=n_blocks, assembly_impl=cfg.assembly_impl)
         elif cfg.packed_render:
             # uniform steps on the unpacked lattice: a slot's t is its
             # ray's t_min plus its column times dt (packing reorders the
@@ -267,8 +311,8 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
             out = render_rays_budget_packed(
                 field, batch["origins"], batch["viewdirs"], cand,
                 batch["timestamps"], batch["color_bkgd"], occ_mean,
-                budget=budget, alpha_thre=cfg.alpha_thre, train=True,
-                n_blocks=cfg.compact_blocks, ray_complete=fits,
+                budget=budget_r, alpha_thre=cfg.alpha_thre, train=True,
+                n_blocks=n_blocks, ray_complete=fits,
                 compact_impl=cfg.compact_impl,
                 assembly_impl=cfg.assembly_impl,
                 uniform_dt=(cfg.render_step_size
@@ -278,30 +322,42 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
             out = render_rays_budget(
                 field, batch["origins"], batch["viewdirs"], cand,
                 batch["timestamps"], batch["color_bkgd"], occ_mean,
-                budget=budget, alpha_thre=cfg.alpha_thre, train=True,
-                n_blocks=cfg.compact_blocks, ray_complete=fits,
+                budget=budget_r, alpha_thre=cfg.alpha_thre, train=True,
+                n_blocks=n_blocks, ray_complete=fits,
                 compact_impl=cfg.compact_impl)
         extras = out.extras
         complete = extras["complete"]
-        denom = torch.clamp(complete.sum(), min=1.0)
+        n_complete = complete.sum()
+        if mesh is not None:
+            # the global counts: the loss denominators and the demand
+            if use_seg:         # march_segments reduced n_valid already
+                n_complete = reduce(n_complete)
+            else:
+                n_complete, n_valid_full = reduce(
+                    torch.stack([n_complete, n_valid_full])).unbind()
+        denom = torch.clamp(n_complete, min=1.0)
+        rd = None if mesh is None else denom
         sq = ((out.rgb - batch["pixels"]) ** 2).sum(-1)
         mse = (complete * sq).sum() / (3.0 * denom)
         loss = mse
         if flags.use_opacity_loss:
-            loss = loss + L.opacity_loss(out.opacity,
-                                         ray_weights=complete) * 1e-3
+            loss = loss + L.opacity_loss(out.opacity, ray_weights=complete,
+                                         denom=rd) * 1e-3
         if flags.acc_entropy_loss:
-            loss = loss + L.acc_entropy_loss(out.opacity,
-                                             ray_weights=complete) * 1e-3
+            loss = loss + L.acc_entropy_loss(
+                out.opacity, ray_weights=complete, denom=rd) * 1e-3
         if extras.get("packed"):
-            loss = _packed_regularizers(loss, extras, batch, flags, budget,
-                                        complete, cfg.compact_blocks)
+            loss = _packed_regularizers(loss, extras, batch, flags, budget_r,
+                                        complete, n_blocks, rd)
         else:
-            loss = _dense_regularizers(loss, extras, batch, flags, complete)
+            loss = _dense_regularizers(loss, extras, batch, flags, complete,
+                                       rd)
         loss.backward()
         for p in field.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            pm.all_reduce_grads(field.parameters(), mesh)
         aux = {"mse": mse.detach(), "n_samples": out.n_samples,
                "n_valid": n_valid_full, "max_depth": out.depth.max().detach(),
                "complete_frac": complete.mean(), "span_slots": span_slots}
@@ -310,15 +366,31 @@ def _make_loss_fn(cfg: SceneConfig, flags: ModelFlags, budget: int,
     return loss_and_grads
 
 
+def _global_metrics(metrics: dict, mesh) -> dict:
+    """A mesh step's metrics over every ray: the partial losses and the
+    sample counts summed, the maxima taken, complete_frac averaged over the
+    (equal) shards, n_valid global already; one all-gather, reduced alike
+    on every rank."""
+    keys = ("loss", "mse", "n_samples", "max_depth", "complete_frac",
+            "span_slots")
+    rows = pm.all_gather_rows(
+        torch.stack([metrics[k].float() for k in keys])[None], mesh)
+    tot, top = rows.sum(0), rows.max(0).values
+    return dict(metrics, loss=tot[0], mse=tot[1], n_samples=tot[2],
+                max_depth=top[3], complete_frac=tot[4] / mesh.size,
+                span_slots=top[5])
+
+
 def _make_one_step(field, cfg: SceneConfig, flags: ModelFlags, budget: int,
                    s_cap: int = 0, use_seg: bool = False,
-                   steady_march: bool = False):
+                   steady_march: bool = False, mesh=None):
     """The train step: loss and gradients (with the steady-state branches
     of _make_loss_fn), then one Adam update and one LR schedule step.
     one_step(state, batch, jitter=None, generator=None) -> (state, metrics
-    of 0-d tensors on the device)."""
+    of 0-d tensors on the device; over every rank's rays with a mesh)."""
     loss_and_grads = _make_loss_fn(cfg, flags, budget, s_cap=s_cap,
-                                   use_seg=use_seg, steady_march=steady_march)
+                                   use_seg=use_seg, steady_march=steady_march,
+                                   mesh=mesh)
 
     def one_step(state: TrainState, batch: dict, jitter=None,
                  generator: Optional[torch.Generator] = None):
@@ -331,6 +403,8 @@ def _make_one_step(field, cfg: SceneConfig, flags: ModelFlags, budget: int,
                    "max_depth": aux["max_depth"],
                    "complete_frac": aux["complete_frac"],
                    "span_slots": aux["span_slots"]}
+        if mesh is not None:
+            metrics = _global_metrics(metrics, mesh)
         metrics["psnr"] = -10.0 * torch.log(metrics["mse"]) / math.log(10.0)
         return state, metrics
 
@@ -339,20 +413,21 @@ def _make_one_step(field, cfg: SceneConfig, flags: ModelFlags, budget: int,
 
 def make_train_step(field, cfg: SceneConfig, flags: ModelFlags,
                     budget: Optional[int] = None, s_cap: int = 0,
-                    use_seg: bool = False):
+                    use_seg: bool = False, mesh=None):
     """train_step(state, batch, jitter=None, generator=None) -> (state,
     metrics): one step of the packed budgeted path, uncapped and without
     segment marching by default (the JAX package's step "safe in any
     phase"). batch: origins/viewdirs/pixels [R, 3], timestamps [R, 1],
-    color_bkgd [3] tensors on the field's device. metrics are 0-d tensors
-    on the device, psnr included."""
+    color_bkgd [3] tensors on the field's device (with a mesh the global
+    batch: each rank keeps its rows). metrics are 0-d tensors on the
+    device, psnr included."""
     return _make_one_step(field, cfg, flags, budget or cfg.sample_budget,
-                          s_cap=s_cap, use_seg=use_seg)
+                          s_cap=s_cap, use_seg=use_seg, mesh=mesh)
 
 
 def make_train_loop(field, cfg: SceneConfig, flags: ModelFlags, n_rays: int,
                     sample_fn, k_steps: int, warmup_phase: bool = False,
-                    budget: Optional[int] = None):
+                    budget: Optional[int] = None, mesh=None):
     """K train steps per call: the JAX package's lax.scan as a Python loop.
 
     Returns fn(state, data, timestamps_pool, generator, step0) -> (state,
@@ -370,11 +445,16 @@ def make_train_loop(field, cfg: SceneConfig, flags: ModelFlags, n_rays: int,
 
     JAX donates the state and returns a new one; here the field's
     parameters and Adam's moments are updated in place, the occupancy grid
-    is replaced, and the same TrainState comes back."""
+    is replaced, and the same TrainState comes back.
+
+    mesh: every rank runs the same loop on the same draws (the occupancy
+    updates replicated, the sampled batch global); each step keeps the
+    rank's rows, sums the gradients over the ranks and returns global
+    metrics (collectives only, no host read)."""
     one_step = _make_one_step(
         field, cfg, flags, budget or cfg.sample_budget,
         s_cap=0 if warmup_phase else cfg.steady_s_cap,
-        use_seg=not warmup_phase, steady_march=not warmup_phase)
+        use_seg=not warmup_phase, steady_march=not warmup_phase, mesh=mesh)
     occ_warm = make_occ_update_fn(field, cfg, all_cells=True)
     occ_sampled = make_occ_update_fn(field, cfg, all_cells=False)
 
@@ -421,22 +501,40 @@ class Trainer:
     chunk's are assembled while the card runs the current one; the host RNG
     then lives in the dataset, so `resume` restores the step and bucket but
     not the sample sequence. adapt_bucket=False freezes the ray bucket,
-    adapt_steady=False the steady lattice."""
+    adapt_steady=False the steady lattice.
+
+    mesh (parallel/mesh.py, axis "data"): ray-sharded data parallelism on
+    the mesh's device, with cfg.compact_blocks a multiple of mesh.size
+    (train_real --dp sets it to mesh.size). The field and the grid are
+    broadcast from rank 0; every rank draws from the same seed (host
+    datasets must draw alike on every rank too) and keeps its rows of
+    each batch; the gradient is summed over the ranks and the host reads
+    global metrics, so every rank takes the same bucket and lattice. Only
+    rank 0 writes checkpoints; every rank resumes.
+
+    chunk_log holds one record a run_chunk (the step after it, loss, psnr,
+    complete_frac, bucket, steady lattice, the grid's occupied share and
+    the steps whose loss was not finite), read in the chunk's one host
+    read."""
 
     def __init__(self, field, cfg: SceneConfig, flags: ModelFlags, dataset,
                  seed: int = 42, device="cuda", device_sampler=None,
                  steps_per_call: int = 16, adapt_bucket: bool = True,
                  stacked_host: bool = False, mesh=None,
                  adapt_steady: bool = True):
-        if mesh is not None:
-            raise _later("the device mesh", "ray-parallel")
         self.field = field
         self.cfg = cfg
         self.flags = flags
         self.dataset = dataset
+        self.mesh = mesh
+        if mesh is not None:
+            _rank_blocks(cfg, cfg.sample_budget, mesh)     # checks the blocks
+            device = mesh.device
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.state = create_train_state(field, cfg, device=self.device)
+        if mesh is not None:
+            pm.replicate([field, self.state.occ], mesh)
         self.step = 0
         # the smallest bucket first: the warmup grid is dense, so demand
         # per ray ~ max_march_steps and the budget fits few rays
@@ -452,6 +550,7 @@ class Trainer:
         self._complete_chunks = 0
         self._shrink_cooldown = 0
         self._incomplete_warns = 0
+        self.chunk_log = []
         self._loop_fns = {}
         self._stacked = bool(stacked_host) and device_sampler is None
         self._prefetched = None
@@ -468,7 +567,7 @@ class Trainer:
         self.steps_per_call = steps_per_call
         self._occ_warm = make_occ_update_fn(field, cfg, all_cells=True)
         self._occ_sampled = make_occ_update_fn(field, cfg, all_cells=False)
-        self._train_step = make_train_step(field, cfg, flags)
+        self._train_step = make_train_step(field, cfg, flags, mesh=mesh)
         self.timestamps_pool = torch.as_tensor(
             np.asarray(dataset.timestamps_pool, np.float32).reshape(-1, 1),
             device=self.device)
@@ -532,7 +631,7 @@ class Trainer:
                     cfg, steady_march_steps=self.steady_march)
             self._loop_fns[keyed] = make_train_loop(
                 self.field, cfg, self.flags, n_rays, self.device_sampler[1],
-                self.steps_per_call, warmup_phase=warmup)
+                self.steps_per_call, warmup_phase=warmup, mesh=self.mesh)
         return self._loop_fns[keyed]
 
     def dispatch_chunk(self) -> torch.Tensor:
@@ -568,11 +667,20 @@ class Trainer:
         complete ones to the occupied span plus margin, rounded up to 64
         slots, at least 128, then a 64-chunk cooldown), and a warning when
         most rays were masked out of the loss."""
-        n_rays = self.bucket
+        n_rays, steady = self.bucket, self.steady_march
         metrics = self.dispatch_chunk()
-        cols = list(zip(*metrics.tolist()))    # the chunk's one host read
-        m = {k: cols[i] for i, k in enumerate(METRICS)}
-        return self._adapt(m, n_rays)
+        occ_share = self.state.occ.binaries.float().mean()
+        vals = torch.cat([metrics.reshape(-1), occ_share.reshape(1)]
+                         ).tolist()            # the chunk's one host read
+        rows = np.asarray(vals[:-1]).reshape(metrics.shape)
+        m = {k: tuple(rows[:, i]) for i, k in enumerate(METRICS)}
+        out = self._adapt(m, n_rays)
+        self.chunk_log.append({
+            "step": self.step, "loss": out["loss"], "psnr": out["psnr"],
+            "complete_frac": out["complete_frac"], "bucket": n_rays,
+            "steady_march": steady, "occ_share": vals[-1],
+            "nonfinite_steps": int((~np.isfinite(rows[:, 0])).sum())})
+        return out
 
     def _adapt(self, m: dict, n_rays: int) -> dict:
         cfg = self.cfg
@@ -635,10 +743,14 @@ class Trainer:
 
     def save(self, path: str):
         """A resumable checkpoint of the state, step, generator, bucket and
-        steady lattice (engine/checkpoint.py)."""
-        save_checkpoint(path, self.state, self.step,
-                        self.generator.get_state(), self.bucket,
-                        self.steady_march)
+        steady lattice (engine/checkpoint.py); with a mesh rank 0 writes it
+        and every rank waits for it."""
+        if self.mesh is None or self.mesh.rank == 0:
+            save_checkpoint(path, self.state, self.step,
+                            self.generator.get_state(), self.bucket,
+                            self.steady_march)
+        if self.mesh is not None:
+            pm.barrier(self.mesh)
 
     def resume(self, path: str) -> int:
         """Restore a checkpoint written at a step-loop boundary: the state,

@@ -21,8 +21,13 @@ chunk reads nothing back before its metrics. The clip is optax's
 for the DyNeRF importance sampler) and keeps an occupancy grid for
 eval-time culling only, one update a chunk (all cells through the
 occupancy warmup, a sampled quarter after). Every random draw of the loop
-comes from one torch.Generator: each step's batch, then its jitters. The
-device mesh is ROADMAP Queue 1 item 8 and raises.
+comes from one torch.Generator: each step's batch, then its jitters.
+
+With a mesh (parallel/mesh.py) every rank draws the global batch and
+jitters and keeps its rows; its losses are means over its rows divided by
+the mesh size, the gradients are summed over the ranks before the
+optimizer (so its skip-nonfinite flag reads the summed gradients and every
+rank skips together), and the metrics are global.
 """
 
 import dataclasses
@@ -36,9 +41,10 @@ from ..models.field import NGPDensityField
 from ..ops import losses as L
 from ..ops.occupancy import (RaySamples, create_occ_grid, occupancy_lookup,
                              ray_aabb_intersect)
-from ..ops.proposal import anneal_factor, proposal_loss, proposal_sampling
+from ..ops.proposal import (anneal_factor, draw_jitter, proposal_loss,
+                            proposal_sampling)
+from ..parallel import mesh as pm
 from ..utils.device import resolve_device
-from .cli import not_ported
 from .config import ModelFlags, SceneConfig
 from .renderer import render_rays
 from .sampling import make_stacked_sampler, upload_stacked
@@ -246,18 +252,33 @@ def _make_near_far(cfg: SceneConfig, pcfg: PropConfig, device):
 
 
 def _make_prop_loss_fn(field, cfg: SceneConfig, flags: ModelFlags,
-                       pcfg: PropConfig):
+                       pcfg: PropConfig, mesh=None):
     """loss_and_grads(state, batch, step, generator=None, jitters=None) ->
     (loss, aux): proposal sampling (jitters as proposal_sampling takes
     them, else drawn from `generator`), the field on the final samples,
     the losses, and backward into every parameter's .grad (zeroed first;
     zeros where no gradient flows, as optax sees them). `step` (a number
-    or a 0-d device tensor) sets the anneal factor."""
+    or a 0-d device tensor) sets the anneal factor.
+
+    mesh: the batch and jitters are the global ones (jitters drawn for
+    every ray, in proposal_sampling's order); the rank keeps its rows, its
+    loss is divided by the mesh size and the gradients are summed over the
+    ranks; loss, mse and n_samples in the result are the rank's parts."""
     near_far = _make_near_far(cfg, pcfg, next(field.parameters()).device)
+    counts = list(pcfg.prop_samples[1:]) + [pcfg.n_final]
 
     def loss_and_grads(state: PropTrainState, batch: dict, step,
                        generator: Optional[torch.Generator] = None,
                        jitters: Optional[Sequence[torch.Tensor]] = None):
+        if mesh is not None:
+            n = batch["origins"].shape[0]
+            if jitters is None and generator is not None:
+                dev = batch["origins"].device
+                jitters = [draw_jitter(n, k, generator, dev)
+                           for k in [pcfg.prop_samples[0]] + counts]
+            batch = pm.shard_batch(batch, mesh, n_rows=n)
+            if jitters is not None:
+                jitters = [j[mesh.rows(n)] for j in jitters]
         anneal = anneal_factor(step, pcfg.anneal_steps)
         origins, viewdirs = batch["origins"], batch["viewdirs"]
         near, far = near_far(origins, viewdirs)
@@ -296,11 +317,15 @@ def _make_prop_loss_fn(field, cfg: SceneConfig, flags: ModelFlags,
             loss = loss + torch.mean(extras["latent_losses"])
         if flags.use_weight_predict:
             loss = loss + torch.mean(extras["weight_losses"])
+        if mesh is not None:        # equal shards: the mean of the means
+            loss, mse = loss / mesh.size, mse / mesh.size
         loss.backward()
         for mod in state.modules():
             for p in mod.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            pm.all_reduce_grads(state.optimizer.params, mesh)
         aux = {"mse": mse.detach(), "n_samples": out.n_samples}
         if pcfg.debug:
             aux.update(
@@ -318,13 +343,29 @@ def _all_finite(tensors) -> torch.Tensor:
                        ).all().float()
 
 
+def _global_prop_metrics(m: dict, mesh) -> dict:
+    """A mesh step's metrics over every ray (one all-gather): the partial
+    loss and mse and the sample counts summed, the debug maxima and finite
+    flags reduced by max and min."""
+    keys = [k for k in m if k != "psnr"]
+    rows = pm.all_gather_rows(torch.stack([m[k].float() for k in keys])[None],
+                              mesh)
+    tot, top, low = rows.sum(0), rows.max(0).values, rows.min(0).values
+    red = {"sigma_max": top, "w_max": top, "prop_w_max": top,
+           "t_finite": low, "grads_finite": low, "params_finite": low}
+    out = {k: red.get(k, tot)[i] for i, k in enumerate(keys)}
+    out["psnr"] = -10.0 * torch.log(out["mse"]) / math.log(10.0)
+    return out
+
+
 def make_prop_train_step(field, props, cfg: SceneConfig, flags: ModelFlags,
-                         pcfg: PropConfig):
+                         pcfg: PropConfig, mesh=None):
     """train_step(state, batch, step, generator=None, jitters=None) ->
     (state, metrics of 0-d device tensors): sample -> render -> losses ->
     the optimizer. batch: origins/viewdirs/pixels [R, 3], timestamps
-    [R, 1], color_bkgd [3] on the state's device."""
-    loss_and_grads = _make_prop_loss_fn(field, cfg, flags, pcfg)
+    [R, 1], color_bkgd [3] on the state's device (with a mesh the global
+    batch; the metrics are then over every rank's rays)."""
+    loss_and_grads = _make_prop_loss_fn(field, cfg, flags, pcfg, mesh)
 
     def train_step(state: PropTrainState, batch: dict, step,
                    generator: Optional[torch.Generator] = None,
@@ -341,6 +382,8 @@ def make_prop_train_step(field, props, cfg: SceneConfig, flags: ModelFlags,
                                      "prop_w_max")},
                 grads_finite=_all_finite([p.grad for p in params]),
                 params_finite=_all_finite(params))
+        if mesh is not None:
+            metrics = _global_prop_metrics(metrics, mesh)
         return state, metrics
 
     return train_step
@@ -352,14 +395,15 @@ def metric_names(pcfg: PropConfig) -> Tuple[str, ...]:
 
 def make_prop_train_loop(field, props, cfg: SceneConfig, flags: ModelFlags,
                          pcfg: PropConfig, n_rays: int, sample_fn,
-                         k_steps: int):
+                         k_steps: int, mesh=None):
     """K proposal-path steps per call: the JAX lax.scan as a Python loop.
     Returns fn(state, data, generator, step0) -> (state, metrics
     [K, len(metric_names(pcfg))] on the device). Step i (global step
     step0 + i, a device tensor) draws its batch (sample_fn(data,
     generator, n_rays, i)) and then its jitters from `generator`. Nothing
-    is read back to the host inside the loop."""
-    step_fn = make_prop_train_step(field, props, cfg, flags, pcfg)
+    is read back to the host inside the loop. mesh: as make_train_loop's
+    (each step global batch, the rank's rows, summed gradients)."""
+    step_fn = make_prop_train_step(field, props, cfg, flags, pcfg, mesh)
     names = metric_names(pcfg)
 
     def prop_loop(state: PropTrainState, data, generator: torch.Generator,
@@ -390,15 +434,19 @@ class PropTrainer:
     the occ path's EMA cadence for eval-time sample culling only (one
     update a chunk: all cells while step <= cfg.occ_warmup_steps, a sampled
     quarter after), probed at the dataset's timestamps_pool (16 times in
-    [0, 1] without a dataset). mesh: ROADMAP Queue 1 item 8, raises."""
+    [0, 1] without a dataset). mesh (parallel/mesh.py): ray-sharded data
+    parallelism on the mesh's device, as Trainer's: the networks and the
+    grid broadcast from rank 0, the same draws on every rank, n_rays the
+    global batch (a multiple of mesh.size)."""
 
     def __init__(self, field, props, cfg: SceneConfig, flags: ModelFlags,
                  pcfg: PropConfig, device_sampler, n_rays: int,
                  seed: int = 42, steps_per_call: int = 16, mesh=None,
                  dataset=None, occ_eval: bool = True, device="cuda"):
+        self.mesh = mesh
         if mesh is not None:
-            raise not_ported("PropTrainer(mesh=...) (ray data parallelism "
-                             "over several cards)", 8)
+            mesh.rows(n_rays)                  # checks the split
+            device = mesh.device
         self.device = resolve_device(device)
         self.cfg, self.flags, self.pcfg = cfg, flags, pcfg
         self.generator = torch.Generator(device=self.device).manual_seed(
@@ -406,6 +454,8 @@ class PropTrainer:
         self.state = create_prop_train_state(field, props, cfg, pcfg,
                                              device=self.device)
         self.field, self.props = self.state.field, self.state.props
+        if mesh is not None:
+            pm.replicate(list(self.state.modules()), mesh)
         self.step = 0
         self.n_rays = n_rays
         self.steps_per_call = steps_per_call
@@ -431,9 +481,11 @@ class PropTrainer:
             self.timestamps_pool = torch.as_tensor(
                 pool.reshape(-1, 1), device=self.device)
         self.metric_names = metric_names(pcfg)
+        if mesh is not None and self.occ is not None:
+            pm.replicate(self.occ, mesh)
         self._loop = make_prop_train_loop(
             self.field, self.props, cfg, flags, pcfg, n_rays,
-            device_sampler[1], steps_per_call)
+            device_sampler[1], steps_per_call, mesh=mesh)
 
     def _assemble_stacked(self) -> dict:
         batches = [self.dataset.sample(self.n_rays)

@@ -5,6 +5,11 @@
     Replaces cednerf_tpu/ops/pallas_compact.py `_build` /
     `compact_select_pallas`, which is bit-compatible with
     cednerf_tpu/engine/renderer.py `compact_select_rayfold`.
+    With n_blocks > 1 the same launch compacts n_blocks contiguous ray
+    blocks on their own (JAX's `compact_select(n_blocks)`, XLA ops in the
+    JAX package, the layout of cfg.compact_blocks > 1); its plain version
+    is `compact_select`, the port of that function, and its launches count
+    under "compact_select_blocks".
 
 The kernel lives in csrc/compact_select.cu (a hand-written single-pass
 stream compaction with decoupled look-back: one launch that reads the
@@ -34,8 +39,8 @@ _MIN_TILES = 2048   # status words of a first scratch (16.8 M candidates)
 # tile counter, whose high half is the epoch (starts at 1, no claims)
 _SCRATCH = {}
 
-launches = {"compact_select": 0}
-plain_cuda_calls = {"compact_select": 0}
+launches = {"compact_select": 0, "compact_select_blocks": 0}
+plain_cuda_calls = {"compact_select": 0, "compact_select_blocks": 0}
 
 
 def reset_counts():
@@ -46,8 +51,9 @@ def reset_counts():
 
 def _bind(lib):
     p = ctypes.c_void_p
-    lib.compact_select.argtypes = [p, ctypes.c_longlong, ctypes.c_int, p, p,
-                                   p, ctypes.c_longlong, p, p]
+    lib.compact_select.argtypes = [p, ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int, p, p, p, ctypes.c_longlong,
+                                   p, p]
     lib.compact_select.restype = ctypes.c_int
 
 
@@ -90,14 +96,55 @@ def compact_select_rayfold(valid: torch.Tensor, budget: int):
     return sel.to(torch.int32), kept
 
 
-def compact_select_kernel(valid: torch.Tensor, budget: int):
+def compact_select(valid: torch.Tensor, budget: int, n_blocks: int = 1):
+    """Plain K4 over blocks (port of engine/renderer.py::compact_select):
+    the rays in `n_blocks` contiguous blocks, each compacted to
+    budget / n_blocks slots.
+
+    valid [R, M] bool -> (sel [budget] int32, ascending per block, R*M in
+    unused slots; kept [R, M] bool; rank [R, M] int32, each kept
+    candidate's slot). One cumsum per block and a scatter of the unique
+    destinations; slots past a block's budget are written into a dropped
+    spare column (JAX's mode="drop"). R % n_blocks and budget % n_blocks
+    must be 0, as JAX asserts."""
+    r, m = valid.shape
+    n = r * m
+    if r % n_blocks or budget % n_blocks:
+        raise ValueError(f"compact_select: {r} rays / budget {budget} do not "
+                         f"split into {n_blocks} blocks")
+    if valid.is_cuda:
+        plain_cuda_calls["compact_select_blocks"] += 1
+    nb, bb = n // n_blocks, budget // n_blocks
+    flat = valid.reshape(n_blocks, nb)
+    dest = torch.cumsum(flat.to(torch.int64), dim=1) - 1
+    write = flat & (dest < bb)
+    col = torch.where(write, dest, torch.full_like(dest, bb))
+    src = torch.arange(nb, device=valid.device).expand(n_blocks, nb)
+    sel_b = torch.full((n_blocks, bb + 1), nb, dtype=torch.int64,
+                       device=valid.device).scatter_(1, col, src)[:, :bb]
+    blk = torch.arange(n_blocks, device=valid.device)[:, None]
+    sel = torch.where(sel_b < nb, sel_b + blk * nb, torch.full_like(sel_b, n))
+    rank = dest + blk * bb
+    return (sel.reshape(-1).to(torch.int32), write.reshape(r, m),
+            rank.reshape(r, m).to(torch.int32))
+
+
+def compact_select_kernel(valid: torch.Tensor, budget: int,
+                          n_blocks: int = 1):
     """K4: valid [R, M] bool -> (sel [budget] int32, kept [R, M] bool), the
-    bits of compact_select_rayfold. On CUDA any R*M < 2^31 and any budget."""
-    if not valid.is_cuda:
-        return compact_select_rayfold(valid, budget)
+    bits of compact_select_rayfold (one block) or of compact_select's sel
+    and kept (n_blocks > 1, R and budget divisible by it). On CUDA any
+    R*M < 2^31 and any budget."""
     if valid.dtype != torch.bool or valid.dim() != 2:
         raise ValueError("compact_select_kernel: valid must be bool [R, M]")
     r, m = valid.shape
+    if r % n_blocks or budget % n_blocks:
+        raise ValueError(f"compact_select_kernel: {r} rays / budget {budget} "
+                         f"do not split into {n_blocks} blocks")
+    if not valid.is_cuda:
+        if n_blocks == 1:
+            return compact_select_rayfold(valid, budget)
+        return compact_select(valid, budget, n_blocks)[:2]
     n = r * m
     if not 0 < n < 2 ** 31 or budget < 1:
         raise ValueError(f"compact_select_kernel: lattice {r}x{m}, budget "
@@ -109,15 +156,16 @@ def compact_select_kernel(valid: torch.Tensor, budget: int):
     sel = torch.empty(budget, dtype=torch.int32, device=dev)
     kept = torch.empty((r, m), dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = _scratch(dev, stream, -(-n // TILE))
+    status = _scratch(dev, stream, n_blocks * -(-(n // n_blocks) // TILE))
     lib = _LIB.get()
-    rc = lib.compact_select(v.data_ptr(), n, budget, sel.data_ptr(),
-                            kept.data_ptr(), status.data_ptr(),
-                            status.numel() - 1,
+    rc = lib.compact_select(v.data_ptr(), n, budget, n_blocks,
+                            sel.data_ptr(), kept.data_ptr(),
+                            status.data_ptr(), status.numel() - 1,
                             status.data_ptr() + 8 * (status.numel() - 1),
                             stream)
     _LIB.check(rc, "compact_select")
-    launches["compact_select"] += 1
+    launches["compact_select" if n_blocks == 1
+             else "compact_select_blocks"] += 1
     return sel, kept
 
 

@@ -1,5 +1,5 @@
 """Proposal-network training CLI of the port — the counterpart of the JAX
-package's train_prop_real.py: the same flags (plus --device and --dp),
+package's train_prop_real.py: the same flags (plus --device),
 output lines and checkpoint contract, on CUDA unless --device cpu is given.
 
 Usage:
@@ -66,9 +66,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--density_clamp", type=float, default=-1.0,
                         help="pre-activation cap on the density exp "
                              "(-1 = family default; 0 = off)")
-    parser.add_argument("--dp", action="store_true",
-                        help="ray-sharded data parallelism over all attached "
-                             "devices (not ported yet)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "versions (tests)")

@@ -22,7 +22,15 @@ per-frame PNGs without an mp4 writer); `--gui` serves the viewer on port
 8890. The environment variable CEDNERF_CFG holds SceneConfig overrides as
 JSON (tiny shapes for tests). The last line printed is one JSON object
 {"train_real": {...}}: steps, train time, the kernels' launch counts of
-the training run and of the evaluation, and the evaluation's means.
+the training run and of the evaluation, the evaluation's means and the
+run's per-chunk log (`chunks`: Trainer.chunk_log).
+
+--dp trains with ray-sharded data parallelism (parallel/mesh.py) over the
+ranks of `python -m torch.distributed.run --nproc_per_node N -m
+cednerf_torch.train_real --dp ...` (NCCL, one card a rank), or alone over
+a one-rank group: cfg.compact_blocks = the mesh size, the evaluation
+renders each chunk's rows across the ranks, and only rank 0 writes the
+checkpoints, the PNGs and the summary line.
 """
 
 import argparse
@@ -37,7 +45,7 @@ import torch
 
 from .datasets import DNERF_SYNTHETIC_SCENES, DYNERF_SCENES, HYPERNERF_SCENES
 from .engine.cli import (apply_perf_overrides, build_field, flags_from_args,
-                         get_model_args, not_ported)
+                         get_model_args)
 from .engine.config import config_for_scene
 from .utils.bench import kernel_counts, reset_kernel_counts
 from .utils.device import resolve_device
@@ -76,8 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "this step (reference dnerf_3d_video_IS.py:308 "
                              "switch_to_ist; 0 = never)")
     parser.add_argument("--dp", action="store_true",
-                        help="ray-sharded data parallelism over all attached "
-                             "devices (not ported yet)")
+                        help="ray-sharded data parallelism over the ranks of "
+                             "torch.distributed.run (one card each; alone: "
+                             "one rank); gradients summed over the ranks")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="trace 64 steady-state steps with "
                              "torch.profiler into this directory "
@@ -138,11 +147,13 @@ def _loader(scene: str, cfg, device):
     return Loader, kw, test_kw
 
 
-def _evaluate(field, occ, render_chunk, chunk: int, test_dataset) -> dict:
+def _evaluate(field, occ, render_chunk, chunk: int, test_dataset,
+              mesh=None) -> dict:
     """PSNR and MS-SSIM over every test image (train_real.py:443-520)
     rendered by render_image through `render_chunk` in chunks of `chunk`
-    rays, the first image's rgb / depth / error PNGs written to the working
-    directory."""
+    rays (each chunk's rows across the ranks of `mesh`, if given), the
+    first image's rgb / depth / error PNGs written to the working
+    directory (by rank 0)."""
     from .engine.renderer import render_image
     from .utils.image import write_png
     from .utils.metrics import depth_to_img, ms_ssim, psnr
@@ -152,11 +163,12 @@ def _evaluate(field, occ, render_chunk, chunk: int, test_dataset) -> dict:
         data = test_dataset.image_rays(i)
         rgb, _, depth = render_image(
             field, occ, render_chunk, data["origins"], data["viewdirs"],
-            float(data["timestamp"]), data["color_bkgd"], chunk=chunk)
+            float(data["timestamp"]), data["color_bkgd"], chunk=chunk,
+            mesh=mesh)
         finite &= bool(np.isfinite(rgb).all() and np.isfinite(depth).all())
         psnrs.append(psnr(rgb, data["pixels"]).item())
         ssims.append(ms_ssim(rgb, data["pixels"]).item())
-        if i == 0:
+        if i == 0 and (mesh is None or mesh.rank == 0):
             write_png("rgb_test.png", rgb)
             write_png("depth_test.png", depth_to_img(depth))
             err = np.linalg.norm(rgb - data["pixels"], axis=-1)
@@ -199,13 +211,11 @@ def _eval_renderer(field, cfg):
     return make_eval_render_fn(field, cfg), eval_chunk_for(cfg)
 
 
-def _prepare(args):
+def _prepare(args, device=None):
     """(device, cfg, flags, field, (Loader, train kwargs), test dataset) of
-    a parsed command line; stops at once when --render_video is asked of a
-    loader without a render path."""
-    if args.dp:
-        raise not_ported("--dp (ray data parallelism over several cards)", 8)
-    device = resolve_device(args.device)
+    a parsed command line (on `device` if given, else --device); stops at
+    once when --render_video is asked of a loader without a render path."""
+    device = resolve_device(device or args.device)
     cfg = config_for_scene(args.scene, args.max_steps)
     if args.hash_levels or args.hash_features:
         cfg = dataclasses.replace(
@@ -266,10 +276,19 @@ def main(argv=None) -> dict:
     """Run the CLI on `argv` (sys.argv by default); returns the summary
     that the last printed line carries."""
     args = build_parser().parse_args(argv)
+    mesh, own_group = None, False
+    if args.dp and not args.load_model:
+        import torch.distributed as dist
+
+        from .parallel import make_mesh
+
+        own_group = not dist.is_initialized()
+        mesh = make_mesh(device=args.device)
     device, cfg, flags, field, (Loader, loader_kw), test_dataset = \
-        _prepare(args)
+        _prepare(args, mesh.device if mesh else None)
     from .engine.train import Trainer
 
+    lead = mesh is None or mesh.rank == 0
     summary = {"scene": args.scene, "device": str(device)}
     train_dataset = None
     if args.load_model:
@@ -288,9 +307,14 @@ def main(argv=None) -> dict:
                           if hasattr(train_dataset, "device_sampler")
                           else None)
         load["device_data"] = time.time() - tic - load["loader"]
+        if mesh is not None:
+            # shard-local budget compaction (one block per rank)
+            cfg = dataclasses.replace(cfg, compact_blocks=mesh.size)
+            print(f"data parallel over {mesh.size} device(s)")
+            summary["dp"] = mesh.size
         trainer = Trainer(field, cfg, flags, train_dataset, seed=42,
                           device=device, device_sampler=device_sampler,
-                          stacked_host=device_sampler is None)
+                          stacked_host=device_sampler is None, mesh=mesh)
         load["trainer"] = time.time() - tic - sum(load.values())
         summary["load_s"] = load
         summary["sampler"] = "device" if device_sampler else "stacked_host"
@@ -349,14 +373,20 @@ def main(argv=None) -> dict:
         steps = trainer.step - step0
         summary.update(step=trainer.step, steps=steps, train_s=train_s,
                        steps_per_s=steps / train_s if train_s else None,
-                       launches=launches, plain_cuda_calls=plain)
+                       launches=launches, plain_cuda_calls=plain,
+                       chunks=trainer.chunk_log)
 
         reset_kernel_counts()
         summary["eval"] = _evaluate(state.field, state.occ,
                                     *_eval_renderer(state.field, cfg),
-                                    test_dataset)
+                                    test_dataset, mesh=mesh)
         summary["eval"]["launches"], summary["eval"]["plain_cuda_calls"] = \
             kernel_counts()
+
+    if own_group:
+        dist.destroy_process_group()
+    if not lead:
+        return summary
 
     if args.render_video:
         summary["video"] = _render_video(state.field, state.occ,

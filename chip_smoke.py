@@ -160,8 +160,27 @@ Phases, each of which must pass (nothing is caught and carried on):
      family's two unbounded nets for 64 steps, and `python -m
      cednerf_torch.train_prop_real` from disk, then --load_model
      --render_video.
-Phases 5, 7, 7b, 10, 13, 14, 15 and 16 fail if K7 or K8 launched on a
-serving or training path.
+ 17. data parallelism (parallel/mesh.py, dp_phase): blocked K4 (one
+     launch for cfg.compact_blocks > 1) bit-exact against its plain
+     version for 2, 4 and 8 blocks on a [16000, 1024] lattice at ~10% and
+     on a ragged [3000, 333] one with an empty and an overflowing block,
+     timed beside its bound and torch.nonzero; a full-width Trainer chunk
+     with compact_blocks 2 (blocked K4 once a step, counted); two ranks
+     sharing the card over gloo (subprocesses of this script, --dp_rank):
+     bit-equal to each other and at phase 6's limits against that chunk; a
+     one-rank NCCL mesh's Trainer against the mesh-free one, its chunk
+     free of host syncs; a render_image(mesh=...) frame; a
+     PropTrainer(mesh=...) chunk; and `python -m torch.distributed.run
+     --standalone --nproc_per_node 1 -m cednerf_torch.train_real --dp` on
+     a 100x100 scene.
+Phases 5, 7, 7b, 10, 13, 14, 15, 16 and 17 fail if K7 or K8 launched on a
+serving or training path. Phase 14 prints the lego run's per-chunk log
+(Trainer.chunk_log: loss, PSNR, complete_frac, bucket, steady lattice,
+occupied share, non-finite steps) when its PSNR check fails.
+
+`python3 chip_smoke.py --lego_runs N [--lego_parallel P]` runs only phase
+14's lego command N times, P at once, and writes each run's PSNR and
+per-chunk log to --lego_out (lego_runs).
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
@@ -1294,9 +1313,9 @@ def _keeping_k4(kept, label):
     from cednerf_torch.ops import compact_kernels as ck
     real = ck.compact_select_kernel
 
-    def keep(valid, budget):
-        sel, sel_kept = real(valid, budget)
-        key = (tuple(valid.shape), budget)
+    def keep(valid, budget, n_blocks=1):
+        sel, sel_kept = real(valid, budget, n_blocks)
+        key = (tuple(valid.shape), budget, n_blocks)
         n = sel_kept.sum()
         if key not in kept:
             kept[key] = (label, valid.clone(), sel.clone(), sel_kept.clone(),
@@ -1318,21 +1337,27 @@ def _keeping_k4(kept, label):
 
 
 def _check_k4_kept(kept):
-    """Each result _keeping_k4 kept, bit-exact against compact_select_rayfold
-    on the same lattice (run after the paths' launch counts were read)."""
+    """Each result _keeping_k4 kept, bit-exact against its plain version
+    on the same lattice (compact_select_rayfold; compact_select for a
+    blocked call), run after the paths' launch counts were read."""
     import torch
     from cednerf_torch.ops import compact_kernels as ck
     recs = []
-    for (shape, budget), (label, valid, sel, sel_kept, _) in kept.items():
-        want = ck.compact_select_rayfold(valid, budget)
+    for (shape, budget, nbk), (label, valid, sel, sel_kept, _) in \
+            kept.items():
+        want = (ck.compact_select_rayfold(valid, budget) if nbk == 1
+                else ck.compact_select(valid, budget, nbk))
         torch.cuda.synchronize()
         if not (torch.equal(sel, want[0]) and torch.equal(sel_kept, want[1])):
             raise AssertionError(f"compact_select on the {label} path's "
-                                 f"{shape} lattice, budget {budget}: "
-                                 "differs from its plain version")
-        rec = {"name": "compact_select", "path": label,
-               "lattice": list(shape), "budget": budget,
-               "tiles": -(-valid.numel() // ck.TILE), "max_abs_err": 0,
+                                 f"{shape} lattice, budget {budget}, "
+                                 f"{nbk} block(s): differs from its plain "
+                                 "version")
+        rec = {"name": "compact_select" if nbk == 1
+               else "compact_select_blocks", "path": label,
+               "lattice": list(shape), "budget": budget, "n_blocks": nbk,
+               "tiles": nbk * -(-(valid.numel() // nbk) // ck.TILE),
+               "max_abs_err": 0,
                "n_valid": int(valid.sum().item()),
                "n_selected": int(sel_kept.sum().item())}
         log(json.dumps({"kernel_check": rec}))
@@ -2083,7 +2108,7 @@ def _check_real_run(label, summary, lattice_eval, need_train=True):
     presets; the D-NeRF preset's segment renderer compacts without K4)."""
     log(json.dumps({"train_real_summary": {
         "label": label, **{k: v for k, v in summary.items()
-                           if k != "eval"},
+                           if k not in ("eval", "chunks")},
         "eval": {k: v for k, v in summary["eval"].items()
                  if k != "plain_cuda_calls"}}}))
     if not summary["eval"]["finite"]:
@@ -2209,6 +2234,8 @@ def train_real_phase(seed, scanned_steady_ms):
         _check_real_run("train_real lego", s, lattice_eval=False)
         psnr = s["eval"]["psnr_avg"]
         if not psnr >= out["white_psnr_avg"] + TRAIN_REAL_MARGIN_DB:
+            # the run's per-chunk log, to find where it left the band
+            log(json.dumps({"train_real_lego_chunks": s["chunks"]}))
             raise AssertionError(
                 f"train_real lego: eval PSNR {psnr} not {TRAIN_REAL_MARGIN_DB}"
                 f" dB above all-white {out['white_psnr_avg']}")
@@ -3583,9 +3610,575 @@ def row_gather_probe_phase(seed):
     return {"launches": launches, "widths": res["widths"]}
 
 
+# phase 17 (data parallelism): steps a chunk of its Trainers and
+# PropTrainers, the blocked K4 lattices, the 2-rank run's limits (phase 6's:
+# loss 1e-4, gradients 1% of each norm) and the mesh frame's (phase 4's
+# bit-level agreement: one rank renders the whole chunk)
+DP_K = 4
+DP_BLOCKS = (2, 4, 8)
+DP_RAGGED = (3000, 333, 8 * 4096)    # blocks of 124,875 candidates
+DP_FRAME_ATOL = 1e-5
+
+
+def blocked_compact_phase(budget, seed):
+    """Blocked K4 (one launch for cfg.compact_blocks > 1) bit-exact against
+    its plain version (compact_select, the port of JAX's) for n_blocks 2,
+    4, 8 on the top ray bucket's [16000, 1024] lattice at ~10% valid, and
+    on a ragged [3000, 333] one (blocks no multiple of 16 candidates, so
+    scalar loads at their edges) with block 0 empty and the last block
+    full (it overflows its share). The [16000, 1024] cases are timed with
+    CUDA events and by profiler device ms, beside the bound (K4's bytes)
+    and torch.nonzero on the [n_blocks, R*M / n_blocks] view, one call
+    that finds every block's candidates (the library yardstick). Returns
+    {n_blocks: record}."""
+    import torch
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.utils.bench import cuda_ms, device_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    top = torch.rand((16000, 1024), device="cuda", generator=gen) < 0.1
+    r, m, rb_budget = DP_RAGGED
+    ragged = torch.rand((r, m), device="cuda", generator=gen) < 0.1
+    out = {}
+    for nbk in DP_BLOCKS:
+        rows = r // nbk
+        rag = ragged.clone()
+        rag[:rows] = False
+        rag[-rows:] = True
+        for name, valid, bud in (("top", top, budget),
+                                 ("ragged", rag, rb_budget)):
+            sel, kept = ck.compact_select_kernel(valid, bud, nbk)
+            want = ck.compact_select(valid, bud, nbk)
+            torch.cuda.synchronize()
+            if not (torch.equal(sel, want[0]) and torch.equal(kept, want[1])):
+                raise AssertionError(f"compact_select_blocks {name} "
+                                     f"{list(valid.shape)} n_blocks {nbk}: "
+                                     "differs from its plain version")
+            rec = {"name": "compact_select_blocks", "lattice":
+                   list(valid.shape), "n_blocks": nbk, "budget": bud,
+                   "block_candidates": valid.numel() // nbk,
+                   "max_abs_err": 0, "n_valid": int(valid.sum().item()),
+                   "n_selected": int(kept.sum().item())}
+            if name == "top":
+                rec["ms"] = cuda_ms(
+                    lambda: ck.compact_select_kernel(valid, bud, nbk), 20)
+                rec["plain_ms"] = cuda_ms(
+                    lambda: ck.compact_select(valid, bud, nbk), 3)
+                view = valid.reshape(nbk, -1)
+                rec["library_ms"] = cuda_ms(lambda: torch.nonzero(view), 20)
+                rec["device_ms"], rows_k = device_ms(
+                    lambda: ck.compact_select_kernel(valid, bud, nbk), 20)
+                rec["library_device_ms"], _ = device_ms(
+                    lambda: torch.nonzero(view), 20)
+                rec["one_block_ms"] = cuda_ms(
+                    lambda: ck.compact_select_kernel(valid, bud), 20)
+                rec["device_kernels"] = [row[:2] for row in rows_k]
+                if not rows_k:
+                    # the profiler recorded no kernel of these launches
+                    rec["device_ms"] = None
+                n = valid.numel()
+                t_bytes = (2 * n + 4 * bud) / HBM_BYTES_PER_S * 1e3
+                t_ops = 4 * n / F32_FLOPS * 1e3
+                rec["bound_ms"] = max(t_bytes, t_ops)
+                rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+                out[nbk] = rec
+            log(json.dumps({"kernel_check": rec}))
+    return out
+
+
+def _grad_rel(a, b):
+    """{parameter: |a - b| / |b|} of two fields' .grad."""
+    ga = dict(a.named_parameters())
+    return {n: float((ga[n].grad - p.grad).norm() / p.grad.norm().clamp_min(
+        1e-30)) for n, p in b.named_parameters()}
+
+
+def _check_pair(label, got, want, grads):
+    """Phase 6's limits between two chunks: loss within 1e-4, every
+    parameter's gradient within 1% of its norm."""
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    worst = max(grads.values()) if grads else 0.0
+    rec = {"loss": got["loss"], "want_loss": want["loss"],
+           "loss_rel": loss_err, "grad_rel_max": worst}
+    if not (loss_err <= STEP_LOSS_RTOL and worst <= STEP_GRAD_REL):
+        raise AssertionError(f"{label}: loss {got['loss']} vs "
+                             f"{want['loss']}, gradients {grads}")
+    return rec
+
+
+def dp_rank_main(rank, work_dir, seed):
+    """One of two ranks sharing this card over gloo (NCCL refuses two ranks
+    on one device; over gloo the mesh runs each collective on a host copy
+    of its CUDA tensor): a Trainer(mesh=...) chunk of
+    the full-width field with compact_blocks 2 on BallCloudScene's device
+    sampler, saved to work_dir/rank{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+    from cednerf_torch.datasets.procedural import BallCloudScene
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.parallel import make_mesh
+    from cednerf_torch.utils.bench import TRAIN_FLAGS
+
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(work_dir, "store"), 2),
+        rank=rank, world_size=2)
+    mesh = make_mesh(device="cuda:0")
+    cfg = dataclasses.replace(dnerf_config(), compact_blocks=2)
+    flags = ModelFlags(**TRAIN_FLAGS)
+    scene = BallCloudScene(seed=seed)
+    tr = Trainer(build_field(cfg, flags, device="cuda", seed=seed), cfg,
+                 flags, scene, seed=seed, device="cuda",
+                 device_sampler=scene.device_sampler(), steps_per_call=DP_K,
+                 mesh=mesh)
+    reset_counts()
+    t0 = time.perf_counter()
+    m = tr.run_chunk()
+    secs = time.perf_counter() - t0
+    launches, plain = all_counts()
+    torch.save({"metrics": m, "secs": secs, "launches": launches,
+                "plain": plain, "backend": mesh.backend,
+                "params": {k: v.cpu() for k, v in
+                           tr.field.state_dict().items()},
+                "grads": {n: p.grad.cpu()
+                          for n, p in tr.field.named_parameters()},
+                "occs": tr.state.occ.occs.cpu(),
+                "binaries": tr.state.occ.binaries.cpu()},
+               os.path.join(work_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _two_ranks(seed, ref_field, ref_metrics):
+    """Two rank processes on this card (dp_rank_main), then: their
+    parameters, occupancy grids and metrics bit-equal, and the pair
+    against the one-process compact_blocks=2 chunk at phase 6's limits."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    here = os.path.abspath(__file__)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--dp_rank", str(rank), "--dp_dir", work,
+         "--seed", str(seed)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, o in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"dp rank exited {p.returncode}:\n"
+                                 f"{o[-4000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    r0, r1 = ranks
+    same = (all(torch.equal(v, r1["params"][k])
+                for k, v in r0["params"].items())
+            and torch.equal(r0["occs"], r1["occs"])
+            and torch.equal(r0["binaries"], r1["binaries"])
+            and r0["metrics"] == r1["metrics"])
+    if not same:
+        raise AssertionError("two ranks on one card: their parameters, "
+                             "grids or metrics differ")
+    refg = {n: p.grad.cpu() for n, p in ref_field.named_parameters()}
+    grads = {n: float((r0["grads"][n] - g).norm() / g.norm().clamp_min(
+        1e-30)) for n, g in refg.items()}
+    rec = _check_pair("two ranks vs one process compact_blocks=2",
+                      r0["metrics"], ref_metrics, grads)
+    rec.update(ranks_bit_equal=True, process_s=time.perf_counter() - t0,
+               chunk_s=[x["secs"] for x in ranks], backend=r0["backend"],
+               launches=[{k: v for k, v in x["launches"].items() if v}
+                         for x in ranks])
+    if any(v for x in ranks for v in x["plain"].values()):
+        raise AssertionError(f"dp ranks: plain versions on CUDA "
+                             f"{[x['plain'] for x in ranks]}")
+    return rec
+
+
+def dp_phase(seed):
+    """Phase 17, ray data parallelism (parallel/mesh.py) on the one H100:
+
+      1. blocked K4 against its plain version and timed
+         (blocked_compact_phase);
+      2. the one-process reference: a Trainer chunk (DP_K steps) of the
+         full-width field (dnerf_config, -te -ta -f -ae -df -d) with
+         compact_blocks 2 on BallCloudScene's device sampler, counters
+         zeroed just before and read just after: blocked K4 once a step,
+         K5/K6 launched, no single-block K4, no plain version;
+      3. two ranks sharing the card over gloo (dp_rank_main, as
+         subprocesses): bit-equal parameters, grids and metrics, and
+         against step 2 at phase 6's limits (loss 1e-4, gradients 1%);
+      4. a one-rank NCCL mesh (make_mesh() alone): Trainer(mesh=...)
+         against the mesh-free Trainer, two chunks each (phase 6's
+         limits), a chunk's host and device ms a step of each, then a
+         chunk dispatched under sync-debug "error" and a run_chunk with
+         exactly one host sync;
+      5. a render_image(mesh=...) frame of that field against mesh=None
+         (DP_FRAME_ATOL on rgb and opacity, depth where opacity >= 1e-2);
+      6. PropTrainer(mesh=...) one chunk against the mesh-free one (the
+         D-NeRF prop family at PROP_RAYS rays, loss within 1e-4);
+      7. `python -m torch.distributed.run --standalone --nproc_per_node 1
+         -m cednerf_torch.train_real --dp` on a 100x100 lego-layout scene,
+         SMALL_REAL_STEPS steps: "data parallel over 1 device(s)", K5, K6
+         and K4 launched, finite outputs."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from cednerf_torch.datasets.procedural import BallCloudScene
+    from cednerf_torch.engine import train_prop as tp
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.renderer import (eval_chunk_for,
+                                               make_eval_render_fn,
+                                               render_image)
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.parallel import make_mesh
+    from cednerf_torch.utils.bench import TRAIN_FLAGS, device_ms
+
+    t_phase = time.perf_counter()
+    out = {"k4_blocks": blocked_compact_phase(dnerf_config().sample_budget,
+                                              seed)}
+    cfg = dnerf_config()
+    flags = ModelFlags(**TRAIN_FLAGS)
+    scene = BallCloudScene(seed=seed)
+
+    def trainer(c, mesh=None):
+        return Trainer(build_field(c, flags, device="cuda", seed=seed), c,
+                       flags, scene, seed=seed, device="cuda",
+                       device_sampler=scene.device_sampler(),
+                       steps_per_call=DP_K, mesh=mesh)
+
+    # 2. the one-process compact_blocks=2 program: blocked K4's main path
+    ref = trainer(dataclasses.replace(cfg, compact_blocks=2))
+    reset_counts()
+    ref_m = ref.run_chunk()
+    launches, plain = all_counts()
+    if (launches["compact_select_blocks"] != DP_K
+            or launches["compact_select"]
+            or not launches["fused_encode_fwd"]
+            or launches["fused_encode_bwd"] != DP_K
+            or any(plain.values())):
+        raise AssertionError(f"compact_blocks=2 chunk: launches {launches}, "
+                             f"plain {plain}")
+    no_probe_kernels("dp compact_blocks=2", launches)
+    out["blocks2"] = {"metrics": ref_m,
+                      "launches": {k: v for k, v in launches.items() if v}}
+    log(json.dumps({"dp_blocks2": out["blocks2"]}))
+
+    # 3. two ranks on this card over gloo
+    out["two_ranks"] = _two_ranks(seed, ref.field, ref_m)
+    log(json.dumps({"dp_two_ranks": out["two_ranks"]}))
+    del ref
+    torch.cuda.empty_cache()
+
+    # 4. a one-rank NCCL mesh against the mesh-free Trainer
+    made = not dist.is_initialized()
+    mesh = make_mesh()
+    try:
+        plain_tr, mesh_tr = trainer(cfg), trainer(cfg, mesh)
+        pair = []
+        for _ in range(2):
+            a, b = plain_tr.run_chunk(), mesh_tr.run_chunk()
+            pair.append(_check_pair("one-rank mesh vs mesh-free", b, a,
+                                    _grad_rel(mesh_tr.field,
+                                              plain_tr.field)))
+        # a warmup chunk's host ms and device ms a step, each Trainer
+        timing = {}
+        for tag, tr in (("mesh_free", plain_tr), ("nccl_mesh", mesh_tr)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run_chunk()
+            host = (time.perf_counter() - t0) * 1e3 / DP_K
+            dev, _ = device_ms(tr.dispatch_chunk, 1)
+            timing[tag] = {"host_ms_per_step": host,
+                           "device_ms_per_step": dev / DP_K}
+        reset_counts()
+        syncs = _sync_checked_chunk(mesh_tr)
+        launches, plain = all_counts()
+        if any(plain.values()) or launches["compact_select"] != 2 * DP_K:
+            raise AssertionError(f"one-rank mesh chunks: launches "
+                                 f"{launches}, plain {plain}")
+        out["one_rank"] = {"backend": mesh.backend, "chunks": pair,
+                           "timing": timing,
+                           "host_syncs_per_chunk": syncs,
+                           "dispatch_syncs": 0,
+                           "launches": {k: v for k, v in launches.items()
+                                        if v}}
+        log(json.dumps({"dp_one_rank": out["one_rank"]}))
+
+        # 5. a frame rendered across the mesh's ranks
+        fn = make_eval_render_fn(mesh_tr.field, cfg)
+        img = scene.image_rays(0, 0.5)
+        args = (mesh_tr.field, mesh_tr.state.occ, fn, img["origins"],
+                img["viewdirs"], 0.5, np.ones(3, np.float32))
+        reset_counts()
+        t0 = time.perf_counter()
+        got = render_image(*args, chunk=eval_chunk_for(cfg), mesh=mesh)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        frame_launches, _ = all_counts()
+        want = render_image(*args, chunk=eval_chunk_for(cfg))
+        seen = want[1] >= 1e-2
+        errs = [float(np.abs(got[i] - want[i]).max()) for i in (0, 1)]
+        dep = float(np.abs(got[2][seen] - want[2][seen]).max()
+                    / max(float(np.abs(want[2][seen]).max()), 1e-30)
+                    if seen.any() else 0.0)
+        if not (max(errs) <= DP_FRAME_ATOL and dep <= DP_FRAME_ATOL
+                and np.isfinite(got[0]).all()):
+            raise AssertionError(f"render_image(mesh=): rgb/opacity "
+                                 f"{errs}, depth {dep}")
+        out["frame"] = {"wh": scene.wh, "ms": ms,
+                        "rgb_opacity_err": errs, "depth_rel_err": dep,
+                        "launches": {k: v for k, v in frame_launches.items()
+                                     if v}}
+        log(json.dumps({"dp_frame": out["frame"]}))
+        del plain_tr, mesh_tr
+        torch.cuda.empty_cache()
+
+        # 6. PropTrainer(mesh=...) against the mesh-free one
+        pcfg = tp.PropConfig.for_family("dnerf")
+        pflags = ModelFlags(**PROP_FLAGS)
+
+        def prop(m=None):
+            field = build_field(cfg, pflags, device="cuda", seed=seed)
+            props = tp.build_prop_networks(cfg, pcfg, device="cuda",
+                                           seed=seed)
+            for mod in (field,) + props:
+                mod.density_clamp = pcfg.density_clamp
+            return tp.PropTrainer(field, props, cfg, pflags, pcfg,
+                                  scene.device_sampler(), n_rays=PROP_RAYS,
+                                  seed=seed, steps_per_call=DP_K, mesh=m)
+
+        pa, pb = prop(), prop(mesh)
+        reset_counts()
+        ma, mb = pa.run_chunk(), pb.run_chunk()
+        launches, plain = all_counts()
+        rec = _check_pair("PropTrainer one-rank mesh vs mesh-free", mb, ma,
+                          {})
+        if any(plain.values()) or not launches["fused_encode_bwd"]:
+            raise AssertionError(f"prop mesh chunk: {launches} {plain}")
+        rec["launches"] = {k: v for k, v in launches.items() if v}
+        out["prop"] = rec
+        log(json.dumps({"dp_prop": rec}))
+        del pa, pb
+        torch.cuda.empty_cache()
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+    # 7. train_real --dp under torch.distributed.run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_cli_")
+    try:
+        small = _write_dnerf_scene(os.path.join(tmp, "dnerf"), 100, 8, 2)
+        run = os.path.join(tmp, "run")
+        os.makedirs(run)
+        env = dict(os.environ)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+        env.pop("CEDNERF_CFG", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "cednerf_torch.train_real",
+             "--dp", "--scene", "lego", "--data_root",
+             os.path.dirname(small), "--model_path",
+             os.path.join(tmp, "ckpt"), "--max_steps",
+             str(SMALL_REAL_STEPS)] + PUBLISHED, cwd=run, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0 or "data parallel over 1 device(s)" \
+                not in proc.stdout:
+            raise AssertionError(f"train_real --dp exited {proc.returncode}"
+                                 f":\n{proc.stdout[-6000:]}")
+        last = [ln for ln in proc.stdout.strip().splitlines()
+                if ln.startswith('{"train_real"')][-1]
+        s = json.loads(last)["train_real"]
+        _check_real_run("train_real --dp", s, lattice_eval=False)
+        if s.get("dp") != 1:
+            raise AssertionError(f"train_real --dp: dp {s.get('dp')}")
+        out["cli"] = {"process_s": secs, "step": s["step"],
+                      "steady_ms_per_step": s.get("steady_ms_per_step"),
+                      "eval_psnr": s["eval"]["psnr_avg"],
+                      "launches": s["launches"],
+                      "eval_launches": s["eval"]["launches"]}
+        log(json.dumps({"dp_cli": out["cli"]}))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def checked_cli(argv):
+    """train_real's main(argv) in this process with every K4 call held bit
+    for bit against its plain version and every K6 call against its plain
+    version at phase 3's limits (BWD_TABLE_FRAC of each level's largest
+    entry, BWD_DX_FRAC of d_x's). A call off its plain version is
+    counted, not raised, so the run goes on to its PSNR; the counts are
+    printed as the last line, {"checked": {...}}, after the CLI's summary
+    line."""
+    import numpy as np
+    import torch
+    from cednerf_torch import train_real
+    from cednerf_torch.ops import compact_kernels as ck
+    from cednerf_torch.ops import encode_kernels as ek
+
+    real_k4, real_k6 = ck.compact_select_kernel, ek.fused_encode_bwd
+    stats = {"k4_calls": 0, "k4_off": 0, "k6_calls": 0, "k6_off": 0,
+             "k6_table_worst": 0.0, "k6_dx_worst": 0.0}
+
+    def k4(valid, budget, n_blocks=1):
+        sel, kept = real_k4(valid, budget, n_blocks)
+        want = (ck.compact_select_rayfold(valid, budget) if n_blocks == 1
+                else ck.compact_select(valid, budget, n_blocks))
+        stats["k4_calls"] += 1
+        stats["k4_off"] += not (torch.equal(sel, want[0])
+                                and torch.equal(kept, want[1]))
+        return sel, kept
+
+    def k6(x, g, rows, table, scales, nbs, level_rows, n_feat):
+        got = real_k6(x, g, rows, table, scales, nbs, level_rows, n_feat)
+        want = ek.fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
+                                         level_rows, n_feat)
+        offs = np.cumsum([0] + list(level_rows))
+        table_err = max(_frac_err(got[0][offs[i]:offs[i + 1]],
+                                  want[0][offs[i]:offs[i + 1]])
+                        for i in range(len(level_rows)))
+        dx_err = _frac_err(got[1], want[1])
+        stats["k6_calls"] += 1
+        stats["k6_off"] += (table_err > BWD_TABLE_FRAC
+                            or dx_err > BWD_DX_FRAC)
+        stats["k6_table_worst"] = max(stats["k6_table_worst"], table_err)
+        stats["k6_dx_worst"] = max(stats["k6_dx_worst"], dx_err)
+        return got
+
+    ck.compact_select_kernel, ek.fused_encode_bwd = k4, k6
+    try:
+        train_real.main(argv)
+    finally:
+        ck.compact_select_kernel, ek.fused_encode_bwd = real_k4, real_k6
+    print(json.dumps({"checked": stats}))
+
+
+def lego_runs(n, parallel, seed, checked=False, out_path="lego_runs.json"):
+    """Phase 14's lego command (`python -m cednerf_torch.train_real
+    --scene lego --max_steps 1024 -te -ta -f -ae -df -d` on the 800x800
+    lego-layout scene) run n times, `parallel` processes at once: each
+    run's eval PSNR, time and per-chunk log (Trainer.chunk_log) go to
+    the JSON file `out_path`; a
+    run below phase 14's margin over all-white is a collapse. checked:
+    each run through checked_cli (every K4 and K6 call against its plain
+    version). Returns the summary."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from cednerf_torch.datasets.dnerf_synthetic import DNeRFSyntheticDataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lego_")
+    try:
+        lego = _write_dnerf_scene(os.path.join(tmp, "dnerf"), LEGO_WH,
+                                  LEGO_TRAIN, LEGO_TEST)
+        test = DNeRFSyntheticDataset("lego", os.path.dirname(lego), "test")
+        white = float(np.mean([-10 * np.log10(np.mean(
+            (1.0 - test.image_rays(i)["pixels"]) ** 2))
+            for i in range(len(test))]))
+
+        def one(i):
+            run = os.path.join(tmp, f"run{i}")
+            os.makedirs(run)
+            argv = ["--scene", "lego", "--data_root", os.path.dirname(lego),
+                    "--model_path", os.path.join(tmp, f"ckpt{i}"),
+                    "--max_steps", str(TRAIN_REAL_STEPS)] + PUBLISHED
+            if checked:
+                s, secs, stats = _checked_cli(argv, run)
+            else:
+                (s, secs), stats = _train_real_cli(argv, run), None
+            rec = {"run": i, "psnr": s["eval"]["psnr_avg"], "checked": stats,
+                   "psnrs": s["eval"]["psnrs"], "process_s": secs,
+                   "train_s": s["train_s"], "chunks": s["chunks"],
+                   "plain": {k: v for k, v in s["plain_cuda_calls"].items()
+                             if v}}
+            log(json.dumps({"lego_run": {k: v for k, v in rec.items()
+                                         if k != "chunks"}}))
+            return rec
+
+        with concurrent.futures.ThreadPoolExecutor(parallel) as ex:
+            runs = list(ex.map(one, range(n)))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    limit = white + TRAIN_REAL_MARGIN_DB
+    summary = {"runs": n, "parallel": parallel, "white_psnr_avg": white,
+               "psnrs": [r["psnr"] for r in runs],
+               "collapses": [r["run"] for r in runs if r["psnr"] < limit]}
+    if checked:
+        summary["checked"] = {k: sum(r["checked"][k] for r in runs)
+                              for k in ("k4_calls", "k4_off", "k6_calls",
+                                        "k6_off")}
+        summary["checked"]["k6_table_worst"] = max(
+            r["checked"]["k6_table_worst"] for r in runs)
+        summary["checked"]["k6_dx_worst"] = max(
+            r["checked"]["k6_dx_worst"] for r in runs)
+    os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump({"summary": summary, "runs": runs}, f)
+    return summary
+
+
+def _checked_cli(argv, cwd):
+    """checked_cli(argv) as a subprocess in `cwd`: (the CLI's summary,
+    seconds, the checked counts). Fails on a non-zero exit."""
+    import subprocess
+
+    env = dict(os.environ)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("CEDNERF_CFG", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(repo, "chip_smoke.py"),
+                           "--checked_cli"] + argv, cwd=cwd, env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=1200)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"checked train_real {argv} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-6000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return (json.loads(lines[-2])["train_real"], secs,
+            json.loads(lines[-1])["checked"])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lego_runs", type=int, default=0,
+                    help="only run phase 14's lego command this many times "
+                         "(lego_runs) and print their PSNRs")
+    ap.add_argument("--lego_parallel", type=int, default=1,
+                    help="lego runs at once")
+    ap.add_argument("--lego_checked", action="store_true",
+                    help="each lego run through checked_cli")
+    ap.add_argument("--lego_out", default="lego_runs.json",
+                    help="where --lego_runs writes its runs (JSON)")
+    ap.add_argument("--checked_cli", nargs=argparse.REMAINDER,
+                    help="run train_real with these arguments through "
+                         "checked_cli (started by --lego_checked)")
+    ap.add_argument("--dp_rank", type=int, default=-1,
+                    help="run one rank of phase 17's two-rank gloo chunk "
+                         "(dp_rank_main; started by phase 17 itself)")
+    ap.add_argument("--dp_dir", default="")
     args = ap.parse_args(argv)
 
     import torch
@@ -3593,6 +4186,22 @@ def main(argv=None):
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.dp_rank >= 0:
+        dp_rank_main(args.dp_rank, args.dp_dir, args.seed)
+        return 0
+    if args.checked_cli is not None:
+        checked_cli(args.checked_cli)
+        return 0
+    if args.lego_runs:
+        from cednerf_torch.ops.cuda_build import build_all
+        from cednerf_torch.utils.bench import card_name
+        log(card_name())
+        build_all()
+        summary = lego_runs(args.lego_runs, args.lego_parallel, args.seed,
+                            args.lego_checked, args.lego_out)
+        log(card_name())
+        print(json.dumps({"lego_runs": summary}))
+        return 0 if not summary["collapses"] else 2
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags, dnerf_config
     from cednerf_torch.ops.cuda_build import build_all
@@ -3687,6 +4296,10 @@ def main(argv=None):
                                  if k != "kernel_checks"}}))
     log(f"proposal phase: {prop['phase_s']:.1f} s")
 
+    dp = dp_phase(args.seed)
+    kern["compact_select_blocks"] = dp["k4_blocks"][2]
+    log(f"data-parallel phase: {dp['phase_s']:.1f} s")
+
     t0 = time.perf_counter()
     kern["interp_bwd"] = interp_bwd_kernel_phase(spec3d, 262_144, 100_003,
                                                  args.seed)
@@ -3707,6 +4320,9 @@ def main(argv=None):
         "fold_cells": "cednerf_tpu/ops/brick_grid.py:684",
         "interp_bwd_fused": "cednerf_tpu/ops/pallas_encoder.py:307",
         "compact_select": "cednerf_tpu/ops/pallas_compact.py:47",
+        # compact_select(n_blocks) of the ray-parallel layout: XLA ops in
+        # the JAX package (no Pallas kernel), K4's blocked launch here
+        "compact_select_blocks": "cednerf_tpu/engine/renderer.py:55",
         "scatter_add_rows": "cednerf_tpu/ops/pallas_scatter.py:87",
         "interp_bwd": "cednerf_tpu/ops/pallas_encoder.py:180",
         "row_gather": "cednerf_tpu/ops/pallas_gather.py:27",
@@ -3719,6 +4335,7 @@ def main(argv=None):
         "fold_cells": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "interp_bwd_fused": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "compact_select": "cednerf_torch/csrc/compact_select.cu",
+        "compact_select_blocks": "cednerf_torch/csrc/compact_select.cu",
         "scatter_add_rows": "cednerf_torch/csrc/scatter_add_rows.cu",
         "interp_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "row_gather": "cednerf_torch/csrc/row_gather.cu",
@@ -3757,6 +4374,15 @@ def main(argv=None):
                    "train_prop_real": prop["cli"]["launches"].get(name, 0),
                    "eval_prop_real":
                    prop["cli"]["eval_launches"].get(name, 0),
+                   "train_blocks2": dp["blocks2"]["launches"].get(name, 0),
+                   "train_dp2_ranks": sum(
+                       r.get(name, 0) for r in dp["two_ranks"]["launches"]),
+                   "train_dp1_nccl":
+                   dp["one_rank"]["launches"].get(name, 0),
+                   "serve_dp": dp["frame"]["launches"].get(name, 0),
+                   "train_prop_dp": dp["prop"]["launches"].get(name, 0),
+                   "train_real_dp": dp["cli"]["launches"].get(name, 0),
+                   "eval_real_dp": dp["cli"]["eval_launches"].get(name, 0),
                    "probe_interp_enc": probe_enc["launches"].get(name, 0),
                    "probe_row_gather": probe_gather["launches"].get(name, 0)}
         line.append({
@@ -3769,6 +4395,12 @@ def main(argv=None):
         line[-1].update({k: r[k] for k in ("sector_bound_ms", "ray_major_ms",
                                            "device_ms", "library_device_ms")
                          if k in r})
+        if name == "compact_select_blocks":
+            line[-1]["by_blocks"] = {
+                nbk: {k: rec[k] for k in ("ms", "device_ms", "one_block_ms",
+                                          "plain_ms", "library_ms",
+                                          "bound_ms")}
+                for nbk, rec in dp["k4_blocks"].items()}
         if name == "fused_encode_bwd":
             line[-1]["one_brick_ms"] = cells[-1]["ms"]
         if name == "fused_encode_bwd_cell":

@@ -1,8 +1,8 @@
 """The port's CLI flag surface against the JAX package's: the same flags,
 short forms, defaults and choices (engine/cli.py and train_real.py's own),
 and for a set of command lines the same ModelFlags and the same SceneConfig
-after apply_perf_overrides, field by field. A value the port does not have
-yet raises NotImplementedError naming its ROADMAP.md item (today --dp)."""
+after apply_perf_overrides, field by field. Every value has its path in
+the port: --dp, the last to raise, trains on a one-rank mesh."""
 
 import argparse
 import dataclasses
@@ -149,10 +149,32 @@ def test_unported_values_raise(argv, item):
                         + argv)
 
 
-def test_dp_raises():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 8"):
-        train_real.main(["--scene", "lego", "--dp", "--device", "cpu"])
+def test_dp_raises(tmp_path, monkeypatch):
+    """--dp raised until the ray-parallel slice of the port; now it trains:
+    a one-rank run on the CPU (make_mesh's own gloo group, so
+    compact_blocks 1) prints "data parallel over 1 device(s)", trains with
+    finite losses, evaluates, writes its checkpoint and PNGs, and leaves
+    no process group behind. tests/test_torch_parallel.py holds two ranks
+    against JAX's mesh."""
+    import json
+
+    import numpy as np
+    import torch.distributed as dist
+    from test_datasets import make_dnerf_fixture
+    from test_torch_train_real import FLAGS, TINY
+
+    make_dnerf_fixture(str(tmp_path / "fx"), scene="lego", n_frames=4,
+                       wh=16, ring=True)
+    monkeypatch.setenv("CEDNERF_CFG", json.dumps(TINY))
+    monkeypatch.chdir(tmp_path)
+    s = train_real.main(["--scene", "lego", "--dp", "--device", "cpu",
+                         "--data_root", str(tmp_path / "fx"),
+                         "--max_steps", "16",
+                         "--model_path", str(tmp_path / "ckpt")] + FLAGS)
+    assert s["dp"] == 1 and s["step"] >= 16
+    assert all(np.isfinite(c["loss"]) for c in s["chunks"])
+    assert s["eval"]["finite"] and (tmp_path / "rgb_test.png").exists()
+    assert (tmp_path / "ckpt").exists() and not dist.is_initialized()
 
 
 def _jax_validator_keys():

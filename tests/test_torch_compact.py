@@ -78,10 +78,14 @@ def test_cpu_dispatch_matches_jax(impl, n_blocks):
 
 
 def test_kernel_wrapper_counts_plain_calls_only_on_cuda():
+    """One block and several (the blocked launch counts apart, under
+    compact_select_blocks): on CPU tensors neither counter moves."""
     ck.reset_counts()
     ck.compact_select_kernel(torch.ones((4, 8), dtype=torch.bool), 16)
-    assert ck.launches == {"compact_select": 0}
-    assert ck.plain_cuda_calls == {"compact_select": 0}
+    ck.compact_select_kernel(torch.ones((4, 8), dtype=torch.bool), 16, 2)
+    zero = {"compact_select": 0, "compact_select_blocks": 0}
+    assert ck.launches == zero
+    assert ck.plain_cuda_calls == zero
 
 
 def test_kernel_scratch_is_made_once_per_device_and_stream(monkeypatch):

@@ -469,6 +469,34 @@ def test_compact_kernel_bit_exact(r, m, budget, p):
     assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("r,m,budget,p,n_blocks", [
+    (16000, 1024, 262144, 0.1, 2), (16000, 1024, 262144, 0.1, 4),
+    (16000, 1024, 262144, 0.1, 8), (64, 128, 2048, 0.3, 2),
+    # block sizes that are no multiple of 16 (scalar loads at the edges),
+    # a budget share above a block's candidates, one candidate a ray
+    (3000, 333, 32768, 0.1, 8), (24, 97, 512, 0.5, 4), (40, 7, 400, 0.9, 8),
+    (8, 1, 8, 1.0, 8), (16384, 128, 49152, 0.3, 2)])
+def test_compact_kernel_blocks_bit_exact(r, m, budget, p, n_blocks):
+    """Blocked K4 (cfg.compact_blocks > 1) against its plain version
+    (compact_select, the port of JAX's), with block 0 emptied and the last
+    block filled (it overflows its share of the budget)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(r + m + n_blocks)
+    valid = torch.rand((r, m), device="cuda", generator=gen) < p
+    rb = r // n_blocks
+    valid[:rb] = False
+    valid[-rb:] = True
+    want = ck.compact_select(valid, budget, n_blocks)
+    got = ck.compact_select_kernel(valid, budget, n_blocks)
+    again = ck.compact_select_kernel(valid, budget, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    one = ck.compact_select_rayfold(valid, budget)
+    assert torch.equal(again[0], one[0]) and torch.equal(again[1], one[1])
+
+
 def test_compact_kernel_reuses_its_scratch():
     """Back-to-back K4 calls on different lattices, with no sync between
     them, through one cached scratch: each call advances the epoch in the

@@ -337,19 +337,32 @@ def test_train_entry_points_refuse_missing_cuda(monkeypatch):
 
 
 def test_later_slices_raise():
-    """What the port still refuses, naming the slice that brings it: the
-    device mesh. The dense-lattice renderer (packed_render=False), which
-    raised here before its slice, now trains: a Trainer step returns finite
-    metrics (test_unpacked_and_hypernerf_steps_match_jax holds it against
-    JAX). The scanned path (device samplers, run_chunk, resume, s_cap,
-    use_seg, empty-space skipping) runs since its slice:
-    test_torch_train_loop.py, test_torch_steady_march.py."""
+    """What raised here until its slice of the port now runs: the device
+    mesh (Trainer(mesh=...) on a one-rank gloo mesh takes finite steps;
+    tests/test_torch_parallel.py holds two ranks against JAX's mesh and the
+    one-process run) and the dense-lattice renderer (packed_render=False:
+    a Trainer step returns finite metrics,
+    test_unpacked_and_hypernerf_steps_match_jax holds it against JAX). The
+    scanned path (device samplers, run_chunk, resume, s_cap, use_seg,
+    empty-space skipping) runs since its slice: test_torch_train_loop.py,
+    test_torch_steady_march.py."""
+    import torch.distributed as dist
+    from cednerf_torch.parallel import make_mesh
+
     cfg = dataclasses.replace(dnerf_config(), **SMALL)
     flags = ModelFlags(**FLAGS)
-    field = build_field(cfg, flags, device="cpu")
     scene = BallScene(n_cams=2, wh=8, n_times=2)
-    with pytest.raises(NotImplementedError, match="ray-parallel"):
-        tt.Trainer(field, cfg, flags, scene, device="cpu", mesh=object())
+    made = not dist.is_initialized()
+    try:
+        mesh = make_mesh(device="cpu")
+        tr = tt.Trainer(build_field(cfg, flags, device="cpu"), cfg, flags,
+                        scene, seed=0, device="cpu", mesh=mesh)
+        m = tr.run_step()
+        assert all(np.isfinite(v) for v in m.values()), m
+        assert m["n_samples"] > 0 and tr.mesh.size == 1
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
     dense = dataclasses.replace(cfg, packed_render=False,
                                 occ_warmup_steps=2, occ_update_interval=2)
     tr = tt.Trainer(build_field(dense, flags, device="cpu"), dense, flags,

@@ -6,8 +6,8 @@ a prop state trained by the JAX package, converted through the bridge,
 rendered by the port's make_prop_eval_render_fn against JAX's (with and
 without occupancy culling); the prop checkpoint's round trip with and
 without an occupancy grid; the --render_video guard on a loader without a
-render path (both CLIs); --dp and PropTrainer(mesh=) naming ROADMAP Queue 1
-item 8.
+render path (both CLIs); the prop CLI refusing --dp, as JAX's, and
+PropTrainer(mesh=) on a one-rank mesh.
 
 Tolerances: the frame as tests/test_torch_renderer.py holds the serving
 path (rgb and opacity within 5e-3, depth within 2e-2 on rays of opacity
@@ -239,13 +239,30 @@ def test_render_video_needs_a_render_path(cli, tmp_path):
     assert not ckpt.exists()
 
 
-def test_unported_prop_paths_raise():
-    """--dp and PropTrainer(mesh=...) name ROADMAP Queue 1 item 8."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 8"):
+def test_unported_prop_paths_raise(capsys):
+    """Both raised until the ray-parallel slice of the port. Now the prop
+    CLI rejects --dp as an unknown flag, as the JAX train_prop_real.py
+    does (it has none: data parallelism on the proposal path is
+    PropTrainer(mesh=...)), and PropTrainer(mesh=...) runs: a chunk on a
+    one-rank gloo mesh with finite metrics (tests/test_torch_parallel.py
+    holds two ranks against one process)."""
+    import torch.distributed as dist
+    from cednerf_torch.datasets.procedural import BallScene
+    from cednerf_torch.parallel import make_mesh
+
+    with pytest.raises(SystemExit):
         train_prop_real.main(["--scene", "lego", "--dp", "--device", "cpu"])
+    assert "unrecognized arguments: --dp" in capsys.readouterr().err
     cfg, pcfg, state = _prop_state()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 8"):
-        tp.PropTrainer(state.field, state.props, cfg, ModelFlags(), pcfg,
-                       None, n_rays=64, mesh=object(), device="cpu")
+    made = not dist.is_initialized()
+    try:
+        tr = tp.PropTrainer(
+            state.field, state.props, cfg, ModelFlags(), pcfg,
+            BallScene(n_cams=2, wh=8, n_times=2).device_sampler("cpu"),
+            n_rays=64, steps_per_call=2, mesh=make_mesh(device="cpu"),
+            device="cpu")
+        m = tr.run_chunk()
+        assert tr.step == 2 and np.isfinite(m["loss"]) and m["psnr"] > 0
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
