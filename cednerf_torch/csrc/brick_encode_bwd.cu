@@ -46,68 +46,68 @@
 //
 // Rounding. Weights, products and sums are f32 (the JAX kernels form the
 // lane weights and products in bf16 and sum in f32); g and the rows are the
-// bf16 values the forward produced and read. The table gradient is summed
-// in f32 with atomicAdd, in an order that changes from run to run (on the
-// TPU one core walks the sample tiles in order); the wrapper rounds the
-// finished sum to bf16 once when the spec asks for a bf16 accumulator.
-// d_x is summed over the levels in level order (K7 in registers, K6 and K2
-// in shared memory) and written once per sample, so it is deterministic.
+// bf16 values the forward produced and read; the wrapper rounds the finished
+// table gradient to bf16 once when the spec asks for a bf16 accumulator.
+//
+// Order. The backward gives the same bits on every run, as the TPU's does
+// (one core walks the sample tiles in order there). It is two parts:
+//   * d_x, in encode_bwd_kernel<F, Rows, kCell>: each (sample, level) is one
+//     thread, and the position gradient is summed over the levels in level
+//     order in shared memory and written once per sample. The thread also
+//     writes the key of its table-gradient terms: the row of the flat table
+//     (offset_l + r) or, for K6c's cell levels, the cell row (see below), or
+//     INT_MAX when its cotangent is all zero (an unused budget slot: its
+//     loads are skipped and its terms dropped).
+//   * the table gradient, in table_reduce_kernel<F> and the carry pass of
+//     csrc/ordered_reduce.cuh: the keys sorted stably by the wrapper, each
+//     key's terms w_c * g are formed again from x and g and summed in sorted
+//     order (ascending sample order within a key), each output row stored
+//     once by one warp (the destinations are zero there). No float
+//     atomics.
 //
 // K6 and K2 are one kernel, encode_bwd_kernel<F, Rows>, templated on where
 // the brick row of a (sample, level) lies: row r of level l in the flat
 // table (K6, Rows::kTable, re-gathered inside the kernel) or row (l, i) of
 // the gathered rows [L, N, 64F] that the K1 forward saved (K2,
-// Rows::kGathered). Nothing else differs. Each (sample, level) is one
-// thread, and a block is 32 consecutive samples x L levels with one warp
-// per level, so the level's constants are warp-uniform and 32 neighbouring
-// samples of one level share a warp. The thread reads the 4 z-lines of its
-// cell through the read-only path (zline.cuh, as K5 and K1: 128 B at F = 4,
-// not 8 separate corners), computes the geometry once, forms the 8 corners'
-// terms and adds each corner's F gradient lanes with one vector atomicAdd
-// (float4 at F = 4, float2 at F = 2; sm_90, global memory): N*L*8 atomic
-// operations, 16.8M at one train step's N = 262,144, L8 F4, instead of
-// N*L*8*F scalar ones. Before the atomics, the lanes of a warp whose
-// samples share a cell (a brick row and intra cell, hence all 8 corners)
-// are found with __match_any_sync and their terms summed by shuffles, so
-// that one lane adds each corner once: ray-major samples (a renderer's and
-// the packed step's order) put 3-4 consecutive samples into one cell of the
-// coarsest level. d_x: each thread leaves its level's 3 terms in shared
-// memory, and the level-0 warp sums them over the levels in level order. A
-// (sample, level) whose cotangent is all zero (an unused budget slot) skips
-// its loads and atomics.
+// Rows::kGathered). Nothing else differs, and the table-gradient terms do
+// not depend on the rows at all, so one reduce serves both. A block of the
+// d_x kernel is 32 consecutive samples x L levels with one warp per level,
+// so the level's constants are warp-uniform; the thread reads the 4 z-lines
+// of its cell through the read-only path (zline.cuh, as K5 and K1: 128 B at
+// F = 4, not 8 separate corners).
 //
-// What bounds K6: the atomics in the L2. Its needed bytes (table, x, g,
-// rows read, d_table and d_x written once) take ~0.05 ms at 3.35 TB/s and
-// its corner reads plus atomic payload ~0.16 ms; it takes ~0.45 ms on
-// uniform random samples (16.8M float4 atomics, ~37 G/s) and ~0.30 ms on
-// ray-major ones. Measured on an H100 80GB HBM3 at 700 W against an edited
-// copy of this kernel without it, in one run: the match-group aggregation
-// costs nothing on random samples (0.446 against 0.447 ms without it),
-// saves a third on ray-major ones (0.296 against 0.437 ms) and 36% when
-// every sample lies in one level-0 brick (0.548 against 0.859 ms).
-// profile_training.py reports the share of atomics it saves on a real
-// train step's batch (K2's with --interp).
-// Accumulating the coarse levels in shared memory was not taken: level 0's
-// f32 gradient alone is 216 x 256 x 4 B = 221 KB, a whole SM's shared
-// memory for one block.
+// The reduce. One warp walks a tile of `tile` sorted entries, 32 at a time:
+// each lane first takes one entry (its sample's x and g, its level's
+// geometry, its 8 corner weights), leaves them in shared memory, then the
+// warp adds the 32 entries in order, one lane a (corner, feature): at F = 4
+// the 8 x 4 lanes of an entry are the warp. The run's row of 64F lanes is
+// held in shared memory (1 KB at F = 4); only the current run's row, not a
+// level's gradient (level 0's alone is 216 x 256 x 4 B = 221 KB, a whole
+// SM's shared memory). A __syncwarp after each entry orders the adds of
+// two lanes to one corner.
 //
-// What bounds K2: the same L2 atomics to the same addresses as K6, plus
-// its z-lines. Its rows are read once and never by another thread, so the
-// z-lines come from HBM, not from a table mostly held in the L2: N*L*4*8F
-// bytes, 268 MB at N = 262,144 L8 F4, ~0.08 ms at 3.35 TB/s. On an H100
-// 80GB HBM3 at 700 W, beside K6 in two chip_smoke.py runs of one call:
-// 0.511-0.512 ms on uniform random samples against K6's 0.451-0.453, and
-// 0.382-0.390 on ray-major ones against 0.297-0.299; there the lanes of a
-// match group read one table row in K6, but each its own copy of that row
-// in K2. On a real interp step's batch it takes 0.270 device-ms
-// (profile_training.py --interp). Its first design (a thread per sample
-// walking its levels, 8 separate corner reads and F scalar f32 atomics per
-// corner) took 1.001-1.004 ms at N = 262,144 in the same call.
+// What bounds the backward: its needed bytes. x, g, rows and the table (or
+// K2's gathered rows) read, d_table and d_x written once: 0.050 ms at N =
+// 262,144, L8 F4 and 3.35 TB/s. This design adds the sort's keys (4 B a
+// term written by the d_x kernel, 4 + 8 B of sorted key and index written
+// by the sort and read by the reduce): 0.070 ms with them. On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phases 3 and 18) K6 takes 0.59 ms on uniform samples: the
+// sort 0.165, this file's d_x kernel ~0.09 and reduce ~0.15 device-ms, the
+// carry pass ~0.09. A form that added the terms with 16.8M float4 atomics
+// took 0.448 ms there (bound by the atomics in the L2) and gave other bits
+// on every run. The reduce stores a finished row: with a read-modify-write
+// there it read 0.220 device-ms, with the store 0.110-0.148 (phase 18 of
+// separate runs): the load sat on each warp's serial path.
+//
+// What bounds K2 beyond K6: its rows are read once and never by another
+// thread, so the z-lines come from HBM, not from a table mostly held in the
+// L2: N*L*4*8F bytes, 268 MB at N = 262,144 L8 F4, ~0.08 ms at 3.35 TB/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ordered_reduce.cuh"
 #include "zline.cuh"
 
 namespace {
@@ -168,44 +168,8 @@ __device__ __forceinline__ void load_corner(const __nv_bfloat16* p,
   }
 }
 
-// The F gradient lanes of one corner, added with one vector atomic.
-template <int F>
-__device__ __forceinline__ void add_corner(float* dst, const float (&v)[F]);
-template <>
-__device__ __forceinline__ void add_corner<4>(float* dst,
-                                              const float (&v)[4]) {
-  atomicAdd(reinterpret_cast<float4*>(dst),
-            make_float4(v[0], v[1], v[2], v[3]));
-}
-template <>
-__device__ __forceinline__ void add_corner<2>(float* dst,
-                                              const float (&v)[2]) {
-  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
-}
-template <>
-__device__ __forceinline__ void add_corner<1>(float* dst,
-                                              const float (&v)[1]) {
-  atomicAdd(dst, v[0]);
-}
-
-// kBytes of f32 in this thread's shared-memory slot src added into dst with
-// one bulk reduction (sm_90). The fence makes the slot's generic-proxy
-// stores visible to the async proxy; the wait keeps the slot alive until
-// the copy engine has read it.
-template <int kBytes>
-__device__ __forceinline__ void bulk_add_row(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(src));
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], "
-      "[%1], %2;" ::"l"(dst),
-      "r"(s), "r"(kBytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
-}
-
-constexpr int kBwdSamples = 32;  // samples of a K6/K2 block: a warp a level
+constexpr int kBwdSamples = 32;  // samples of a d_x block: a warp a level
+constexpr int kNoKey = 0x7fffffff;  // a (sample, level) with zero cotangent
 
 // Where the brick row of (sample i, level l) lies: row offset_l + r of the
 // flat table [sum R_l, 64F] (K6) or row l*N + i of the gathered rows
@@ -218,49 +182,30 @@ enum class Rows { kTable, kGathered };
 // rounds to the compute dtype before folding it onto the brick corners
 // (ops/brick_grid.py `_make_level_encode_cell`), each term w * g formed
 // in bf16 as the compute dtype makes it there. So a level whose
-// lv.cell[l] >= 0 adds its 8 corner terms into row lv.cell[l] + r*27 +
-// cell of d_cell in place of brick row r of d_table: 8 consecutive
-// corners of one 8F-lane row (one 128-byte line at F = 4), with the same
-// match groups as K6, whose key r*27 + cell is exactly the cell row.
-// Levels with lv.cell[l] < 0 keep K6's brick target in the same launch.
-// d_cell is a buffer that the wrapper keeps resident and all zero between
-// calls: K6c adds into it and fold_cells (below), which rounds and folds
+// lv.cell[l] >= 0 keys its terms to the cell row lv.cell[l] + r*27 + cell
+// of d_cell (after the n_table rows of d_table in the reduce's key space)
+// in place of brick row r of d_table, and the reduce sums them into that
+// 8F-lane row (8 consecutive corners, one 128-byte line at F = 4). Levels
+// with lv.cell[l] < 0 keep K6's brick target in the same launch. d_cell is
+// a buffer that the wrapper keeps resident and all zero between calls:
+// the reduce adds into it and fold_cells (below), which rounds and folds
 // the cell rows as JAX's expansion transpose does, writes the zeros back
 // as it reads them, so no call fills the 113 MB (2 x 16,384 rows x 27 x
 // 128 B at the bench encoder's cell levels) and the brick table gradient
 // is filled only on the brick levels.
 //
-// The cell levels' adds. A match group's leader stages its 8F-lane row in
-// its own shared-memory slot and adds it with one bulk reduction
-// (cp.reduce.async.bulk .add.f32, sm_90, one 128-B reduce through the
-// async proxy at F = 4). It was measured against 8 F-lane vector atomics
-// a row, in turns in one run (chip_smoke.py phase 15 as it stood while
-// both forms were built: the bench encoder's cell field, N = 262,144
-// uniform, an H100 80GB HBM3 at 700 W): atomics 0.4273 and 0.4278 ms,
-// bulk reductions 0.3854 and 0.3850 ms, the cell rows equal to the plain
-// version's within 7.1e-9 of the largest entry either way. The bulk form
-// is the one kept.
-//
-// What bounds K6c: as K6, the brick levels' atomics in the L2. Its needed
-// bytes (x, g, rows and the table read; the brick levels' table gradient
-// and d_x written once, the cell levels' rows being fold_cells' output and
-// the cell rows an intermediate) take 0.108 ms at 3.35 TB/s at that input,
-// its corner reads plus atomic payload 0.160 ms.
-//
-// K6 and K2: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32 (level-local),
-// src the table or the gathered rows (bf16) -> d_table [sum R_l, 64F]
-// (accumulated into), d_cell [sum 27 R_l, 8F] for K6c (accumulated into),
-// d_x [N, 3].
-// Block (32, L): threadIdx.x is the sample, threadIdx.y the level; with
-// kCell, 32 * L * 8F floats of dynamic shared memory (a slot a thread).
+// The d_x kernel: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32
+// (level-local), src the table or the gathered rows (bf16) -> d_x [N, 3]
+// (written) and keys [L, N] i32 (written).
+// Block (32, L): threadIdx.x is the sample, threadIdx.y the level.
 template <int F, Rows kRows, bool kCell>
 __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     encode_bwd_kernel(const float* __restrict__ x,
                       const __nv_bfloat16* __restrict__ g,
                       const int* __restrict__ rows,
                       const __nv_bfloat16* __restrict__ src, Levels lv,
-                      int n_levels, long long n, float* __restrict__ d_table,
-                      float* __restrict__ d_cell, float* __restrict__ d_x) {
+                      int n_levels, long long n, long long n_table,
+                      int* __restrict__ keys, float* __restrict__ d_x) {
   constexpr int W = 64 * F;
   __shared__ float s_dx[kMaxLevels][3][kBwdSamples];
   const int lane = threadIdx.x;
@@ -276,12 +221,11 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     any |= gf[f] != 0.0f;
   }
   float dxl[3] = {0.0f, 0.0f, 0.0f};
-  const unsigned act = __ballot_sync(0xffffffffu, any);
+  int key = kNoKey;
   if (any) {  // else every term of this (sample, level) is zero
     const float scale = lv.scale[l];
     int r = __ldg(rows + (long long)l * n + i);
     r = min(max(r, 0), lv.rows[l] - 1);
-    const long long trow = lv.offset[l] + r;
     const float p[3] = {__ldg(x + i * 3), __ldg(x + i * 3 + 1),
                         __ldg(x + i * 3 + 2)};
     int ia[3];
@@ -290,26 +234,14 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     for (int a = 0; a < 3; ++a)
       axis_geom(p[a], scale, lv.nb[l], ia[a], w[a][1], w[a][0], ok[a]);
     const __nv_bfloat16* row =
-        src + (kRows == Rows::kTable ? trow : (long long)l * n + i) * W;
+        src + (kRows == Rows::kTable ? lv.offset[l] + r
+                                     : (long long)l * n + i) * W;
     ZLine<F> line[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
       line[q] = load_zline<F>(
           row + ((ia[0] + (q >> 1)) * 16 + (ia[1] + (q & 1)) * 4) * F);
-    float* drow = d_table + trow * W;
     float s[3] = {0.0f, 0.0f, 0.0f};
-    float upd[8][F];
-    // K6c's cell levels form the update terms as the JAX cell levels do in
-    // bf16: each axis weight bf16(frac) or bf16(1 - bf16(frac)), w =
-    // (wx * wy) * wz and w * g each rounded to bf16 (an f32 product of
-    // two bf16 values is exact, so one rounding gives the bf16 product)
-    const bool cell = kCell && lv.cell[l] >= 0;
-    float wb[3][2];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      wb[a][1] = bf16r(w[a][1]);
-      wb[a][0] = bf16r(1.0f - wb[a][1]);
-    }
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int kx = q >> 1, ky = q & 1;
@@ -328,65 +260,20 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
         const float h =
             k == 0 ? hk[0] : (k == 1 ? hk[1] : (k == 2 ? hk[2] : hk[3]));
         const float wyz = w[1][ky] * w[2][kz];
-        const float wc = w[0][kx] * wyz;
-        const float wcb = bf16r(bf16r(wb[0][kx] * wb[1][ky]) * wb[2][kz]);
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          upd[q * 2 + kz][f] = cell ? bf16r(wcb * gf[f]) : wc * gf[f];
         // d w_c / d frac_a = +-(product of the other two axes' weights)
         s[0] += (kx ? h : -h) * wyz;
         s[1] += (ky ? h : -h) * (w[0][kx] * w[2][kz]);
         s[2] += (kz ? h : -h) * (w[0][kx] * w[1][ky]);
       }
     }
-    // Lanes of this warp (one level) whose samples lie in the same cell
-    // share all 8 corners: their terms are summed by a shuffle tree over the
-    // match group (each step adds the next remaining peer's sums, and the
-    // peers of odd rank drop out), and the group's first lane adds them.
-    const unsigned key =
-        (unsigned)r * 27u + (unsigned)(ia[0] * 9 + ia[1] * 3 + ia[2]);
-    const unsigned peers = __match_any_sync(act, key);
-    const bool leader = lane == __ffs(peers) - 1;
-    int rank = __popc(peers & ((1u << lane) - 1u));
-    unsigned above = peers & (0xfffffffeu << lane);
-    while (__any_sync(act, above)) {
-      const int next = __ffs(above);
-      const int peer = next ? next - 1 : lane;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const float t = __shfl_sync(act, upd[c][f], peer);
-          if (next) upd[c][f] += t;
-        }
-      }
-      above &= ~__ballot_sync(act, rank & 1);
-      rank >>= 1;
-    }
-    if (leader) {
-      if (cell) {
-        float* crow = d_cell + (lv.cell[l] + (long long)key) * (8 * F);
-        extern __shared__ float4 s_bulk[];
-        float* slot = reinterpret_cast<float*>(s_bulk) +
-                      (l * kBwdSamples + lane) * (8 * F);
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-#pragma unroll
-          for (int f = 0; f < F; ++f) slot[c * F + f] = upd[c][f];
-        }
-        bulk_add_row<8 * F * 4>(crow, slot);
-      } else {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int corner = (ia[0] + (c >> 2)) * 16 +
-                             (ia[1] + ((c >> 1) & 1)) * 4 + ia[2] + (c & 1);
-          add_corner<F>(drow + corner * F, upd[c]);
-        }
-      }
-    }
 #pragma unroll
     for (int a = 0; a < 3; ++a) dxl[a] = s[a] * ok[a] * scale;
+    key = kCell && lv.cell[l] >= 0
+              ? (int)(n_table + lv.cell[l] + (long long)r * 27 +
+                      (ia[0] * 9 + ia[1] * 3 + ia[2]))
+              : (int)(lv.offset[l] + r);
   }
+  if (valid) keys[(long long)l * n + i] = key;
 #pragma unroll
   for (int a = 0; a < 3; ++a) s_dx[l][a][lane] = dxl[a];
   __syncthreads();
@@ -400,6 +287,119 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
     d_x[i * 3 + 1] = dx[1];
     d_x[i * 3 + 2] = dx[2];
   }
+}
+
+// The table-gradient reduce of K6, K6c and K2 (see the notes at the top and
+// in csrc/ordered_reduce.cuh). keys [E] i32 sorted, perm [E] i64: entry p
+// is (sample i, level l) with perm[p] = l*N + i. Destination: d.a the flat
+// table gradient [n_table, 64F], d.b the cell rows [*, 8F] (K6c), each
+// zero where a key lands (a key's row is stored); part [2, tiles, 64F] the
+// tiles' partial rows for the carry pass. A term is w_c * g[f] in f32 (w_c = wx * (wy * wz), the plain
+// version's order), or at a cell key the JAX cell levels' bf16 form
+// bf16(bf16(bf16(wx * wy) * wz) * g[f]) of the bf16 axis weights.
+constexpr int kReduceWarps = 4;
+
+template <int F>
+__global__ void __launch_bounds__(kReduceWarps * 32)
+    table_reduce_kernel(const int* __restrict__ keys,
+                        const long long* __restrict__ perm,
+                        long long n_entries, int tile,
+                        const float* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ g, Levels lv,
+                        int n_levels, long long n, ordered::Dest d,
+                        float* __restrict__ part, long long tiles) {
+  constexpr int W = 64 * F;
+  __shared__ float s_acc[kReduceWarps][W];
+  __shared__ float s_w[kReduceWarps][32][8];
+  __shared__ float s_g[kReduceWarps][32][F];
+  __shared__ int s_key[kReduceWarps][32];
+  __shared__ int s_base[kReduceWarps][32];
+  const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long t = (long long)blockIdx.x * kReduceWarps + wp;
+  if (t >= tiles) return;  // a whole warp; the kernel has no block barrier
+  const ordered::Tile tl = ordered::tile_of(keys, n_entries, t, tile);
+  float* acc = s_acc[wp];
+  for (int c = lane; c < W; c += 32) acc[c] = 0.0f;
+  // lane = corner c * F + f of an entry's 8 corners (lanes >= 8F idle)
+  const int cc = lane / F, ff = lane - (lane / F) * F;
+  const bool term_lane = lane < 8 * F;
+  int cur = __ldg(keys + tl.s);
+  long long run_a = tl.s;
+  // the run [a, b) of key k stored to its row or left as a partial (every
+  // add before a flush is behind a __syncwarp)
+  auto flush = [&](int k, long long a, long long b) {
+    if (d.valid(k)) {
+      const int target = ordered::run_target(tl, a, b, k);
+      float* dst = target == 0 ? d.row(k)
+                               : part + ((target - 1) * tiles + t) * W;
+      const int w = d.width(k);
+      for (int c = lane; c < w; c += 32) {
+        dst[c] = acc[c];
+        acc[c] = 0.0f;
+      }
+    }
+    __syncwarp();
+  };
+  for (long long p0 = tl.s; p0 < tl.e; p0 += 32) {
+    const long long p = p0 + lane;
+    if (p < tl.e) {
+      const int k = __ldg(keys + p);
+      s_key[wp][lane] = k;
+      if (d.valid(k)) {
+        const long long j = __ldg(perm + p);
+        const int l = (int)(j / n);
+        const long long i = j - (long long)l * n;
+        int ia[3];
+        float w[3][2], ok[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          axis_geom(__ldg(x + i * 3 + a), lv.scale[l], lv.nb[l], ia[a],
+                    w[a][1], w[a][0], ok[a]);
+        const bool cell = k >= d.n_a;
+        float wb[3][2];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          wb[a][1] = bf16r(w[a][1]);
+          wb[a][0] = bf16r(1.0f - wb[a][1]);
+        }
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int kx = c >> 2, ky = (c >> 1) & 1, kz = c & 1;
+          s_w[wp][lane][c] =
+              cell ? bf16r(bf16r(wb[0][kx] * wb[1][ky]) * wb[2][kz])
+                   : w[0][kx] * (w[1][ky] * w[2][kz]);
+        }
+#pragma unroll
+        for (int f = 0; f < F; ++f)
+          s_g[wp][lane][f] =
+              __bfloat162float(g[i * (n_levels * F) + l * F + f]);
+        s_base[wp][lane] = cell ? -1 : ia[0] * 16 + ia[1] * 4 + ia[2];
+      }
+    }
+    __syncwarp();
+    const int cnt = (int)min((long long)32, tl.e - p0);
+    for (int q = 0; q < cnt; ++q) {
+      const int k = s_key[wp][q];
+      if (k != cur) {
+        flush(cur, run_a, p0 + q);
+        cur = k;
+        run_a = p0 + q;
+      }
+      if (term_lane && d.valid(k)) {
+        const int base = s_base[wp][q];
+        float v = __fmul_rn(s_w[wp][q][cc], s_g[wp][q][ff]);
+        int pos = lane;  // a cell row: lane d*F + f
+        if (base >= 0)
+          pos = (base + (cc >> 2) * 16 + ((cc >> 1) & 1) * 4 + (cc & 1)) * F +
+                ff;
+        else
+          v = bf16r(v);
+        acc[pos] = __fadd_rn(acc[pos], v);
+      }
+      __syncwarp();
+    }
+  }
+  flush(cur, run_a, tl.e);
 }
 
 // K7. The same sums as K2, but the table-gradient terms are not added into a
@@ -676,9 +676,8 @@ template <Rows kRows, bool kCell = false>
 int launch_bwd(const float* x, const void* g, const int* rows,
                const void* src, int n_levels, long long n, int n_feat,
                const float* scales, const int* nbs, const int* level_rows,
-               float* d_table, float* d_x, void* stream,
-               const long long* cell_rows = nullptr,
-               float* d_cell = nullptr) {
+               long long n_table, int* keys, float* d_x, void* stream,
+               const long long* cell_rows = nullptr) {
   Levels lv;
   if (!bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows,
                    cell_rows))
@@ -686,40 +685,30 @@ int launch_bwd(const float* x, const void* g, const int* rows,
   const unsigned int grid =
       (unsigned int)((n + kBwdSamples - 1) / kBwdSamples);
   const dim3 block(kBwdSamples, n_levels);
-  // kCell: a thread's shared-memory slot of 8F f32 (its cell row); above
-  // the default 48 KB (L * F > 12) the kernel has to be allowed more
-  constexpr int kDefaultSmem = 48 * 1024;
-  const int smem = kCell ? kBwdSamples * n_levels * 8 * n_feat * 4 : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
   const __nv_bfloat16* sb = static_cast<const __nv_bfloat16*>(src);
   switch (n_feat) {
     case 1:
-      if (smem > kDefaultSmem)
-        cudaFuncSetAttribute(encode_bwd_kernel<1, kRows, kCell>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-      encode_bwd_kernel<1, kRows, kCell><<<grid, block, smem, st>>>(
-          x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
+      encode_bwd_kernel<1, kRows, kCell><<<grid, block, 0, st>>>(
+          x, gb, rows, sb, lv, n_levels, n, n_table, keys, d_x);
       break;
     case 2:
-      if (smem > kDefaultSmem)
-        cudaFuncSetAttribute(encode_bwd_kernel<2, kRows, kCell>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-      encode_bwd_kernel<2, kRows, kCell><<<grid, block, smem, st>>>(
-          x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
+      encode_bwd_kernel<2, kRows, kCell><<<grid, block, 0, st>>>(
+          x, gb, rows, sb, lv, n_levels, n, n_table, keys, d_x);
       break;
     default:
-      if (smem > kDefaultSmem)
-        cudaFuncSetAttribute(encode_bwd_kernel<4, kRows, kCell>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-      encode_bwd_kernel<4, kRows, kCell><<<grid, block, smem, st>>>(
-          x, gb, rows, sb, lv, n_levels, n, d_table, d_cell, d_x);
+      encode_bwd_kernel<4, kRows, kCell><<<grid, block, 0, st>>>(
+          x, gb, rows, sb, lv, n_levels, n, n_table, keys, d_x);
       break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+ordered::Dest table_dest(float* d_table, long long n_table, float* d_cell,
+                         long long n_cell, int n_feat) {
+  return ordered::Dest{d_table, n_table, 64 * n_feat,
+                       d_cell,  n_cell,  8 * n_feat, false};
 }
 
 }  // namespace
@@ -730,34 +719,94 @@ const char* cednerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K6. x [N,3] f32, g [N, L*F] bf16, rows [L, N] i32 (level-local), table
-// [sum R_l, 64F] bf16 -> d_table [sum R_l, 64F] f32 (accumulated into: the
-// caller zeroes it), d_x [N, 3] f32. Returns cudaGetLastError().
+// K6's first part. x [N,3] f32, g [N, L*F] bf16, rows [L, N] i32
+// (level-local), table [sum R_l, 64F] bf16 -> d_x [N, 3] f32 and keys
+// [L, N] i32 (offset_l + r, INT_MAX for a zero cotangent) for
+// brick_table_reduce. Returns cudaGetLastError().
 int brick_fused_encode_bwd(const float* x, const void* g, const int* rows,
                            const void* table, int n_levels, long long n,
                            int n_feat, const float* scales, const int* nbs,
-                           const int* level_rows, float* d_table, float* d_x,
-                           void* stream) {
+                           const int* level_rows, long long n_table,
+                           int* keys, float* d_x, void* stream) {
   return launch_bwd<Rows::kTable>(x, g, rows, table, n_levels, n, n_feat,
-                                  scales, nbs, level_rows, d_table, d_x,
+                                  scales, nbs, level_rows, n_table, keys, d_x,
                                   stream);
 }
 
-// K6c. As K6, and cell_rows [L] i64: level l's first row in d_cell
-// [sum 27 R_l, 8F] f32 (accumulated into: zero on entry, the wrapper's
-// resident buffer), or -1 for a level whose gradient goes to d_table as in
-// K6.
+// K6c's first part. As K6, and cell_rows [L] i64: level l's first row in
+// d_cell [sum 27 R_l, 8F], or -1 for a level whose gradient goes to d_table
+// as in K6; a cell level's key is n_table + cell_rows[l] + r*27 + cell.
 int brick_fused_encode_bwd_cell(const float* x, const void* g,
                                 const int* rows, const void* table,
                                 int n_levels, long long n, int n_feat,
                                 const float* scales, const int* nbs,
                                 const int* level_rows,
-                                const long long* cell_rows, float* d_table,
-                                float* d_cell, float* d_x, void* stream) {
+                                const long long* cell_rows, long long n_table,
+                                int* keys, float* d_x, void* stream) {
   return launch_bwd<Rows::kTable, true>(x, g, rows, table, n_levels, n,
                                         n_feat, scales, nbs, level_rows,
-                                        d_table, d_x, stream, cell_rows,
-                                        d_cell);
+                                        n_table, keys, d_x, stream,
+                                        cell_rows);
+}
+
+// The table-gradient reduce of K6, K6c and K2: keys [E] i32 sorted stably
+// and perm [E] i64 (the sort's indices into the [L, N] keys), x [N, 3] f32
+// and g [N, L*F] bf16 as given to the first part -> d_table [n_table, 64F]
+// f32 and d_cell [n_cell, 8F] f32 (n_cell 0: none), zero on entry where a
+// key lands (each key's row is stored once); part
+// [2, ceil(E / tile), 64F] f32 scratch, whose partial rows
+// brick_table_carry then adds. Returns cudaGetLastError().
+int brick_table_reduce(const int* keys, const long long* perm,
+                       long long n_entries, int tile, const float* x,
+                       const void* g, int n_levels, long long n, int n_feat,
+                       const float* scales, const int* nbs,
+                       float* d_table, long long n_table, float* d_cell,
+                       long long n_cell, float* part, void* stream) {
+  Levels lv;
+  if (n <= 0 || tile <= 0 || n_entries != n * n_levels ||
+      !bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, nullptr, nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = (n_entries + tile - 1) / tile;
+  const unsigned int grid =
+      (unsigned int)((tiles + kReduceWarps - 1) / kReduceWarps);
+  const ordered::Dest d = table_dest(d_table, n_table, d_cell, n_cell,
+                                     n_feat);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
+  switch (n_feat) {
+    case 1:
+      table_reduce_kernel<1><<<grid, kReduceWarps * 32, 0, st>>>(
+          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, part,
+          tiles);
+      break;
+    case 2:
+      table_reduce_kernel<2><<<grid, kReduceWarps * 32, 0, st>>>(
+          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, part,
+          tiles);
+      break;
+    default:
+      table_reduce_kernel<4><<<grid, kReduceWarps * 32, 0, st>>>(
+          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, part,
+          tiles);
+      break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The carry pass after brick_table_reduce, on the same keys, part and
+// destinations. Returns cudaGetLastError().
+int brick_table_carry(const int* keys, long long n_entries, int tile,
+                      const float* part, float* d_table, long long n_table,
+                      float* d_cell, long long n_cell, int n_feat,
+                      void* stream) {
+  if (n_entries <= 0 || tile <= 0 ||
+      !(n_feat == 1 || n_feat == 2 || n_feat == 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return ordered::launch_carry(keys, n_entries, tile, part,
+                               (n_entries + tile - 1) / tile, 64 * n_feat,
+                               table_dest(d_table, n_table, d_cell, n_cell,
+                                          n_feat),
+                               static_cast<cudaStream_t>(stream));
 }
 
 // fold_cells. n_levels cell levels; level k has brick_rows[k] rows, its
@@ -800,15 +849,16 @@ int brick_fold_cells(float* d_cell, float* d_table, int n_levels,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2. As K6 with feats [L, N, 64F] bf16 in place of the table.
+// K2's first part. As K6 with feats [L, N, 64F] bf16 in place of the
+// table; its keys go through brick_table_reduce as K6's do.
 int brick_interp_bwd_fused(const float* x, const void* g, const int* rows,
                            const void* feats, int n_levels, long long n,
                            int n_feat, const float* scales, const int* nbs,
-                           const int* level_rows, float* d_table, float* d_x,
-                           void* stream) {
+                           const int* level_rows, long long n_table,
+                           int* keys, float* d_x, void* stream) {
   return launch_bwd<Rows::kGathered>(x, g, rows, feats, n_levels, n, n_feat,
-                                     scales, nbs, level_rows, d_table, d_x,
-                                     stream);
+                                     scales, nbs, level_rows, n_table, keys,
+                                     d_x, stream);
 }
 
 // K7. x [N,3] f32, g [N, L*F] bf16, feats [L, N, 64F] bf16 -> upd

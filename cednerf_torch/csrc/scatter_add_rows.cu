@@ -8,91 +8,260 @@
 //                           standalone scatter-add that the 4D keyframe
 //                           encoder's backward sends its update rows through.
 //
-// out [n_rows, W] f32 = 0, then out[rows[i], :] += upd[i, :] for i in [0, M).
-// A row index outside [0, n_rows) is dropped. upd is f32 (the 4D encoder's
-// update rows, upd * (1 - t_frac) promoted to f32) or bf16.
+// out [n_rows, W] f32 = 0 (unless the caller adds into it), then
+// out[rows[i], :] += upd[i, :] for i in [0, M). A row index outside
+// [0, n_rows) is dropped. upd is f32 (the 4D encoder's update rows, upd *
+// (1 - t_frac) promoted to f32) or bf16.
 //
 // The TPU kernel keeps the whole accumulator in VMEM and walks the rows in
 // order on one core (ALIGN-8 windows with a one-hot select, n % tile == 0,
-// the table <= 12 MiB of VMEM). Blocks on this card run in no order, so the
-// sum is taken with f32 atomics in global memory, which the L2 resolves (the
-// 4D field's tables run from 864 x 256 f32, 885 KB, to 65,536 x 256 f32,
-// 67 MB, against a 50 MB L2), in an order that changes from run to run.
+// the table <= 12 MiB of VMEM), so its sums take one order on every run.
+// Blocks on this card run in no order; here the rows are summed in a fixed
+// order without atomics (csrc/ordered_reduce.cuh): the wrapper sorts the row
+// indices stably, rows_reduce_kernel walks the sorted entries in tiles of
+// `tile`, one warp a (tile, column chunk), and adds each run of one output
+// row in sorted order (ascending i) in registers, then stores it over the
+// zeroed output row (or, when the caller adds into its own buffer, adds it
+// with plain read-modify-writes), or leaves a partial for the carry pass.
 // Any M, any W, any n_rows.
 //
-// Zero lanes. Each 4D update row holds 8 corners x F nonzero values of its
-// 64F lanes (and a zero cotangent row is zero throughout). Adding +-0 leaves
-// an f32 sum unchanged, so a lane whose value is exactly 0 is skipped: at
-// F = 4 one thread takes 4 lanes (one corner) as one 16-byte load and adds a
-// nonzero corner with one vector atomicAdd on float4 (sm_90, global memory),
-// which cuts the atomics per 256-lane row from 256 to 8. Rows that are not
-// 16-byte aligned, W % 4 != 0 and bf16 rows take the scalar kernel (one
-// atomic per nonzero lane).
+// Columns. At f32 with W % 4 == 0 and 16-byte aligned rows, a lane holds 4
+// consecutive lanes of the row (one 16-byte load an update row, 512 B a
+// warp); else a lane holds one (bf16 updates, odd widths). Each warp loads
+// eight update rows before it adds the first of them, so that eight loads
+// are in flight: a warp's sum is a chain of dependent adds, its loads are
+// not. Narrow rows (W <= kNarrow: the tri-plane's texels, W = F) would
+// leave most of a warp idle that way (W = 4 at f32: 1 lane of 32), so
+// rows_reduce_narrow_kernel gives a tile to W threads (W rounded up to a
+// power of two), one column each, and a warp walks 32 / W tiles at once.
+// Every form adds a column's entries in the same order, so they give the
+// same bits.
 //
-// What bounds it on this card: the bytes. Every lane of upd has to be read
-// to know it is zero: 2N x 1,024 B of f32 rows per level at the train step's
-// N = 262,144 (537 MB), plus the table written once; about 0.18 ms at 3.35
-// TB/s for a hashed level. The atomics (4.2M float4 per level) contend on
-// the coarse dense level (864 rows: ~76 float4 adds per address on average
-// at N = 262,144, more on the bricks a scene fills); shared-memory or
-// warp-aggregated accumulation there is a lever for a later PR.
+// What bounds it on this card: the bytes. Every lane of upd is read once
+// (2N x 1,024 B of f32 rows per level at the train step's N = 262,144, 537
+// MB), the row indices read, the table written once (read and written
+// where the caller adds into it): ~0.17 ms at 3.35 TB/s for a hashed
+// level. This design adds the sort's keys and index, written and read (24
+// B an update row). Its
+// earlier form added nonzero float4 corners with atomics (0.265 ms there on
+// an H100 80GB HBM3 at 700 W, in an order that changed from run to run).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ordered_reduce.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 132LL * 32;
+constexpr int kWarps = 4;    // warps of a block, each its own (tile, chunk)
+constexpr int kDepth = 8;    // update rows a warp loads before adding
+constexpr int kNarrow = 16;  // widths up to this take the narrow kernel
 
-unsigned grid_for(long long items) {
-  const long long want = (items + kThreads - 1) / kThreads;
-  return (unsigned)(want < kMaxBlocks ? want : kMaxBlocks);
-}
-
-// One float4 (4 lanes of one row) per thread and iteration; consecutive
-// threads read consecutive 16 bytes. upd is read once: streaming loads.
-__global__ void __launch_bounds__(kThreads)
-    scatter_rows_vec4_kernel(const int* __restrict__ rows,
-                             const float4* __restrict__ upd, long long m,
-                             int w4, int n_rows, float* __restrict__ out) {
-  const long long total = m * w4;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-       j < total; j += stride) {
-    const float4 v = __ldcs(upd + j);
-    if (v.x == 0.0f && v.y == 0.0f && v.z == 0.0f && v.w == 0.0f) continue;
-    const long long i = j / w4;
-    const int r = __ldg(rows + i);
-    if (r < 0 || r >= n_rows) continue;
-    float4* dst = reinterpret_cast<float4*>(out + (long long)r * (w4 * 4)) +
-                  (j - i * w4);
-    atomicAdd(dst, v);
+template <int V>
+struct Vec;
+template <>
+struct Vec<4> {
+  static __device__ __forceinline__ void load(float (&v)[4], const float* p) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
   }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+  static __device__ __forceinline__ void add(float* p, const float (&v)[4]) {
+    float4* q = reinterpret_cast<float4*>(p);
+    const float4 o = *q;
+    *q = make_float4(__fadd_rn(o.x, v[0]), __fadd_rn(o.y, v[1]),
+                     __fadd_rn(o.z, v[2]), __fadd_rn(o.w, v[3]));
+  }
+};
+template <>
+struct Vec<1> {
+  static __device__ __forceinline__ void load(float (&v)[1], const float* p) {
+    v[0] = __ldcs(p);
+  }
+  static __device__ __forceinline__ void load(float (&v)[1],
+                                              const __nv_bfloat16* p) {
+    v[0] = __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
+    *p = v[0];
+  }
+  static __device__ __forceinline__ void add(float* p, const float (&v)[1]) {
+    *p = __fadd_rn(*p, v[0]);
+  }
+};
+
+// keys [E] i32 sorted stably, perm [E] i64 (input row of each entry), upd
+// [M, w] (T), d.a = out [n_rows, w] f32 (d.add: added into, else zeroed
+// and stored over), part [2, tiles, w]
+// f32 scratch. A warp takes tile t = task / chunks and the V*32 columns of
+// chunk task % chunks.
+template <typename T, int V>
+__global__ void __launch_bounds__(kWarps * 32)
+    rows_reduce_kernel(const int* __restrict__ keys,
+                       const long long* __restrict__ perm,
+                       long long n_entries, int tile,
+                       const T* __restrict__ upd, int w, ordered::Dest d,
+                       float* __restrict__ part, long long tiles,
+                       int chunks) {
+  const int lane = threadIdx.x & 31;
+  const long long task = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (task >= tiles * chunks) return;  // a whole warp; no block barrier
+  const long long t = task / chunks;
+  const int col = (int)(task - t * chunks) * 32 * V + lane * V;
+  const bool live = col < w;
+  const ordered::Tile tl = ordered::tile_of(keys, n_entries, t, tile);
+  float acc[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) acc[u] = 0.0f;
+  int cur = __ldg(keys + tl.s);
+  long long run_a = tl.s;
+  auto flush = [&](int k, long long a, long long b) {
+    if (d.valid(k)) {
+      const int target = ordered::run_target(tl, a, b, k);
+      if (live) {
+        if (target == 0 && d.add)
+          Vec<V>::add(d.row(k) + col, acc);
+        else if (target == 0)
+          Vec<V>::store(d.row(k) + col, acc);
+        else
+          Vec<V>::store(part + ((target - 1) * tiles + t) * w + col, acc);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < V; ++u) acc[u] = 0.0f;
+  };
+  for (long long p0 = tl.s; p0 < tl.e; p0 += 32) {
+    const long long p = p0 + lane;
+    int my_k = 0;
+    long long my_j = 0;
+    if (p < tl.e) {
+      my_k = __ldg(keys + p);
+      my_j = __ldg(perm + p);
+    }
+    const int cnt = (int)min((long long)32, tl.e - p0);
+    for (int q0 = 0; q0 < cnt; q0 += kDepth) {
+      float v[kDepth][V];
+      int kq[kDepth];
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        kq[u] = __shfl_sync(ordered::kFull, my_k, (q0 + u) & 31);
+        const long long j = __shfl_sync(ordered::kFull, my_j, (q0 + u) & 31);
+        if (q0 + u < cnt && live && d.valid(kq[u])) {
+          Vec<V>::load(v[u], upd + j * w + col);
+        } else {
+#pragma unroll
+          for (int c = 0; c < V; ++c) v[u][c] = 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kDepth; ++u) {
+        if (q0 + u < cnt) {
+          if (kq[u] != cur) {
+            flush(cur, run_a, p0 + q0 + u);
+            cur = kq[u];
+            run_a = p0 + q0 + u;
+          }
+#pragma unroll
+          for (int c = 0; c < V; ++c) acc[c] = __fadd_rn(acc[c], v[u][c]);
+        }
+      }
+    }
+  }
+  flush(cur, run_a, tl.e);
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ float load1(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+// As rows_reduce_kernel, with a tile walked by 2^lanes_log2 threads (one
+// column each, those past w idle): thread gid takes tile gid >> lanes_log2
+// and reads that tile's keys and indices itself, so the tiles of a warp
+// go their own ways and nothing is shuffled.
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    rows_reduce_narrow_kernel(const int* __restrict__ keys,
+                              const long long* __restrict__ perm,
+                              long long n_entries, int tile,
+                              const T* __restrict__ upd, int w,
+                              int lanes_log2, ordered::Dest d,
+                              float* __restrict__ part, long long tiles) {
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long t = gid >> lanes_log2;
+  const int col = (int)(gid & ((1 << lanes_log2) - 1));
+  if (t >= tiles || col >= w) return;
+  const ordered::Tile tl = ordered::tile_of(keys, n_entries, t, tile);
+  float acc = 0.0f;
+  int cur = __ldg(keys + tl.s);
+  long long run_a = tl.s;
+  auto flush = [&](int k, long long a, long long b) {
+    if (d.valid(k)) {
+      const int target = ordered::run_target(tl, a, b, k);
+      if (target == 0) {
+        float* dst = d.row(k) + col;
+        *dst = d.add ? __fadd_rn(*dst, acc) : acc;
+      } else {
+        part[((target - 1) * tiles + t) * w + col] = acc;
+      }
+    }
+    acc = 0.0f;
+  };
+  for (long long p0 = tl.s; p0 < tl.e; p0 += kDepth) {
+    float v[kDepth];
+    int kq[kDepth];
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      const long long p = p0 + u;
+      kq[u] = p < tl.e ? __ldg(keys + p) : 0;
+      v[u] = p < tl.e && d.valid(kq[u])
+                 ? load1(upd + __ldg(perm + p) * w + col)
+                 : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      if (p0 + u < tl.e) {
+        if (kq[u] != cur) {
+          flush(cur, run_a, p0 + u);
+          cur = kq[u];
+          run_a = p0 + u;
+        }
+        acc = __fadd_rn(acc, v[u]);
+      }
+    }
+  }
+  flush(cur, run_a, tl.e);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    scatter_rows_scalar_kernel(const int* __restrict__ rows,
-                               const T* __restrict__ upd, long long m, int w,
-                               int n_rows, float* __restrict__ out) {
-  const long long total = m * w;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
-       j < total; j += stride) {
-    const float v = to_f32(upd[j]);
-    if (v == 0.0f) continue;
-    const long long i = j / w;
-    const int r = __ldg(rows + i);
-    if (r < 0 || r >= n_rows) continue;
-    atomicAdd(out + (long long)r * w + (j - i * w), v);
-  }
+void launch_narrow(const int* keys, const long long* perm, long long m,
+                   int tile, const void* upd, int w, const ordered::Dest& d,
+                   float* part, cudaStream_t st) {
+  const long long tiles = (m + tile - 1) / tile;
+  int lanes_log2 = 0;
+  while ((1 << lanes_log2) < w) ++lanes_log2;
+  const long long threads = tiles << lanes_log2;
+  rows_reduce_narrow_kernel<T>
+      <<<(unsigned)((threads + kWarps * 32 - 1) / (kWarps * 32)),
+         kWarps * 32, 0, st>>>(keys, perm, m, tile,
+                               static_cast<const T*>(upd), w, lanes_log2, d,
+                               part, tiles);
+}
+
+template <typename T, int V>
+void launch_reduce(const int* keys, const long long* perm, long long m,
+                   int tile, const void* upd, int w, const ordered::Dest& d,
+                   float* part, cudaStream_t st) {
+  const long long tiles = (m + tile - 1) / tile;
+  const int chunks = (w + 32 * V - 1) / (32 * V);
+  const long long tasks = tiles * chunks;
+  rows_reduce_kernel<T, V>
+      <<<(unsigned)((tasks + kWarps - 1) / kWarps), kWarps * 32, 0, st>>>(
+          keys, perm, m, tile, static_cast<const T*>(upd), w, d, part, tiles,
+          chunks);
 }
 
 }  // namespace
@@ -103,13 +272,16 @@ const char* cednerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// rows [m] i32, upd [m, w] (upd_bf16: bf16, else f32), out [n_rows, w] f32.
-// Zeroes out (unless add: then out keeps what it holds), then adds.
-// Returns cudaGetLastError() after the launches (0 on success).
-int scatter_add_rows(const int* rows, const void* upd, long long m, int w,
-                     int n_rows, float* out, int upd_bf16, int add,
-                     void* stream) {
-  if (m < 0 || w <= 0 || n_rows <= 0)
+// keys [m] i32: the row indices sorted stably; perm [m] i64: the sort's
+// indices (entry p is update row perm[p]); upd [m, w] (upd_bf16: bf16, else
+// f32), out [n_rows, w] f32, part [2, ceil(m / tile), w] f32 scratch for
+// scatter_rows_carry. Zeroes out (unless add: then out keeps what it
+// holds), then adds each row's run. Returns cudaGetLastError() after the
+// launches (0 on success).
+int scatter_add_rows(const int* keys, const long long* perm, const void* upd,
+                     long long m, int w, int n_rows, float* out, int upd_bf16,
+                     int add, int tile, float* part, void* stream) {
+  if (m < 0 || w <= 0 || n_rows <= 0 || tile <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!add) {
@@ -118,21 +290,36 @@ int scatter_add_rows(const int* rows, const void* upd, long long m, int w,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (m == 0) return static_cast<int>(cudaGetLastError());
-  const bool vec = !upd_bf16 && w % 4 == 0 &&
+  const ordered::Dest d{out, n_rows, w, nullptr, 0, 0, add != 0};
+  const bool vec = !upd_bf16 && w > kNarrow && w % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(upd) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) {
-    scatter_rows_vec4_kernel<<<grid_for(m * (w / 4)), kThreads, 0, st>>>(
-        rows, static_cast<const float4*>(upd), m, w / 4, n_rows, out);
-  } else if (upd_bf16) {
-    scatter_rows_scalar_kernel<__nv_bfloat16>
-        <<<grid_for(m * w), kThreads, 0, st>>>(
-            rows, static_cast<const __nv_bfloat16*>(upd), m, w, n_rows, out);
-  } else {
-    scatter_rows_scalar_kernel<float><<<grid_for(m * w), kThreads, 0, st>>>(
-        rows, static_cast<const float*>(upd), m, w, n_rows, out);
-  }
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(part) % 16 == 0;
+  if (w <= kNarrow && upd_bf16)
+    launch_narrow<__nv_bfloat16>(keys, perm, m, tile, upd, w, d, part, st);
+  else if (w <= kNarrow)
+    launch_narrow<float>(keys, perm, m, tile, upd, w, d, part, st);
+  else if (vec)
+    launch_reduce<float, 4>(keys, perm, m, tile, upd, w, d, part, st);
+  else if (upd_bf16)
+    launch_reduce<__nv_bfloat16, 1>(keys, perm, m, tile, upd, w, d, part, st);
+  else
+    launch_reduce<float, 1>(keys, perm, m, tile, upd, w, d, part, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The carry pass after scatter_add_rows, on the same keys, part, out and
+// add.
+int scatter_rows_carry(const int* keys, long long m, int tile,
+                       const float* part, int w, float* out, int n_rows,
+                       int add, void* stream) {
+  if (m < 0 || w <= 0 || n_rows <= 0 || tile <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return static_cast<int>(cudaGetLastError());
+  return ordered::launch_carry(keys, m, tile, part, (m + tile - 1) / tile, w,
+                               ordered::Dest{out, n_rows, w, nullptr, 0, 0,
+                                             add != 0},
+                               static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -10,7 +10,15 @@ their plain versions.
   * `fused_encode_bwd` (K6) — K5's backward: table and position gradients,
     re-gathering the rows from the table. Replaces pallas_fused.py
     `_build_fused_bwd` / `fused_encode_bwd` (one level per call there, all
-    levels in one launch here).
+    levels in one launch here). Two parts: a kernel that writes d_x and one
+    key a (sample, level), then `table_reduce`.
+  * `table_reduce` — the table gradient of K6, K6c and K2 summed in a fixed
+    order, so that a backward gives the same bits on every run as the
+    TPU's does: the keys sorted stably (torch.sort), the terms summed by
+    key in sorted order by the reduce kernel, the partial rows of keys
+    that cross a tile edge by its carry pass (csrc/ordered_reduce.cuh). It
+    replaces no TPU kernel: on the TPU the backward kernels sum in one
+    order by walking the sample tiles on one core.
   * `fused_encode_bwd_cell` (K6c) — K6 for the cell row layouts: the levels
     the caller names accumulate their table gradient per (brick row, cell)
     into [rows*27, 8F] f32, the buffer that the JAX package's cell levels
@@ -40,8 +48,9 @@ in csrc/brick_encode_bwd.cu, each built by nvcc for sm_90a the first time
 one of its kernels is called (ops/cuda_build.py) and bound through ctypes.
 A wrapper given CPU tensors runs the plain version, the same function
 written in plain PyTorch (gather, compare-built lane weights, multiply, sum,
-index_add); given CUDA tensors it launches the kernel or raises. Nothing
-falls back.
+index_add, which on the CPU adds in index order: the sorted order of the
+reduce); given CUDA tensors it launches the kernel or raises. Nothing
+falls back. No backward kernel adds floats with atomics.
 
 `launches` counts kernel launches per wrapper and `plain_cuda_calls` counts
 plain-version calls on CUDA tensors (which only a kernel-versus-plain check
@@ -55,6 +64,7 @@ import numpy as np
 import torch
 
 from .cuda_build import KernelLibrary
+from .scatter_kernels import REDUCE_TILE, carry_plain, ordered_reduce_plain
 
 BRICK_CELLS = 3          # cells per brick edge
 BRICK_CORNERS = 4        # corners per brick edge
@@ -66,7 +76,7 @@ KERNEL_FEATURES = (1, 2, 4)
 
 _NAMES = ("interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
           "fused_encode_bwd_cell", "fold_cells", "interp_bwd_fused",
-          "interp_bwd")
+          "interp_bwd", "table_reduce", "table_carry")
 launches = dict.fromkeys(_NAMES, 0)
 plain_cuda_calls = dict.fromkeys(_NAMES, 0)
 
@@ -94,12 +104,19 @@ def _bind_fwd(lib):
 
 def _bind_bwd(lib):
     for fn in (lib.brick_fused_encode_bwd, lib.brick_interp_bwd_fused):
-        fn.argtypes = [_P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P,
-                       _P]
+        fn.argtypes = [_P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _I64,
+                       _P, _P, _P]
         fn.restype = _I32
     lib.brick_fused_encode_bwd_cell.argtypes = [
-        _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _P, _P, _P, _P]
+        _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _I64, _P, _P, _P]
     lib.brick_fused_encode_bwd_cell.restype = _I32
+    lib.brick_table_reduce.argtypes = [_P, _P, _I64, _I32, _P, _P, _I32,
+                                       _I64, _I32, _P, _P, _P, _I64, _P,
+                                       _I64, _P, _P]
+    lib.brick_table_reduce.restype = _I32
+    lib.brick_table_carry.argtypes = [_P, _I64, _I32, _P, _P, _I64, _P,
+                                      _I64, _I32, _P]
+    lib.brick_table_carry.restype = _I32
     lib.brick_fold_cells.argtypes = [_P, _P, _I32, _P, _P, _P, _I32, _I32,
                                      _I32, _P]
     lib.brick_fold_cells.restype = _I32
@@ -215,11 +232,9 @@ def fused_encode_fwd_plain(x, table, rows, scales: Sequence[float],
     return torch.cat(outs, dim=-1).to(out_dtype)
 
 
-def _bwd_rows(vals, x, g, scale, nb, n_feat):
-    """One level's backward from its rows [N, 64F] and cotangent g [N, F]:
-    (update rows [N, 64F] f32 = w * g, d_x [N, 3] f32 scaled and
-    edge-gated). The products are taken in the kernels' order: w = wx *
-    (wy * wz), and d w / d frac_a = +-(the other two axes' weights)."""
+def _axis_lane_weights(x, scale, nb, n_feat):
+    """One level's per-axis lane weights [N, 64F] f32, their d/dfrac signs
+    and the edge gate ok [N, 3]."""
     cell_raw, _, intra, frac = cell_geom(x, scale, nb)
     hi = nb * BRICK_CELLS - 1
     ok = ((cell_raw >= 0) & (cell_raw <= hi)).float()
@@ -233,6 +248,15 @@ def _bwd_rows(vals, x, g, scale, nb, n_feat):
         zero = torch.zeros_like(fa)
         ws.append(torch.where(lo, 1.0 - fa, torch.where(up, fa, zero)))
         dws.append(up.float() - lo.float())
+    return ws, dws, ok
+
+
+def _bwd_rows(vals, x, g, scale, nb, n_feat):
+    """One level's backward from its rows [N, 64F] and cotangent g [N, F]:
+    (update rows [N, 64F] f32 = w * g, d_x [N, 3] f32 scaled and
+    edge-gated). The products are taken in the kernels' order: w = wx *
+    (wy * wz), and d w / d frac_a = +-(the other two axes' weights)."""
+    ws, dws, ok = _axis_lane_weights(x, scale, nb, n_feat)
     gout = g.float().repeat(1, CORNERS_PER_BRICK)          # lane c*F+f: g[f]
     upd = (ws[0] * (ws[1] * ws[2])) * gout
     h = vals.float() * gout
@@ -332,6 +356,42 @@ def fused_encode_bwd_cell_plain(x, g, rows, table, scales: Sequence[float],
         d_x += dx
         off += level_rows[lvl]
     return d_table, d_cell, d_x
+
+
+def table_reduce_plain(keys, x, g, scales: Sequence[float],
+                       nbs: Sequence[int], n_feat: int, d_table,
+                       d_cell=None):
+    """Plain table_reduce: keys [L, N] (as K6's first part writes them) ->
+    each (sample, level)'s table-gradient terms summed into row keys[l, i]
+    of d_table [n_table, 64F] f32 (w * g, _bwd_rows' update row) or, for a
+    key >= n_table, row keys[l, i] - n_table of d_cell [*, 8F] f32 (the
+    bf16-formed cell terms, cell_updates); other keys dropped. Each row's
+    terms are summed in stable sorted order (ordered_reduce_plain): one
+    level's keys never meet another's, so that is ascending sample order.
+    As the kernel does, the sum is stored over each row a key lands on;
+    the other rows keep what they hold. Returns (d_table, d_cell)."""
+    if x.is_cuda:
+        plain_cuda_calls["table_reduce"] += 1
+    n = x.shape[0]
+    keys = keys.reshape(len(scales), n).long()
+    n_table = d_table.shape[0]
+    for lvl in range(len(scales)):
+        gl = g[:, lvl * n_feat:(lvl + 1) * n_feat]
+        ws, _, _ = _axis_lane_weights(x, scales[lvl], nbs[lvl], n_feat)
+        upd = (ws[0] * (ws[1] * ws[2])) * gl.float().repeat(
+            1, CORNERS_PER_BRICK)
+        _store_sums(d_table, keys[lvl], upd)
+        if d_cell is not None:
+            cupd = cell_updates(x, gl, scales[lvl], nbs[lvl], True)
+            _store_sums(d_cell, keys[lvl] - n_table, cupd.reshape(n, -1))
+    return d_table, d_cell
+
+
+def _store_sums(dst, keys, upd):
+    """dst[k] = ordered_reduce_plain's sum of upd's rows at key k, for each
+    key k in [0, len(dst)) that occurs."""
+    hit = torch.unique(keys[(keys >= 0) & (keys < dst.shape[0])])
+    dst[hit] = ordered_reduce_plain(keys, upd, dst.shape[0])[hit]
 
 
 _FOLD = {}
@@ -527,21 +587,124 @@ def _check_bwd_inputs(name, x, g, rows, src, src_shape, L, n_feat):
         raise ValueError(f"{name}: inputs on different devices")
 
 
+def _table_carry(keys, part, tile: int, n_feat: int, d_table, d_cell=None):
+    """table_reduce's carry pass alone (its second launch; the tests and
+    chip_smoke.py call it alone, and on CPU tensors for its plain version's
+    bits): keys [E] int32 sorted, part
+    [2, ceil(E / tile), 64F] f32 the reduce kernel's partial rows (heads,
+    then tails); each key whose run crosses a tile edge gets its row of
+    d_table [n_table, 64F] (or, past n_table, of d_cell [*, 8F]) stored
+    from them (carry_plain's sums in tile order). Returns (d_table,
+    d_cell)."""
+    n_table = d_table.shape[0]
+    n_cell = 0 if d_cell is None else d_cell.shape[0]
+    if not keys.is_cuda:
+        chained, sums = carry_plain(keys, part, tile, n_table + n_cell)
+        t = chained < n_table
+        d_table[chained[t]] = sums[t]
+        if d_cell is not None:
+            d_cell[chained[~t] - n_table] = sums[~t][:, :CELL_CORNERS * n_feat]
+        return d_table, d_cell
+    lib = _BWD.get()
+    rc = lib.brick_table_carry(
+        keys.data_ptr(), keys.numel(), tile, part.data_ptr(),
+        d_table.data_ptr(), n_table,
+        None if d_cell is None else d_cell.data_ptr(), n_cell, n_feat,
+        torch.cuda.current_stream(keys.device).cuda_stream)
+    _BWD.check(rc, "table_carry")
+    launches["table_carry"] += 1
+    return d_table, d_cell
+
+
+def table_reduce(keys, x, g, scales: Sequence[float], nbs: Sequence[int],
+                 n_feat: int, d_table, d_cell=None):
+    """The table gradient of K6, K6c and K2 from the keys [L, N] int32 that
+    their first kernel wrote (offset_l + r; n_table + a cell row; INT_MAX
+    for a zero cotangent), x [N, 3] f32 and g [N, L*F] bf16: each
+    (sample, level)'s terms summed into d_table [n_table, 64F] f32 or
+    d_cell [*, 8F] f32 (table_reduce_plain), which must be zero where a
+    key lands (on CUDA each key's row is stored, not added); returns
+    (d_table, d_cell).
+
+    On CUDA the sum takes one order on every run: torch.sort(stable=True)
+    of the keys, then the reduce kernel (a warp a tile of REDUCE_TILE sorted
+    entries, each run of a key summed in sorted order) and its carry pass
+    (the partials of keys that cross a tile edge, in tile order); no
+    atomics."""
+    return _table_reduce(keys, x, g, scales, nbs, n_feat, d_table, d_cell)
+
+
+def _table_reduce(keys, x, g, scales, nbs, n_feat: int, d_table,
+                  d_cell=None, tile: int = REDUCE_TILE, part=None):
+    """table_reduce; `tile` changes only where the sums split in two
+    levels; `part`, a [2, ceil(L*N / tile), 64F] f32 buffer, keeps the
+    reduce kernel's partial rows (for _table_carry alone)."""
+    if not x.is_cuda:
+        return table_reduce_plain(keys, x, g, scales, nbs, n_feat, d_table,
+                                  d_cell)
+    n, L = x.shape[0], len(scales)
+    for name, t, w in (("d_table", d_table, CORNERS_PER_BRICK * n_feat),
+                       ("d_cell", d_cell, CELL_CORNERS * n_feat)):
+        if t is not None and (t.dtype != torch.float32 or t.dim() != 2
+                              or t.shape[1] != w or not t.is_contiguous()
+                              or t.device != x.device):
+            raise ValueError(f"table_reduce: {name} must be contiguous "
+                             f"float32 [*, {w}] on {x.device}")
+    if (keys.dtype != torch.int32 or keys.numel() != L * n
+            or not keys.is_contiguous() or keys.device != x.device):
+        raise ValueError(f"table_reduce: keys must be contiguous int32 "
+                         f"[{L}, {n}] on {x.device}")
+    if (g.dtype != torch.bfloat16 or tuple(g.shape) != (n, L * n_feat)
+            or not g.is_contiguous() or x.dtype != torch.float32
+            or not x.is_contiguous()):
+        raise ValueError("table_reduce: x must be contiguous float32 [N, 3] "
+                         "and g contiguous bfloat16 [N, L*F]")
+    if n == 0:
+        return d_table, d_cell
+    if tile < 1:
+        raise ValueError(f"table_reduce: tile {tile}")
+    skeys, perm = torch.sort(keys.reshape(-1), stable=True)
+    e = L * n
+    shape = (2, -(-e // tile), CORNERS_PER_BRICK * n_feat)
+    if part is None:
+        part = torch.empty(shape, dtype=torch.float32, device=x.device)
+    elif (tuple(part.shape) != shape or part.dtype != torch.float32
+          or not part.is_contiguous() or part.device != x.device):
+        raise ValueError(f"table_reduce: part must be contiguous float32 "
+                         f"{shape} on {x.device}")
+    n_cell = 0 if d_cell is None else d_cell.shape[0]
+    cell_ptr = None if d_cell is None else d_cell.data_ptr()
+    lib = _BWD.get()
+    sc, nb, _ = _level_arrays(scales, nbs)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.brick_table_reduce(
+        skeys.data_ptr(), perm.data_ptr(), e, tile, x.data_ptr(),
+        g.data_ptr(), L, n, n_feat, sc, nb, d_table.data_ptr(),
+        d_table.shape[0], cell_ptr, n_cell, part.data_ptr(), stream)
+    _BWD.check(rc, "table_reduce")
+    launches["table_reduce"] += 1
+    return _table_carry(skeys, part, tile, n_feat, d_table, d_cell)
+
+
 def _launch_bwd(fn, name, x, g, rows, src, scales, nbs, level_rows, n_feat):
+    """K6's or K2's first kernel (d_x and the keys), then table_reduce."""
     n, L = x.shape[0], len(scales)
     d_table = torch.zeros((sum(level_rows), CORNERS_PER_BRICK * n_feat),
                           dtype=torch.float32, device=x.device)
     d_x = torch.empty((n, 3), dtype=torch.float32, device=x.device)
     if n == 0:
         return d_table, d_x
+    keys = torch.empty((L, n), dtype=torch.int32, device=x.device)
     lib = _BWD.get()
     sc, nb, lr = _level_arrays(scales, nbs, level_rows)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(lib, fn)(x.data_ptr(), g.data_ptr(), rows.data_ptr(),
                           src.data_ptr(), L, n, n_feat, sc, nb, lr,
-                          d_table.data_ptr(), d_x.data_ptr(), stream)
+                          sum(level_rows), keys.data_ptr(), d_x.data_ptr(),
+                          stream)
     _BWD.check(rc, name)
     launches[name] += 1
+    table_reduce(keys, x, g, scales, nbs, n_feat, d_table)
     return d_table, d_x
 
 
@@ -552,7 +715,8 @@ def fused_encode_bwd(x, g, rows, table, scales: Sequence[float],
     cotangent, rows [L, N] int32, table [sum R_l, 64F] -> (d_table
     [sum R_l, 64F] f32, d_x [N, 3] f32, summed over levels, scaled and
     edge-gated). On CUDA, g and table must be bfloat16 (the forward's
-    dtypes); the table gradient is summed with f32 atomics."""
+    dtypes); the table gradient is summed in a fixed order
+    (table_reduce), so the result has the same bits on every run."""
     if not x.is_cuda:
         return fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
                                       level_rows, n_feat)
@@ -619,15 +783,18 @@ def _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows):
 
 def _launch_k6c(x, g, rows, table, scales, nbs, level_rows, n_feat,
                 cell_rows, d_table, d_cell, d_x):
-    """K6c into buffers the caller supplies, each accumulated into: d_table
-    [sum R_l, 64F] f32 (the brick levels' rows), d_cell [sum 27 R_l over
-    the cell levels, 8F] f32 (row cell_rows[l] + r*27 + cell, lane
-    (dx*4 + dy*2 + dz)*F + f), d_x [N, 3] f32 (written). CUDA tensors
-    only; d_cell is zeroed if the launch fails."""
+    """K6c into buffers the caller supplies: d_table [sum R_l, 64F] f32
+    (the brick levels' rows), d_cell [sum 27 R_l over the cell levels, 8F]
+    f32 (row cell_rows[l] + r*27 + cell, lane (dx*4 + dy*2 + dz)*F + f),
+    each zero where a key lands, since table_reduce stores each key's row
+    over it; d_x [N, 3] f32 (written): its first kernel, then
+    table_reduce. CUDA tensors only; d_cell is zeroed if a launch
+    fails."""
     _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows)
     L, n = len(level_rows), x.shape[0]
     if n == 0:
         return
+    keys = torch.empty((L, n), dtype=torch.int32, device=x.device)
     lib = _BWD.get()
     sc, nb, lr = _level_arrays(scales, nbs, level_rows)
     cr = (ctypes.c_longlong * L)(*[int(c) for c in cell_rows])
@@ -635,13 +802,14 @@ def _launch_k6c(x, g, rows, table, scales, nbs, level_rows, n_feat,
     try:
         rc = lib.brick_fused_encode_bwd_cell(
             x.data_ptr(), g.data_ptr(), rows.data_ptr(), table.data_ptr(), L,
-            n, n_feat, sc, nb, lr, cr, d_table.data_ptr(), d_cell.data_ptr(),
+            n, n_feat, sc, nb, lr, cr, sum(level_rows), keys.data_ptr(),
             d_x.data_ptr(), stream)
         _BWD.check(rc, "fused_encode_bwd_cell")
+        launches["fused_encode_bwd_cell"] += 1
+        table_reduce(keys, x, g, scales, nbs, n_feat, d_table, d_cell)
     except BaseException:
         d_cell.zero_()
         raise
-    launches["fused_encode_bwd_cell"] += 1
 
 
 def fold_cells(d_cell, d_table, level_rows: Sequence[int],
@@ -726,7 +894,7 @@ def fused_encode_bwd_cell(x, g, rows, table, scales: Sequence[float],
     total = sum(level_rows)
     d_table = torch.empty((total, CORNERS_PER_BRICK * n_feat),
                           dtype=torch.float32, device=x.device)
-    t = 0      # each run of adjacent brick levels' rows: K6's atomics add
+    t = 0      # each run of adjacent brick levels' rows: the reduce adds
     for t0, _, r in spans + [(total, 0, 0)]:
         if t0 > t:
             d_table[t:t0].zero_()

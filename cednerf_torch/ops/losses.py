@@ -10,7 +10,7 @@ reduction there goes through ops/segments.py.
 
 import torch
 
-from ..utils.math import exclusive_cumsum
+from ..utils.math import exclusive_cumsum, row_cumsum
 from .segments import segment_broadcast, segment_sum
 
 
@@ -106,8 +106,8 @@ def packed_distortion_loss(weights_p, t_starts_p, dts_p, starts, counts,
     mid = t_starts_p + 0.5 * dts_p
     w = weights_p
     wm = w * mid
-    cw = exclusive_cumsum(w, dim=0)
-    cwm = exclusive_cumsum(wm, dim=0)
+    both = torch.stack([w, wm])
+    cw, cwm = row_cumsum(both) - both      # exclusive, one fixed-order scan
     bases = torch.stack([_ray_base(cw, starts, w.sum()),
                          _ray_base(cwm, starts, wm.sum())], dim=-1)
     bases_b = segment_broadcast(bases, starts, budget, n_blocks)   # [B, 2]

@@ -20,9 +20,9 @@ test can feed JAX's draws in. Jittered edges are monotone by construction
 (each interior edge moves inside its own half-cell window) and no sort is
 taken. The index searches are torch.searchsorted, whose left / right
 binary search gives JAX's compare-all count on these monotone edges and
-CDFs. A scan whose length is its tensor's numel goes through
-utils/math.py::row_cumsum (cub's single-pass scan is not reproducible on
-the card).
+CDFs. Scans go through utils/math.py::fixed_cumsum (cub's single-pass scan,
+which PyTorch takes for a tensor whose length is its numel, is not
+reproducible on the card).
 """
 
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -31,15 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils.math import row_cumsum
+from ..utils.math import fixed_cumsum
 from .render import render_weights_from_density
-
-
-def _cumsum_last(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum along the last dim."""
-    if x.numel() == x.shape[-1]:
-        return row_cumsum(x.reshape(-1)).reshape(x.shape)
-    return torch.cumsum(x, dim=-1)
 
 
 def _grid(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -114,7 +107,7 @@ def padded_cdf(weights, padding: float = 0.01):
     r, n = weights.shape
     weights = weights + padding / n
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    return torch.cat([pdf.new_zeros((r, 1)), _cumsum_last(pdf)[:, :-1],
+    return torch.cat([pdf.new_zeros((r, 1)), fixed_cumsum(pdf)[:, :-1],
                       pdf.new_ones((r, 1))], dim=-1)
 
 
@@ -194,7 +187,7 @@ def _outer_measure(t_env, w_env, t_query):
     [R, M], the total weight of the envelope intervals that overlap
     [t_query[i], t_query[i + 1]]."""
     n = w_env.shape[-1]
-    cw = torch.cat([torch.zeros_like(w_env[:, :1]), _cumsum_last(w_env)],
+    cw = torch.cat([torch.zeros_like(w_env[:, :1]), fixed_cumsum(w_env)],
                    dim=-1)
     t_env = t_env.contiguous()
     idx_lo = torch.clamp(torch.searchsorted(

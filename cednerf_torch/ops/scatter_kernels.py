@@ -16,13 +16,19 @@ K5/K6 on the 3D route: the sums are the same. The 3D brick route keeps K6
 (or K2), which accumulate the table gradient themselves, for every
 `scatter_impl`, so a 3D field launches no K3.
 
-The kernel lives in csrc/scatter_add_rows.cu (f32 atomics, zero lanes
-skipped, rows outside [0, n_rows) dropped), built by nvcc for sm_90a at
-first use (ops/cuda_build.py). The sum is f32 whatever the caller's
-accumulator dtype; a bf16 accumulator is one rounding of the finished sum,
-done by the caller. A CPU tensor takes the plain version, a CUDA tensor the
+The kernel lives in csrc/scatter_add_rows.cu, built by nvcc for sm_90a at
+first use (ops/cuda_build.py). It sums in a fixed order, so that a
+backward gives the same bits on every run as the TPU's does: the row
+indices sorted stably (torch.sort), each output row's update rows added
+in sorted order (ascending i) by the reduce kernel, the partial rows of a
+row whose run crosses a tile edge by its carry pass
+(csrc/ordered_reduce.cuh); rows outside [0, n_rows) dropped; no atomics.
+The tri-plane encoder's backward (ops/triplane.py) sends its texel
+gradient through it too. The sum is f32 whatever the caller's accumulator
+dtype; a bf16 accumulator is one rounding of the finished sum, done by
+the caller. A CPU tensor takes the plain version, a CUDA tensor the
 kernel; nothing falls back. `launches` / `plain_cuda_calls` count as in
-ops/encode_kernels.py.
+ops/encode_kernels.py (`scatter_carry` the carry pass).
 """
 
 import ctypes
@@ -31,8 +37,10 @@ import torch
 
 from .cuda_build import KernelLibrary
 
-launches = {"scatter_add_rows": 0}
+launches = {"scatter_add_rows": 0, "scatter_carry": 0}
 plain_cuda_calls = {"scatter_add_rows": 0}
+REDUCE_TILE = 256   # sorted entries a reduce tile, here and in
+                    # ops/encode_kernels.py's table_reduce
 
 
 def reset_counts():
@@ -43,31 +51,110 @@ def reset_counts():
 
 def _bind(lib):
     p = ctypes.c_void_p
-    lib.scatter_add_rows.argtypes = [p, p, ctypes.c_longlong, ctypes.c_int,
-                                     ctypes.c_int, p, ctypes.c_int,
-                                     ctypes.c_int, p]
-    lib.scatter_add_rows.restype = ctypes.c_int
+    i32, i64 = ctypes.c_int, ctypes.c_longlong
+    lib.scatter_add_rows.argtypes = [p, p, p, i64, i32, i32, p, i32, i32,
+                                     i32, p, p]
+    lib.scatter_add_rows.restype = i32
+    lib.scatter_rows_carry.argtypes = [p, i64, i32, p, i32, p, i32, i32, p]
+    lib.scatter_rows_carry.restype = i32
 
 
 _LIB = KernelLibrary("scatter_add_rows", _bind)
 
 
-def scatter_add_rows_plain(rows: torch.Tensor, upd: torch.Tensor,
-                           n_rows: int, out=None) -> torch.Tensor:
-    """Plain K3: zeros [n_rows, W] f32, index_add_ of upd at rows. Rows
-    outside [0, n_rows) go to a spill row that is cut off (dropped, as
-    JAX's .at[].add drops an index past the end). Given `out`, the rows
-    are added into it and it is returned."""
-    if rows.is_cuda:
-        plain_cuda_calls["scatter_add_rows"] += 1
-    r = rows.long()
-    if out is not None:
-        keep = (r >= 0) & (r < n_rows)
-        return out.index_add_(0, r[keep], upd[keep].float())
-    r = torch.where((r >= 0) & (r < n_rows), r, n_rows)
+def ordered_reduce_plain(keys: torch.Tensor, upd: torch.Tensor,
+                         n_rows: int, out=None) -> torch.Tensor:
+    """The plain ordered reduce: out[keys[i]] += upd[i] with each row's
+    terms summed in stable sorted order of the keys, which is ascending
+    i. Keys outside [0, n_rows) go to a spill row that is cut off (dropped,
+    as JAX's .at[].add drops an index past the end). out None: a new
+    zeroed [n_rows, W] f32; else the caller's, added into and returned.
+
+    The sorted keys go to index_add_, which on the CPU adds in index order,
+    so each row is summed in sorted order, equal bit for bit to index_add_
+    of the unsorted keys; on CUDA index_add_ adds with atomics, so there
+    this is only the kernels' check at a tolerance."""
+    k = keys.reshape(-1).long()
+    order = torch.argsort(k, stable=True)
+    k = k[order]
+    k = torch.where((k >= 0) & (k < n_rows), k, n_rows)
     acc = torch.zeros((n_rows + 1, upd.shape[1]), dtype=torch.float32,
                       device=upd.device)
-    return acc.index_add_(0, r, upd.float())[:n_rows]
+    acc.index_add_(0, k, upd.float()[order])
+    if out is None:
+        return acc[:n_rows]
+    return out.add_(acc[:n_rows])
+
+
+def scatter_add_rows_plain(rows: torch.Tensor, upd: torch.Tensor,
+                           n_rows: int, out=None) -> torch.Tensor:
+    """Plain K3: ordered_reduce_plain of upd at rows."""
+    if rows.is_cuda:
+        plain_cuda_calls["scatter_add_rows"] += 1
+    return ordered_reduce_plain(rows, upd, n_rows, out)
+
+
+def carry_plain(keys: torch.Tensor, part: torch.Tensor, tile: int,
+                n_keys: int):
+    """Plain carry pass (csrc/ordered_reduce.cuh carry_kernel) over the
+    reduce's partial rows part [2, tiles, W] (heads, then tails) of the
+    sorted keys [E]: (the keys in [0, n_keys) whose run crosses a tile
+    edge, [K] int64; their sums [K, W] f32), each the tail partial of the
+    run's first tile plus the head partials of the later tiles it covers,
+    added in tile order (ordered_reduce_plain: on the CPU the kernel's
+    order and bits)."""
+    k = keys.reshape(-1).long()
+    tiles = part.shape[1]
+    s = torch.arange(tiles, device=k.device) * tile
+    end = torch.clamp(s + tile, max=k.numel())
+    first, last = k[s], k[end - 1]
+    ok = (first >= 0) & (first < n_keys)
+    head = torch.zeros_like(ok)
+    head[1:] = (first[1:] == k[s[1:] - 1]) & ok[1:]
+    goes_on = torch.zeros_like(ok)
+    goes_on[:-1] = (k[end[:-1]] == last[:-1]) & (last[:-1] >= 0) \
+        & (last[:-1] < n_keys)
+    tail = goes_on & ~(head & (first == last))   # the run begins here
+    t_idx, h_idx = tail.nonzero()[:, 0], head.nonzero()[:, 0]
+    order = torch.argsort(torch.cat([t_idx, h_idx]), stable=True)
+    rows = torch.cat([part[1, t_idx], part[0, h_idx]])[order]
+    rkeys = torch.cat([last[t_idx], first[h_idx]])[order]
+    chained = torch.unique(rkeys)
+    return chained, ordered_reduce_plain(rkeys, rows, n_keys)[chained]
+
+
+def _scatter_carry(keys: torch.Tensor, part: torch.Tensor, tile: int,
+                   out: torch.Tensor, add: bool) -> torch.Tensor:
+    """K3's carry pass alone (the wrapper's second launch; the tests and
+    chip_smoke.py call it alone, and on CPU tensors for its plain
+    version's bits): the rows of `out` [n_rows, W] f32 whose run
+    of the sorted row indices `keys` crosses a tile edge get their sums
+    from the reduce's partial rows part [2, tiles, W] (carry_plain),
+    stored (added with `add`). Returns out."""
+    n_rows, w = out.shape
+    if not keys.is_cuda:
+        chained, sums = carry_plain(keys, part, tile, n_rows)
+        if add:
+            out[chained] += sums
+        else:
+            out[chained] = sums
+        return out
+    if (keys.dtype != torch.int32 or part.dtype != torch.float32
+            or out.dtype != torch.float32 or part.shape[2] != w
+            or part.shape[1] != -(-keys.numel() // tile)
+            or not all(t.is_contiguous() and t.device == keys.device
+                       for t in (keys, part, out))):
+        raise ValueError("_scatter_carry: keys int32 [M] sorted, part f32 "
+                         "[2, ceil(M / tile), W] and out f32 [n_rows, W], "
+                         "contiguous, on one device")
+    lib = _LIB.get()
+    rc = lib.scatter_rows_carry(
+        keys.data_ptr(), keys.numel(), tile, part.data_ptr(), w,
+        out.data_ptr(), n_rows, int(add),
+        torch.cuda.current_stream(keys.device).cuda_stream)
+    _LIB.check(rc, "scatter_carry")
+    launches["scatter_carry"] += 1
+    return out
 
 
 def scatter_add_rows(rows: torch.Tensor, upd: torch.Tensor,
@@ -78,7 +165,18 @@ def scatter_add_rows(rows: torch.Tensor, upd: torch.Tensor,
     added into and returned.
 
     On CUDA, rows must be contiguous int32, upd contiguous f32 or bf16 and
-    out contiguous f32; any M, W and n_rows."""
+    out contiguous f32; any M, W and n_rows. Each output row is its update
+    rows summed in ascending i (in two levels where a row's run crosses a
+    tile of REDUCE_TILE sorted rows), then added into `out`: the same bits
+    on every run."""
+    return _scatter_add_rows(rows, upd, n_rows, out)
+
+
+def _scatter_add_rows(rows, upd, n_rows: int, out=None, part=None,
+                      tile: int = REDUCE_TILE):
+    """scatter_add_rows; `tile` changes only where the sums split in two
+    levels; `part`, a [2, ceil(M / tile), W] f32 buffer, keeps the
+    reduce's partial rows (for _scatter_carry alone)."""
     if out is not None and (out.dtype != torch.float32
                             or tuple(out.shape) != (n_rows, upd.shape[1])
                             or not out.is_contiguous()
@@ -105,11 +203,22 @@ def scatter_add_rows(rows: torch.Tensor, upd: torch.Tensor,
     add = out is not None
     if not add:
         out = torch.empty((n_rows, w), dtype=torch.float32, device=upd.device)
+    if tile < 1:
+        raise ValueError(f"scatter_add_rows: tile {tile}")
+    keys, perm = torch.sort(rows, stable=True)
+    shape = (2, -(-m // tile), w)
+    if part is None:
+        part = torch.empty(shape, dtype=torch.float32, device=upd.device)
+    elif (tuple(part.shape) != shape or part.dtype != torch.float32
+          or not part.is_contiguous() or part.device != upd.device):
+        raise ValueError(f"scatter_add_rows: part must be contiguous "
+                         f"float32 {shape} on {upd.device}")
     lib = _LIB.get()
-    rc = lib.scatter_add_rows(rows.data_ptr(), upd.data_ptr(), m, w, n_rows,
-                              out.data_ptr(), int(upd.dtype == torch.bfloat16),
-                              int(add),
-                              torch.cuda.current_stream(upd.device).cuda_stream)
+    stream = torch.cuda.current_stream(upd.device).cuda_stream
+    rc = lib.scatter_add_rows(keys.data_ptr(), perm.data_ptr(),
+                              upd.data_ptr(), m, w, n_rows, out.data_ptr(),
+                              int(upd.dtype == torch.bfloat16), int(add),
+                              tile, part.data_ptr(), stream)
     _LIB.check(rc, "scatter_add_rows")
     launches["scatter_add_rows"] += 1
-    return out
+    return _scatter_carry(keys, part, tile, out, add)

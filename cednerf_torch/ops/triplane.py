@@ -13,7 +13,9 @@ Output per level: [plane_yz F, plane_xz F, plane_xy F, product F].
 Plain PyTorch: the JAX function is XLA code with no Pallas kernel. The
 interpolation and its backward are one autograd Function
 (`_PlaneInterp`): the forward rounds where JAX's does, the backward forms
-its terms in f32 and rounds the plane gradient once (see there). pos =
+its terms in f32, sums each texel's terms through K3
+(ops/scatter_kernels.py: in sample order, the same bits on every run) and
+rounds the plane gradient once (see there). pos =
 x*(scale - 1) + 0.5 is a product and a sum, each rounded to f32: XLA does
 not contract this one into an FMA under jit (tests/test_torch_triplane.py
 holds the two-rounding form to the jitted JAX encoder at rtol 1e-5; the
@@ -27,6 +29,8 @@ import math
 
 import numpy as np
 import torch
+
+from . import scatter_kernels as sk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,9 +113,12 @@ class _PlaneInterp(torch.autograd.Function):
         d_planes = d_w2 = None
         if ctx.needs_input_grad[0]:
             terms = g_feats[:, :, :, None, :] * w.float()[..., None]
-            d = torch.zeros(ctx.shape, dtype=torch.float32,
-                            device=g.device)
-            d.index_add_(0, idx.reshape(-1), terms.reshape(-1, f))
+            # many samples share a texel: K3 sums each texel's terms in
+            # sample order on the card (index_add_ would add them with
+            # atomics, in another order on every run)
+            d = sk.scatter_add_rows(idx.reshape(-1).to(torch.int32),
+                                    terms.reshape(-1, f).contiguous(),
+                                    ctx.shape[0])
             d_planes = d.to(ctx.dtypes[0]).to(ctx.dtypes[1])
         if ctx.needs_input_grad[2]:
             d_w = (g_feats[:, :, :, None, :] * rows.float()).sum(-1)

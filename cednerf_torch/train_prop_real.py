@@ -69,6 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "versions (tests)")
+    parser.add_argument("--seed", type=int, default=42,
+                        help="the nets' initial weights and every draw of "
+                             "the training loop (the JAX CLI's fixed 42)")
     return get_model_args(parser)
 
 
@@ -90,7 +93,7 @@ def main(argv=None) -> dict:
         pcfg = dataclasses.replace(pcfg, grad_clip=args.grad_clip)
     clamp = (pcfg.density_clamp if args.density_clamp < 0
              else args.density_clamp)
-    props = build_prop_networks(cfg, pcfg, device=device, seed=42)
+    props = build_prop_networks(cfg, pcfg, device=device, seed=args.seed)
     if clamp > 0:
         for mod in (field,) + props:
             mod.density_clamp = clamp
@@ -115,7 +118,7 @@ def main(argv=None) -> dict:
         sampler = (train_dataset.device_sampler(device)
                    if hasattr(train_dataset, "device_sampler") else None)
         trainer = PropTrainer(field, props, cfg, flags, pcfg, sampler,
-                              n_rays=args.num_rays, seed=42,
+                              n_rays=args.num_rays, seed=args.seed,
                               steps_per_call=16,
                               dataset=None if sampler else train_dataset,
                               device=device)

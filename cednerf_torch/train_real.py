@@ -98,6 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; 'cpu' runs the kernels' plain "
                              "versions (tests)")
+    parser.add_argument("--seed", type=int, default=42,
+                        help="the field's initial weights and every draw "
+                             "of the training loop (the JAX CLI's fixed "
+                             "42); a run gives the same bits for a seed")
     return get_model_args(parser)
 
 
@@ -231,7 +235,7 @@ def _prepare(args, device=None):
         cfg = dataclasses.replace(cfg, **json.loads(env_cfg))
         print(f"cfg overrides from CEDNERF_CFG: {env_cfg}")
     flags = flags_from_args(args)
-    field = build_field(cfg, flags, device=device, seed=42)
+    field = build_field(cfg, flags, device=device, seed=args.seed)
     Loader, loader_kw, test_kw = _loader(args.scene, cfg, device)
     test_dataset = Loader(subject_id=args.scene, root_fp=args.data_root,
                           split="test", num_rays=None, **test_kw)
@@ -312,7 +316,7 @@ def main(argv=None) -> dict:
             cfg = dataclasses.replace(cfg, compact_blocks=mesh.size)
             print(f"data parallel over {mesh.size} device(s)")
             summary["dp"] = mesh.size
-        trainer = Trainer(field, cfg, flags, train_dataset, seed=42,
+        trainer = Trainer(field, cfg, flags, train_dataset, seed=args.seed,
                           device=device, device_sampler=device_sampler,
                           stacked_host=device_sampler is None, mesh=mesh)
         load["trainer"] = time.time() - tic - sum(load.values())

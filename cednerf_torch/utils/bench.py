@@ -4,9 +4,9 @@ default orbit camera, an occupancy grid filled for a field, hash tables
 drawn at a scale that the MLPs feel, the train step's flags (3D and 4D
 encoder), a profiler table of device time by kernel and a call's device
 time from it, the host syncs a call makes, the kernel wrappers' launch
-counts, two sample sets for the encoder kernels (ray-major samples of one
-camera, and points on every intra-brick cell and cell boundary of each
-level), and the match groups that K6 and K2 form on a batch."""
+counts, and two sample sets for the encoder kernels (ray-major samples of
+one camera, and points on every intra-brick cell and cell boundary of each
+level)."""
 
 import math
 import subprocess
@@ -234,25 +234,3 @@ def cell_points(scales, nbs, seed: int = 0, bricks: int = 3,
         pts += [xb, np.nextafter(xb, np.float32(2)),
                 np.nextafter(xb, np.float32(-2))]
     return np.concatenate(pts).astype(np.float32)
-
-
-def match_groups(x, g, rows, scales, nbs, n_feat: int, warp: int = 32):
-    """What the match-group aggregation of K6 and K2 (one kernel body) does
-    on a batch. The kernel gives one level of `warp` consecutive samples to
-    a warp; the lanes whose cotangent is not all zero (the terms) and whose
-    samples share a cell (a brick row and intra cell, hence all 8 corners)
-    form one group, and the kernel issues 8 vector atomics per group
-    instead of per term.
-
-    x [N, 3] f32, g [N, L*F], rows [L, N] (level-local). Returns [(terms,
-    groups)] per level."""
-    warp_id = torch.arange(x.shape[0], device=x.device) // warp
-    out = []
-    for lvl, (scale, nb) in enumerate(zip(scales, nbs)):
-        live = (g[:, lvl * n_feat:(lvl + 1) * n_feat] != 0).any(-1)
-        intra = cell_geom(x, scale, nb)[2]
-        key = rows[lvl].long() * 27 + intra[:, 0] * 9 + intra[:, 1] * 3 \
-            + intra[:, 2]
-        key = warp_id * (int(key.max()) + 1) + key
-        out.append((int(live.sum()), int(torch.unique(key[live]).numel())))
-    return out

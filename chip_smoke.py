@@ -50,9 +50,10 @@ Phases, each of which must pass (nothing is caught and carried on):
      one real backward of the full-width 4D keyframe field (--grid_type
      hash4d: 3 dense and 5 hashed levels, K = 4) at the train step's
      262,144 samples, on level 0 (864 keyframe rows, the most contended)
-     and on a hashed level (65,536 rows), and on a ragged M = 100,003 of
-     random rows; each timed with CUDA events beside its bound and
-     index_add_;
+     and on a hashed level (65,536 rows), on a ragged M = 100,003 of
+     random rows, and on the full-width tri-plane encoder's texel gradient
+     (25.2M entries of F = 4 columns, K3's narrow rows); each timed with
+     CUDA events beside its bound and index_add_;
   9. hash4d reference step: phase 6 for the 4D field (its backward on K3
      on the card, on the plain version on the CPU);
  10. hash4d training: Trainer.run_step on the full-width 4D field for
@@ -87,7 +88,8 @@ Phases, each of which must pass (nothing is caught and carried on):
      from the step-256 checkpoint); one skip-lattice chunk dispatched under
      torch.cuda.set_sync_debug_mode("error") and one run_chunk with exactly
      one host sync; a fresh Trainer resumed from the step-256 checkpoint
-     (step, bucket and lattice restored); 2 chunks of march_seg=8 (K4 twice
+     (step, bucket and lattice restored, its first chunk the run's own
+     chunk from there bit for bit); 2 chunks of march_seg=8 (K4 twice
      a step) and 2 of stacked host batches, finite; K4's result on the
      first lattice of each shape and budget these runs handed it (march_seg's
      [R, 128] segments and [49152, 8] samples among them) bit-exact against
@@ -168,25 +170,51 @@ Phases, each of which must pass (nothing is caught and carried on):
      with compact_blocks 2 (blocked K4 once a step, counted); two ranks
      sharing the card over gloo (subprocesses of this script, --dp_rank):
      bit-equal to each other and at phase 6's limits against that chunk; a
-     one-rank NCCL mesh's Trainer against the mesh-free one, its chunk
-     free of host syncs; a render_image(mesh=...) frame; a
-     PropTrainer(mesh=...) chunk; and `python -m torch.distributed.run
+     one-rank NCCL mesh's Trainer against the mesh-free one (bit for
+     bit), its chunk free of host syncs; a render_image(mesh=...) frame; a
+     PropTrainer(mesh=...) chunk (bit for bit against the mesh-free one);
+     and `python -m torch.distributed.run
      --standalone --nproc_per_node 1 -m cednerf_torch.train_real --dp` on
      a 100x100 scene.
+ 18. reproducibility (repro_phase): the table-gradient kernels K6, K6c
+     (with its fold), K2 and K3 launched three times on the same inputs at
+     the train step's 262,144 samples (uniform, ray-major, all in one
+     level-0 brick): bit-equal, within phases 3, 8 and 15's limits against
+     their plain versions, timed beside their bounds (the function's own
+     bytes; `algo_bound_ms` adds the sort's keys and index); the ordered
+     reduce and its carry pass alone, the sort, and
+     the strict-order chain (one tile) on the one-brick input's level 0;
+     two Trainers from one seed at full width: the 3D path (-te -ta -f
+     -ae -df -d on BallCloudScene, 32 run_step steps then 16-step chunks
+     to 288), hash4d, row_layout cell with fine_table_rows 65536 and the
+     tri-plane encoder (4 chunks each) and a PropTrainer (2 chunks), each
+     pair bit-equal in every parameter, occupancy grid, optimizer state,
+     chunk_log and metric; one step of each path under
+     torch.use_deterministic_algorithms(True, warn_only=True) in a
+     process with CUBLAS_WORKSPACE_CONFIG=:4096:8 (audit_main): its
+     flagged ops printed as one JSON line, each with its reason, and no
+     float scan of a one-row tensor; phase 14's lego command twice at its
+     default seed (once more, beside the audit, against phase 14's run):
+     equal chunk logs and eval PSNRs.
 Phases 5, 7, 7b, 10, 13, 14, 15, 16 and 17 fail if K7 or K8 launched on a
 serving or training path. Phase 14 prints the lego run's per-chunk log
 (Trainer.chunk_log: loss, PSNR, complete_frac, bucket, steady lattice,
 occupied share, non-finite steps) when its PSNR check fails.
 
 `python3 chip_smoke.py --lego_runs N [--lego_parallel P]` runs only phase
-14's lego command N times, P at once, and writes each run's PSNR and
-per-chunk log to --lego_out (lego_runs).
+14's lego command N times at its default seed, P at once, and writes each
+run's PSNR and per-chunk log to --lego_out (lego_runs);
+`--lego_seeds 0-23 [--lego_repeats 2]` runs it for each seed of the list,
+twice each: per seed the PSNRs, whether its runs agree bit for bit (exit
+3 if one does not) and whether it collapsed (exit 2), with the first chunk
+out of band of a seed that did.
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import http.client
@@ -203,11 +231,12 @@ F32_RTOL, F32_ATOL = 1e-5, 1e-9
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # H100 SXM, f32 outside the tensor cores
 REF_TABLE_BOUND = 8.0          # hash tables of the reference phase's fields
-# K6/K2 against their plain versions: the table gradient is summed with f32
-# atomics in another order than the plain index_add (up to ~1,200 adds per
-# address on the coarse dense level at 262,144 samples), so each level's
-# table gradient is held to 1e-4 of that level's largest entry; d_x is
-# summed in a fixed order on both sides, 1e-5 of its largest entry.
+# K6/K2 against their plain versions: the table gradient is summed in two
+# levels (tiles of 256 sorted terms, then the tiles in order) where the
+# plain index_add adds in one (up to ~1,200 adds per address on the coarse
+# dense level at 262,144 samples), so each level's table gradient is held
+# to 1e-4 of that level's largest entry; d_x is summed in a fixed order on
+# both sides, 1e-5 of its largest entry.
 BWD_TABLE_FRAC, BWD_DX_FRAC = 1e-4, 1e-5
 # the reference step's shrunken config (tests/test_torch_train.py's)
 SMALL = dict(target_sample_batch_size=4096, grid_resolution=16,
@@ -242,10 +271,10 @@ HYPER_SAMPLES = (64, 128, 256)
 # step (SMALL) on the HyperNeRF preset (cone, 2 levels, alpha_thre, near
 # 0.2) with a 1e-2 step, whose 384 cone steps cross the +-2 box
 HYPER_REF = dict(SMALL, render_step_size=1e-2, max_march_steps=384)
-# K3 against its plain version: both sum in f32, K3 with atomics in an order
-# that changes from run to run, index_add_ in its own (up to ~1,200 adds per
-# address on level 0 at 262,144 samples), so each table is held to 1e-4 of
-# its largest entry, as K6's table gradient.
+# K3 against its plain version: both sum in f32, K3 in the ordered
+# reduce's two levels, index_add_ in one (up to ~1,200 adds per address on
+# level 0 at 262,144 samples), so each table is held to 1e-4 of its largest
+# entry, as K6's table gradient.
 K3_FRAC = 1e-4
 # K7 against its plain version: its update rows are the plain version's f32
 # products in the same order, d_x the same sums in another order; held to
@@ -415,8 +444,8 @@ def cell_kernel_phase(spec4, seed):
     geometry with F = 1, 2 and 4, tables of +-1e-4 as a fresh field's; K5
     and K1 (on the rows gathered at those points) in both output dtypes.
     Then K6 on 262,144 samples that all lie in one
-    level-0 brick, tables of +-8 (every atomic of level 0 on one row:
-    the most contended table gradient and the largest match groups), timed."""
+    level-0 brick, tables of +-8 (every term of level 0 on one row: one
+    key across ~1,000 reduce tiles, through the carry pass), timed."""
     import numpy as np
     import torch
     from cednerf_torch.ops import encode_kernels as ek
@@ -803,10 +832,15 @@ def backward_kernel_phase(field, n_main, n_ragged, seed,
                 t_ops = n * L * 8 * F * 2 * 2 / F32_FLOPS * 1e3
                 rec["bound_ms"] = max(t_bytes, t_ops)
                 rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-                # the kernel's own traffic per (sample, level): the 4
-                # z-lines it reads (8F bytes each) and the payload of its 8
-                # F-lane f32 atomics
-                rec["corner_bytes"] = n * L * (4 * 8 * F + 8 * F * 4)
+                # the ordered reduce's own traffic on top: its keys written,
+                # sorted and read (not bytes the function needs)
+                rec["algo_bound_ms"] = max(
+                    t_bytes + n * L * SORT_BYTES_PER_KEY / HBM_BYTES_PER_S
+                    * 1e3, t_ops)
+                # the kernels' own traffic per (sample, level): the 4
+                # z-lines the first reads (8F bytes each) and the sample's
+                # x and g that the reduce reads again
+                rec["corner_bytes"] = n * L * (4 * 8 * F + 12 + 2 * F)
                 xm = _ray_major_x(n // 64, seed)
                 rm = _level_rows(xm, spec)
                 if name == "fused_encode_bwd":
@@ -884,15 +918,20 @@ def scatter_kernel_phase(cfg, seed):
     encoder at the train step's N (positions and times uniform, a bf16
     cotangent with one row in eight zero, as unused budget slots carry):
     the wrapper is wrapped for that one call to keep what it is handed.
-    Then a ragged M = 100,003 of random rows into the hashed table."""
+    Then a ragged M = 100,003 of random rows into the hashed table, and
+    the tri-plane encoder's texel gradient (W = F = 4 columns, K3's narrow
+    rows) from one backward of the full-width encoder at the same N."""
     import torch
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags
     from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.ops.triplane import TriPlaneSpec, triplane_encode
     from cednerf_torch.utils.bench import HASH4D_FLAGS, cuda_ms
 
     field = build_field(cfg, ModelFlags(**HASH4D_FLAGS), device="cuda",
                         seed=seed)
+    tspec = TriPlaneSpec(plane_res=cfg.hash_dst_resolution,
+                         n_features=cfg.hash_n_features)
     spec = field.hash_encoder.bspec
     n = cfg.sample_budget
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -903,7 +942,8 @@ def scatter_kernel_phase(cfg, seed):
     g[::8] = 0
     lay = spec.level_layout()
     cases = [("level 0", lay[0]["rows"] * spec.keyframes),
-             ("hashed level", lay[-1]["rows"] * spec.keyframes)]
+             ("hashed level", lay[-1]["rows"] * spec.keyframes),
+             ("tri-plane texels", tspec.total_rows)]
     kept = {}
     real = sk.scatter_add_rows
 
@@ -915,16 +955,22 @@ def scatter_kernel_phase(cfg, seed):
     sk.scatter_add_rows = keep
     try:
         field.hash_encoder(xn, t).backward(g)
+        planes = torch.empty((tspec.total_rows, tspec.n_features),
+                             device="cuda").uniform_(-1e-4, 1e-4,
+                                                     generator=gen)
+        triplane_encode(xn, planes.requires_grad_(), tspec).backward(
+            torch.randn((n, tspec.output_dim), device="cuda",
+                        generator=gen).to(torch.bfloat16))
     finally:
         sk.scatter_add_rows = real
-    del field
+    del field, planes
     cases = [(label, n_rows) + kept[n_rows] for label, n_rows in cases]
     m = 100_003
-    cases.append(("ragged random rows", cases[1][1],
-                  torch.randint(0, cases[1][1], (m,), device="cuda",
-                                generator=gen, dtype=torch.int32),
-                  torch.randn((m, spec.row_width), device="cuda",
-                              generator=gen)))
+    cases.insert(2, ("ragged random rows", cases[1][1],
+                     torch.randint(0, cases[1][1], (m,), device="cuda",
+                                   generator=gen, dtype=torch.int32),
+                     torch.randn((m, spec.row_width), device="cuda",
+                                 generator=gen)))
     recs = []
     for label, n_rows, rows, upd in cases:
         want = sk.scatter_add_rows_plain(rows, upd, n_rows)
@@ -939,6 +985,8 @@ def scatter_kernel_phase(cfg, seed):
         t_bytes = (rows_m * 4 + upd.numel() * 4 + n_rows * w * 4) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = nnz / F32_FLOPS * 1e3       # one add per nonzero lane
+        # plus the sort's sorted rows and int64 index, written and read
+        t_algo = t_bytes + rows_m * 24 / HBM_BYTES_PER_S * 1e3
         rec = {"name": "scatter_add_rows", "case": label, "m": rows_m,
                "w": w, "n_rows": n_rows, "nonzero_lanes": nnz,
                "max_abs_err": (got - want).abs().max().item(),
@@ -949,7 +997,8 @@ def scatter_kernel_phase(cfg, seed):
                "library_ms": cuda_ms(lambda: torch.zeros(
                    (n_rows, w), device="cuda").index_add_(0, rows, upd), 20),
                "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "algo_bound_ms": max(t_algo, t_ops)}
         log(json.dumps({"kernel_check": rec}))
         recs.append(rec)
         del want, got
@@ -1250,13 +1299,15 @@ def _record_chunks(trainer, recs):
 
 
 def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
-                         bwd="fused_encode_bwd", encoders=1):
+                         bwd="fused_encode_bwd", encoders=1, k3_per_step=0):
     """The backward kernel `bwd` (K6, or K6c on the cell layouts, with
     fold_cells as often: one launch for every cell level) `encoders` times
     a step (the brick encoders a step runs: 2 with the hash-grid motion
-    warp, 0 for the tri-plane and per-corner encoders), K4 k4_per_step
-    times, K5 `encoders` times a step and as often per occupancy probe,
-    nothing else, no plain version on CUDA."""
+    warp, 0 for the tri-plane and per-corner encoders), each with one
+    table-gradient reduce and carry pass, K4 k4_per_step times, K3 (and
+    its carry pass) k3_per_step times (the tri-plane's texel gradient), K5
+    `encoders` times a step and as often per occupancy probe, nothing
+    else, no plain version on CUDA."""
     if any(plain.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
     no_probe_kernels(label, counts)
@@ -1266,7 +1317,10 @@ def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
                 for r in recs)),
             "fused_encode_bwd": 0, "fused_encode_bwd_cell": 0,
             "fold_cells": 0, "compact_select": k4_per_step * steps,
-            "interp_fwd": 0, "interp_bwd_fused": 0, "scatter_add_rows": 0}
+            "interp_fwd": 0, "interp_bwd_fused": 0,
+            "table_reduce": encoders * steps, "table_carry": encoders * steps,
+            "scatter_add_rows": k3_per_step * steps,
+            "scatter_carry": k3_per_step * steps}
     want[bwd] = encoders * steps
     if bwd == "fused_encode_bwd_cell":
         want["fold_cells"] = encoders * steps
@@ -1487,7 +1541,17 @@ def scanned_phase(cfg, flags, seed, steps=SCANNED_STEPS, k=SCANNED_K,
         if got != saved:
             raise AssertionError(f"resume restored {got}, saved {saved}")
         rrec, _ = two_chunks("resumed", res)
-        out["resume"] = {**got, "losses": [r["loss"] for r in rrec]}
+        # the run's own chunks from its checkpoint on: the resumed one's
+        # first takes the same bits (its second may not: the host's shrink
+        # counters start again at a resume)
+        own = [r for r in recs if r["step0"] >= ckpt_every][:2]
+        out["resume"] = {**got, "losses": [r["loss"] for r in rrec],
+                         "run_losses": [r["loss"] for r in own]}
+        if (rrec[0]["loss"], rrec[0]["psnr"]) != (own[0]["loss"],
+                                                  own[0]["psnr"]):
+            raise AssertionError(f"resumed chunk {rrec[0]} differs from the "
+                                 f"run's own chunk at step {ckpt_every}: "
+                                 f"{own[0]}")
         del res
 
         seg = trainer_for(dataclasses.replace(cfg, march_seg=8))
@@ -2245,6 +2309,7 @@ def train_real_phase(seed, scanned_steady_ms):
         out["train"].update(process_s=secs, eval_psnr=psnr,
                             eval_ms_ssim=s["eval"]["ssim_avg"],
                             eval_psnrs=s["eval"]["psnrs"],
+                            chunks=s["chunks"],
                             eval_launches=s["eval"]["launches"],
                             scanned_procedural_steady_ms=scanned_steady_ms)
         # a steady step's device time on this scene's device sampler
@@ -2442,16 +2507,16 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
       * K6c launched into zeroed buffers (ek._launch_k6c): the brick
         levels' table gradient and each cell level's cell rows within
         BWD_TABLE_FRAC of that level's largest entry, d_x within
-        BWD_DX_FRAC (K6's limits: both sum f32 terms, the kernel with
-        atomics in another order);
+        BWD_DX_FRAC (K6's limits: both sum f32 terms, the kernel in the
+        ordered reduce's two levels);
       * fold_cells on those cell rows against its plain version on a copy
         of them: bit for bit, and the rows it read zero after it;
       * the cell layouts' backward, fused_encode_bwd_cell (K6c into the
         resident buffer, then the fold), against the plain pair: the brick
         levels' rows and d_x at K6c's limits, each folded entry within one
         bf16 step of the plain one plus BWD_TABLE_FRAC of the level's
-        largest entry (the fold rounds to bf16 sums that K6c's atomics
-        added in another order), and the resident buffer all zero after.
+        largest entry (the fold rounds to bf16 sums that K6c added in
+        another order), and the resident buffer all zero after.
     With `timed`, on n_main uniform, n_main ray-major and 1,048,576
     uniform samples: K6c's kernel alone, fold_cells, the wrapper that runs
     both, the path they replace (K6c's kernel into torch.zeros buffers,
@@ -2625,8 +2690,9 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
             # K6c's bounds: the bytes of its inputs and of what it must
             # write once, the brick levels' table gradient and d_x (the
             # cell levels' rows are the fold's output, the cell rows an
-            # intermediate), and the operations; beside them its corner
-            # reads plus atomic payload (K6's second bound)
+            # intermediate), and the operations; beside them the same with
+            # the ordered reduce's keys (algo_bound_ms), and its corner
+            # reads plus the reduce's reads of x and g (its second bound)
             in_b = x.numel() * 4 + g.numel() * 2 + rows.numel() * 4 \
                 + table.numel() * 2
             brick_rows = sum(r_ for r_, o in zip(level_rows, offs) if o < 0)
@@ -2635,8 +2701,11 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
             t_ops = n * L * 8 * F * 2 * 2 / F32_FLOPS * 1e3
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-            r["corner_atomic_bound_ms"] = (n * L * (4 * 8 * F + 8 * F * 4)
-                                           / HBM_BYTES_PER_S * 1e3)
+            r["algo_bound_ms"] = max(
+                t_bytes + n * L * SORT_BYTES_PER_KEY / HBM_BYTES_PER_S * 1e3,
+                t_ops)
+            r["corner_bound_ms"] = (n * L * (4 * 8 * F + 12 + 2 * F)
+                                    / HBM_BYTES_PER_S * 1e3)
             for label, xs in (("ray_major", _ray_major_x(n // 64, seed)),
                               ("n_1m", torch.rand((1 << 20, 3),
                                                   device="cuda",
@@ -2659,8 +2728,8 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
 def _unique_row_batch(spec, n, seed):
     """n points of the unit cube no two of which share a brick row on any
     level of `spec` (drawn uniformly, kept greedily): each table address
-    of the backward then takes at most one atomic add, so the kernels'
-    table gradients do not depend on the atomics' order."""
+    of the backward then takes at most one term, so the kernels' table
+    gradients do not depend on any summation order."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.rand((1 << 16, 3), device="cuda", generator=gen)
@@ -2724,8 +2793,8 @@ def triplane_encoder_check(seed, n=65_536):
     bit (the same PyTorch ops), d_x within BWD_DX_FRAC of its largest
     entry (f32 sums in another order), each entry of the plane gradient
     within one bf16 step of the CPU's plus BWD_TABLE_FRAC of the largest
-    entry (f32 sums in another order, with atomics, as K6's and K3's
-    table gradients, then each rounded to bf16 once)."""
+    entry (f32 sums in another order, as K6's and K3's table gradients,
+    then each rounded to bf16 once)."""
     import torch
     from cednerf_torch.engine.config import dnerf_config
     from cednerf_torch.ops.triplane import TriPlaneSpec, triplane_encode
@@ -2763,7 +2832,7 @@ def triplane_encoder_check(seed, n=65_536):
 
 
 def _short_run(label, cfg, flags, scene, seed, steps, encoders, bwd,
-               encoder_impl="brick"):
+               encoder_impl="brick", k3_per_step=0):
     """Trainer.run(steps) through run_chunk on the scene's device sampler
     (16 steps a chunk), counted: finite losses, the last chunk's PSNR above
     the first's, the launches that _check_step_launches expects."""
@@ -2784,7 +2853,7 @@ def _short_run(label, cfg, flags, scene, seed, steps, encoders, bwd,
     counts, plain = all_counts()
     run_s = time.perf_counter() - t0
     _check_step_launches(label, counts, plain, cfg, recs, bwd=bwd,
-                         encoders=encoders)
+                         encoders=encoders, k3_per_step=k3_per_step)
     if not recs[-1]["psnr"] > recs[0]["psnr"]:
         raise AssertionError(f"{label}: PSNR {recs[0]['psnr']} -> "
                              f"{recs[-1]['psnr']}")
@@ -3011,7 +3080,7 @@ def secondary_phase(seed):
     tri = ModelFlags(**TRAIN_FLAGS, grid_type="triplane")
     out["train_triplane"], tr = _short_run(
         "train_triplane", cfg, tri, scene, seed, SHORT_STEPS, 0,
-        "fused_encode_bwd")
+        "fused_encode_bwd", k3_per_step=1)
     # one frame of 2 full seg passes (256x256 rays, 64 samples a ray)
     big = TexturedCloudScene(wh=256, seed=seed)
     gt, origins, viewdirs = big.eval_view(theta=0.33 * np.pi, t=0.43)
@@ -3249,8 +3318,11 @@ def _prop_run(label, trainer, steps, sync_check=False):
     if any(plain.values()):
         raise AssertionError(f"{label}: plain versions on CUDA {plain}")
     others = {k: v for k, v in counts.items()
-              if v and k not in ("fused_encode_fwd", "fused_encode_bwd")}
+              if v and k not in ("fused_encode_fwd", "fused_encode_bwd",
+                                 "table_reduce", "table_carry")}
     if (counts["fused_encode_bwd"] != n_mods * steps
+            or counts["table_reduce"] != n_mods * steps
+            or counts["table_carry"] != n_mods * steps
             or counts["fused_encode_fwd"] < n_mods * steps or others):
         raise AssertionError(f"{label}: launches {counts} over {steps} "
                              f"steps of {n_mods} encoders")
@@ -3893,6 +3965,13 @@ def dp_phase(seed):
             pair.append(_check_pair("one-rank mesh vs mesh-free", b, a,
                                     _grad_rel(mesh_tr.field,
                                               plain_tr.field)))
+            # one rank runs the mesh-free program: the same bits
+            pair[-1]["params_bit_equal"] = all(
+                _same_bits(p, q) for p, q in zip(mesh_tr.field.parameters(),
+                                                 plain_tr.field.parameters()))
+            if not pair[-1]["params_bit_equal"] or a["loss"] != b["loss"]:
+                raise AssertionError(f"one-rank mesh vs mesh-free: not the "
+                                     f"same bits: {pair[-1]}")
         # a warmup chunk's host ms and device ms a step, each Trainer
         timing = {}
         for tag, tr in (("mesh_free", plain_tr), ("nccl_mesh", mesh_tr)):
@@ -3966,6 +4045,13 @@ def dp_phase(seed):
         launches, plain = all_counts()
         rec = _check_pair("PropTrainer one-rank mesh vs mesh-free", mb, ma,
                           {})
+        rec["params_bit_equal"] = all(
+            _same_bits(p, q) for m1, m2 in zip(pa.state.modules(),
+                                                pb.state.modules())
+            for p, q in zip(m1.parameters(), m2.parameters()))
+        if not rec["params_bit_equal"] or ma["loss"] != mb["loss"]:
+            raise AssertionError(f"prop one-rank mesh vs mesh-free: not the "
+                                 f"same bits: {rec}")
         if any(plain.values()) or not launches["fused_encode_bwd"]:
             raise AssertionError(f"prop mesh chunk: {launches} {plain}")
         rec["launches"] = {k: v for k, v in launches.items() if v}
@@ -4020,6 +4106,661 @@ def dp_phase(seed):
     return out
 
 
+# phase 18 (reproducibility): the table-gradient kernels launched
+# REPRO_LAUNCHES times on each input; the Trainer pairs, each run twice from
+# one seed: the full-width 3D path for REPRO_STEPS steps (REPRO_RUN_STEPS by
+# run_step, then 16-step chunks: the 256-step warmup and 32 after it), the
+# 4D, cell-layout and tri-plane paths for REPRO_SHORT steps (4 warmup
+# chunks), the proposal path for REPRO_PROP (2 chunks); the lego command
+# twice at its default seed
+REPRO_LAUNCHES, REPRO_STEPS, REPRO_RUN_STEPS = 3, 288, 32
+REPRO_SHORT, REPRO_PROP, REPRO_K = 64, 32, 16
+REPRO_LEGO_SEED = 42           # train_real's default --seed
+SORT_BYTES_PER_KEY = 4 + 4 + 12 + 12   # key written and read, sorted key
+                                       # and int64 index written and read
+
+
+def _bits(t):
+    return t.detach().contiguous().reshape(-1).view(__import__(
+        "torch").uint8)
+
+
+def _same_bits(a, b):
+    import torch
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(_bits(a), _bits(b)))
+
+
+def _one_brick_x(n, gen, scale0):
+    """n positions inside one level-0 brick (pos = x * scale + 0.5 in
+    [3.01, 5.99) on every axis: brick 1), so every sample shares one key
+    on level 0."""
+    import torch
+    u = 3.01 + torch.rand((n, 3), device="cuda", generator=gen) * 2.98
+    return ((u - 0.5) / float(scale0)).float()
+
+
+def _k6_keys(rows, g, level_rows, F):
+    """K6's keys as its first kernel writes them: offset_l + r, INT_MAX
+    where the (sample, level)'s cotangent is all zero."""
+    import torch
+    L, n = rows.shape
+    offs = torch.tensor([sum(level_rows[:l]) for l in range(L)],
+                        device=rows.device)
+    zero = (g.view(n, L, F) == 0).all(-1).t()
+    return torch.where(zero, torch.iinfo(torch.int32).max,
+                       rows.long() + offs[:, None]).to(
+                           torch.int32).contiguous()
+
+
+def _carry_bytes(keys, tile, width, n_keys):
+    """The carry pass's bytes on these sorted keys: the head partial of
+    each tile edge that a run crosses and the tail partial of each run's
+    first tile read (width f32 each), each such run's output row read and
+    written once."""
+    import torch
+    k = keys.reshape(-1)
+    ends = torch.arange(tile, k.numel(), tile, device=k.device)
+    before = k[ends - 1]
+    crossing = (k[ends] == before) & (before < n_keys)
+    cont = torch.zeros_like(crossing)
+    cont[1:] = crossing[:-1] & (k[ends[:-1]] == before[1:])
+    runs = int((crossing & ~cont).sum())
+    return (int(crossing.sum()) + 3 * runs) * width * 4
+
+
+def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
+    """K6, K6c, K2 and K3 launched REPRO_LAUNCHES times on the same inputs
+    (uniform, ray-major, all samples in one level-0 brick) at the train
+    step's N: bit-equal, within the limits of phases 3, 8 and 15 against
+    their plain versions, timed with CUDA events beside their bounds (the
+    function's own bytes, and `algo_bound_ms` with the sort's added); the
+    reduce, its carry pass and the sort alone; the strict-order chain (one
+    tile) on level 0 of the one-brick input."""
+    import numpy as np
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.utils.bench import cuda_ms, device_ms
+
+    lay = spec.level_layout()
+    scales = spec.level_scales()
+    nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
+    L, F = spec.n_levels, spec.n_features
+    n_table = sum(level_rows)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = ((torch.rand((n_table, 64 * F), device="cuda", generator=gen)
+              * 2 - 1) * REF_TABLE_BOUND).to(torch.bfloat16)
+    offs = np.cumsum([0] + level_rows)
+    cell_offs = _cell_offsets(cell_spec)
+    c_lay = cell_spec.level_layout()
+    c_scales = cell_spec.level_scales()
+    c_nbs = [l["n_bricks_axis"] for l in c_lay]
+    c_rows = [l["rows"] for l in c_lay]
+    c_table = ((torch.rand((sum(c_rows), 64 * F), device="cuda",
+                           generator=gen) * 2 - 1) * REF_TABLE_BOUND
+               ).to(torch.bfloat16)
+    n_cell = 27 * sum(r for r, c in zip(c_rows, cell_offs) if c >= 0)
+    lay4 = spec4.level_layout()
+    k4 = spec4.keyframes
+    # K3 on the 4D field's first hashed level (65,536 keyframe rows)
+    l4 = next(i for i, l in enumerate(lay4) if l["hashed"])
+    n_rows4 = lay4[l4]["rows"] * k4
+    inputs = {
+        "uniform": _draw_x(n, gen, None),
+        "ray_major": _ray_major_x(n // 64, seed),
+        "one_brick": _one_brick_x(n, gen, scales[0])}
+    out = {}
+    for label, x in inputs.items():
+        g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
+             ).to(torch.bfloat16)
+        g[::8] = 0
+        rows = _level_rows(x, spec)
+        feats = torch.stack([table[offs[l]:offs[l + 1]].index_select(
+            0, rows[l].long()) for l in range(L)]).contiguous()
+        crow = _level_rows(x, cell_spec)
+        r4 = _level_rows(x, spec4)[l4].long()
+        lo = r4 * k4 + torch.randint(0, k4 - 1, (n,), device="cuda",
+                                     generator=gen)
+        rows4 = torch.cat([lo, lo + 1]).to(torch.int32)
+        upd4 = torch.randn((2 * n, 64 * F), device="cuda", generator=gen)
+        upd4 *= torch.rand((2 * n, 64 * F), device="cuda",
+                           generator=gen) < 0.125
+        calls = {
+            "fused_encode_bwd": lambda: ek.fused_encode_bwd(
+                x, g, rows, table, scales, nbs, level_rows, F),
+            "interp_bwd_fused": lambda: ek.interp_bwd_fused(
+                x, g, feats, rows, scales, nbs, level_rows, F),
+            "fused_encode_bwd_cell": lambda: ek.fused_encode_bwd_cell(
+                x, g, crow, c_table, c_scales, c_nbs, c_rows, F, cell_offs,
+                torch.bfloat16, False),
+            "scatter_add_rows": lambda: (sk.scatter_add_rows(
+                rows4, upd4, n_rows4),)}
+        want_k6 = ek.fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
+                                            level_rows, F)
+        for name, call in calls.items():
+            runs = [call() for _ in range(REPRO_LAUNCHES)]
+            torch.cuda.synchronize()
+            equal = all(_same_bits(a, b) for r in runs[1:]
+                        for a, b in zip(runs[0], r))
+            rec = {"name": name, "input": label, "n": n,
+                   "launches": REPRO_LAUNCHES, "bit_equal": equal}
+            if name in ("fused_encode_bwd", "interp_bwd_fused"):
+                errs, err_x = _bwd_errors(f"{name} {label}", runs[0],
+                                          want_k6, level_rows)
+                rec.update(table_err_frac=max(errs), dx_err_frac=err_x)
+            elif name == "fused_encode_bwd_cell":
+                # K6c into zeroed buffers against the plain version (phase
+                # 15's limits: 1e-4 of the largest cell, brick-row and d_x
+                # entry)
+                args = (x, g, crow, c_table, c_scales, c_nbs, c_rows, F,
+                        cell_offs)
+                want = ek.fused_encode_bwd_cell_plain(*args)
+                got = (torch.zeros_like(want[0]), torch.zeros_like(want[1]),
+                       torch.empty_like(want[2]))
+                ek._launch_k6c(*args, *got)
+                torch.cuda.synchronize()
+                brick = torch.repeat_interleave(
+                    torch.tensor([o < 0 for o in cell_offs]),
+                    torch.tensor(c_rows)).cuda()
+                errs = [_frac_err(got[0][brick], want[0][brick]),
+                        _frac_err(got[1], want[1]), _frac_err(got[2], want[2])]
+                if max(errs) > BWD_TABLE_FRAC:
+                    raise AssertionError(f"K6c {label}: errors {errs}")
+                rec["err_frac"] = max(errs)
+                del want, got
+            else:
+                want = sk.scatter_add_rows_plain(rows4, upd4, n_rows4)
+                err = _frac_err(runs[0][0], want)
+                if err > K3_FRAC:
+                    raise AssertionError(f"K3 {label}: error {err}")
+                rec["err_frac"] = err
+                del want
+            if not equal:
+                raise AssertionError(f"{name} {label}: {REPRO_LAUNCHES} "
+                                     f"launches differ")
+            rec["ms"] = cuda_ms(call, 20)
+            if label == "uniform":
+                rec["plain_ms"] = cuda_ms({
+                    "fused_encode_bwd": lambda: ek.fused_encode_bwd_plain(
+                        x, g, rows, table, scales, nbs, level_rows, F),
+                    "interp_bwd_fused": lambda: ek.interp_bwd_fused_plain(
+                        x, g, feats, rows, scales, nbs, level_rows, F),
+                    "fused_encode_bwd_cell":
+                    lambda: ek.fused_encode_bwd_cell_plain(
+                        x, g, crow, c_table, c_scales, c_nbs, c_rows, F,
+                        cell_offs),
+                    "scatter_add_rows": lambda: sk.scatter_add_rows_plain(
+                        rows4, upd4, n_rows4)}[name], 3)
+                dev, krows = device_ms(call, 5)
+                rec["device_ms"] = dev
+                rec["device_by_kernel"] = [list(r) for r in krows[:8]]
+            e = (2 * n) if name == "scatter_add_rows" else n * L
+            sort_b = e * SORT_BYTES_PER_KEY
+            if name == "scatter_add_rows":
+                in_b = upd4.numel() * 4 + rows4.numel() * 4
+                out_b = n_rows4 * 64 * F * 4
+                ops = upd4.numel()
+            else:
+                src_b = {"fused_encode_bwd": table.numel() * 2,
+                         "fused_encode_bwd_cell": c_table.numel() * 2,
+                         "interp_bwd_fused": _corner_bytes(n, L, F)}[name]
+                in_b = x.numel() * 4 + g.numel() * 2 + rows.numel() * 4 \
+                    + src_b
+                out_b = (n_table if name != "fused_encode_bwd_cell"
+                         else sum(c_rows)) * 64 * F * 4 + n * 3 * 4
+                ops = n * L * 8 * F * 2 * 2
+            t_bytes = (in_b + out_b) / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_FLOPS * 1e3
+            rec.update(bound_ms=max(t_bytes, t_ops),
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       algo_bound_ms=max(t_bytes + sort_b / HBM_BYTES_PER_S
+                                         * 1e3, t_ops),
+                       sort_bytes=sort_b)
+            out[f"{name}/{label}"] = rec
+            log(json.dumps({"repro_kernel": rec}))
+            del runs
+        # the sort, the reduce with its carry pass, and each alone, on K6's
+        # keys of this input
+        keys = _k6_keys(rows, g, level_rows, F)
+        flat = keys.reshape(-1)
+        d_t = torch.zeros((n_table, 64 * F), device="cuda")
+        sk_ = torch.sort(flat, stable=True)[0]
+        want_t = ek.table_reduce_plain(keys, x, g, scales, nbs, F,
+                                       torch.zeros_like(d_t))[0]
+        got_t = ek.table_reduce(keys, x, g, scales, nbs, F, d_t.zero_())[0]
+        torch.cuda.synchronize()
+        red = {"name": "table_reduce", "input": label, "n": n,
+               "max_abs_err": (got_t - want_t).abs().max().item(),
+               "err_frac": max(_frac_err(got_t[offs[l]:offs[l + 1]],
+                                         want_t[offs[l]:offs[l + 1]])
+                               for l in range(L)),
+               "sort_ms": cuda_ms(lambda: torch.sort(flat, stable=True), 20),
+               "ms_with_sort": cuda_ms(lambda: ek.table_reduce(
+                   keys, x, g, scales, nbs, F, d_t), 20)}
+        if red["err_frac"] > BWD_TABLE_FRAC:
+            raise AssertionError(f"table_reduce {label}: {red}")
+        dev, krows = device_ms(lambda: ek.table_reduce(
+            keys, x, g, scales, nbs, F, d_t), 5)
+        red["device_by_kernel"] = [list(r) for r in krows[:8]]
+        for kname, key in (("table_reduce_kernel", "reduce_device_ms"),
+                           ("carry_kernel", "carry_device_ms")):
+            red[key] = sum(r[2] for r in krows if kname in r[0]) / 5
+        red["plain_ms"] = cuda_ms(lambda: ek.table_reduce_plain(
+            keys, x, g, scales, nbs, F, d_t), 3) if label == "uniform" \
+            else None
+        valid = int((flat != torch.iinfo(torch.int32).max).sum())
+        # the sorted keys and indices read, x and g read, d_table written
+        red_b = (flat.numel() * 12 + n * 12 + g.numel() * 2
+                 + n_table * 64 * F * 4)
+        red["bound_ms"] = max(red_b / HBM_BYTES_PER_S,
+                              valid * 8 * F * 2 / F32_FLOPS) * 1e3
+        red["bound_by"] = ("bytes" if red_b / HBM_BYTES_PER_S
+                           >= valid * 8 * F * 2 / F32_FLOPS else "operations")
+        # the carry passes alone on the partial rows a reduce left, against
+        # their plain version on CPU copies (bit for bit) and on the card
+        tile = sk.REDUCE_TILE
+        part = torch.empty((2, -(-flat.numel() // tile), 64 * F),
+                           device="cuda")
+        ek._table_reduce(keys, x, g, scales, nbs, F, d_t.zero_(), part=part)
+        p3 = torch.empty((2, -(-rows4.numel() // tile), 64 * F),
+                         device="cuda")
+        sk._scatter_add_rows(rows4, upd4, n_rows4, part=p3)
+        k3 = torch.sort(rows4, stable=True)[0]
+        for cname, got, want, plain, cb in (
+                ("table_carry",
+                 lambda: ek._table_carry(sk_, part, tile, F,
+                                         torch.zeros_like(d_t))[0],
+                 lambda: ek._table_carry(sk_.cpu(), part.cpu(), tile, F,
+                                         torch.zeros(d_t.shape))[0],
+                 lambda: sk.carry_plain(sk_, part, tile, n_table),
+                 _carry_bytes(sk_, tile, 64 * F, n_table)),
+                ("scatter_carry",
+                 lambda: sk._scatter_carry(
+                     k3, p3, tile, torch.zeros((n_rows4, 64 * F),
+                                               device="cuda"), False),
+                 lambda: sk._scatter_carry(
+                     k3.cpu(), p3.cpu(), tile,
+                     torch.zeros((n_rows4, 64 * F)), False),
+                 lambda: sk.carry_plain(k3, p3, tile, n_rows4),
+                 _carry_bytes(k3, tile, 64 * F, n_rows4))):
+            g_, w_ = got(), want()
+            torch.cuda.synchronize()
+            crec = {"name": cname, "input": label,
+                    "bit_equal_to_plain_on_cpu": torch.equal(g_.cpu(), w_),
+                    "max_abs_err": (g_.cpu() - w_).abs().max().item(),
+                    "ms": cuda_ms(got, 20), "plain_ms": cuda_ms(plain, 3),
+                    "bound_ms": cb / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "carry_bytes": cb}
+            if not crec["bit_equal_to_plain_on_cpu"]:
+                raise AssertionError(f"{cname} {label}: not its plain "
+                                     f"version's bits: {crec}")
+            out[f"{cname}/{label}"] = crec
+            log(json.dumps({"repro_kernel": crec}))
+        del part, p3, k3
+        if label == "one_brick":
+            # strict sorted order: level 0's one key in one warp's chain
+            k0 = keys[:1].contiguous()
+            g0 = g[:, :F].contiguous()
+            d0 = torch.zeros((level_rows[0], 64 * F), device="cuda")
+            for tile, key in ((k0.numel(), "strict_chain_ms"),
+                              (sk.REDUCE_TILE, "two_level_ms")):
+                red[key] = cuda_ms(lambda: ek._table_reduce(
+                    k0, x, g0, scales[:1], nbs[:1], F, d0, tile=tile), 5)
+        out[f"table_reduce/{label}"] = red
+        log(json.dumps({"repro_kernel": red}))
+        del feats, want_k6, upd4, want_t, got_t, d_t
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flat_state(obj, prefix, out):
+    """Every tensor and value of a train state by name: modules' state
+    dicts, optimizers' and schedulers' (state_dict), dataclasses, named
+    tuples (the occupancy grid), dicts and lists; tensors cloned."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        out[prefix] = obj.detach().clone()
+    elif hasattr(obj, "state_dict") and not isinstance(obj, type):
+        _flat_state(obj.state_dict(), prefix, out)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _flat_state(getattr(obj, f.name), f"{prefix}.{f.name}", out)
+    elif hasattr(obj, "_fields"):
+        for k in obj._fields:
+            _flat_state(getattr(obj, k), f"{prefix}.{k}", out)
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            _flat_state(v, f"{prefix}.{k}", out)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _flat_state(v, f"{prefix}.{i}", out)
+    elif isinstance(obj, (bool, int, float, str)) or obj is None:
+        out[prefix] = obj
+    else:
+        out[prefix] = repr(obj)
+    return out
+
+
+def _snapshot(trainer, metrics):
+    snap = _flat_state(trainer.state, "state", {})
+    for k in ("step", "bucket", "steady_march", "chunk_log"):
+        if hasattr(trainer, k):
+            snap[k] = json.dumps(getattr(trainer, k), default=str)
+    snap["metrics"] = json.dumps(metrics, default=str)
+    return snap
+
+
+def _state_diff(a, b):
+    """The names whose values differ between two snapshots (tensors bit for
+    bit, the host values as their JSON, which prints floats exactly)."""
+    import torch
+    bad = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and _same_bits(x, y)):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad
+
+
+def _repro_pair(label, make, drive):
+    """make() a trainer from the seed and drive(trainer) -> its metrics,
+    twice: every parameter, occupancy grid, optimizer state, the host's
+    step, bucket, lattice and chunk_log, and the metrics must be equal bit
+    for bit."""
+    import torch
+    snaps, secs, counts = [], [], None
+    for _ in range(2):
+        reset_counts()
+        tr = make()
+        t0 = time.perf_counter()
+        metrics = drive(tr)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        snaps.append(_snapshot(tr, metrics))
+        counts, plain = all_counts()
+        if any(plain.values()):
+            raise AssertionError(f"repro {label}: plain versions ran on "
+                                 f"CUDA: {plain}")
+        del tr
+        torch.cuda.empty_cache()
+    bad = _state_diff(*snaps)
+    rec = {"path": label, "entries": len(snaps[0]),
+           "tensors": sum(isinstance(v, torch.Tensor)
+                          for v in snaps[0].values()),
+           "tensor_bytes": sum(v.numel() * v.element_size()
+                               for v in snaps[0].values()
+                               if isinstance(v, torch.Tensor)),
+           "steps": json.loads(snaps[0]["step"]), "run_s": secs,
+           "n_differ": len(bad), "differ": bad[:12],
+           "launches": {k: v for k, v in counts.items() if v}}
+    log(json.dumps({"repro_run": rec}))
+    if bad:
+        raise AssertionError(f"repro {label}: two runs of one seed differ "
+                             f"in {len(bad)} entries, first {bad[:12]}")
+    return rec
+
+
+def repro_train_phase(seed):
+    """Two runs from one seed of each train path at full width (dnerf_config,
+    -te -ta -f -ae -df -d): the 3D path by run_step and run_chunk, hash4d,
+    row_layout cell with fine_table_rows 65536, the tri-plane encoder and
+    a PropTrainer, each bit-equal (_repro_pair)."""
+    from cednerf_torch.datasets.procedural import (BallCloudScene,
+                                                   TexturedCloudScene)
+    from cednerf_torch.engine import train_prop as tp
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.utils.bench import HASH4D_FLAGS, TRAIN_FLAGS
+
+    cfg = dnerf_config()
+
+    def trainer(c, flags, scene_cls):
+        def make():
+            scene = scene_cls(seed=seed)
+            return Trainer(build_field(c, flags, device="cuda", seed=seed), c,
+                           flags, scene, seed=seed, device="cuda",
+                           device_sampler=scene.device_sampler(),
+                           steps_per_call=REPRO_K)
+        return make
+
+    def chunks(steps):
+        return lambda tr: [tr.run_chunk() for _ in range(steps // REPRO_K)]
+
+    def steps_then_chunks(tr):
+        return ([tr.run_step() for _ in range(REPRO_RUN_STEPS)]
+                + chunks(REPRO_STEPS - REPRO_RUN_STEPS)(tr))
+
+    out = {"3d": _repro_pair("3d", trainer(cfg, ModelFlags(**TRAIN_FLAGS),
+                                           BallCloudScene),
+                             steps_then_chunks)}
+    out["hash4d"] = _repro_pair(
+        "hash4d", trainer(cfg, ModelFlags(**HASH4D_FLAGS), BallCloudScene),
+        chunks(REPRO_SHORT))
+    out["cell"] = _repro_pair(
+        "cell", trainer(dataclasses.replace(cfg, row_layout="cell",
+                                            fine_table_rows=65536),
+                        ModelFlags(**TRAIN_FLAGS), TexturedCloudScene),
+        chunks(REPRO_SHORT))
+    out["triplane"] = _repro_pair(
+        "triplane", trainer(cfg, ModelFlags(**TRAIN_FLAGS,
+                                            grid_type="triplane"),
+                            TexturedCloudScene), chunks(REPRO_SHORT))
+
+    def make_prop():
+        flags = ModelFlags(**PROP_FLAGS)
+        pcfg = tp.PropConfig.for_family("dnerf")
+        c = dnerf_config(REPRO_PROP)
+        field = build_field(c, flags, device="cuda", seed=seed)
+        props = tp.build_prop_networks(c, pcfg, device="cuda", seed=seed)
+        for mod in (field,) + props:
+            mod.density_clamp = pcfg.density_clamp
+        scene = TexturedCloudScene(seed=seed)
+        return tp.PropTrainer(field, props, c, flags, pcfg,
+                              scene.device_sampler(), n_rays=PROP_RAYS,
+                              seed=seed, steps_per_call=REPRO_K,
+                              dataset=scene)
+
+    out["prop"] = _repro_pair("prop", make_prop, chunks(REPRO_PROP))
+    return out
+
+
+def audit_main(seed):
+    """One step of each train path under torch.use_deterministic_algorithms
+    (True, warn_only=True), the process started with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 (repro_phase starts it): prints one
+    JSON line, {"audit": {...}}, with every op that PyTorch flags (its
+    message's first words, where it was called, how often) and every float
+    torch.cumsum on CUDA by shape and dim, and how many of those scanned a
+    tensor whose length along dim is its numel (cub's single-pass scan;
+    none may)."""
+    import collections
+    import warnings
+
+    import torch
+    from cednerf_torch.ops.cuda_build import build_all
+
+    build_all()
+    scans = collections.Counter()
+    real_cumsum = torch.cumsum
+
+    def cumsum(x, dim, *args, **kw):
+        if x.is_cuda and x.is_floating_point():
+            d = dim % x.dim() if x.dim() else 0
+            scans[(tuple(x.shape), d, x.numel() == x.shape[d])] += 1
+        return real_cumsum(x, dim, *args, **kw)
+
+    torch.cumsum = cumsum
+    flagged = collections.Counter()
+    paths = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for label, drive in _audit_paths(seed):
+                n0 = len(caught)
+                drive()
+                torch.cuda.synchronize()
+                paths.append({"path": label, "flags": len(caught) - n0})
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.cumsum = real_cumsum
+    for w in caught:
+        msg = str(w.message).split(" does not have a deterministic")[0]
+        where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+        flagged[(msg[:120], where)] += 1
+    one_row = sum(c for (s, d, one), c in scans.items() if one)
+    res = {"cublas_workspace_config":
+           os.environ.get("CUBLAS_WORKSPACE_CONFIG"), "paths": paths,
+           "flagged": [{"op": m, "where": w, "count": c}
+                       for (m, w), c in sorted(flagged.items())],
+           "float_scans": [{"shape": list(s), "dim": d, "one_row": one,
+                            "count": c}
+                           for (s, d, one), c in sorted(scans.items())],
+           "one_row_float_scans": one_row}
+    print(json.dumps({"audit": res}))
+    return 0 if one_row == 0 else 3
+
+
+def _audit_paths(seed):
+    """(label, drive) of one step (or one 2-step chunk) of each train path
+    at full width, each built when its turn comes."""
+    from cednerf_torch.datasets.procedural import (BallCloudScene,
+                                                   TexturedCloudScene)
+    from cednerf_torch.engine import train_prop as tp
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.engine.train import Trainer
+    from cednerf_torch.utils.bench import HASH4D_FLAGS, TRAIN_FLAGS
+
+    cfg = dnerf_config()
+
+    def one(c, flags, scene_cls, chunk):
+        def drive():
+            scene = scene_cls(seed=seed)
+            tr = Trainer(build_field(c, flags, device="cuda", seed=seed), c,
+                         flags, scene, seed=seed, device="cuda",
+                         device_sampler=scene.device_sampler(),
+                         steps_per_call=2)
+            tr.run_chunk() if chunk else tr.run_step()
+        return drive
+
+    yield "3d run_step", one(cfg, ModelFlags(**TRAIN_FLAGS), BallCloudScene,
+                             False)
+    yield "3d run_chunk", one(cfg, ModelFlags(**TRAIN_FLAGS), BallCloudScene,
+                              True)
+    yield "hash4d", one(cfg, ModelFlags(**HASH4D_FLAGS), BallCloudScene,
+                        True)
+    yield "cell", one(dataclasses.replace(cfg, row_layout="cell",
+                                          fine_table_rows=65536),
+                      ModelFlags(**TRAIN_FLAGS), TexturedCloudScene, True)
+    yield "triplane", one(cfg, ModelFlags(**TRAIN_FLAGS,
+                                          grid_type="triplane"),
+                          TexturedCloudScene, True)
+
+    def prop():
+        flags = ModelFlags(**PROP_FLAGS)
+        pcfg = tp.PropConfig.for_family("dnerf")
+        c = dnerf_config(REPRO_PROP)
+        field = build_field(c, flags, device="cuda", seed=seed)
+        props = tp.build_prop_networks(c, pcfg, device="cuda", seed=seed)
+        for mod in (field,) + props:
+            mod.density_clamp = pcfg.density_clamp
+        scene = TexturedCloudScene(seed=seed)
+        tp.PropTrainer(field, props, c, flags, pcfg, scene.device_sampler(),
+                       n_rays=PROP_RAYS, seed=seed, steps_per_call=2,
+                       dataset=scene).run_chunk()
+
+    yield "prop", prop
+
+
+def _audit_subprocess(seed):
+    """audit_main in a process of its own with
+    CUBLAS_WORKSPACE_CONFIG=:4096:8 (set for that run only): its JSON."""
+    import subprocess
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--audit",
+         "--seed", str(seed)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith('{"audit"')]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"audit exited {proc.returncode}:\n"
+                             f"{proc.stdout[-6000:]}")
+    return json.loads(lines[-1])["audit"]
+
+
+# why each op that the audit may flag gives the same bits on every run here
+AUDIT_REASONS = {
+    "cumsum_cuda_kernel": (
+        "every float CUDA cumsum is flagged; the audit's float_scans show "
+        "each of the port's scans a batch of two rows or more (a 1-D one "
+        "goes through utils/math.py::row_cumsum), which PyTorch scans one "
+        "row at a time in a fixed order (scan_innermost_dim / "
+        "scan_outer_dim): one_row_float_scans is 0"),
+}
+
+
+def repro_phase(seed, lego_ref=None):
+    """Phase 18 (see the docstring): the kernels, the Trainer pairs, the
+    audit and the lego command twice: once more beside the audit, against
+    phase 14's run `lego_ref` (its chunks and eval_psnrs), or with no
+    phase 14 run, twice at once."""
+    import torch
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.utils.bench import HASH4D_FLAGS, TRAIN_FLAGS
+
+    t_phase = time.perf_counter()
+    cfg = dnerf_config()
+    specs = [build_field(c, ModelFlags(**fl), device="cuda",
+                         seed=seed).hash_encoder.bspec
+             for c, fl in ((cfg, TRAIN_FLAGS),
+                           (dataclasses.replace(cfg, row_layout="cell",
+                                                fine_table_rows=65536),
+                            TRAIN_FLAGS), (cfg, HASH4D_FLAGS))]
+    torch.cuda.empty_cache()
+    out = {"kernels": repro_kernel_phase(*specs, seed, cfg.sample_budget)}
+    out["train"] = repro_train_phase(seed)
+    lego_path = os.path.join("results", "repro_lego.json")
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        lego_run = ex.submit(lego_runs, [REPRO_LEGO_SEED],
+                             1 if lego_ref else 2, 1 if lego_ref else 2,
+                             out_path=lego_path)
+        audit = _audit_subprocess(seed)
+        lego = lego_run.result()
+    for rec in audit["flagged"]:
+        rec["reason"] = next((r for op, r in AUDIT_REASONS.items()
+                              if op in rec["op"]), None)
+    log(json.dumps({"determinism_audit": audit}))
+    if audit["one_row_float_scans"] or any(r["reason"] is None
+                                           for r in audit["flagged"]):
+        raise AssertionError(f"audit: an op without a reason: {audit}")
+    out["audit"] = audit
+    if lego_ref is not None:
+        with open(lego_path) as f:
+            run = json.load(f)["runs"][0]
+        lego["bit_equal_to_phase_14"] = (
+            json.dumps([run["chunks"], run["psnrs"]])
+            == json.dumps([lego_ref["chunks"], lego_ref["eval_psnrs"]]))
+        same = lego["bit_equal_to_phase_14"]
+    else:
+        same = lego["seeds"][str(REPRO_LEGO_SEED)]["bit_equal"]
+    log(json.dumps({"repro_lego": lego}))
+    if not same:
+        raise AssertionError(f"lego twice on one seed differ: {lego}")
+    out["lego"] = lego
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"reproducibility phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def checked_cli(argv):
     """train_real's main(argv) in this process with every K4 call held bit
     for bit against its plain version and every K6 call against its plain
@@ -4071,16 +4812,19 @@ def checked_cli(argv):
     print(json.dumps({"checked": stats}))
 
 
-def lego_runs(n, parallel, seed, checked=False, out_path="lego_runs.json"):
+def lego_runs(seeds, repeats, parallel, checked=False,
+              out_path="lego_runs.json"):
     """Phase 14's lego command (`python -m cednerf_torch.train_real
-    --scene lego --max_steps 1024 -te -ta -f -ae -df -d` on the 800x800
-    lego-layout scene) run n times, `parallel` processes at once: each
-    run's eval PSNR, time and per-chunk log (Trainer.chunk_log) go to
-    the JSON file `out_path`; a
-    run below phase 14's margin over all-white is a collapse. checked:
-    each run through checked_cli (every K4 and K6 call against its plain
-    version). Returns the summary."""
-    import concurrent.futures
+    --scene lego --max_steps 1024 -te -ta -f -ae -df -d --seed S` on the
+    800x800 lego-layout scene) run `repeats` times for each seed S of
+    `seeds`, `parallel` processes at once: each run's eval PSNR, time and
+    per-chunk log (Trainer.chunk_log) go to the JSON file `out_path`. A
+    run below phase 14's margin over all-white is a collapse; a seed's
+    runs must give equal chunk logs and PSNRs (bit_equal). For a seed that
+    collapses, the first chunk whose PSNR lies more than 1 dB below every
+    other seed's at that chunk (first_out_of_band). checked: each run
+    through checked_cli (every K4 and K6 call against its plain version).
+    Returns the summary."""
     import shutil
     import tempfile
 
@@ -4096,17 +4840,20 @@ def lego_runs(n, parallel, seed, checked=False, out_path="lego_runs.json"):
             (1.0 - test.image_rays(i)["pixels"]) ** 2))
             for i in range(len(test))]))
 
-        def one(i):
+        def one(job):
+            i, (seed, rep) = job
             run = os.path.join(tmp, f"run{i}")
             os.makedirs(run)
             argv = ["--scene", "lego", "--data_root", os.path.dirname(lego),
                     "--model_path", os.path.join(tmp, f"ckpt{i}"),
-                    "--max_steps", str(TRAIN_REAL_STEPS)] + PUBLISHED
+                    "--max_steps", str(TRAIN_REAL_STEPS),
+                    "--seed", str(seed)] + PUBLISHED
             if checked:
                 s, secs, stats = _checked_cli(argv, run)
             else:
                 (s, secs), stats = _train_real_cli(argv, run), None
-            rec = {"run": i, "psnr": s["eval"]["psnr_avg"], "checked": stats,
+            rec = {"run": i, "seed": seed, "repeat": rep,
+                   "psnr": s["eval"]["psnr_avg"], "checked": stats,
                    "psnrs": s["eval"]["psnrs"], "process_s": secs,
                    "train_s": s["train_s"], "chunks": s["chunks"],
                    "plain": {k: v for k, v in s["plain_cuda_calls"].items()
@@ -4115,14 +4862,39 @@ def lego_runs(n, parallel, seed, checked=False, out_path="lego_runs.json"):
                                          if k != "chunks"}}))
             return rec
 
+        jobs = list(enumerate((s, r) for s in seeds for r in range(repeats)))
         with concurrent.futures.ThreadPoolExecutor(parallel) as ex:
-            runs = list(ex.map(one, range(n)))
+            runs = list(ex.map(one, jobs))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     limit = white + TRAIN_REAL_MARGIN_DB
-    summary = {"runs": n, "parallel": parallel, "white_psnr_avg": white,
+    by_seed = {}
+    for r in runs:
+        by_seed.setdefault(r["seed"], []).append(r)
+    per_seed = {}
+    for seed, rs in by_seed.items():
+        logs = {json.dumps([r["chunks"], r["psnrs"]]) for r in rs}
+        per_seed[str(seed)] = {"psnrs": [r["psnr"] for r in rs],
+                               "bit_equal": len(logs) == 1,
+                               "collapsed": any(r["psnr"] < limit
+                                                for r in rs)}
+    for seed, rec in per_seed.items():
+        if not rec["collapsed"]:
+            continue
+        others = [np.array([c["psnr"] for c in by_seed[int(s)][0]["chunks"]])
+                  for s, o in per_seed.items() if not o["collapsed"]]
+        mine = [c for c in by_seed[int(seed)][0]["chunks"]]
+        for i, c in enumerate(mine):
+            lo = min((o[i] for o in others if len(o) > i), default=None)
+            if lo is not None and c["psnr"] < lo - 1.0:
+                rec["first_out_of_band"] = {"chunk": i, **c, "band_lo": lo}
+                break
+    summary = {"runs": len(runs), "repeats": repeats, "parallel": parallel,
+               "white_psnr_avg": white, "limit": limit, "seeds": per_seed,
                "psnrs": [r["psnr"] for r in runs],
-               "collapses": [r["run"] for r in runs if r["psnr"] < limit]}
+               "collapses": [s for s, r in per_seed.items() if r["collapsed"]],
+               "all_bit_equal": all(r["bit_equal"]
+                                    for r in per_seed.values())}
     if checked:
         summary["checked"] = {k: sum(r["checked"][k] for r in runs)
                               for k in ("k4_calls", "k4_off", "k6_calls",
@@ -4135,6 +4907,15 @@ def lego_runs(n, parallel, seed, checked=False, out_path="lego_runs.json"):
     with open(out_path, "w") as f:
         json.dump({"summary": summary, "runs": runs}, f)
     return summary
+
+
+def _seed_list(spec):
+    """"0-23" or "1,5,9" (or a mix) -> [0, ..., 23] / [1, 5, 9]."""
+    seeds = []
+    for part in spec.split(","):
+        lo, _, hi = part.partition("-")
+        seeds.extend(range(int(lo), int(hi or lo) + 1))
+    return seeds
 
 
 def _checked_cli(argv, cwd):
@@ -4165,7 +4946,14 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lego_runs", type=int, default=0,
                     help="only run phase 14's lego command this many times "
-                         "(lego_runs) and print their PSNRs")
+                         "at its default seed (lego_runs) and print their "
+                         "PSNRs")
+    ap.add_argument("--lego_seeds", default="",
+                    help="only run phase 14's lego command for these seeds "
+                         "(\"0-23\", \"1,5,9\"), --lego_repeats times each "
+                         "(lego_runs)")
+    ap.add_argument("--lego_repeats", type=int, default=2,
+                    help="runs of each --lego_seeds seed")
     ap.add_argument("--lego_parallel", type=int, default=1,
                     help="lego runs at once")
     ap.add_argument("--lego_checked", action="store_true",
@@ -4179,6 +4967,9 @@ def main(argv=None):
                     help="run one rank of phase 17's two-rank gloo chunk "
                          "(dp_rank_main; started by phase 17 itself)")
     ap.add_argument("--dp_dir", default="")
+    ap.add_argument("--audit", action="store_true",
+                    help="run phase 18's determinism audit (audit_main; "
+                         "started by phase 18 itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -4192,15 +4983,23 @@ def main(argv=None):
     if args.checked_cli is not None:
         checked_cli(args.checked_cli)
         return 0
-    if args.lego_runs:
+    if args.audit:
+        return audit_main(args.seed)
+    if args.lego_runs or args.lego_seeds:
         from cednerf_torch.ops.cuda_build import build_all
         from cednerf_torch.utils.bench import card_name
         log(card_name())
         build_all()
-        summary = lego_runs(args.lego_runs, args.lego_parallel, args.seed,
+        if args.lego_seeds:
+            seeds, repeats = _seed_list(args.lego_seeds), args.lego_repeats
+        else:
+            seeds, repeats = [REPRO_LEGO_SEED], args.lego_runs
+        summary = lego_runs(seeds, repeats, args.lego_parallel,
                             args.lego_checked, args.lego_out)
         log(card_name())
         print(json.dumps({"lego_runs": summary}))
+        if not summary["all_bit_equal"]:
+            return 3
         return 0 if not summary["collapses"] else 2
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags, dnerf_config
@@ -4269,7 +5068,10 @@ def main(argv=None):
     log(f"scanned training: {time.perf_counter() - t0:.1f} s")
 
     k3 = scatter_kernel_phase(cfg, args.seed)
-    kern["scatter_add_rows"] = k3[1]          # the hashed level
+    kern["scatter_add_rows"] = dict(k3[1], triplane={   # the hashed level
+        k: k3[3][k] for k in ("m", "w", "n_rows", "max_abs_err", "err_frac",
+                              "ms", "plain_ms", "library_ms", "bound_ms",
+                              "algo_bound_ms")})
     log(json.dumps({"reference_step": reference_step_phase(args.seed,
                                                            "hash4d")}))
     h4 = hash4d_phase(cfg, args.seed)
@@ -4300,6 +5102,30 @@ def main(argv=None):
     kern["compact_select_blocks"] = dp["k4_blocks"][2]
     log(f"data-parallel phase: {dp['phase_s']:.1f} s")
 
+    repro = repro_phase(args.seed, lego_ref=real["train"])
+    rk = repro["kernels"]
+    for name in ("fused_encode_bwd", "interp_bwd_fused",
+                 "fused_encode_bwd_cell", "scatter_add_rows"):
+        kern[name]["repro"] = {
+            inp: {k: rk[f"{name}/{inp}"][k] for k in (
+                "bit_equal", "ms", "bound_ms", "algo_bound_ms")
+                if k in rk[f"{name}/{inp}"]}
+            for inp in ("uniform", "ray_major", "one_brick")}
+    red = rk["table_reduce/uniform"]
+    kern["table_reduce"] = dict(
+        red, ms=red["reduce_device_ms"], library_ms=None,
+        by_input={inp: {k: rk[f"table_reduce/{inp}"].get(k) for k in (
+            "reduce_device_ms", "carry_device_ms", "sort_ms", "ms_with_sort",
+            "bound_ms", "strict_chain_ms", "two_level_ms")}
+            for inp in ("uniform", "ray_major", "one_brick")})
+    for name in ("table_carry", "scatter_carry"):
+        # timed where the carry has work: all samples in one level-0 brick
+        kern[name] = dict(rk[f"{name}/one_brick"], library_ms=None,
+                          by_input={inp: {k: rk[f"{name}/{inp}"][k] for k in (
+                              "ms", "plain_ms", "bound_ms")}
+                              for inp in ("uniform", "ray_major",
+                                          "one_brick")})
+
     t0 = time.perf_counter()
     kern["interp_bwd"] = interp_bwd_kernel_phase(spec3d, 262_144, 100_003,
                                                  args.seed)
@@ -4324,6 +5150,12 @@ def main(argv=None):
         # the JAX package (no Pallas kernel), K4's blocked launch here
         "compact_select_blocks": "cednerf_tpu/engine/renderer.py:55",
         "scatter_add_rows": "cednerf_tpu/ops/pallas_scatter.py:87",
+        # the table-gradient sums that the TPU backward kernels take in
+        # one order (one core walks the sample tiles); here a sort, the
+        # ordered reduce and its carry pass
+        "table_reduce": "cednerf_tpu/ops/pallas_fused.py:244",
+        "table_carry": "cednerf_tpu/ops/pallas_fused.py:244",
+        "scatter_carry": "cednerf_tpu/ops/pallas_scatter.py:87",
         "interp_bwd": "cednerf_tpu/ops/pallas_encoder.py:180",
         "row_gather": "cednerf_tpu/ops/pallas_gather.py:27",
     }
@@ -4337,6 +5169,9 @@ def main(argv=None):
         "compact_select": "cednerf_torch/csrc/compact_select.cu",
         "compact_select_blocks": "cednerf_torch/csrc/compact_select.cu",
         "scatter_add_rows": "cednerf_torch/csrc/scatter_add_rows.cu",
+        "table_reduce": "cednerf_torch/csrc/brick_encode_bwd.cu",
+        "table_carry": "cednerf_torch/csrc/ordered_reduce.cuh",
+        "scatter_carry": "cednerf_torch/csrc/ordered_reduce.cuh",
         "interp_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "row_gather": "cednerf_torch/csrc/row_gather.cu",
     }
@@ -4383,6 +5218,8 @@ def main(argv=None):
                    "train_prop_dp": dp["prop"]["launches"].get(name, 0),
                    "train_real_dp": dp["cli"]["launches"].get(name, 0),
                    "eval_real_dp": dp["cli"]["eval_launches"].get(name, 0),
+                   **{f"train_repro_{p}": r["launches"].get(name, 0)
+                      for p, r in repro["train"].items()},
                    "probe_interp_enc": probe_enc["launches"].get(name, 0),
                    "probe_row_gather": probe_gather["launches"].get(name, 0)}
         line.append({
@@ -4392,8 +5229,10 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
-        line[-1].update({k: r[k] for k in ("sector_bound_ms", "ray_major_ms",
-                                           "device_ms", "library_device_ms")
+        line[-1].update({k: r[k] for k in ("sector_bound_ms", "algo_bound_ms",
+                                           "ray_major_ms", "device_ms",
+                                           "library_device_ms", "repro",
+                                           "by_input", "triplane")
                          if k in r})
         if name == "compact_select_blocks":
             line[-1]["by_blocks"] = {
@@ -4405,7 +5244,7 @@ def main(argv=None):
             line[-1]["one_brick_ms"] = cells[-1]["ms"]
         if name == "fused_encode_bwd_cell":
             line[-1].update({k: r[k] for k in (
-                "k6_same_inputs_ms", "corner_atomic_bound_ms", "old_k6c_ms",
+                "k6_same_inputs_ms", "corner_bound_ms", "old_k6c_ms",
                 "pair_ms", "old_pair_ms", "touched_brick_row_share")})
             line[-1]["ray_major_ms"] = r["ray_major"]["ms"]
             line[-1]["n_1m"] = {k: r["n_1m"][k] for k in (

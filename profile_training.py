@@ -2,7 +2,7 @@
 """Where a train step's time goes on the card (cednerf_torch, one GPU).
 
     python3 profile_training.py [--seed 0] [--steps 288] [--profile-steps 8]
-                                [--interp | --hash4d]
+                                [--interp | --hash4d | --triplane]
                                 [--out results/profile_training]
     python3 profile_training.py --chunk [--steps-per-call 16] [--steps 448]
 
@@ -11,7 +11,9 @@ The configuration of chip_smoke.py's training phase: dnerf_config() with
 cap, budget 262,144 samples, 1024 march steps, 128^3 occupancy), random
 weights from --seed, BallCloudScene; with --hash4d the 4D keyframe
 encoder (--grid_type hash4d, K = 4: 4x the tables, a plain PyTorch forward
-and the K3 table-gradient scatter in its backward). Then:
+and the K3 table-gradient scatter in its backward); with --triplane the
+tri-plane encoder (--grid_type triplane: plane resolution 1024, F = 4, 8
+levels, plain PyTorch with K3 summing the texel gradient). Then:
 
   1. --steps steps of Trainer.run_step (by default past the 256-step
      all-cells occupancy warmup, so that the grid has carved and the ray
@@ -26,10 +28,12 @@ and the K3 table-gradient scatter in its backward). Then:
   3. components at the last step's shapes, CUDA events: the field forward
      and forward+backward at the budget, K6 (3D only) and K4 alone; in 3D
      also the step's encoder backward (K6, or K2 with --interp) on one more
-     step's own batch (`k6_step_ms` / `k2_step_ms`), and the share of its
-     table atomics that its match groups save on that batch, on ray-major
-     samples (bench.ray_major_samples) and on uniform random ones
-     (bench.match_groups; `k6_match_*` / `k2_match_*`).
+     step's own batch (`k6_step_ms` / `k2_step_ms`); with --triplane,
+     on one more step's own encoder inputs, the encoder's forward and
+     backward (`plane_interp_fwd_bwd_ms`), and the texel gradient's sum
+     alone on those indices with random f32 terms: K3 (`texel_k3_ms`),
+     its stable sort alone (`texel_sort_ms`) and index_add_
+     (`texel_index_add_ms`).
 
 With --chunk it compares the two ways the Trainer steps instead, in one
 process on one card: run_step (a host batch uploaded and the metrics read
@@ -66,6 +70,8 @@ def main(argv=None):
                     help="take the K1/K2 route (interp_impl='interp')")
     ap.add_argument("--hash4d", action="store_true",
                     help="train the 4D keyframe encoder (grid_type hash4d)")
+    ap.add_argument("--triplane", action="store_true",
+                    help="train the tri-plane encoder (grid_type triplane)")
     ap.add_argument("--out", default="results/profile_training")
     ap.add_argument("--chunk", action="store_true",
                     help="compare run_chunk with run_step (see above)")
@@ -94,9 +100,7 @@ def main(argv=None):
     from cednerf_torch.ops.cuda_build import build_all
     from cednerf_torch.utils.bench import (HASH4D_FLAGS, TRAIN_FLAGS,
                                            card_name, cuda_ms,
-                                           device_time_by_kernel,
-                                           match_groups,
-                                           ray_major_samples)
+                                           device_time_by_kernel)
 
     card = card_name()
     print(card, flush=True)
@@ -106,6 +110,8 @@ def main(argv=None):
     if args.interp:
         cfg = dataclasses.replace(cfg, interp_impl="interp")
     flags = ModelFlags(**(HASH4D_FLAGS if args.hash4d else TRAIN_FLAGS))
+    if args.triplane:
+        flags = dataclasses.replace(flags, grid_type="triplane")
     field = build_field(cfg, flags, device="cuda", seed=args.seed)
     trainer = Trainer(field, cfg, flags, BallCloudScene(seed=args.seed),
                       seed=args.seed, device="cuda")
@@ -138,7 +144,8 @@ def main(argv=None):
     rows, device_ms = device_time_by_kernel(prof)
     ours = [r for r in rows if any(k in r[0] for k in (
         "fused_encode", "interp_fwd", "encode_bwd", "compact_select",
-        "scatter_rows"))]
+        "table_reduce", "carry_kernel", "rows_reduce", "scatter_rows",
+        "fold_cells"))]
     cpu_ops = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CPU),
                      key=lambda e: -e.self_cpu_time_total)
@@ -190,6 +197,21 @@ def main(argv=None):
         (rgb.sum() + res["density"].sum()
          + res["internal"]["latent_losses"].sum()).backward()
 
+    valid = torch.rand((m["num_rays"], cfg.max_march_steps), device="cuda",
+                       generator=gen) < m["n_valid"] / (
+                           m["num_rays"] * cfg.max_march_steps)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: field(pos, t, dirs), 10)
+    comp = {
+        "n": n, "field_forward_ms": fwd_ms,
+        "field_forward_backward_ms": cuda_ms(fwd_bwd, 10),
+        "k4_ms": cuda_ms(lambda: ck.compact_select_kernel(
+            valid, cfg.sample_budget), 10),
+        "k4_lattice": list(valid.shape)}
+    if args.triplane:
+        comp.update(_texel_components(trainer, gen, cuda_ms))
+        print(json.dumps({"components": comp}), flush=True)
+        return 0
     spec = field.hash_encoder.bspec
     lay = spec.level_layout()
     scales = spec.level_scales()
@@ -203,22 +225,11 @@ def main(argv=None):
                         dtype=torch.bfloat16, device="cuda")
     g = torch.randn((n, spec.output_dim), device="cuda",
                     generator=gen).to(torch.bfloat16)
-    valid = torch.rand((m["num_rays"], cfg.max_march_steps), device="cuda",
-                       generator=gen) < m["n_valid"] / (
-                           m["num_rays"] * cfg.max_march_steps)
-    with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: field(pos, t, dirs), 10)
-    comp = {
-        "n": n, "field_forward_ms": fwd_ms,
-        "field_forward_backward_ms": cuda_ms(fwd_bwd, 10),
-        "k4_ms": cuda_ms(lambda: ck.compact_select_kernel(
-            valid, cfg.sample_budget), 10),
-        "k4_lattice": list(valid.shape)}
     if not args.hash4d:
         comp["k6_ms"] = cuda_ms(lambda: ek.fused_encode_bwd(
             xn, g, rows, table, scales, nbs, level_rows, spec.n_features), 10)
         # one more step, keeping the inputs of its encoder backward: K6, or
-        # K2 on the interp route (one kernel body, the same match groups)
+        # K2 on the interp route (one kernel body)
         name, tag = (("interp_bwd_fused", "k2") if args.interp
                      else ("fused_encode_bwd", "k6"))
         kern, seen = getattr(ek, name), {}
@@ -233,24 +244,52 @@ def main(argv=None):
         finally:
             setattr(ek, name, kern)
         comp[f"{tag}_step_ms"] = cuda_ms(lambda: kern(*seen["args"]), 10)
-        # K6 takes (x, g, rows, table, ...), K2 (x, g, feats, rows, ...)
-        xs, gs = seen["args"][:2]
-        rs = seen["args"][3 if args.interp else 2]
-        xm = torch.from_numpy(ray_major_samples(n // 64, 64, args.seed)[0])
-        xm = xm.cuda()
-        rm = torch.stack([_level_geom(xm, scales[i], nbs[i], l["hashed"],
-                                      l["rows"])[0]
-                          for i, l in enumerate(lay)]).contiguous()
-        for label, (xb, gb, rb) in (("step", (xs, gs, rs)),
-                                    ("ray_major", (xm, g, rm)),
-                                    ("random", (xn, g, rows))):
-            terms, groups = zip(*match_groups(xb, gb, rb, scales, nbs,
-                                              spec.n_features))
-            comp[f"{tag}_match_{label}"] = {
-                "terms": terms, "groups": groups,
-                "atomics_saved": 1 - sum(groups) / sum(terms)}
     print(json.dumps({"components": comp}), flush=True)
     return 0
+
+
+def _texel_components(trainer, gen, cuda_ms):
+    """The tri-plane encoder's backward on one more step's own inputs
+    (kept by wrapping _PlaneInterp.apply for that step), and the texel
+    gradient's sum alone at that shape."""
+    import torch
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.ops import triplane as tp
+
+    interp, seen = tp._PlaneInterp.apply, {}
+
+    def keep(*a):
+        seen["args"] = a
+        return interp(*a)
+
+    tp._PlaneInterp.apply = keep
+    try:
+        trainer.run_step()
+    finally:
+        del tp._PlaneInterp.apply
+    planes, idx, w2, dtype = seen["args"]
+    n_rows, f = planes.shape
+    flat = idx.reshape(-1)
+    rows32 = flat.to(torch.int32)
+    terms = torch.randn((flat.numel(), f), device="cuda", generator=gen)
+    p = planes.detach().requires_grad_()
+    w2 = w2.detach().requires_grad_()
+    out = interp(p, idx, w2, dtype)
+    cot = torch.randn(out.shape, device="cuda", generator=gen).to(out.dtype)
+
+    def fwd_bwd():
+        interp(p, idx, w2, dtype).backward(cot)
+
+    return {
+        "texel_entries": flat.numel(), "texel_rows": n_rows,
+        "texel_cols": f, "samples": idx.shape[0],
+        "plane_interp_fwd_bwd_ms": cuda_ms(fwd_bwd, 10),
+        "texel_k3_ms": cuda_ms(
+            lambda: sk.scatter_add_rows(rows32, terms, n_rows), 10),
+        "texel_sort_ms": cuda_ms(
+            lambda: torch.sort(rows32, stable=True), 10),
+        "texel_index_add_ms": cuda_ms(lambda: torch.zeros(
+            (n_rows, f), device="cuda").index_add_(0, flat, terms), 10)}
 
 
 def chunk_main(args):

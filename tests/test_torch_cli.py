@@ -70,10 +70,12 @@ def test_model_args_match_jax():
 
 def test_train_real_flags_match_jax(monkeypatch):
     """python -m cednerf_torch.train_real takes train_real.py's flags, plus
-    --device (default cuda)."""
+    --device (default cuda) and --seed (default 42, the JAX CLI's fixed
+    seed)."""
     got = _surface(train_real.build_parser())
     want = _surface(_jax_train_real_parser(monkeypatch))
     assert got.pop("device") == (("--device",), "cuda", None, str, None)
+    assert got.pop("seed") == (("--seed",), 42, None, int, None)
     # the dataset default is a path under the working directory
     assert got.pop("data_root")[0] == want.pop("data_root")[0]
     assert got == want

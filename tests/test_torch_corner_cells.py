@@ -2,8 +2,8 @@
 (fused_encode_bwd) and K2 (interp_bwd_fused) on the points that stress the
 CUDA kernels' corner addressing, against the JAX Pallas kernels they
 replace, run in interpret mode on the CPU; the ray-major sample builder
-that chip_smoke.py times the kernels on; and the count of the match groups
-of K6 and K2 (one kernel body) that profile_training.py reports.
+that chip_smoke.py times the kernels on; and the groups in which K6's and
+K2's table gradient is summed (one kernel body, then table_reduce).
 
 The points (cednerf_torch.utils.bench.cell_points): every one of the 27
 intra cells of random bricks, and cell and brick boundaries with their f32
@@ -35,8 +35,7 @@ from cednerf_tpu.ops import pallas_encoder as jpe
 from cednerf_tpu.ops import pallas_fused as jpf
 from cednerf_torch.ops import brick_grid as tbg
 from cednerf_torch.ops import encode_kernels as ek
-from cednerf_torch.utils.bench import (cell_points, match_groups,
-                                       ray_major_samples)
+from cednerf_torch.utils.bench import cell_points, ray_major_samples
 
 SPEC_KW = dict(n_levels=4, n_features=4, base_res=16, max_res=128,
                log2_hashmap_size=14, max_table_rows=512)
@@ -179,16 +178,21 @@ def test_ray_major_samples():
 
 @pytest.mark.parametrize("order", ["ray_major", "one_cell", "random"])
 def test_k6_match_groups(order):
-    """bench.match_groups counts, per level and warp of 32 samples, the
-    lanes with a nonzero cotangent and the distinct (row, intra cell) keys
-    among them (the groups of K6 and K2, one kernel body): checked against
-    a loop over the warps."""
+    """The groups that K6 and K2 (one kernel body) sum the table gradient
+    in: one key a live (sample, level) term, offset_l + its row, a zero
+    cotangent's INT_MAX dropped, sorted stably into one run a table row.
+    table_reduce_plain over those keys equals fused_encode_bwd_plain's
+    table gradient bit for bit (the same terms in ascending sample order),
+    and the runs are each level's distinct live rows, counted by a loop
+    over the samples (one run a level when every sample lies in one
+    cell)."""
     spec = tbg.BrickGridSpec(**SPEC_KW)
     lay = spec.level_layout()
     scales = spec.level_scales()
     nbs = [l["n_bricks_axis"] for l in lay]
+    level_rows = [l["rows"] for l in lay]
     rng = np.random.default_rng(5)
-    n = 32 * 20 + 7                          # a ragged last warp
+    n = 32 * 20 + 7
     if order == "ray_major":
         x = ray_major_samples(n // 16 + 1, 16, seed=5, width=64)[0][:n]
     elif order == "one_cell":
@@ -200,15 +204,24 @@ def test_k6_match_groups(order):
                         for s, nb, l in zip(scales, nbs, lay)])
     g = torch.from_numpy(rng.normal(size=(n, 16)).astype(np.float32))
     g[rng.uniform(size=n) < 0.25] = 0.0     # unused budget slots
-    got = match_groups(x, g.to(torch.bfloat16), rows, scales, nbs, 4)
-    live = (g.reshape(n, 4, 4) != 0).any(-1)
-    for lvl, (s, nb) in enumerate(zip(scales, nbs)):
-        intra = ek.cell_geom(x, s, nb)[2]
-        groups = 0
-        for w0 in range(0, n, 32):
-            keys = {(int(rows[lvl, i]), tuple(intra[i].tolist()))
-                    for i in range(w0, min(w0 + 32, n)) if live[i, lvl]}
-            groups += len(keys)
-        assert got[lvl] == (int(live[:, lvl].sum()), groups)
-    if order == "one_cell":
-        assert [gr for _, gr in got] == [21] * 4   # one group per warp
+    g = g.to(torch.bfloat16)
+    table = torch.from_numpy(_bf16(rng.uniform(-1, 1, (sum(level_rows),
+                                                       256))))
+    offs = np.cumsum([0] + level_rows)
+    live = (g.float().view(n, 4, 4) != 0).any(-1).t()          # [L, N]
+    keys = torch.where(live, rows + torch.tensor(offs[:-1])[:, None],
+                       torch.iinfo(torch.int32).max).to(torch.int32)
+    want = ek.fused_encode_bwd_plain(x, g, rows, table.to(torch.bfloat16),
+                                     scales, nbs, level_rows, 4)[0]
+    got = ek.table_reduce(keys, x, g, scales, nbs, 4,
+                          torch.zeros_like(want))[0]
+    assert torch.equal(got, want)
+    runs = torch.unique_consecutive(torch.sort(keys.reshape(-1),
+                                               stable=True)[0])
+    runs = runs[runs != torch.iinfo(torch.int32).max]
+    for lvl in range(len(scales)):
+        distinct = {int(rows[lvl, i]) for i in range(n) if live[lvl, i]}
+        in_level = (runs >= offs[lvl]) & (runs < offs[lvl + 1])
+        assert int(in_level.sum()) == len(distinct)
+        if order == "one_cell":
+            assert len(distinct) == 1

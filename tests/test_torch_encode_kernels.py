@@ -184,6 +184,6 @@ def test_wrappers_on_cpu_take_the_plain_version():
     torch.testing.assert_close(d_x7, d_x)
     names = {"interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
              "fused_encode_bwd_cell", "fold_cells", "interp_bwd_fused",
-             "interp_bwd"}
+             "interp_bwd", "table_reduce", "table_carry"}
     assert ek.launches == dict.fromkeys(names, 0)
     assert ek.plain_cuda_calls == dict.fromkeys(names, 0)

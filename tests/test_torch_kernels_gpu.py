@@ -13,19 +13,23 @@ port's dependencies; there, skip the suite's JAX conftest:
 Tolerances: f32 output rtol 1e-5, atol 1e-9 (summation order only, at the
 +-1e-4 table scale); bf16 output one bf16 rounding, rtol 2^-7. Backward
 kernels (K6, K2: one kernel body, on the table or on the gathered rows):
-their f32 atomics add in another order than the plain version's index_add,
-so each gradient is held to 1e-5 of its largest entry (plus rtol 1e-5);
-K2's d_x, summed in level order, is bit-equal across two launches.
+their table-gradient reduce sums each row in two levels (tiles of 256
+sorted terms, then the tiles in order) where the plain version's
+index_add adds in one, so each gradient is held to 1e-5 of its largest
+entry (plus rtol 1e-5); with one tile (strict sorted order) the reduce
+equals the plain version on the CPU bit for bit. K6, K6c, K2 and K3 give
+the same bits in three launches; K2's d_x, summed in level order, too.
 fold_cells against its plain version: bit for bit (the same roundings and
 f32 sums in the same order); K6c + fold against the plain pair: each
 folded entry within one bf16 step plus 1e-4 of the largest (the fold
 rounds to bf16 sums that atomics added in another order). K4
-(compaction) is integer work: bit-exact. K3 (row scatter-add) sums with
-f32 atomics against index_add's order: 1e-5 of the largest entry, as K6.
+(compaction) is integer work: bit-exact. K3 (row scatter-add) sums in the
+reduce's two levels against index_add's order: 1e-5 of the largest entry,
+as K6.
 The 4D encoder on the card against the CPU: the
 forward is the same PyTorch code on both (bf16 out, rtol 2^-7: one bf16
 rounding of f32 sums taken in another order); its gradients 1e-5 of each
-array's largest entry (K3's atomics, and the reductions' order). K7
+array's largest entry (K3's two-level sums, and the reductions' order). K7
 (update rows): the rows are the same f32 products in the same order as the
 plain version's, d_x sums them in another order: 1e-5 of each array's
 largest entry. K8 (row gather) copies bytes: bit-exact.
@@ -233,8 +237,8 @@ def test_prop_layout_kernels_match_plain(res, unbounded):
 def test_backward_kernels_match_plain(n_feat, n, levels, points):
     """K6 and K2 (one kernel body) against K6's plain version; "cells" as
     in test_kernels_match_plain, "one brick" puts every sample into one
-    level-0 brick (the most contended table gradient), "ray major" gives
-    large and mixed match groups."""
+    level-0 brick (one key across many reduce tiles), "ray major" gives
+    long runs of one key inside a tile."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
         3, n_feat, n, levels, points)
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -287,11 +291,10 @@ def test_k6c_matches_plain(n_feat, n, levels, points):
     hashed levels on the per-cell target and the dense ones on K6's: K6c
     launched into zeroed buffers, its brick levels' table gradient, its
     cell rows and d_x each within 1e-5 of its largest entry, as K6 (the
-    same bf16 terms, f32 atomics in another order); then the wrapper (K6c
+    same bf16 terms, summed in another order); then the wrapper (K6c
     into the resident buffer, then fold_cells): the brick levels' rows and
     d_x as K6c's, the cell levels' rows against the plain fold of the plain
-    cell rows (_bf16_close), and the resident buffer zero again. At L16 F4
-    the bulk reductions' staging needs more than 48 KB of shared memory."""
+    cell rows (_bf16_close), and the resident buffer zero again."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
         3, n_feat, n, levels, points)
     spec = tbg.BrickGridSpec(n_levels=levels, n_features=n_feat,
@@ -423,8 +426,8 @@ def test_cell_backward_leaves_its_buffer_zero(keyframes):
 @pytest.mark.parametrize("n_feat,points", [(4, "ray major"), (2, None)])
 def test_k2_d_x_is_deterministic(n_feat, points):
     """d_x is summed over the levels in level order, so two launches of K2
-    give the same bits (only the table gradient's atomics add in another
-    order from run to run)."""
+    give the same bits (the table gradient too: test_backward_bits_repeat
+    holds that)."""
     x, _, rows, feats, scales, nbs, level_rows = _cuda_inputs(
         6, n_feat, 30011, 8, points)
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -440,6 +443,132 @@ def test_k2_d_x_is_deterministic(n_feat, points):
     assert torch.equal(runs[0][1].view(torch.int32),
                        runs[1][1].view(torch.int32))
     _close_to_scale(runs[1][0], runs[0][0])
+
+
+def _bits(t):
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+@pytest.mark.parametrize("points", [None, "ray major", "one brick"])
+@pytest.mark.parametrize("kernel", ["k6", "k6c", "k2", "k3"])
+def test_backward_bits_repeat(kernel, points):
+    """K6, K6c (with its fold), K2 and K3 launched three times on the same
+    inputs give the same bits: uniform samples, ray-major ones (runs of one
+    key inside a tile) and all samples in one level-0 brick (one key
+    across hundreds of tiles, through the carry pass)."""
+    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        7, 4, 20000, 8, points)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn((x.shape[0], 8 * 4), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    g[::9] = 0
+    spec = tbg.BrickGridSpec(n_levels=8, n_features=4, base_res=16,
+                             max_res=512, log2_hashmap_size=16,
+                             max_table_rows=2048)
+    if kernel == "k6":
+        def run():
+            return ek.fused_encode_bwd(x, g, rows, table, scales, nbs,
+                                       level_rows, 4)
+    elif kernel == "k6c":
+        def run():
+            return ek.fused_encode_bwd_cell(
+                x, g, rows, table, scales, nbs, level_rows, 4,
+                _cell_offsets(spec), torch.bfloat16, False)
+    elif kernel == "k2":
+        def run():
+            return ek.interp_bwd_fused(x, g, feats, rows, scales, nbs,
+                                       level_rows, 4)
+    else:
+        upd = torch.randn((2 * x.shape[0], 256), device="cuda",
+                          generator=gen)
+        k3_rows = torch.cat([rows[0], rows[0] + 1]).contiguous()
+
+        def run():
+            return (sk.scatter_add_rows(k3_rows, upd, level_rows[0] + 1),)
+    runs = [run() for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("points", [None, "one brick"])
+@pytest.mark.parametrize("cell", [False, True])
+def test_table_reduce_in_one_tile_equals_plain_on_cpu(points, cell):
+    """With one tile the reduce sums each key in strict sorted order, as
+    the plain version does on the CPU (index_add_ in index order): the same
+    bits, brick and cell targets; with the default tile it holds the
+    carry pass's two levels to 1e-5 of the largest entry."""
+    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        8, 4, 4099, 3, points)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    g = torch.randn((x.shape[0], 3 * 4), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    g[::5] = 0
+    offs = np.cumsum([0] + level_rows)
+    n_table = int(offs[-1])
+    keys = (rows.long() + torch.tensor(offs[:-1], device="cuda")[:, None])
+    n_cell = 0
+    if cell:        # the last level on the cell target
+        cidx = ek.cell_index(x, scales[-1], nbs[-1])
+        keys[-1] = n_table + rows[-1].long() * 27 + cidx
+        n_cell = 27 * level_rows[-1]
+    zero = (g.float().view(-1, 3, 4) == 0).all(-1).t()
+    keys = torch.where(zero, torch.iinfo(torch.int32).max,
+                       keys).to(torch.int32).contiguous()
+
+    def buffers(device):
+        return (torch.zeros((n_table, 256), device=device),
+                torch.zeros((n_cell, 32), device=device) if cell else None)
+
+    want = ek.table_reduce(keys.cpu(), x.cpu(), g.cpu(), scales, nbs, 4,
+                           *buffers("cpu"))
+    one = ek._table_reduce(keys, x, g, scales, nbs, 4, *buffers("cuda"),
+                           tile=keys.numel())
+    tiled = ek.table_reduce(keys, x, g, scales, nbs, 4, *buffers("cuda"))
+    torch.cuda.synchronize()
+    for a, b, c in zip(one, want, tiled):
+        if b is not None:
+            assert torch.equal(a.cpu(), b)
+            _close_to_scale(c.cpu(), b)
+
+
+@pytest.mark.parametrize("points", [None, "one brick"])
+def test_carry_kernels_equal_plain_on_cpu(points):
+    """The carry passes alone (_table_carry, _scatter_carry) on the partial
+    rows that a reduce left: every row they write equal bit for bit to
+    carry_plain's on CPU copies of the same sorted keys and partials (both
+    add the partials in tile order)."""
+    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        9, 4, 20000, 8, points)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    g = torch.randn((x.shape[0], 8 * 4), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    offs = torch.tensor(np.cumsum([0] + level_rows)[:-1], device="cuda")
+    keys = (rows.long() + offs[:, None]).to(torch.int32).contiguous()
+    tile, n_table = sk.REDUCE_TILE, sum(level_rows)
+    part = torch.empty((2, -(-keys.numel() // tile), 256), device="cuda")
+    ek._table_reduce(keys, x, g, scales, nbs, 4,
+                     torch.zeros((n_table, 256), device="cuda"), part=part)
+    skeys = torch.sort(keys.reshape(-1), stable=True)[0]
+    got = ek._table_carry(skeys, part, tile, 4,
+                          torch.zeros((n_table, 256), device="cuda"))[0]
+    want = ek._table_carry(skeys.cpu(), part.cpu(), tile, 4,
+                           torch.zeros((n_table, 256)))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and bool(want.any())
+    upd = torch.randn((2 * x.shape[0], 256), device="cuda", generator=gen)
+    rows3 = torch.cat([rows[0], rows[0] + 1]).contiguous()
+    n3 = level_rows[0] + 1
+    part3 = torch.empty((2, -(-rows3.numel() // tile), 256), device="cuda")
+    sk._scatter_add_rows(rows3, upd, n3, part=part3)
+    k3 = torch.sort(rows3, stable=True)[0]
+    got3 = sk._scatter_carry(k3, part3, tile,
+                             torch.zeros((n3, 256), device="cuda"), False)
+    want3 = sk._scatter_carry(k3.cpu(), part3.cpu(), tile,
+                              torch.zeros((n3, 256)), False)
+    torch.cuda.synchronize()
+    assert torch.equal(got3.cpu(), want3) and bool(want3.any())
 
 
 @pytest.mark.parametrize("r,m,budget,p", [
@@ -534,11 +663,13 @@ def test_compact_kernel_reuses_its_scratch():
 
 @pytest.mark.parametrize("m,w,n_rows,bf16", [
     (20000, 256, 864, False), (100003, 256, 65536, False),
-    (777, 30, 50, False), (5001, 256, 300, True)])
+    (777, 30, 50, False), (5001, 256, 300, True),
+    (300001, 4, 3000, False), (50000, 2, 700, True), (20001, 16, 900, False),
+    (5003, 3, 40, False)])
 def test_k3_matches_plain(m, w, n_rows, bf16):
     """Contended and sparse tables, a ragged M, W % 4 != 0 (the scalar
-    kernel), bf16 rows; rows past the table are dropped, zero lanes and
-    zero rows skipped."""
+    kernel), bf16 rows, narrow rows (W <= 16, the narrow kernel); rows past
+    the table are dropped, zero lanes and zero rows skipped."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(m)
@@ -558,6 +689,30 @@ def test_k3_matches_plain(m, w, n_rows, bf16):
     _close_to_scale(got, want)
     with pytest.raises(ValueError):
         sk.scatter_add_rows(rows.long(), upd, n_rows)
+
+
+@pytest.mark.parametrize("w,bf16", [(2, False), (4, False), (3, True),
+                                     (16, False), (30, False), (256, False)])
+def test_k3_in_one_tile_equals_plain_on_cpu(w, bf16):
+    """Every column layout of K3's reduce (narrow rows, the scalar and the
+    float4 kernel) adds a row's entries in sorted order: with the whole
+    input in one tile, equal bit for bit to the plain version on CPU copies
+    (index_add_ in sorted order), and the same bits on three launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    m, n_rows = 4099, 37
+    gen = torch.Generator(device="cuda").manual_seed(w)
+    rows = torch.randint(-1, n_rows + 1, (m,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    upd = torch.randn((m, w), device="cuda", generator=gen)
+    if bf16:
+        upd = upd.to(torch.bfloat16)
+    want = sk.scatter_add_rows_plain(rows.cpu(), upd.cpu(), n_rows)
+    runs = [sk._scatter_add_rows(rows, upd, n_rows, tile=m)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0].cpu(), want)
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
 
 
 @pytest.mark.parametrize("m,w,n_rows", [(20000, 32, 864 * 27),
