@@ -59,7 +59,8 @@
 //     INT_MAX when its cotangent is all zero (an unused budget slot: its
 //     loads are skipped and its terms dropped).
 //   * the table gradient, in table_reduce_kernel<F> and the carry pass of
-//     csrc/ordered_reduce.cuh: the keys sorted stably by the wrapper, each
+//     csrc/ordered_reduce.cuh: the keys sorted stably (csrc/key_sort.cuh,
+//     exported below as key_sort: int32 keys and index), each
 //     key's terms w_c * g are formed again from x and g and summed in sorted
 //     order (ascending sample order within a key), each output row stored
 //     once by one warp (the destinations are zero there). No float
@@ -89,11 +90,12 @@
 // What bounds the backward: its needed bytes. x, g, rows and the table (or
 // K2's gathered rows) read, d_table and d_x written once: 0.050 ms at N =
 // 262,144, L8 F4 and 3.35 TB/s. This design adds the sort's keys (4 B a
-// term written by the d_x kernel, 4 + 8 B of sorted key and index written
-// by the sort and read by the reduce): 0.070 ms with them. On an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phases 3 and 18) K6 takes 0.59 ms on uniform samples: the
-// sort 0.165, this file's d_x kernel ~0.09 and reduce ~0.15 device-ms, the
-// carry pass ~0.09. A form that added the terms with 16.8M float4 atomics
+// term written by the d_x kernel, 4 + 4 B of sorted key and index written
+// by the sort and read by the reduce): 0.068 ms with them. On an H100
+// 80GB HBM3 at 700 W (chip_smoke.py phases 3 and 18) K6 took 0.53 ms on
+// uniform samples with torch.sort (0.165 of it, four 8-bit passes and a
+// 64-bit index), this file's d_x kernel ~0.09 and reduce ~0.11 device-ms,
+// the carry pass ~0.04. A form that added the terms with 16.8M float4 atomics
 // took 0.448 ms there (bound by the atomics in the L2) and gave other bits
 // on every run. The reduce stores a finished row: with a read-modify-write
 // there it read 0.220 device-ms, with the store 0.110-0.148 (phase 18 of
@@ -107,6 +109,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_sort.cuh"
 #include "ordered_reduce.cuh"
 #include "zline.cuh"
 
@@ -290,7 +293,7 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
 }
 
 // The table-gradient reduce of K6, K6c and K2 (see the notes at the top and
-// in csrc/ordered_reduce.cuh). keys [E] i32 sorted, perm [E] i64: entry p
+// in csrc/ordered_reduce.cuh). keys [E] i32 sorted, perm [E] i32: entry p
 // is (sample i, level l) with perm[p] = l*N + i. Destination: d.a the flat
 // table gradient [n_table, 64F], d.b the cell rows [*, 8F] (K6c), each
 // zero where a key lands (a key's row is stored); part [2, tiles, 64F] the
@@ -302,7 +305,7 @@ constexpr int kReduceWarps = 4;
 template <int F>
 __global__ void __launch_bounds__(kReduceWarps * 32)
     table_reduce_kernel(const int* __restrict__ keys,
-                        const long long* __restrict__ perm,
+                        const int* __restrict__ perm,
                         long long n_entries, int tile,
                         const float* __restrict__ x,
                         const __nv_bfloat16* __restrict__ g, Levels lv,
@@ -750,13 +753,13 @@ int brick_fused_encode_bwd_cell(const float* x, const void* g,
 }
 
 // The table-gradient reduce of K6, K6c and K2: keys [E] i32 sorted stably
-// and perm [E] i64 (the sort's indices into the [L, N] keys), x [N, 3] f32
+// and perm [E] i32 (key_sort's indices into the [L, N] keys), x [N, 3] f32
 // and g [N, L*F] bf16 as given to the first part -> d_table [n_table, 64F]
 // f32 and d_cell [n_cell, 8F] f32 (n_cell 0: none), zero on entry where a
 // key lands (each key's row is stored once); part
 // [2, ceil(E / tile), 64F] f32 scratch, whose partial rows
 // brick_table_carry then adds. Returns cudaGetLastError().
-int brick_table_reduce(const int* keys, const long long* perm,
+int brick_table_reduce(const int* keys, const int* perm,
                        long long n_entries, int tile, const float* x,
                        const void* g, int n_levels, long long n, int n_feat,
                        const float* scales, const int* nbs,
@@ -791,6 +794,20 @@ int brick_table_reduce(const int* keys, const long long* perm,
       break;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stable sort of csrc/key_sort.cuh (as in scatter_add_rows.cu): keys
+// [m] i32 -> keys_out [m] i32 (sorted; outside [0, n_keys) as n_keys,
+// last) and perm [m] i32, with scratch of key_sort_scratch_words(m, n_keys)
+// int32 words. Returns cudaGetLastError() after the launches.
+int key_sort(const int* keys, long long m, int n_keys, int* keys_out,
+             int* perm, int* scratch, void* stream) {
+  return keysort::sort(keys, m, n_keys, keys_out, perm, scratch,
+                       static_cast<cudaStream_t>(stream));
+}
+
+long long key_sort_scratch_words(long long m, int n_keys) {
+  return keysort::scratch_words(m, n_keys);
 }
 
 // The carry pass after brick_table_reduce, on the same keys, part and

@@ -12,14 +12,16 @@
 //   1. keys: one int32 per term (a (sample, level) or an update row), the
 //      row of the output it adds into; a key outside the destination's rows
 //      is dropped (the K6 family writes INT_MAX for a zero cotangent);
-//   2. a stable sort of the keys (the wrapper's torch.sort(stable=True), an
-//      integer permutation: equal keys keep their input order, so any
-//      correct sort gives the same permutation);
+//   2. a stable sort of the keys (csrc/key_sort.cuh: an integer
+//      permutation, int32: equal keys keep their input order, so any
+//      correct sort gives the same permutation, torch.sort(stable=True)'s
+//      among them);
 //   3. the reduce: the sorted entries in tiles of `tile` consecutive
-//      entries (the wrappers' REDUCE_TILE, ops/scatter_kernels.py), one
-//      warp a tile (K3's narrow rows: a few threads a tile), each run of
-//      equal keys summed in sorted order (ascending input order) from 0. A run that lies
-//      inside its tile goes to its output row from that warp alone: a
+//      entries (the wrappers' REDUCE_TILE, ops/scatter_kernels.py; K3's
+//      narrow rows NARROW_TILE), one warp a tile (K3's narrow rows: a few
+//      threads a tile), each run of equal keys summed in sorted order
+//      (ascending input order) from 0. A run that lies inside its tile
+//      goes to its output row from that warp alone: a
 //      plain store, or where the destination accumulates (Dest::add) one
 //      plain read-modify-write a lane. A run that crosses a tile edge
 //      leaves a partial row instead: the tile where it begins its `tail`,

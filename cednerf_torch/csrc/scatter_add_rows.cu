@@ -17,39 +17,53 @@
 // order on one core (ALIGN-8 windows with a one-hot select, n % tile == 0,
 // the table <= 12 MiB of VMEM), so its sums take one order on every run.
 // Blocks on this card run in no order; here the rows are summed in a fixed
-// order without atomics (csrc/ordered_reduce.cuh): the wrapper sorts the row
-// indices stably, rows_reduce_kernel walks the sorted entries in tiles of
-// `tile`, one warp a (tile, column chunk), and adds each run of one output
-// row in sorted order (ascending i) in registers, then stores it over the
-// zeroed output row (or, when the caller adds into its own buffer, adds it
-// with plain read-modify-writes), or leaves a partial for the carry pass.
-// Any M, any W, any n_rows.
+// order without atomics (csrc/ordered_reduce.cuh): the row indices sorted
+// stably by csrc/key_sort.cuh (exported below as key_sort, int32 keys and
+// index, over the bits n_rows needs), rows_reduce_kernel walks the sorted
+// entries in tiles of `tile`, one warp a (tile, column chunk), and adds
+// each run of one output row in sorted order (ascending i) in registers,
+// then stores it over the zeroed output row (or, when the caller adds into
+// its own buffer, adds it with plain read-modify-writes), or leaves a
+// partial for the carry pass. Any M, any W, any n_rows.
 //
 // Columns. At f32 with W % 4 == 0 and 16-byte aligned rows, a lane holds 4
 // consecutive lanes of the row (one 16-byte load an update row, 512 B a
 // warp); else a lane holds one (bf16 updates, odd widths). Each warp loads
 // eight update rows before it adds the first of them, so that eight loads
 // are in flight: a warp's sum is a chain of dependent adds, its loads are
-// not. Narrow rows (W <= kNarrow: the tri-plane's texels, W = F) would
-// leave most of a warp idle that way (W = 4 at f32: 1 lane of 32), so
-// rows_reduce_narrow_kernel gives a tile to W threads (W rounded up to a
-// power of two), one column each, and a warp walks 32 / W tiles at once.
-// Every form adds a column's entries in the same order, so they give the
-// same bits.
+// not. Narrow rows (W <= kNarrow) would leave most of a warp idle that way
+// (W = 4 at f32: 1 lane of 32), so rows_reduce_narrow_kernel gives a tile
+// to W threads (W rounded up to a power of two), one column each, and a
+// warp walks 32 / W tiles at once. Every form adds a column's entries in
+// the same order, so on the same tiles they give the same bits.
 //
-// What bounds it on this card: the bytes. Every lane of upd is read once
-// (2N x 1,024 B of f32 rows per level at the train step's N = 262,144, 537
-// MB), the row indices read, the table written once (read and written
-// where the caller adds into it): ~0.17 ms at 3.35 TB/s for a hashed
-// level. This design adds the sort's keys and index, written and read (24
-// B an update row). Its
-// earlier form added nonzero float4 corners with atomics (0.265 ms there on
-// an H100 80GB HBM3 at 700 W, in an order that changed from run to run).
+// Narrow rows are what the model paths send: the tri-plane's texel
+// gradient (W = F = 4, 25.2 M entries a step at N = 262,144) and the 4D
+// brick levels' corner entries (one F-wide entry a (keyframe slot, sample,
+// corner), key = keyframe row * 64 + corner, ops/brick_grid.py). A
+// thread's loads there are random 16-byte reads (a 32-byte sector each)
+// through the index, so the narrow kernel loads the sorted keys and the
+// index of kNarrowDepth entries together (neither waits for the other),
+// then their kNarrowDepth terms, all in flight at once; the wrapper gives
+// narrow rows tiles of NARROW_TILE entries (ops/scatter_kernels.py), which
+// cuts the carry pass's work (a run that crosses a tile edge) where texel
+// runs are long, with a tile's serial chain still short beside its loads.
+//
+// What bounds it on this card: the bytes. Every lane of upd is read once,
+// the row indices read, the table written once (read and written where
+// the caller adds into it): ~0.17 ms at 3.35 TB/s for a hashed level's
+// 2N x 1,024 B of f32 rows at the train step's N = 262,144, 0.02 ms for
+// its 2N x 8 narrow corner entries. This design adds the sort's traffic
+// (csrc/key_sort.cuh) and the sorted keys and index read (8 B an entry).
+// Its earlier forms: float4 corners with atomics (0.265 ms there on an
+// H100 80GB HBM3 at 700 W, in an order that changed from run to run), then
+// torch.sort with a 64-bit index (0.373 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "key_sort.cuh"
 #include "ordered_reduce.cuh"
 
 namespace {
@@ -57,6 +71,7 @@ namespace {
 constexpr int kWarps = 4;    // warps of a block, each its own (tile, chunk)
 constexpr int kDepth = 8;    // update rows a warp loads before adding
 constexpr int kNarrow = 16;  // widths up to this take the narrow kernel
+constexpr int kNarrowDepth = 32;  // entries a narrow thread loads at once
 
 template <int V>
 struct Vec;
@@ -93,7 +108,7 @@ struct Vec<1> {
   }
 };
 
-// keys [E] i32 sorted stably, perm [E] i64 (input row of each entry), upd
+// keys [E] i32 sorted stably, perm [E] i32 (input row of each entry), upd
 // [M, w] (T), d.a = out [n_rows, w] f32 (d.add: added into, else zeroed
 // and stored over), part [2, tiles, w]
 // f32 scratch. A warp takes tile t = task / chunks and the V*32 columns of
@@ -101,7 +116,7 @@ struct Vec<1> {
 template <typename T, int V>
 __global__ void __launch_bounds__(kWarps * 32)
     rows_reduce_kernel(const int* __restrict__ keys,
-                       const long long* __restrict__ perm,
+                       const int* __restrict__ perm,
                        long long n_entries, int tile,
                        const T* __restrict__ upd, int w, ordered::Dest d,
                        float* __restrict__ part, long long tiles,
@@ -135,8 +150,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   };
   for (long long p0 = tl.s; p0 < tl.e; p0 += 32) {
     const long long p = p0 + lane;
-    int my_k = 0;
-    long long my_j = 0;
+    int my_k = 0, my_j = 0;
     if (p < tl.e) {
       my_k = __ldg(keys + p);
       my_j = __ldg(perm + p);
@@ -148,9 +162,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
       for (int u = 0; u < kDepth; ++u) {
         kq[u] = __shfl_sync(ordered::kFull, my_k, (q0 + u) & 31);
-        const long long j = __shfl_sync(ordered::kFull, my_j, (q0 + u) & 31);
+        const int j = __shfl_sync(ordered::kFull, my_j, (q0 + u) & 31);
         if (q0 + u < cnt && live && d.valid(kq[u])) {
-          Vec<V>::load(v[u], upd + j * w + col);
+          Vec<V>::load(v[u], upd + (long long)j * w + col);
         } else {
 #pragma unroll
           for (int c = 0; c < V; ++c) v[u][c] = 0.0f;
@@ -181,15 +195,18 @@ __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
 // As rows_reduce_kernel, with a tile walked by 2^lanes_log2 threads (one
 // column each, those past w idle): thread gid takes tile gid >> lanes_log2
 // and reads that tile's keys and indices itself, so the tiles of a warp
-// go their own ways and nothing is shuffled.
+// go their own ways and nothing is shuffled. Per kNarrowDepth entries the
+// keys and indices are loaded first, together (as int4 where `vec`), then
+// the terms of the valid ones, then added in order.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     rows_reduce_narrow_kernel(const int* __restrict__ keys,
-                              const long long* __restrict__ perm,
+                              const int* __restrict__ perm,
                               long long n_entries, int tile,
                               const T* __restrict__ upd, int w,
                               int lanes_log2, ordered::Dest d,
-                              float* __restrict__ part, long long tiles) {
+                              float* __restrict__ part, long long tiles,
+                              bool vec) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long t = gid >> lanes_log2;
   const int col = (int)(gid & ((1 << lanes_log2) - 1));
@@ -210,19 +227,30 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
     acc = 0.0f;
   };
-  for (long long p0 = tl.s; p0 < tl.e; p0 += kDepth) {
-    float v[kDepth];
-    int kq[kDepth];
+  for (long long p0 = tl.s; p0 < tl.e; p0 += kNarrowDepth) {
+    int kq[kNarrowDepth], jq[kNarrowDepth];
+    float v[kNarrowDepth];
+    if (vec && p0 + kNarrowDepth <= tl.e) {  // 16-byte loads, 4 entries
 #pragma unroll
-    for (int u = 0; u < kDepth; ++u) {
-      const long long p = p0 + u;
-      kq[u] = p < tl.e ? __ldg(keys + p) : 0;
-      v[u] = p < tl.e && d.valid(kq[u])
-                 ? load1(upd + __ldg(perm + p) * w + col)
-                 : 0.0f;
+      for (int u = 0; u < kNarrowDepth; u += 4) {
+        const int4 k4 = __ldg(reinterpret_cast<const int4*>(keys + p0 + u));
+        const int4 j4 = __ldg(reinterpret_cast<const int4*>(perm + p0 + u));
+        kq[u] = k4.x; kq[u + 1] = k4.y; kq[u + 2] = k4.z; kq[u + 3] = k4.w;
+        jq[u] = j4.x; jq[u + 1] = j4.y; jq[u + 2] = j4.z; jq[u + 3] = j4.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kNarrowDepth; ++u) {
+        const long long p = p0 + u;
+        kq[u] = p < tl.e ? __ldg(keys + p) : -1;
+        jq[u] = p < tl.e ? __ldg(perm + p) : 0;
+      }
     }
 #pragma unroll
-    for (int u = 0; u < kDepth; ++u) {
+    for (int u = 0; u < kNarrowDepth; ++u)
+      v[u] = d.valid(kq[u]) ? load1(upd + (long long)jq[u] * w + col) : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kNarrowDepth; ++u) {
       if (p0 + u < tl.e) {
         if (kq[u] != cur) {
           flush(cur, run_a, p0 + u);
@@ -237,22 +265,26 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 template <typename T>
-void launch_narrow(const int* keys, const long long* perm, long long m,
+void launch_narrow(const int* keys, const int* perm, long long m,
                    int tile, const void* upd, int w, const ordered::Dest& d,
                    float* part, cudaStream_t st) {
   const long long tiles = (m + tile - 1) / tile;
   int lanes_log2 = 0;
   while ((1 << lanes_log2) < w) ++lanes_log2;
   const long long threads = tiles << lanes_log2;
+  // the keys and indices as int4 where every tile starts 16-byte aligned
+  const bool vec = tile % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(keys) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(perm) % 16 == 0;
   rows_reduce_narrow_kernel<T>
       <<<(unsigned)((threads + kWarps * 32 - 1) / (kWarps * 32)),
          kWarps * 32, 0, st>>>(keys, perm, m, tile,
                                static_cast<const T*>(upd), w, lanes_log2, d,
-                               part, tiles);
+                               part, tiles, vec);
 }
 
 template <typename T, int V>
-void launch_reduce(const int* keys, const long long* perm, long long m,
+void launch_reduce(const int* keys, const int* perm, long long m,
                    int tile, const void* upd, int w, const ordered::Dest& d,
                    float* part, cudaStream_t st) {
   const long long tiles = (m + tile - 1) / tile;
@@ -272,13 +304,13 @@ const char* cednerf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// keys [m] i32: the row indices sorted stably; perm [m] i64: the sort's
-// indices (entry p is update row perm[p]); upd [m, w] (upd_bf16: bf16, else
-// f32), out [n_rows, w] f32, part [2, ceil(m / tile), w] f32 scratch for
-// scatter_rows_carry. Zeroes out (unless add: then out keeps what it
-// holds), then adds each row's run. Returns cudaGetLastError() after the
-// launches (0 on success).
-int scatter_add_rows(const int* keys, const long long* perm, const void* upd,
+// keys [m] i32: the row indices sorted stably (key_sort); perm [m] i32:
+// the sort's indices (entry p is update row perm[p]); upd [m, w]
+// (upd_bf16: bf16, else f32), out [n_rows, w] f32, part
+// [2, ceil(m / tile), w] f32 scratch for scatter_rows_carry. Zeroes out
+// (unless add: then out keeps what it holds), then adds each row's run.
+// Returns cudaGetLastError() after the launches (0 on success).
+int scatter_add_rows(const int* keys, const int* perm, const void* upd,
                      long long m, int w, int n_rows, float* out, int upd_bf16,
                      int add, int tile, float* part, void* stream) {
   if (m < 0 || w <= 0 || n_rows <= 0 || tile <= 0)
@@ -306,6 +338,20 @@ int scatter_add_rows(const int* keys, const long long* perm, const void* upd,
   else
     launch_reduce<float, 1>(keys, perm, m, tile, upd, w, d, part, st);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The stable sort of csrc/key_sort.cuh: keys [m] i32 -> keys_out [m] i32
+// (sorted; outside [0, n_keys) as n_keys, last) and perm [m] i32, with
+// scratch of key_sort_scratch_words(m, n_keys) int32 words. Returns
+// cudaGetLastError() after the launches.
+int key_sort(const int* keys, long long m, int n_keys, int* keys_out,
+             int* perm, int* scratch, void* stream) {
+  return keysort::sort(keys, m, n_keys, keys_out, perm, scratch,
+                       static_cast<cudaStream_t>(stream));
+}
+
+long long key_sort_scratch_words(long long m, int n_keys) {
+  return keysort::scratch_words(m, n_keys);
 }
 
 // The carry pass after scatter_add_rows, on the same keys, part, out and

@@ -35,8 +35,10 @@ lerp(row[lo], row[lo + 1], t_frac) inside the spatial interpolation. One
 torch.autograd.Function per level. Its forward is plain PyTorch on the 8
 corners of the sample's cell (the JAX forward is XLA code, no Pallas
 kernel), in f32 on values gathered in the compute dtype. Its backward
-builds the keyframe-split update rows (w * g * (1 - t_frac) for keyframe
-lo, w * g * t_frac for lo + 1) in one [2N, 64F] f32 buffer and sends them
+builds the keyframe-split terms (w * g * (1 - t_frac) for keyframe lo,
+w * g * t_frac for lo + 1) of the cell's 8 corners, one F-wide entry a
+(slot, sample, corner) keyed keyframe row * 64 + corner ([2N*8, F] f32,
+not the [2N, 64F] update rows with their 56 zero corners), and sends them
 through K3 (ops/scatter_kernels.py) on CUDA, for every `scatter_impl`, or
 its plain index_add on the CPU; plus the edge-gated d_x and
 d_t = sum(w * (hi - lo) * g) * (K - 1) when t needs a gradient.
@@ -447,10 +449,10 @@ class _KeyframeLevelEncode(torch.autograd.Function):
     trilinear sum; the corner values (or, under remat_feats, the table, to
     gather them again) and the geometry are saved for the backward (under
     no_grad the node, and with it what it saved, is dropped when the
-    forward returns). Backward: K3 on the keyframe-split update rows (brick
-    rows [2N, 64F], or on the cell route cell rows [2N, 8F] that are then
-    rounded and folded as JAX's `_make_level_encode_cell_4d`), d_x and
-    d_t."""
+    forward returns). Backward: K3 on the keyframe-split terms (brick
+    levels: [2N*8, F] corner entries keyed keyframe row * 64 + corner; on
+    the cell route cell rows [2N, 8F] that are then rounded and folded as
+    JAX's `_make_level_encode_cell_4d`), d_x and d_t."""
 
     @staticmethod
     def forward(ctx, flat, x, t, idx_lo, t_frac, lv: _KeyLevel):
@@ -518,16 +520,20 @@ class _KeyframeLevelEncode(torch.autograd.Function):
                     d_cell.zero_()
                     raise
             else:
-                rows_buf = torch.zeros((2, n, CORNERS_PER_BRICK, f),
-                                       dtype=torch.float32, device=g.device)
-                at = corner[:, :, None].expand(n, 8, f)
-                rows_buf[0].scatter_(1, at, upd * (1.0 - tf))
-                rows_buf[1].scatter_(1, at, upd * tf)
-                rows = torch.cat([lo_row, lo_row + 1]).to(torch.int32)
+                # one F-wide entry a (keyframe slot, sample, corner) at key
+                # keyframe row * 64 + corner: the table gradient [rows*K,
+                # 64F] viewed as [rows*K*64, F]. Each lane gets the terms
+                # the [2N, 64F] update rows would give it, in the same
+                # order (slot, sample), without their 56 zero corners.
+                key = lo_row[:, None] * CORNERS_PER_BRICK + corner  # [N, 8]
+                rows = torch.cat([key, key + CORNERS_PER_BRICK]).reshape(
+                    -1).to(torch.int32)
+                n_keyrows = lv.n_rows * lv.keyframes
                 d_flat = sk.scatter_add_rows(
-                    rows, rows_buf.view(2 * n, CORNERS_PER_BRICK * f),
-                    lv.n_rows * lv.keyframes)
-                del rows_buf
+                    rows, torch.cat([upd * (1.0 - tf), upd * tf]).view(
+                        2 * n * 8, f),
+                    n_keyrows * CORNERS_PER_BRICK).view(
+                        n_keyrows, CORNERS_PER_BRICK * f)
                 if lv.accum_bf16:
                     d_flat = d_flat.to(torch.bfloat16)
             d_flat = d_flat.to(ctx.flat_dtype)

@@ -14,7 +14,8 @@ their plain versions.
     key a (sample, level), then `table_reduce`.
   * `table_reduce` — the table gradient of K6, K6c and K2 summed in a fixed
     order, so that a backward gives the same bits on every run as the
-    TPU's does: the keys sorted stably (torch.sort), the terms summed by
+    TPU's does: the keys sorted stably (scatter_kernels.key_sort, the
+    kernel of csrc/key_sort.cuh, from this library), the terms summed by
     key in sorted order by the reduce kernel, the partial rows of keys
     that cross a tile edge by its carry pass (csrc/ordered_reduce.cuh). It
     replaces no TPU kernel: on the TPU the backward kernels sum in one
@@ -64,7 +65,8 @@ import numpy as np
 import torch
 
 from .cuda_build import KernelLibrary
-from .scatter_kernels import REDUCE_TILE, carry_plain, ordered_reduce_plain
+from .scatter_kernels import (REDUCE_TILE, bind_key_sort, carry_plain,
+                              key_sort, ordered_reduce_plain)
 
 BRICK_CELLS = 3          # cells per brick edge
 BRICK_CORNERS = 4        # corners per brick edge
@@ -123,6 +125,7 @@ def _bind_bwd(lib):
     lib.brick_interp_bwd.argtypes = [_P, _P, _P, _I32, _I64, _I32, _P, _P, _P,
                                      _I32, _P, _P]
     lib.brick_interp_bwd.restype = _I32
+    bind_key_sort(lib)
 
 
 _FWD = KernelLibrary("brick_encode_fwd", _bind_fwd)
@@ -626,11 +629,12 @@ def table_reduce(keys, x, g, scales: Sequence[float], nbs: Sequence[int],
     key lands (on CUDA each key's row is stored, not added); returns
     (d_table, d_cell).
 
-    On CUDA the sum takes one order on every run: torch.sort(stable=True)
-    of the keys, then the reduce kernel (a warp a tile of REDUCE_TILE sorted
-    entries, each run of a key summed in sorted order) and its carry pass
-    (the partials of keys that cross a tile edge, in tile order); no
-    atomics."""
+    On CUDA the sum takes one order on every run: key_sort of the keys
+    (a stable radix sort over the bits n_table + n_cell needs, an int32
+    index; K6's INT_MAX keys sort last), then the reduce kernel (a warp a
+    tile of REDUCE_TILE sorted entries, each run of a key summed in sorted
+    order) and its carry pass (the partials of keys that cross a tile
+    edge, in tile order); no atomics."""
     return _table_reduce(keys, x, g, scales, nbs, n_feat, d_table, d_cell)
 
 
@@ -663,7 +667,8 @@ def _table_reduce(keys, x, g, scales, nbs, n_feat: int, d_table,
         return d_table, d_cell
     if tile < 1:
         raise ValueError(f"table_reduce: tile {tile}")
-    skeys, perm = torch.sort(keys.reshape(-1), stable=True)
+    n_cell = 0 if d_cell is None else d_cell.shape[0]
+    skeys, perm = key_sort(keys.reshape(-1), d_table.shape[0] + n_cell, _BWD)
     e = L * n
     shape = (2, -(-e // tile), CORNERS_PER_BRICK * n_feat)
     if part is None:
@@ -672,7 +677,6 @@ def _table_reduce(keys, x, g, scales, nbs, n_feat: int, d_table,
           or not part.is_contiguous() or part.device != x.device):
         raise ValueError(f"table_reduce: part must be contiguous float32 "
                          f"{shape} on {x.device}")
-    n_cell = 0 if d_cell is None else d_cell.shape[0]
     cell_ptr = None if d_cell is None else d_cell.data_ptr()
     lib = _BWD.get()
     sc, nb, _ = _level_arrays(scales, nbs)

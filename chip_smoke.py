@@ -46,14 +46,24 @@ Phases, each of which must pass (nothing is caught and carried on):
      first 8's; counters zeroed before each route and read after it: K5, K6
      and K4 on the default steps, K1, K2 and K4 on the interp steps, no
      plain version on CUDA in either;
-  8. K3 (scatter_add_rows) against its plain version on the update rows of
-     one real backward of the full-width 4D keyframe field (--grid_type
-     hash4d: 3 dense and 5 hashed levels, K = 4) at the train step's
-     262,144 samples, on level 0 (864 keyframe rows, the most contended)
-     and on a hashed level (65,536 rows), on a ragged M = 100,003 of
-     random rows, and on the full-width tri-plane encoder's texel gradient
-     (25.2M entries of F = 4 columns, K3's narrow rows); each timed with
-     CUDA events beside its bound and index_add_;
+  8. K3 (scatter_add_rows) against its plain version on the corner
+     entries of one real backward of the full-width 4D keyframe field
+     (--grid_type hash4d: 3 dense and 5 hashed levels, K = 4; an F-wide
+     entry a (keyframe slot, sample, corner), key keyframe row * 64 +
+     corner) at the train step's 262,144 samples, on level 0 (864
+     keyframe rows, the most contended) and on a hashed level (65,536
+     rows), the hashed level also in the [2N, 64F] update-row form of the
+     parent design (the same sums), on a ragged M = 100,003 of random rows
+     and on the full-width tri-plane encoder's texel gradient (25.2M
+     entries of F = 4 columns, K3's narrow rows); each timed with CUDA
+     events beside its bound and index_add_, with float atomics and under
+     torch.use_deterministic_algorithms(True);
+  8b. the key-width sort (key_sort, from both libraries that export it)
+     bit-exact against torch.sort(stable=True), sorted keys and
+     permutation, on K6's 2,097,152 keys of a train step (uniform, and all
+     samples in one level-0 brick), the tri-plane's 25.2M texel keys, a
+     ragged 100,003 with keys out of range and 2,097,152 equal keys; timed
+     beside torch.sort;
   9. hash4d reference step: phase 6 for the 4D field (its backward on K3
      on the card, on the plain version on the CPU);
  10. hash4d training: Trainer.run_step on the full-width 4D field for
@@ -145,7 +155,9 @@ Phases, each of which must pass (nothing is caught and carried on):
      share of the cell levels' brick rows), hash4motion (K5 and K6 on the
      motion grid's F = 2 levels, a short run), --grid_type triplane and
      encoder_impl "gather"
-     (a reference step and a short run each; a tri-plane frame of full
+     (a reference step and a short run each; the tri-plane step also in
+     bf16 three ways, all modules, the encoder alone and the MLPs alone,
+     the first held to TRIPLANE_BF16_GRAD_REL; a tri-plane frame of full
      seg passes and its peak memory) and remat_feats (bit-identical
      gradients on the K5/K6 and K1/K2 routes).
  16. proposal: the proposal path (engine/train_prop.py) at the full width
@@ -179,10 +191,13 @@ Phases, each of which must pass (nothing is caught and carried on):
  18. reproducibility (repro_phase): the table-gradient kernels K6, K6c
      (with its fold), K2 and K3 launched three times on the same inputs at
      the train step's 262,144 samples (uniform, ray-major, all in one
-     level-0 brick): bit-equal, within phases 3, 8 and 15's limits against
-     their plain versions, timed beside their bounds (the function's own
-     bytes; `algo_bound_ms` adds the sort's keys and index); the ordered
-     reduce and its carry pass alone, the sort, and
+     level-0 brick; K3 on 4D corner entries): bit-equal, and bit-equal to
+     a launch with torch.sort's permutation in place of key_sort's,
+     within phases 3, 8 and 15's limits against their plain versions,
+     timed beside their bounds (the function's own bytes; `algo_bound_ms`
+     adds this design's own traffic: the keys, the sort's passes, the
+     sorted keys and index); the ordered reduce and its carry pass alone,
+     the sort (key_sort and torch.sort), and
      the strict-order chain (one tile) on the one-brick input's level 0;
      two Trainers from one seed at full width: the 3D path (-te -ta -f
      -ae -df -d on BallCloudScene, 32 run_step steps then 16-step chunks
@@ -280,6 +295,16 @@ K3_FRAC = 1e-4
 # products in the same order, d_x the same sums in another order; held to
 # the limits of K6/K2: 1e-4 of each level's largest upd entry, 1e-5 of d_x's
 K7_UPD_FRAC, K7_DX_FRAC = BWD_TABLE_FRAC, BWD_DX_FRAC
+# the tri-plane reference step in bf16 (phase 15), card vs CPU: its worst
+# gradient's error relative to its norm (triplane_bf16_steps). On an H100
+# the all-bf16 step reads 1.70% (motion_mlp.out.bias, the first module of
+# the chain, whose gradient every later bf16 rounding reaches), the
+# encoder alone in bf16 1.50% and the MLPs alone 2.38%: each half's bf16
+# roundings alone move it 1.5-2.4%, so neither carries the reading and the
+# 1% of phase 6 (set on hash3d, whose 16 encoder features feed mlp_base
+# where the tri-plane's 128 do) does not apply. 3% holds the sound
+# readings; a dropped table-gradient corner reads ~31% (phase 6's note).
+TRIPLANE_BF16_GRAD_REL = 0.03
 # kernels that only the probe paths (phases 11 and 12) run
 PROBE_KERNELS = ("interp_bwd", "row_gather")
 
@@ -835,8 +860,8 @@ def backward_kernel_phase(field, n_main, n_ragged, seed,
                 # the ordered reduce's own traffic on top: its keys written,
                 # sorted and read (not bytes the function needs)
                 rec["algo_bound_ms"] = max(
-                    t_bytes + n * L * SORT_BYTES_PER_KEY / HBM_BYTES_PER_S
-                    * 1e3, t_ops)
+                    t_bytes + _ordered_bytes(n * L, sum(level_rows))
+                    / HBM_BYTES_PER_S * 1e3, t_ops)
                 # the kernels' own traffic per (sample, level): the 4
                 # z-lines the first reads (8F bytes each) and the sample's
                 # x and g that the reduce reads again
@@ -912,15 +937,56 @@ def compact_kernel_phase(budget, seed):
     return main
 
 
+def _as_rows(keys, terms, n_keys):
+    """The corner entries of a 4D brick level (keys = keyframe row * 64 +
+    corner, [2N*8] int32; terms [2N*8, F]) in the [2N, 64F] update-row
+    form that the brick levels handed K3 before (a zero fill and the 8
+    live corners of each row): (rows [2N] int32, upd [2N, 64F] f32,
+    n_rows)."""
+    import torch
+    f = terms.shape[1]
+    m = keys.numel() // 8
+    upd = torch.zeros((m, 64, f), dtype=terms.dtype, device=terms.device)
+    corner = (keys.long() % 64).view(m, 8)
+    upd.scatter_(1, corner[:, :, None].expand(m, 8, f), terms.view(m, 8, f))
+    return ((keys.view(m, 8)[:, 0] // 64).contiguous(), upd.view(m, 64 * f),
+            n_keys // 64)
+
+
+def _ordered_bytes(m, n_keys, keys_written=True):
+    """This design's own traffic in an ordered reduce of m keys, beyond the
+    function's bytes: the keys the first kernel writes (keys_written; K3's
+    are its input), the sort (csrc/key_sort.cuh: a pass's histogram and
+    scatter each read the keys, 4 B a key in the first pass and 8 B of
+    (key, index) pairs after it, and the scatter writes the pairs; the
+    block counts and offsets written and read; the split reads the pairs
+    and writes keys and index) and the sorted keys and index the reduce
+    reads."""
+    from cednerf_torch.ops import scatter_kernels as sk
+    _, passes, _ = sk.sort_plan(n_keys)
+    bins = 1 << sk.SORT_DIGIT_BITS
+    blocks = -(-m // sk.SORT_BLOCK_KEYS)
+    sort_b = (m * (16 + 24 * (passes - 1) + 16)
+              + bins * blocks * 16 * passes)
+    return (4 * m if keys_written else 0) + sort_b + 8 * m
+
+
 def scatter_kernel_phase(cfg, seed):
-    """K3 against its plain version. The update rows of level 0 and of the
-    last hashed level come from one backward of the full-width 4D field's
-    encoder at the train step's N (positions and times uniform, a bf16
-    cotangent with one row in eight zero, as unused budget slots carry):
-    the wrapper is wrapped for that one call to keep what it is handed.
-    Then a ragged M = 100,003 of random rows into the hashed table, and
-    the tri-plane encoder's texel gradient (W = F = 4 columns, K3's narrow
-    rows) from one backward of the full-width encoder at the same N."""
+    """K3 against its plain version. The corner entries of level 0 and of
+    the last hashed level come from one backward of the full-width 4D
+    field's encoder at the train step's N (positions and times uniform, a
+    bf16 cotangent with one row in eight zero, as unused budget slots
+    carry): the wrapper is wrapped for that one call to keep what it is
+    handed. The hashed level also in the [2N, 64F] update-row form the 4D
+    levels handed K3 before (_as_rows: the same sums, 8x the bytes). Then
+    a ragged M = 100,003 of random rows of 256 lanes into the hashed
+    level's table, and the tri-plane encoder's texel gradient (W = F = 4
+    columns, K3's narrow rows) from one backward of the full-width encoder
+    at the same N. Each timed beside its bound, its plain version and
+    index_add_, with float atomics (`library_ms`) and under
+    torch.use_deterministic_algorithms(True) (`library_det_ms`, the
+    library form that gives the same bits on every run). Returns
+    ({case: record}, (the texel keys, their count) for key_sort_phase)."""
     import torch
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags
@@ -941,8 +1007,8 @@ def scatter_kernel_phase(cfg, seed):
                     generator=gen).to(torch.bfloat16)
     g[::8] = 0
     lay = spec.level_layout()
-    cases = [("level 0", lay[0]["rows"] * spec.keyframes),
-             ("hashed level", lay[-1]["rows"] * spec.keyframes),
+    cases = [("level 0", lay[0]["rows"] * spec.keyframes * 64),
+             ("hashed level", lay[-1]["rows"] * spec.keyframes * 64),
              ("tri-plane texels", tspec.total_rows)]
     kept = {}
     real = sk.scatter_add_rows
@@ -965,13 +1031,15 @@ def scatter_kernel_phase(cfg, seed):
         sk.scatter_add_rows = real
     del field, planes
     cases = [(label, n_rows) + kept[n_rows] for label, n_rows in cases]
+    rows_f, upd_f, n_f = _as_rows(cases[1][2], cases[1][3], cases[1][1])
+    cases.insert(2, ("hashed level, row form", n_f, rows_f, upd_f))
     m = 100_003
-    cases.insert(2, ("ragged random rows", cases[1][1],
-                     torch.randint(0, cases[1][1], (m,), device="cuda",
+    cases.insert(3, ("ragged random rows", cases[2][1],
+                     torch.randint(0, cases[2][1], (m,), device="cuda",
                                    generator=gen, dtype=torch.int32),
                      torch.randn((m, spec.row_width), device="cuda",
                                  generator=gen)))
-    recs = []
+    recs = {}
     for label, n_rows, rows, upd in cases:
         want = sk.scatter_add_rows_plain(rows, upd, n_rows)
         got = real(rows, upd, n_rows)
@@ -985,26 +1053,136 @@ def scatter_kernel_phase(cfg, seed):
         t_bytes = (rows_m * 4 + upd.numel() * 4 + n_rows * w * 4) \
             / HBM_BYTES_PER_S * 1e3
         t_ops = nnz / F32_FLOPS * 1e3       # one add per nonzero lane
-        # plus the sort's sorted rows and int64 index, written and read
-        t_algo = t_bytes + rows_m * 24 / HBM_BYTES_PER_S * 1e3
+        t_algo = t_bytes + _ordered_bytes(rows_m, n_rows, False) \
+            / HBM_BYTES_PER_S * 1e3
+
+        def index_add():
+            return torch.zeros((n_rows, w), device="cuda").index_add_(
+                0, rows, upd)
+
+        det = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            det_ms = cuda_ms(index_add, 20)
+        finally:
+            torch.use_deterministic_algorithms(det)
         rec = {"name": "scatter_add_rows", "case": label, "m": rows_m,
-               "w": w, "n_rows": n_rows, "nonzero_lanes": nnz,
+               "w": w, "n_rows": n_rows, "tile": sk.reduce_tile(w),
+               "nonzero_lanes": nnz,
                "max_abs_err": (got - want).abs().max().item(),
                "err_frac": frac, "table_max": want.abs().max().item(),
                "ms": cuda_ms(lambda: real(rows, upd, n_rows), 20),
                "plain_ms": cuda_ms(
                    lambda: sk.scatter_add_rows_plain(rows, upd, n_rows), 5),
-               "library_ms": cuda_ms(lambda: torch.zeros(
-                   (n_rows, w), device="cuda").index_add_(0, rows, upd), 20),
+               "library_ms": cuda_ms(index_add, 20),
+               "library_det_ms": det_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "algo_bound_ms": max(t_algo, t_ops)}
+        if label == "hashed level, row form":
+            # the same sums as the corner entries (1e-4 of the largest)
+            corner = recs["hashed level"]["_got"].view(n_rows, w)
+            rec["err_frac_vs_corner_form"] = _frac_err(got, corner)
+            if rec["err_frac_vs_corner_form"] > K3_FRAC:
+                raise AssertionError(f"K3 row form vs corner form: {rec}")
         log(json.dumps({"kernel_check": rec}))
-        recs.append(rec)
-        del want, got
-    del kept, cases
+        rec["_got"] = got
+        recs[label] = rec
+        del want
+    for rec in recs.values():
+        del rec["_got"]
+    tri_keys = (cases[-1][2], cases[-1][1])
+    del kept, cases, rows_f, upd_f
     torch.cuda.empty_cache()
-    return recs
+    return recs, tri_keys
+
+
+def torch_key_sort(keys, n_keys, lib=None):
+    """key_sort's function by torch.sort(stable=True) (the library sort it
+    replaced): keys outside [0, n_keys) as n_keys, an int32 index. Phase 8b
+    holds the kernel to it; phase 18 feeds the reduces its permutation."""
+    import torch
+    k = torch.where((keys >= 0) & (keys < n_keys), keys, n_keys)
+    s, p = torch.sort(k, stable=True)
+    return s, p.to(torch.int32)
+
+
+def key_sort_phase(spec, seed, n, tri_keys):
+    """Phase 8b: the key-width sort (key_sort, csrc/key_sort.cuh, as each
+    of its two libraries exports it) against torch.sort(stable=True), the
+    sorted keys and the permutation bit for bit, on K6's keys of one train
+    step (N samples x L levels of the full-width field, drawn as phase 3
+    draws them, INT_MAX where a cotangent row is zero), on the same with
+    every sample in one level-0 brick, on the tri-plane's texel keys
+    (phase 8), on a ragged 100,003 keys with some outside the table and on
+    2,097,152 equal keys; each timed with CUDA events and by profiler
+    device time beside torch.sort of the same keys (`library_ms`). Returns
+    {case: record}."""
+    import torch
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.utils.bench import cuda_ms, device_ms
+
+    level_rows = [l["rows"] for l in spec.level_layout()]
+    L, F = spec.n_levels, spec.n_features
+    n_table = sum(level_rows)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
+         ).to(torch.bfloat16)
+    g[::8] = 0
+    ragged = torch.randint(-3, n_table + 3, (100_003,), device="cuda",
+                           generator=gen, dtype=torch.int32)
+    ragged[::97] = torch.iinfo(torch.int32).max
+    cases = {
+        "k6 uniform": (_k6_keys(_level_rows(_draw_x(n, gen, None), spec), g,
+                                level_rows, F).reshape(-1), n_table),
+        "k6 one brick": (_k6_keys(_level_rows(_one_brick_x(
+            n, gen, spec.level_scales()[0]), spec), g, level_rows,
+            F).reshape(-1), n_table),
+        "tri-plane texels": tri_keys,
+        "ragged": (ragged, n_table),
+        "equal": (torch.full((n * L,), 17, dtype=torch.int32,
+                             device="cuda"), n_table)}
+    out = {}
+    for label, (keys, n_keys) in cases.items():
+        m = keys.numel()
+        want = torch_key_sort(keys, n_keys)
+        equal = {}
+        for lib in (sk._LIB, ek._BWD):
+            got = sk.key_sort(keys, n_keys, lib)
+            torch.cuda.synchronize()
+            equal[lib.stem] = bool(torch.equal(got[0], want[0])
+                                   and torch.equal(got[1], want[1]))
+        if not all(equal.values()):
+            raise AssertionError(f"key_sort {label}: not torch.sort's "
+                                 f"permutation: {equal}")
+        bits, passes, dbits = sk.sort_plan(n_keys)
+        # the function's bytes: the keys read once, the sorted keys and the
+        # permutation written once; no arithmetic beyond the compares
+        t_bytes = m * 12 / HBM_BYTES_PER_S * 1e3
+        dev, rows = device_ms(lambda: sk.key_sort(keys, n_keys), 5)
+        lib_dev, _ = device_ms(lambda: torch.sort(keys, stable=True), 5)
+        rec = {"name": "key_sort", "case": label, "m": m, "n_keys": n_keys,
+               "bits": bits, "passes": passes, "digit_bits": dbits,
+               "bit_exact": equal, "max_abs_err": 0,
+               "ms": cuda_ms(lambda: sk.key_sort(keys, n_keys), 20),
+               "device_ms": dev,
+               "device_by_kernel": [list(r) for r in rows[:4]],
+               "library_ms": cuda_ms(lambda: torch.sort(keys, stable=True),
+                                     20),
+               "library_device_ms": lib_dev,
+               "bound_ms": t_bytes, "bound_by": "bytes",
+               "algo_bound_ms": (_ordered_bytes(m, n_keys, False) - 8 * m)
+               / HBM_BYTES_PER_S * 1e3}
+        if label == "k6 uniform":
+            rec["plain_ms"] = cuda_ms(
+                lambda: sk.key_sort_plain(keys, n_keys), 1)
+        log(json.dumps({"kernel_check": rec}))
+        out[label] = rec
+        del want
+    del cases
+    torch.cuda.empty_cache()
+    return out
 
 
 # the steady-state steps of the reference step phase (hash3d), each as
@@ -1037,7 +1215,8 @@ def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
     each route of `routes` on the card, from the same weights, grid (bins
     [levels, res, res, res]), batch and jitter; density_bias, if given,
     replaces the density output's bias; compute_dtype, if given, is every
-    module's compute dtype (the MLPs' and the encoder's) on both sides.
+    module's compute dtype (the MLPs' and the encoder's) on both sides, or
+    {"encoder": dtype, "mlp": dtype}: the encoder's, the other modules'.
     {route: (loss, aux floats, gradients on the CPU)}."""
     import numpy as np
     import torch
@@ -1059,9 +1238,12 @@ def _ref_step_runs(cfg, flags, bins, batch, jitter, seed, routes,
                         encoder_impl=encoder_impl)
         load_uniform_tables([f], seed, 1.0)
         if compute_dtype is not None:
-            for m in f.modules():
+            for name, m in f.named_modules():
                 if hasattr(m, "dtype"):
-                    m.dtype = compute_dtype
+                    m.dtype = compute_dtype if not isinstance(
+                        compute_dtype, dict) else compute_dtype[
+                            "encoder" if name.startswith("hash_encoder")
+                            else "mlp"]
         if density_bias is not None:
             with torch.no_grad():
                 f.mlp_base.out.bias[0] = density_bias
@@ -1305,9 +1487,9 @@ def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
     a step (the brick encoders a step runs: 2 with the hash-grid motion
     warp, 0 for the tri-plane and per-corner encoders), each with one
     table-gradient reduce and carry pass, K4 k4_per_step times, K3 (and
-    its carry pass) k3_per_step times (the tri-plane's texel gradient), K5
-    `encoders` times a step and as often per occupancy probe, nothing
-    else, no plain version on CUDA."""
+    its carry pass) k3_per_step times (the tri-plane's texel gradient), the
+    sort once for each reduce, K5 `encoders` times a step and as often per
+    occupancy probe, nothing else, no plain version on CUDA."""
     if any(plain.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
     no_probe_kernels(label, counts)
@@ -1320,7 +1502,8 @@ def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
             "interp_fwd": 0, "interp_bwd_fused": 0,
             "table_reduce": encoders * steps, "table_carry": encoders * steps,
             "scatter_add_rows": k3_per_step * steps,
-            "scatter_carry": k3_per_step * steps}
+            "scatter_carry": k3_per_step * steps,
+            "key_sort": (encoders + k3_per_step) * steps}
     want[bwd] = encoders * steps
     if bwd == "fused_encode_bwd_cell":
         want["fold_cells"] = encoders * steps
@@ -1598,9 +1781,11 @@ def hash4d_phase(cfg, seed, steps=HASH4D_STEPS):
     trainer = Trainer(field, cfg, flags, BallCloudScene(seed=seed),
                       seed=seed, device="cuda")
     recs, counts = _drive(trainer, cfg, steps, "hash4d")
-    if counts["scatter_add_rows"] != n_levels * steps:
+    if (counts["scatter_add_rows"] != n_levels * steps
+            or counts["key_sort"] != n_levels * steps):
         raise AssertionError(f"hash4d: K3 launched {counts['scatter_add_rows']}"
-                             f" times in {steps} steps, not {n_levels} a step")
+                             f" times and its sort {counts['key_sort']} in "
+                             f"{steps} steps, not {n_levels} a step")
     if counts["compact_select"] != steps:
         raise AssertionError(f"hash4d: K4 launched {counts['compact_select']}"
                              f" times in {steps} steps")
@@ -2702,8 +2887,8 @@ def cell_backward_kernel_phase(field, n_main, n_ragged, seed, timed=True):
             r["bound_ms"] = max(t_bytes, t_ops)
             r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
             r["algo_bound_ms"] = max(
-                t_bytes + n * L * SORT_BYTES_PER_KEY / HBM_BYTES_PER_S * 1e3,
-                t_ops)
+                t_bytes + _ordered_bytes(n * L, sum(level_rows) + n_cell)
+                / HBM_BYTES_PER_S * 1e3, t_ops)
             r["corner_bound_ms"] = (n * L * (4 * 8 * F + 12 + 2 * F)
                                     / HBM_BYTES_PER_S * 1e3)
             for label, xs in (("ray_major", _ray_major_x(n // 64, seed)),
@@ -3021,23 +3206,8 @@ def secondary_phase(seed):
             if not counts["fold_cells"]:
                 raise AssertionError(f"reference step {label}: fold_cells "
                                      f"was not launched: {counts}")
-    # the tri-plane step in bf16, read and not held to the limits: its
-    # encoder agrees (triplane_encoder_check; in f32 the whole step does,
-    # above), but its 137-wide mlp_base input (128 encoder features
-    # against hash3d's 16) carries the card's and the CPU's bf16 GEMM
-    # roundings further than phase 6's 1% was set for (PERF.md §6)
-    runs = _ref_step_runs(dataclasses.replace(ref_cfg),
-                          ModelFlags(**TRAIN_FLAGS, **tri), bins, batch,
-                          jitter, seed, ("xla",))
-    g0, g1 = runs["plain"][2], runs["xla"][2]
-    rels = {n: ((g1[n] - g0[n]).norm() / g0[n].norm()).item()
-            for n in g0 if g0[n].norm() > 0}
-    worst = max(rels, key=rels.get)
-    out["reference_steps"]["triplane_bf16_reading"] = {
-        "loss_rel_err": abs(runs["xla"][0] - runs["plain"][0])
-        / runs["plain"][0], "worst_grad": worst,
-        "worst_grad_rel_err": rels[worst],
-        "planes_grad_rel_err": rels["hash_encoder.planes"]}
+    out["reference_steps"]["triplane_bf16_reading"] = triplane_bf16_steps(
+        seed)
     log(json.dumps({"secondary_reference_steps": out["reference_steps"]}))
     out["triplane_encoder_check"] = triplane_encoder_check(seed)
 
@@ -3122,6 +3292,53 @@ PROP_RAYS = 8192                     # train_prop_real's --num_rays default
 PROP_FLAGS = dict(use_time_embedding=True, use_time_attenuation=True,
                   use_feat_predict=True)          # -te -ta -f (README)
 PROP_PUBLISHED = ["-te", "-ta", "-f"]
+
+
+def triplane_bf16_steps(seed):
+    """The tri-plane reference step of phase 15 (phase 6's shrunken config,
+    its grid, batch and jitter drawn as secondary_phase draws them) card vs
+    CPU in bf16, the training dtype, three ways: every module in bf16, the
+    encoder alone in bf16 (the MLPs in f32), the MLPs alone in bf16 (the
+    encoder in f32). Each one's loss and worst gradient error against the
+    CPU; the all-bf16 step held to TRIPLANE_BF16_GRAD_REL and
+    STEP_LOSS_RTOL."""
+    import numpy as np
+    import torch
+    from cednerf_torch.datasets.procedural import BallScene
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.utils.bench import TRAIN_FLAGS
+
+    rng = np.random.default_rng(seed)
+    ref_cfg = dataclasses.replace(dnerf_config(), **SMALL)
+    bins = rng.uniform(size=(1,) + (ref_cfg.grid_resolution,) * 3) < 0.3
+    batch = BallScene(n_cams=4, wh=32, n_times=4, seed=seed).sample(128)
+    jitter = rng.uniform(size=128).astype(np.float32)
+    flags = ModelFlags(**TRAIN_FLAGS, grid_type="triplane")
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    for label, dtype in (("bf16", None),
+                         ("encoder_bf16", {"encoder": bf16, "mlp": f32}),
+                         ("mlp_bf16", {"encoder": f32, "mlp": bf16})):
+        runs = _ref_step_runs(ref_cfg, flags, bins, batch, jitter, seed,
+                              ("xla",), compute_dtype=dtype)
+        g0, g1 = runs["plain"][2], runs["xla"][2]
+        rels = {n: ((g1[n] - g0[n]).norm() / g0[n].norm()).item()
+                for n in g0 if g0[n].norm() > 0}
+        worst = max(rels, key=rels.get)
+        out[label] = {
+            "loss_rel_err": abs(runs["xla"][0] - runs["plain"][0])
+            / runs["plain"][0], "worst_grad": worst,
+            "worst_grad_rel_err": rels[worst],
+            "grad_rel_err": rels}
+    rec = out["bf16"]
+    if (rec["worst_grad_rel_err"] > TRIPLANE_BF16_GRAD_REL
+            or rec["loss_rel_err"] > STEP_LOSS_RTOL):
+        raise AssertionError(f"tri-plane bf16 step: {rec}")
+    log(json.dumps({"triplane_bf16_steps": {
+        k: {x: v[x] for x in ("loss_rel_err", "worst_grad",
+                              "worst_grad_rel_err")}
+        for k, v in out.items()}}))
+    return out
 
 
 def _contracted_draw(aabb):
@@ -3319,10 +3536,11 @@ def _prop_run(label, trainer, steps, sync_check=False):
         raise AssertionError(f"{label}: plain versions on CUDA {plain}")
     others = {k: v for k, v in counts.items()
               if v and k not in ("fused_encode_fwd", "fused_encode_bwd",
-                                 "table_reduce", "table_carry")}
+                                 "table_reduce", "table_carry", "key_sort")}
     if (counts["fused_encode_bwd"] != n_mods * steps
             or counts["table_reduce"] != n_mods * steps
             or counts["table_carry"] != n_mods * steps
+            or counts["key_sort"] != n_mods * steps
             or counts["fused_encode_fwd"] < n_mods * steps or others):
         raise AssertionError(f"{label}: launches {counts} over {steps} "
                              f"steps of {n_mods} encoders")
@@ -4116,8 +4334,6 @@ def dp_phase(seed):
 REPRO_LAUNCHES, REPRO_STEPS, REPRO_RUN_STEPS = 3, 288, 32
 REPRO_SHORT, REPRO_PROP, REPRO_K = 64, 32, 16
 REPRO_LEGO_SEED = 42           # train_real's default --seed
-SORT_BYTES_PER_KEY = 4 + 4 + 12 + 12   # key written and read, sorted key
-                                       # and int64 index written and read
 
 
 def _bits(t):
@@ -4204,9 +4420,13 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
     n_cell = 27 * sum(r for r, c in zip(c_rows, cell_offs) if c >= 0)
     lay4 = spec4.level_layout()
     k4 = spec4.keyframes
-    # K3 on the 4D field's first hashed level (65,536 keyframe rows)
+    # K3 on the 4D field's first hashed level (65,536 keyframe rows), in
+    # the corner entries the 4D brick levels hand it (key = keyframe row *
+    # 64 + corner, F lanes each)
     l4 = next(i for i, l in enumerate(lay4) if l["hashed"])
-    n_rows4 = lay4[l4]["rows"] * k4
+    n_rows4 = lay4[l4]["rows"] * k4 * 64
+    bits = torch.tensor([[j >> 2, (j >> 1) & 1, j & 1] for j in range(8)],
+                        device="cuda")
     inputs = {
         "uniform": _draw_x(n, gen, None),
         "ray_major": _ray_major_x(n // 64, seed),
@@ -4223,10 +4443,13 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
         r4 = _level_rows(x, spec4)[l4].long()
         lo = r4 * k4 + torch.randint(0, k4 - 1, (n,), device="cuda",
                                      generator=gen)
-        rows4 = torch.cat([lo, lo + 1]).to(torch.int32)
-        upd4 = torch.randn((2 * n, 64 * F), device="cuda", generator=gen)
-        upd4 *= torch.rand((2 * n, 64 * F), device="cuda",
-                           generator=gen) < 0.125
+        intra = torch.randint(0, 3, (n, 1, 3), device="cuda", generator=gen)
+        corner = ((intra + bits) * torch.tensor([16, 4, 1],
+                                                device="cuda")).sum(-1)
+        key4 = lo[:, None] * 64 + corner
+        rows4 = torch.cat([key4, key4 + 64]).reshape(-1).to(
+            torch.int32).contiguous()
+        upd4 = torch.randn((16 * n, F), device="cuda", generator=gen)
         calls = {
             "fused_encode_bwd": lambda: ek.fused_encode_bwd(
                 x, g, rows, table, scales, nbs, level_rows, F),
@@ -4241,11 +4464,24 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                                             level_rows, F)
         for name, call in calls.items():
             runs = [call() for _ in range(REPRO_LAUNCHES)]
+            # the reduce fed torch.sort's permutation in place of key_sort's
+            real_sort = (sk.key_sort, ek.key_sort)
+            sk.key_sort = ek.key_sort = torch_key_sort
+            try:
+                other = call()
+            finally:
+                sk.key_sort, ek.key_sort = real_sort
             torch.cuda.synchronize()
             equal = all(_same_bits(a, b) for r in runs[1:]
                         for a, b in zip(runs[0], r))
+            same_sort = all(_same_bits(a, b) for a, b in zip(runs[0], other))
+            del other
             rec = {"name": name, "input": label, "n": n,
-                   "launches": REPRO_LAUNCHES, "bit_equal": equal}
+                   "launches": REPRO_LAUNCHES, "bit_equal": equal,
+                   "bit_equal_with_torch_sort": same_sort}
+            if not same_sort:
+                raise AssertionError(f"{name} {label}: other bits with "
+                                     "torch.sort's permutation")
             if name in ("fused_encode_bwd", "interp_bwd_fused"):
                 errs, err_x = _bwd_errors(f"{name} {label}", runs[0],
                                           want_k6, level_rows)
@@ -4296,13 +4532,14 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                 dev, krows = device_ms(call, 5)
                 rec["device_ms"] = dev
                 rec["device_by_kernel"] = [list(r) for r in krows[:8]]
-            e = (2 * n) if name == "scatter_add_rows" else n * L
-            sort_b = e * SORT_BYTES_PER_KEY
             if name == "scatter_add_rows":
+                sort_b = _ordered_bytes(rows4.numel(), n_rows4, False)
                 in_b = upd4.numel() * 4 + rows4.numel() * 4
-                out_b = n_rows4 * 64 * F * 4
+                out_b = n_rows4 * F * 4
                 ops = upd4.numel()
             else:
+                sort_b = _ordered_bytes(n * L, n_table if name != (
+                    "fused_encode_bwd_cell") else sum(c_rows) + n_cell)
                 src_b = {"fused_encode_bwd": table.numel() * 2,
                          "fused_encode_bwd_cell": c_table.numel() * 2,
                          "interp_bwd_fused": _corner_bytes(n, L, F)}[name]
@@ -4326,7 +4563,7 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
         keys = _k6_keys(rows, g, level_rows, F)
         flat = keys.reshape(-1)
         d_t = torch.zeros((n_table, 64 * F), device="cuda")
-        sk_ = torch.sort(flat, stable=True)[0]
+        sk_ = sk.key_sort(flat, n_table, ek._BWD)[0]
         want_t = ek.table_reduce_plain(keys, x, g, scales, nbs, F,
                                        torch.zeros_like(d_t))[0]
         got_t = ek.table_reduce(keys, x, g, scales, nbs, F, d_t.zero_())[0]
@@ -4336,7 +4573,9 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                "err_frac": max(_frac_err(got_t[offs[l]:offs[l + 1]],
                                          want_t[offs[l]:offs[l + 1]])
                                for l in range(L)),
-               "sort_ms": cuda_ms(lambda: torch.sort(flat, stable=True), 20),
+               "sort_ms": cuda_ms(lambda: sk.key_sort(flat, n_table), 20),
+               "torch_sort_ms": cuda_ms(lambda: torch.sort(flat, stable=True),
+                                        20),
                "ms_with_sort": cuda_ms(lambda: ek.table_reduce(
                    keys, x, g, scales, nbs, F, d_t), 20)}
         if red["err_frac"] > BWD_TABLE_FRAC:
@@ -4345,7 +4584,8 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
             keys, x, g, scales, nbs, F, d_t), 5)
         red["device_by_kernel"] = [list(r) for r in krows[:8]]
         for kname, key in (("table_reduce_kernel", "reduce_device_ms"),
-                           ("carry_kernel", "carry_device_ms")):
+                           ("carry_kernel", "carry_device_ms"),
+                           ("keysort::", "sort_device_ms")):
             red[key] = sum(r[2] for r in krows if kname in r[0]) / 5
         red["plain_ms"] = cuda_ms(lambda: ek.table_reduce_plain(
             keys, x, g, scales, nbs, F, d_t), 3) if label == "uniform" \
@@ -4360,14 +4600,13 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                            >= valid * 8 * F * 2 / F32_FLOPS else "operations")
         # the carry passes alone on the partial rows a reduce left, against
         # their plain version on CPU copies (bit for bit) and on the card
-        tile = sk.REDUCE_TILE
+        tile, tile3 = sk.REDUCE_TILE, sk.reduce_tile(F)
         part = torch.empty((2, -(-flat.numel() // tile), 64 * F),
                            device="cuda")
         ek._table_reduce(keys, x, g, scales, nbs, F, d_t.zero_(), part=part)
-        p3 = torch.empty((2, -(-rows4.numel() // tile), 64 * F),
-                         device="cuda")
+        p3 = torch.empty((2, -(-rows4.numel() // tile3), F), device="cuda")
         sk._scatter_add_rows(rows4, upd4, n_rows4, part=p3)
-        k3 = torch.sort(rows4, stable=True)[0]
+        k3 = sk.key_sort(rows4, n_rows4)[0]
         for cname, got, want, plain, cb in (
                 ("table_carry",
                  lambda: ek._table_carry(sk_, part, tile, F,
@@ -4378,13 +4617,13 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                  _carry_bytes(sk_, tile, 64 * F, n_table)),
                 ("scatter_carry",
                  lambda: sk._scatter_carry(
-                     k3, p3, tile, torch.zeros((n_rows4, 64 * F),
-                                               device="cuda"), False),
+                     k3, p3, tile3, torch.zeros((n_rows4, F),
+                                                device="cuda"), False),
                  lambda: sk._scatter_carry(
-                     k3.cpu(), p3.cpu(), tile,
-                     torch.zeros((n_rows4, 64 * F)), False),
-                 lambda: sk.carry_plain(k3, p3, tile, n_rows4),
-                 _carry_bytes(k3, tile, 64 * F, n_rows4))):
+                     k3.cpu(), p3.cpu(), tile3, torch.zeros((n_rows4, F)),
+                     False),
+                 lambda: sk.carry_plain(k3, p3, tile3, n_rows4),
+                 _carry_bytes(k3, tile3, F, n_rows4))):
             g_, w_ = got(), want()
             torch.cuda.synchronize()
             crec = {"name": cname, "input": label,
@@ -5067,11 +5306,23 @@ def main(argv=None):
     log(json.dumps({"scanned_training": scanned}))
     log(f"scanned training: {time.perf_counter() - t0:.1f} s")
 
-    k3 = scatter_kernel_phase(cfg, args.seed)
-    kern["scatter_add_rows"] = dict(k3[1], triplane={   # the hashed level
-        k: k3[3][k] for k in ("m", "w", "n_rows", "max_abs_err", "err_frac",
-                              "ms", "plain_ms", "library_ms", "bound_ms",
-                              "algo_bound_ms")})
+    k3, tri_keys = scatter_kernel_phase(cfg, args.seed)
+    k3_keys = ("m", "w", "n_rows", "tile", "max_abs_err", "err_frac", "ms",
+               "plain_ms", "library_ms", "library_det_ms", "bound_ms",
+               "algo_bound_ms")
+    kern["scatter_add_rows"] = dict(k3["hashed level"], **{
+        key: {k: k3[case][k] for k in k3_keys}
+        for key, case in (("level_0", "level 0"),
+                          ("row_form", "hashed level, row form"),
+                          ("ragged", "ragged random rows"),
+                          ("triplane", "tri-plane texels"))})
+    sorts = key_sort_phase(spec3d, args.seed, cfg.sample_budget, tri_keys)
+    del tri_keys
+    kern["key_sort"] = dict(sorts["k6 uniform"], by_case={
+        case: {k: r[k] for k in ("m", "n_keys", "passes", "ms", "device_ms",
+                                 "library_ms", "library_device_ms",
+                                 "bound_ms", "algo_bound_ms")}
+        for case, r in sorts.items()})
     log(json.dumps({"reference_step": reference_step_phase(args.seed,
                                                            "hash4d")}))
     h4 = hash4d_phase(cfg, args.seed)
@@ -5108,15 +5359,17 @@ def main(argv=None):
                  "fused_encode_bwd_cell", "scatter_add_rows"):
         kern[name]["repro"] = {
             inp: {k: rk[f"{name}/{inp}"][k] for k in (
-                "bit_equal", "ms", "bound_ms", "algo_bound_ms")
+                "bit_equal", "bit_equal_with_torch_sort", "ms", "device_ms",
+                "bound_ms", "algo_bound_ms")
                 if k in rk[f"{name}/{inp}"]}
             for inp in ("uniform", "ray_major", "one_brick")}
     red = rk["table_reduce/uniform"]
     kern["table_reduce"] = dict(
         red, ms=red["reduce_device_ms"], library_ms=None,
         by_input={inp: {k: rk[f"table_reduce/{inp}"].get(k) for k in (
-            "reduce_device_ms", "carry_device_ms", "sort_ms", "ms_with_sort",
-            "bound_ms", "strict_chain_ms", "two_level_ms")}
+            "reduce_device_ms", "carry_device_ms", "sort_device_ms",
+            "sort_ms", "torch_sort_ms", "ms_with_sort", "bound_ms",
+            "strict_chain_ms", "two_level_ms")}
             for inp in ("uniform", "ray_major", "one_brick")})
     for name in ("table_carry", "scatter_carry"):
         # timed where the carry has work: all samples in one level-0 brick
@@ -5156,6 +5409,9 @@ def main(argv=None):
         "table_reduce": "cednerf_tpu/ops/pallas_fused.py:244",
         "table_carry": "cednerf_tpu/ops/pallas_fused.py:244",
         "scatter_carry": "cednerf_tpu/ops/pallas_scatter.py:87",
+        # the sort in front of those sums (K6's, K6c's, K2's and K3's):
+        # the order the TPU kernels take by walking the tiles on one core
+        "key_sort": "cednerf_tpu/ops/pallas_fused.py:244",
         "interp_bwd": "cednerf_tpu/ops/pallas_encoder.py:180",
         "row_gather": "cednerf_tpu/ops/pallas_gather.py:27",
     }
@@ -5172,6 +5428,7 @@ def main(argv=None):
         "table_reduce": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "table_carry": "cednerf_torch/csrc/ordered_reduce.cuh",
         "scatter_carry": "cednerf_torch/csrc/ordered_reduce.cuh",
+        "key_sort": "cednerf_torch/csrc/key_sort.cuh",
         "interp_bwd": "cednerf_torch/csrc/brick_encode_bwd.cu",
         "row_gather": "cednerf_torch/csrc/row_gather.cu",
     }
@@ -5229,11 +5486,11 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
-        line[-1].update({k: r[k] for k in ("sector_bound_ms", "algo_bound_ms",
-                                           "ray_major_ms", "device_ms",
-                                           "library_device_ms", "repro",
-                                           "by_input", "triplane")
-                         if k in r})
+        line[-1].update({k: r[k] for k in (
+            "sector_bound_ms", "algo_bound_ms", "ray_major_ms", "device_ms",
+            "library_device_ms", "library_det_ms", "repro", "by_input",
+            "by_case", "level_0", "row_form", "ragged", "triplane")
+            if k in r})
         if name == "compact_select_blocks":
             line[-1]["by_blocks"] = {
                 nbk: {k: rec[k] for k in ("ms", "device_ms", "one_block_ms",

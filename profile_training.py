@@ -32,8 +32,8 @@ levels, plain PyTorch with K3 summing the texel gradient). Then:
      on one more step's own encoder inputs, the encoder's forward and
      backward (`plane_interp_fwd_bwd_ms`), and the texel gradient's sum
      alone on those indices with random f32 terms: K3 (`texel_k3_ms`),
-     its stable sort alone (`texel_sort_ms`) and index_add_
-     (`texel_index_add_ms`).
+     its stable sort alone (`texel_sort_ms`, key_sort; torch.sort's
+     `texel_torch_sort_ms`) and index_add_ (`texel_index_add_ms`).
 
 With --chunk it compares the two ways the Trainer steps instead, in one
 process on one card: run_step (a host batch uploaded and the metrics read
@@ -145,7 +145,7 @@ def main(argv=None):
     ours = [r for r in rows if any(k in r[0] for k in (
         "fused_encode", "interp_fwd", "encode_bwd", "compact_select",
         "table_reduce", "carry_kernel", "rows_reduce", "scatter_rows",
-        "fold_cells"))]
+        "fold_cells", "keysort"))]
     cpu_ops = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CPU),
                      key=lambda e: -e.self_cpu_time_total)
@@ -286,7 +286,8 @@ def _texel_components(trainer, gen, cuda_ms):
         "plane_interp_fwd_bwd_ms": cuda_ms(fwd_bwd, 10),
         "texel_k3_ms": cuda_ms(
             lambda: sk.scatter_add_rows(rows32, terms, n_rows), 10),
-        "texel_sort_ms": cuda_ms(
+        "texel_sort_ms": cuda_ms(lambda: sk.key_sort(rows32, n_rows), 10),
+        "texel_torch_sort_ms": cuda_ms(
             lambda: torch.sort(rows32, stable=True), 10),
         "texel_index_add_ms": cuda_ms(lambda: torch.zeros(
             (n_rows, f), device="cuda").index_add_(0, flat, terms), 10)}

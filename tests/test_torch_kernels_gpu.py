@@ -1,5 +1,6 @@
 """The CUDA kernels K1, K5, K6, K6c, fold_cells, K2, K4, K3, K7 and K8
-against their plain versions (K5 and K6 also at the proposal density
+against their plain versions, the key-width sort against torch.sort (and
+the reduces' bits with either sort) (K5 and K6 also at the proposal density
 fields' layout), K4's cached scratch across calls, the cell layouts'
 backward and its resident buffer, and the 4D keyframe encoder (whose
 backward runs K3) against the CPU, on the card.
@@ -492,6 +493,86 @@ def test_backward_bits_repeat(kernel, points):
             assert torch.equal(_bits(a), _bits(b))
 
 
+def _torch_sort(keys, n_keys, lib=None):
+    """key_sort's function by torch.sort(stable=True): the keys outside
+    [0, n_keys) as n_keys, an int32 index."""
+    k = torch.where((keys >= 0) & (keys < n_keys), keys, n_keys)
+    s, p = torch.sort(k, stable=True)
+    return s, p.to(torch.int32)
+
+
+@pytest.mark.parametrize("m,n_keys,case", [
+    (0, 5, "random"), (1, 1, "random"), (100003, 82976, "random"),
+    (4097, 300, "equal"), (70001, 3145728, "sorted"),
+    (262145, 2 ** 24, "random"), (5000, 2 ** 31 - 1, "random"),
+    (300000, 1000, "dropped")])
+@pytest.mark.parametrize("lib", ["scatter_add_rows", "brick_encode_bwd"])
+def test_key_sort_matches_torch_sort(m, n_keys, case, lib):
+    """The key-width sort from either library that exports it: the sorted
+    keys and the permutation equal torch.sort(stable=True)'s bit for bit
+    (out-of-range keys mapped to n_keys first): random keys with negative
+    ones, keys >= n_keys and INT_MAX among them, all-equal, sorted keys,
+    1 to 31 key bits, M 0, 1 and not a multiple of a sort block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(m)
+    hi = min(n_keys + 3, 2 ** 31 - 1)
+    keys = torch.randint(-2, hi, (m,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    if case == "equal":
+        keys.fill_(n_keys // 2)
+    elif case == "sorted":
+        keys = torch.sort(keys)[0]
+    elif case == "dropped":
+        keys[::3] = 2 ** 31 - 1
+    library = {"scatter_add_rows": sk._LIB, "brick_encode_bwd": ek._BWD}[lib]
+    sk.reset_counts()
+    got = sk.key_sort(keys, n_keys, library)
+    want = _torch_sort(keys, n_keys)
+    torch.cuda.synchronize()
+    assert sk.launches["key_sort"] == (1 if m else 0)
+    assert got[0].dtype == got[1].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("points", [None, "one brick"])
+@pytest.mark.parametrize("kernel", ["k6", "k6c", "k2", "k3"])
+def test_reduce_bits_same_with_either_sort(kernel, points, monkeypatch):
+    """K6, K6c, K2 and K3 give the same bits with the key-width sort as
+    with torch.sort(stable=True) in its place: one stable permutation."""
+    x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
+        12, 4, 20000, 8, points)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    g = torch.randn((x.shape[0], 8 * 4), device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    g[::9] = 0
+    spec = tbg.BrickGridSpec(n_levels=8, n_features=4, base_res=16,
+                             max_res=512, log2_hashmap_size=16,
+                             max_table_rows=2048)
+    upd = torch.randn((16 * x.shape[0], 4), device="cuda", generator=gen)
+    key = (rows[0].long() * 4)[:, None] * 64 + torch.randint(
+        0, 64, (x.shape[0], 8), device="cuda", generator=gen)
+    k3_rows = torch.cat([key, key + 64]).reshape(-1).to(
+        torch.int32).contiguous()
+    n3 = (level_rows[0] * 4 + 1) * 64
+    run = {
+        "k6": lambda: ek.fused_encode_bwd(x, g, rows, table, scales, nbs,
+                                          level_rows, 4),
+        "k6c": lambda: ek.fused_encode_bwd_cell(
+            x, g, rows, table, scales, nbs, level_rows, 4,
+            _cell_offsets(spec), torch.bfloat16, False),
+        "k2": lambda: ek.interp_bwd_fused(x, g, feats, rows, scales, nbs,
+                                          level_rows, 4),
+        "k3": lambda: (sk.scatter_add_rows(k3_rows, upd, n3),)}[kernel]
+    ours = run()
+    monkeypatch.setattr(sk, "key_sort", _torch_sort)
+    monkeypatch.setattr(ek, "key_sort", _torch_sort)
+    theirs = run()
+    torch.cuda.synchronize()
+    for a, b in zip(ours, theirs):
+        assert torch.equal(_bits(a), _bits(b))
+
+
 @pytest.mark.parametrize("points", [None, "one brick"])
 @pytest.mark.parametrize("cell", [False, True])
 def test_table_reduce_in_one_tile_equals_plain_on_cpu(points, cell):
@@ -550,7 +631,7 @@ def test_carry_kernels_equal_plain_on_cpu(points):
     part = torch.empty((2, -(-keys.numel() // tile), 256), device="cuda")
     ek._table_reduce(keys, x, g, scales, nbs, 4,
                      torch.zeros((n_table, 256), device="cuda"), part=part)
-    skeys = torch.sort(keys.reshape(-1), stable=True)[0]
+    skeys = sk.key_sort(keys.reshape(-1), n_table, ek._BWD)[0]
     got = ek._table_carry(skeys, part, tile, 4,
                           torch.zeros((n_table, 256), device="cuda"))[0]
     want = ek._table_carry(skeys.cpu(), part.cpu(), tile, 4,
@@ -562,7 +643,7 @@ def test_carry_kernels_equal_plain_on_cpu(points):
     n3 = level_rows[0] + 1
     part3 = torch.empty((2, -(-rows3.numel() // tile), 256), device="cuda")
     sk._scatter_add_rows(rows3, upd, n3, part=part3)
-    k3 = torch.sort(rows3, stable=True)[0]
+    k3 = sk.key_sort(rows3, n3)[0]
     got3 = sk._scatter_carry(k3, part3, tile,
                              torch.zeros((n3, 256), device="cuda"), False)
     want3 = sk._scatter_carry(k3.cpu(), part3.cpu(), tile,

@@ -386,7 +386,9 @@ def test_k3_reaches_the_4d_backward_once_per_level(monkeypatch):
     spec_kw, x, t, params, g = _case(6, 200)
     _port(spec_kw, x, t, params, g, torch.bfloat16)
     lay = tbg.BrickGridSpec(**spec_kw).level_layout()
-    # autograd runs the levels' backwards last level first
-    assert calls == [((400,), (400, 256), torch.float32, l["rows"] * 4)
+    # autograd runs the levels' backwards last level first; a brick level
+    # hands K3 one F-wide corner entry a (keyframe slot, sample, corner),
+    # keyed keyframe row * 64 + corner
+    assert calls == [((3200,), (3200, 4), torch.float32, l["rows"] * 4 * 64)
                      for l in reversed(lay)]
 
