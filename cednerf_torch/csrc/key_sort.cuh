@@ -10,86 +10,131 @@
 // order first, and that takes a stable sort of their keys (one int32 a
 // term: the output row it adds into). A stable sort of integer keys has
 // exactly one permutation, so this sort gives the bits torch.sort(
-// stable=True) gave before it, and every sum downstream keeps its order.
+// stable=True) gives, and every sum downstream keeps its order.
 //
 // What it sorts: keys [m] int32 and a key count n_keys. A key outside
 // [0, n_keys) takes the drop value n_keys (K6's INT_MAX for a zero
 // cotangent, K3's rows outside the table), so the sorted keys lie in
 // [0, n_keys] and need bits = bit_length(n_keys) <= 31 bits, 17-23 on the
 // train paths, where torch.sort passes over all 32 (and carries a 64-bit
-// index). passes = ceil(bits / 8), each over a digit of ceil(bits /
-// passes) bits (at most 8: 256 bins), lowest digit first. Out: the keys
-// sorted (dropped ones as n_keys, last) and perm [m] int32, the input
-// index of each entry; equal keys keep ascending input order.
+// index). passes = ceil(bits / 9), each over a digit of ceil(bits /
+// passes) bits (at most 9: 512 bins), lowest digit first: K6's 17-bit
+// keys in 2 passes, the tri-plane's and hash4d's 22-23 bits in 3 of 8.
+// Out: the keys sorted (dropped ones as n_keys, last) and perm [m] int32,
+// the input index of each entry; equal keys keep ascending input order.
 //
-// A pass is three kernels:
-//   1. histogram_kernel: a block of kThreads threads counts the digits of
-//      kBlockKeys consecutive keys in shared memory (warp-aggregated: one
-//      add for each group of lanes with one digit, digit_peers) and
-//      writes its counts as one contiguous row, counts[block][digit];
-//   2. scan_kernel: a block a digit turns that digit's counts over the
-//      blocks into exclusive offsets in block order and writes the digit's
-//      total. All integer: the same offsets on every run, whatever order
-//      blocks run in;
-//   3. scatter_kernel: a block ranks its keys stably with warp-level
-//      ranks (per round of 32 keys, digit_peers gives the lanes that share
-//      a digit and the popcount of the lower ones a lane's rank among
-//      them; a per-warp count in shared memory carries it across rounds,
-//      the warps' counts are scanned across warps), places them by digit
-//      in shared memory, and writes them out in that order as (key, index)
-//      pairs: a digit's keys of a block go to consecutive positions, its
-//      offset from the scan plus the totals of the smaller digits. The
-//      first pass reads the keys, maps them to the drop value and makes
-//      the index itself (no iota tensor).
-// The passes alternate between two pair buffers in the scratch; then
-// split_kernel writes the last pass's pairs to the two outputs. One
-// stream of 8-byte pairs, not keys and indices as two streams: a digit's
-// run of a block is a few keys, so two streams leave twice the partial
-// 32-byte sectors that the L2 must merge before they go to memory, and on
-// this card a pass took several times as long that way (PERF.md). Reads
-// that are used once stream past the L2 (__ldcs), which keeps it for
-// those partial sectors. A block takes 2,048 keys, 8 a thread: the
-// scatter then fits in 64 registers, and more blocks in flight hide its
-// loads and barriers. Forms measured slower on this card (PERF.md): 4,096
-// and 8,192 keys a block (128 registers: fewer blocks in flight, though
-// a digit's runs are longer); digits of up to 9 bits (K6's 17-bit keys in
-// 2 passes, but runs half as long); every pass's digits counted in one
-// read and a block's offsets found by a walk back over the earlier
-// blocks' published counts (one kernel a pass: the walk's serial loads).
+// A sort is one memset and 1 + passes kernels:
+//   0. cudaMemsetAsync zeroes the tickets, the digit totals and the tiles'
+//      status words: everything a sort counts on starting from zero, reset
+//      on the device in the call that uses it (a CUDA graph captures it);
+//   1. histogram_kernel reads the keys once and counts the digits of every
+//      pass (shared-memory counts, then one integer atomicAdd a bin a
+//      block: the same totals whatever order blocks run in). A later pass
+//      reads no key twice: its totals come from this read;
+//   2. pass_kernel, once a pass. A cluster of kCluster blocks (thread
+//      block clusters, distributed shared memory) takes a tile of
+//      kTileKeys consecutive keys from an atomic ticket, so every earlier
+//      tile's cluster is already running. Each block ranks its kBlockKeys
+//      keys stably by digit in registers (per round of 32 keys,
+//      digit_peers gives the lanes that share a digit and the popcount of
+//      the lower ones a lane's rank among them; per-warp counts in shared
+//      memory carry it across rounds and warps) and publishes its digit
+//      counts in shared memory; after a cluster barrier each block reads
+//      the others' counts over DSMEM, so it knows where its keys of a digit
+//      start in the cluster's tile sorted by digit. It puts its keys in
+//      digit order in its own shared memory and copies them, (key, index)
+//      pairs in order, into the slots of the tile in the shared memory of
+//      the blocks that hold them: a digit's keys of a block go to
+//      consecutive slots, so the remote stores are coalesced. The
+//      cluster's threads also share out the digits, 4 lanes a digit: they
+//      publish the tile's count of it (a 32-bit status word: flag and
+//      count), find its place
+//      among the earlier tiles by a decoupled look-back (look_back: the
+//      lanes read the status words of the 16 nearest earlier tiles at once
+//      and add their counts up to the first inclusive prefix; integer
+//      sums, so the same offsets on every run), publish the tile's
+//      inclusive prefix and hand every block of the cluster the global
+//      position of the digit's run. The cluster stays resident and takes
+//      the next tile's ticket as this one ends, so tiles run in ticket
+//      order and its next keys load while it writes. After a second
+//      barrier each block writes its kBlockKeys consecutive slots of the
+//      sorted tile: a digit's run is the cluster's run, kCluster times as
+//      long as one block's, so the stores fill whole 32-byte sectors. The
+//      first pass reads the keys, maps them to the drop value and makes the
+//      index itself; the passes between write (key, index) pairs to one of
+//      two buffers; the last pass writes the sorted keys and perm, two
+//      streams, directly (no split kernel).
+// Forms measured slower on this card (PERF.md): before the clusters,
+// 4,096 and 8,192 keys a block (128 registers: fewer blocks in flight),
+// digits of 9 bits at 2,048 keys a block (runs half as long), a block's
+// offsets found by a serial walk over every earlier block's counts; with
+// them, clusters of 1, 2 or 4 blocks, digits of at most 8 bits, a tile a
+// cluster launch (not resident), one remote store a key from registers,
+// a thread a digit walking back, a look-back 8 or 16 deep or of more
+// lanes, 64-bit status words, the next ticket taken as a tile starts,
+// fewer histogram blocks, ranks by __match_any_sync.
 //
-// What bounds it on this card: the bytes. A pass reads the keys twice (the
-// histogram, the scatter: 4 + 4 B in the first pass, 8 + 8 B of pairs
-// after it) and writes the pairs (8 B), plus the block counts and offsets
-// (4 B a bin a block each, written and read); the split reads the pairs
-// and writes keys and index (16 B). At 2,097,152 keys and 3 passes ~135
-// MB, ~40 us at 3.35 TB/s; at the tri-plane's 25,165,824 ~1.6 GB, ~0.48
-// ms. torch.sort passes four times over 32-bit keys with a
-// 64-bit index.
+// What bounds it on this card: the bytes, in principle. The histogram
+// reads the keys (4 B a key); the first pass reads them (4 B) and writes
+// pairs (8 B), a pass between reads and writes pairs (16 B), the last
+// reads pairs and writes keys and perm (16 B): 16 B a key a pass in all,
+// plus the status words (4 B a tile a digit a pass: zeroed, published
+// twice, read). K6's 2.1 M keys in 2 passes: ~68 MB, ~20 us at 3.35 TB/s;
+// the tri-plane's 25.2 M in 3: ~1.2 GB, ~0.36 ms. In practice a tile's
+// turn is a chain of latencies (the loads, the ranks, two cluster
+// barriers, DSMEM, the look-back), and 4 blocks an SM (64 registers, 48
+// KB of shared memory each) do not hide them: a pass runs at about a
+// third of the bytes' rate (PERF.md).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace keysort {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;                  // threads of a sort block
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 8;                      // keys a thread
 constexpr int kBlockKeys = kThreads * kItems;  // keys a block: 2,048
+constexpr int kBlockShift = 11;                // log2(kBlockKeys)
 constexpr int kWarpKeys = 32 * kItems;         // keys a warp: 256
-constexpr int kMaxDigitBits = 8;
-constexpr int kBins = 1 << kMaxDigitBits;      // 256 = kThreads
-constexpr int kScanThreads = 1024;
+constexpr int kCluster = 8;                    // blocks a cluster
+constexpr int kTileKeys = kCluster * kBlockKeys;  // keys a tile: 16,384
+constexpr int kMaxDigitBits = 9;
+constexpr int kBins = 1 << kMaxDigitBits;      // 512
+constexpr int kDigitsPerThread = kBins / kThreads;
+constexpr int kMaxPasses = 4;                  // ceil(31 / 8)
+constexpr int kLookLanes = 4;     // lanes that look up one digit's offset
+constexpr int kLookDepth = 4;     // status words a lane reads a round
+constexpr int kHistThreads = 256;
+constexpr int kHistKeys = 4096;    // keys a histogram block, at least
+constexpr int kHistBlocks = 132 * 8;  // histogram blocks, at most
+constexpr int kHistLoads = 8;      // loads a histogram thread keeps in flight
 constexpr unsigned kFull = 0xffffffffu;
+// a status word: 0 until published, then count + 1, with kPrefix set when
+// the count is the tile's and all earlier tiles' (count + 1 < 2^31: m <
+// 2^31 - 1)
+constexpr unsigned kPrefix = 1u << 31;
+constexpr unsigned kCount = kPrefix - 1u;
+// the words the memset zeroes after the status words: the passes'
+// tickets, then their digit totals
+constexpr long long kControlWords = kMaxPasses + kMaxPasses * kBins;
 
-static_assert(kBins == kThreads, "a thread a digit in the block scans");
+static_assert(kBlockKeys == 1 << kBlockShift, "kBlockShift");
+static_assert(kBins % kThreads == 0, "whole digits a thread");
+static_assert(kThreads * kCluster / kLookLanes >= kBins,
+              "a digit for every group of kLookLanes of the cluster's threads");
+static_assert(kControlWords % 2 == 0, "the pair buffers 8-byte aligned");
 
 struct Plan {
   int bits;         // bit_length(n_keys)
-  int passes;       // ceil(bits / 8)
+  int passes;       // ceil(bits / kMaxDigitBits)
   int digit_bits;   // ceil(bits / passes)
-  long long blocks; // ceil(m / kBlockKeys)
+  long long tiles;  // ceil(m / kTileKeys)
 };
 
 inline Plan plan(long long m, int n_keys) {
@@ -98,15 +143,24 @@ inline Plan plan(long long m, int n_keys) {
   while (p.bits < 31 && (1LL << p.bits) <= (long long)n_keys) ++p.bits;
   p.passes = (p.bits + kMaxDigitBits - 1) / kMaxDigitBits;
   p.digit_bits = (p.bits + p.passes - 1) / p.passes;
-  p.blocks = (m + kBlockKeys - 1) / kBlockKeys;
+  p.tiles = (m + kTileKeys - 1) / kTileKeys;
   return p;
 }
 
-// int32 words of scratch a sort of m keys needs: two buffers of (key,
-// index) pairs, the blocks' digit counts, their offsets, the digit totals.
+// int32 words of the part of the scratch the memset zeroes: the status
+// words ([passes][tiles][1 << digit_bits]), then kControlWords
+inline long long zeroed_words(const Plan& p) {
+  return (long long)p.passes * p.tiles * (1LL << p.digit_bits) +
+         kControlWords;
+}
+
+// int32 words of scratch a sort of m keys needs: the zeroed part, then the
+// (key, index) pair buffers of the passes between the first and the last
+// (none for one pass, one for two, two that alternate for more).
 inline long long scratch_words(long long m, int n_keys) {
   const Plan p = plan(m, n_keys);
-  return 4 * m + 2LL * kBins * p.blocks + kBins;
+  const int buffers = p.passes < 2 ? 0 : (p.passes == 2 ? 1 : 2);
+  return zeroed_words(p) + 2LL * m * buffers;
 }
 
 __device__ __forceinline__ int map_key(int k, int n_keys) {
@@ -163,199 +217,446 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
   return out;
 }
 
-// A key of the first pass (keys [m] int32, mapped to the drop value) or of
-// a later one (pairs [m] int2: (key, index), mapped already).
-__device__ __forceinline__ int load_key(const int* keys, const int2* pairs,
-                                        long long p, int n_keys) {
-  return pairs ? __ldcs(pairs + p).x : map_key(__ldcs(keys + p), n_keys);
+__device__ __forceinline__ unsigned load_status(const unsigned* p) {
+  return *reinterpret_cast<const volatile unsigned*>(p);
 }
 
-// counts [blocks, kBins] (block-major: a block writes one contiguous row)
-__global__ void __launch_bounds__(kThreads)
-    histogram_kernel(const int* __restrict__ keys,
-                     const int2* __restrict__ pairs, long long m, int n_keys,
-                     int shift, int dbits, int* __restrict__ counts) {
-  __shared__ int s_cnt[kBins];
-  const int lane = threadIdx.x & 31;
-  s_cnt[threadIdx.x] = 0;
+__device__ __forceinline__ void store_status(unsigned* p, unsigned v) {
+  *reinterpret_cast<volatile unsigned*>(p) = v;
+}
+
+// hist [kMaxPasses][kBins] (zeroed): every pass's digit counts of the keys
+// (mapped to the drop value), in one read.
+__global__ void __launch_bounds__(kHistThreads)
+    histogram_kernel(const int* __restrict__ keys, long long m, int n_keys,
+                     int passes, int digit_bits, int* __restrict__ hist) {
+  __shared__ int s_h[kMaxPasses * kBins];
+  for (int i = threadIdx.x; i < passes * kBins; i += kHistThreads)
+    s_h[i] = 0;
   __syncthreads();
-  const long long base = (long long)blockIdx.x * kBlockKeys;
-  const int mask = (1 << dbits) - 1;
-#pragma unroll 4
-  for (int i = 0; i < kItems; ++i) {
-    const long long p = base + (long long)i * kThreads + threadIdx.x;
-    const int digit =
-        p < m ? (load_key(keys, pairs, p, n_keys) >> shift) & mask : 0;
-    const unsigned peers =
-        digit_peers(digit, dbits, __ballot_sync(kFull, p < m));
-    if (p < m && lane == __ffs(peers) - 1)
-      atomicAdd(&s_cnt[digit], __popc(peers));
-  }
-  __syncthreads();
-  counts[(long long)blockIdx.x * kBins + threadIdx.x] = s_cnt[threadIdx.x];
-}
-
-// Block d: digit d's counts over the blocks (column d of counts) ->
-// offsets[d * blocks + b], their exclusive scan in block order (a row a
-// digit, written contiguously); totals[d] their sum.
-__global__ void __launch_bounds__(kScanThreads)
-    scan_kernel(const int* __restrict__ counts, long long blocks,
-                int* __restrict__ offsets, int* __restrict__ totals) {
-  __shared__ int s_warp[kScanThreads / 32 + 1];
-  int* row = offsets + (long long)blockIdx.x * blocks;
-  int carry = 0;
-  for (long long b0 = 0; b0 < blocks; b0 += kScanThreads) {
-    const long long b = b0 + threadIdx.x;
-    const int v = b < blocks ? counts[b * kBins + blockIdx.x] : 0;
-    int total;
-    const int ex = block_exclusive_scan<kScanThreads>(v, s_warp, total);
-    if (b < blocks) row[b] = carry + ex;
-    carry += total;
-  }
-  if (threadIdx.x == 0) totals[blockIdx.x] = carry;
-}
-
-// One pass: the keys of block blockIdx.x (keys, the first pass's input,
-// with the position as the index; else pairs) ranked stably by digit and
-// written as (key, index) pairs to their sorted positions: one output
-// stream of 8-byte pairs, a digit's run of a block one piece of pairs_out
-// (see the note at the top).
-__global__ void __launch_bounds__(kThreads)
-    scatter_kernel(const int* __restrict__ keys,
-                   const int2* __restrict__ pairs, long long m, int n_keys,
-                   int shift, int dbits, const int* __restrict__ offsets,
-                   const int* __restrict__ totals, long long blocks,
-                   int2* __restrict__ pairs_out) {
-  __shared__ int2 s_pairs[kBlockKeys];
-  __shared__ unsigned short s_wcnt[kWarps][kBins];  // per-warp digit
-                                     // counts, then the warps' offsets
-  __shared__ int s_start[kBins];     // a digit's first slot in s_pairs
-  __shared__ int s_gbase[kBins];     // its first output position
-  __shared__ int s_warp[kThreads / 32 + 1];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int mask = (1 << dbits) - 1;
-  const int bins = mask + 1;
-  const long long base = (long long)blockIdx.x * kBlockKeys;
-  const int n_here = (int)min((long long)kBlockKeys, m - base);
-
-  // the digits' first output positions: the totals of the smaller digits
-  // plus this block's offset within its digit (thread d: digit d)
-  {
-    const int d = threadIdx.x;
-    const int tot = d < bins ? __ldg(totals + d) : 0;
-    int sum;
-    const int ex = block_exclusive_scan<kThreads>(tot, s_warp, sum);
-    s_gbase[d] = d < bins ? ex + __ldg(offsets + (long long)d * blocks +
-                                       blockIdx.x)
-                          : 0;
-  }
+  const int mask = (1 << digit_bits) - 1;
+  const long long stride = (long long)gridDim.x * kHistThreads;
+  for (long long p0 = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+       p0 < m; p0 += kHistLoads * stride) {
+    int k[kHistLoads];
 #pragma unroll
-  for (int q = 0; q < kWarps; ++q) s_wcnt[q][threadIdx.x] = 0;
+    for (int j = 0; j < kHistLoads; ++j) {
+      const long long p = p0 + j * stride;
+      k[j] = p < m ? map_key(__ldcs(keys + p), n_keys) : -1;
+    }
+#pragma unroll
+    for (int j = 0; j < kHistLoads; ++j) {
+      if (k[j] < 0) continue;
+      for (int q = 0; q < passes; ++q)
+        atomicAdd(&s_h[q * kBins + ((k[j] >> (q * digit_bits)) & mask)], 1);
+    }
+  }
   __syncthreads();
+  for (int i = threadIdx.x; i < passes * kBins; i += kHistThreads)
+    if (s_h[i]) atomicAdd(hist + i, s_h[i]);
+}
 
-  // keys a warp: a contiguous run of kWarpKeys, rounds of 32 in order
-  int2 kv[kItems];
-  int rank[kItems];
-  const long long wbase = base + (long long)w * kWarpKeys;
+// The look-back of one digit by a group of kLookLanes lanes: the digit's
+// count in the tiles before `tile`, from the status words of `status`
+// ([tiles][sbins]). Each round the group reads the
+// kLookLanes * kLookDepth nearest tiles not yet counted (lane k the k-th
+// kLookDepth of them, its loads in flight together) and adds their counts,
+// nearest first, up to the first inclusive prefix (done) or the first
+// word not yet published (read again from there next round). Every lane
+// of the warp must call it; `live` false: a group with nothing to look up.
+__device__ __forceinline__ unsigned look_back(
+    const unsigned* status, long long tile, int sbins, int digit,
+    bool live) {
+  const int sub = threadIdx.x & (kLookLanes - 1);
+  bool done = !live || tile == 0;
+  unsigned before = 0;
+  long long near = tile - 1;  // the nearest tile not yet counted
+  while (__any_sync(kFull, !done)) {
+    unsigned acc = 0;
+    int stop = 0, at = kLookDepth;  // stop: 1 a prefix, 2 a word not ready
+    if (!done) {
+      unsigned w[kLookDepth];
+#pragma unroll
+      for (int i = 0; i < kLookDepth; ++i) {
+        const long long u = near - sub * kLookDepth - i;
+        w[i] = u >= 0 ? load_status(status + u * sbins + digit)
+                      : kPrefix | 1u;
+      }
+#pragma unroll
+      for (int i = 0; i < kLookDepth; ++i) {
+        if (stop) continue;
+        if (w[i]) {
+          acc += (w[i] & kCount) - 1u;
+          if (w[i] & kPrefix) stop = 1;
+        } else {
+          stop = 2;
+          at = i;
+        }
+      }
+    }
+    // the group's lanes in order, nearest first
+    unsigned add = 0;
+    int how = 0;
+    long long next = near - kLookLanes * kLookDepth;
+#pragma unroll
+    for (int k = 0; k < kLookLanes; ++k) {
+      const unsigned a = __shfl_sync(kFull, acc, k, kLookLanes);
+      const int st = __shfl_sync(kFull, stop, k, kLookLanes);
+      const int at_k = __shfl_sync(kFull, at, k, kLookLanes);
+      if (how == 0) {
+        add += a;
+        how = st;
+        if (st == 2) next = near - k * kLookDepth - at_k;
+      }
+    }
+    if (!done) {
+      before += add;
+      done = how == 1;
+      if (how == 2 && next == near) __nanosleep(64);  // nothing ready yet
+      near = next;
+    }
+  }
+  return before;
+}
+
+// A tile's keys a warp: a contiguous run of kWarpKeys, rounds of 32 in
+// order (the first pass maps keys and makes the index, later ones read
+// pairs).
+template <bool First>
+__device__ __forceinline__ void load_tile(int2 (&kv)[kItems],
+                                          const int* keys, const int2* pairs,
+                                          long long wbase, long long m,
+                                          int n_keys) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const long long p = wbase + i * 32 + lane;
     kv[i] = make_int2(0, 0);
     if (p < m)
-      kv[i] = pairs ? __ldcs(pairs + p)
-                    : make_int2(map_key(__ldcs(keys + p), n_keys), (int)p);
-  }
-  const unsigned lower = (1u << lane) - 1u;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long p = wbase + i * 32 + lane;
-    const int digit = (kv[i].x >> shift) & mask;
-    const unsigned peers =
-        digit_peers(digit, dbits, __ballot_sync(kFull, p < m));
-    int before = 0;
-    if (p < m) before = s_wcnt[w][digit];
-    __syncwarp();
-    if (p < m && lane == __ffs(peers) - 1)
-      s_wcnt[w][digit] = (unsigned short)(before + __popc(peers));
-    __syncwarp();
-    rank[i] = before + __popc(peers & lower);
-  }
-  __syncthreads();
-  // per digit: the warps' counts to exclusive offsets, the block's count
-  // scanned over the digits
-  {
-    const int d = threadIdx.x;
-    int c = 0;
-#pragma unroll
-    for (int q = 0; q < kWarps; ++q) {
-      const int v = s_wcnt[q][d];
-      s_wcnt[q][d] = (unsigned short)c;
-      c += v;
-    }
-    int sum;
-    s_start[d] = block_exclusive_scan<kThreads>(d < bins ? c : 0, s_warp,
-                                                sum);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const long long p = wbase + i * 32 + lane;
-    if (p < m) {
-      const int digit = (kv[i].x >> shift) & mask;
-      s_pairs[s_start[digit] + s_wcnt[w][digit] + rank[i]] = kv[i];
-    }
-  }
-  __syncthreads();
-  // in digit order: a digit's keys of this block to consecutive positions
-  for (int s = threadIdx.x; s < n_here; s += kThreads) {
-    const int2 q = s_pairs[s];
-    const int digit = (q.x >> shift) & mask;
-    pairs_out[(long long)s_gbase[digit] + (s - s_start[digit])] = q;
+      kv[i] = First ? make_int2(map_key(__ldcs(keys + p), n_keys), (int)p)
+                    : __ldcs(pairs + p);
   }
 }
 
-// The sorted pairs to the two outputs.
-__global__ void __launch_bounds__(kThreads)
-    split_kernel(const int2* __restrict__ pairs, long long m,
-                 int* __restrict__ keys_out, int* __restrict__ perm) {
-  for (long long p = (long long)blockIdx.x * kThreads + threadIdx.x; p < m;
-       p += (long long)gridDim.x * kThreads) {
-    const int2 q = __ldcs(pairs + p);
-    keys_out[p] = q.x;
-    perm[p] = q.y;
+// One pass over the digit at `shift` (dbits bits; the plan's digit_bits
+// wide rows of status, sbins = 1 << digit_bits). First: the input is keys
+// (mapped here, the position as the index), else pairs. Last: the output
+// is keys_out and perm, else pairs_out. hist: this pass's digit totals;
+// status: this pass's [tiles][sbins] words; ticket: this pass's counter.
+// A cluster stays resident and takes tiles from the ticket until none is
+// left: the next tile's ticket is taken as this one's look-back ends, and
+// its keys are loaded while this one is written out.
+template <bool First, bool Last>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 4)
+    pass_kernel(const int* __restrict__ keys, const int2* __restrict__ pairs,
+                long long m, int n_keys, int shift, int dbits, int sbins,
+                long long tiles, const int* __restrict__ hist,
+                unsigned* __restrict__ status,
+                int* __restrict__ ticket, int2* __restrict__ pairs_out,
+                int* __restrict__ keys_out, int* __restrict__ perm) {
+  // this block's keys sorted by digit, then this block's kBlockKeys slots
+  // of the cluster's tile sorted by digit (the other blocks write them)
+  __shared__ int2 s_loc[kBlockKeys];
+  __shared__ int2 s_buf[kBlockKeys];
+  __shared__ unsigned short s_wcnt[kWarps][kBins];  // per-warp digit
+                                     // counts, then the warps' offsets
+  __shared__ unsigned short s_cnt[kBins];  // this block's digit counts
+  __shared__ short s_start[kBins];   // where a digit's keys start in s_loc,
+                                     // then their slot in the tile less it
+  __shared__ unsigned short s_tot[kBins];  // the tile's digit counts
+  __shared__ int s_base[kBins];      // a digit's first global position
+                                     // less its start in the tile
+  __shared__ int s_gbase[kBins];     // a digit's global position less its
+                                     // position in the tile (from the
+                                     // block that looked it up)
+  __shared__ int s_warp[kThreads / 32 + 1];
+  __shared__ int s_ticket[2];        // block 0's: the next tile, by turns
+  cg::cluster_group cluster = cg::this_cluster();
+  const int r = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int mask = (1 << dbits) - 1;
+  // the digit this thread looks up, kLookLanes lanes a digit
+  const int own = (r * kThreads + (int)threadIdx.x) / kLookLanes;
+  const int sub = threadIdx.x & (kLookLanes - 1);
+  const unsigned lower = (1u << lane) - 1u;
+
+  if (r == 0 && threadIdx.x == 0) s_ticket[0] = atomicAdd(ticket, 1);
+  // the digits' totals over all keys -> each digit's first position
+  int first[kDigitsPerThread];
+  {
+    int v = 0, sum;
+#pragma unroll
+    for (int j = 0; j < kDigitsPerThread; ++j) {
+      const int d = threadIdx.x * kDigitsPerThread + j;
+      first[j] = d <= mask ? __ldg(hist + d) : 0;
+      v += first[j];
+    }
+    int base = block_exclusive_scan<kThreads>(v, s_warp, sum);
+#pragma unroll
+    for (int j = 0; j < kDigitsPerThread; ++j) {
+      const int h = first[j];
+      first[j] = base;
+      base += h;
+    }
   }
+  cluster.sync();  // the first ticket
+  int tile = *cluster.map_shared_rank(&s_ticket[0], 0);
+  int2 kv[kItems];
+  if (tile < tiles)
+    load_tile<First>(kv, keys, pairs,
+                     (long long)tile * kTileKeys + (long long)r * kBlockKeys
+                         + (long long)w * kWarpKeys,
+                     m, n_keys);
+  for (int turn = 1; tile < tiles; turn ^= 1) {
+    const long long tbase = (long long)tile * kTileKeys;
+    const long long wbase = tbase + (long long)r * kBlockKeys +
+                            (long long)w * kWarpKeys;
+    const int n_mine = (int)max(0LL, min((long long)kBlockKeys,
+                                         m - tbase - (long long)r *
+                                                         kBlockKeys));
+#pragma unroll
+    for (int q = 0; q < kWarps; ++q)
+#pragma unroll
+      for (int j = 0; j < kDigitsPerThread; ++j)
+        s_wcnt[q][threadIdx.x * kDigitsPerThread + j] = 0;
+    __syncthreads();
+    int rank[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const long long p = wbase + i * 32 + lane;
+      const int digit = (kv[i].x >> shift) & mask;
+      const unsigned peers =
+          digit_peers(digit, dbits, __ballot_sync(kFull, p < m));
+      int before = 0;
+      if (p < m) before = s_wcnt[w][digit];
+      __syncwarp();
+      if (p < m && lane == __ffs(peers) - 1)
+        s_wcnt[w][digit] = (unsigned short)(before + __popc(peers));
+      __syncwarp();
+      rank[i] = before + __popc(peers & lower);
+    }
+    __syncthreads();
+    // per digit: the warps' counts to exclusive offsets, the block's count
+    // and where the block's keys of it start in s_loc
+    int lstart[kDigitsPerThread];
+    {
+      int c[kDigitsPerThread], v = 0, sum;
+#pragma unroll
+      for (int j = 0; j < kDigitsPerThread; ++j) {
+        const int d = threadIdx.x * kDigitsPerThread + j;
+        c[j] = 0;
+#pragma unroll
+        for (int q = 0; q < kWarps; ++q) {
+          const int x = s_wcnt[q][d];
+          s_wcnt[q][d] = (unsigned short)c[j];
+          c[j] += x;
+        }
+        s_cnt[d] = (unsigned short)c[j];
+        v += c[j];
+      }
+      int start = block_exclusive_scan<kThreads>(v, s_warp, sum);
+#pragma unroll
+      for (int j = 0; j < kDigitsPerThread; ++j) {
+        lstart[j] = start;
+        s_start[threadIdx.x * kDigitsPerThread + j] = (short)start;
+        start += c[j];
+      }
+    }
+    cluster.sync();  // every block's digit counts (and s_start, s_wcnt)
+    // this block's keys in digit order
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const long long p = wbase + i * 32 + lane;
+      if (p < m) {
+        const int digit = (kv[i].x >> shift) & mask;
+        s_loc[s_start[digit] + s_wcnt[w][digit] + rank[i]] = kv[i];
+      }
+    }
+    // the cluster's counts of this thread's digits: the tile's (tot) and
+    // those of the blocks before this one (pre)
+    {
+      int tot[kDigitsPerThread], pre[kDigitsPerThread], v = 0, sum;
+#pragma unroll
+      for (int j = 0; j < kDigitsPerThread; ++j) {
+        tot[j] = 0;
+        pre[j] = 0;
+      }
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) {
+        const unsigned short* cnt = cluster.map_shared_rank(s_cnt, q);
+#pragma unroll
+        for (int j = 0; j < kDigitsPerThread; ++j) {
+          const int c = cnt[threadIdx.x * kDigitsPerThread + j];
+          tot[j] += c;
+          if (q < r) pre[j] += c;
+        }
+      }
+      // where each digit's run starts in the sorted tile: the tile's
+      // counts of the smaller digits (the scan's barriers also end the
+      // loop above)
+#pragma unroll
+      for (int j = 0; j < kDigitsPerThread; ++j) v += tot[j];
+      int start = block_exclusive_scan<kThreads>(v, s_warp, sum);
+#pragma unroll
+      for (int j = 0; j < kDigitsPerThread; ++j) {
+        const int d = threadIdx.x * kDigitsPerThread + j;
+        s_start[d] = (short)(start + pre[j] - lstart[j]);
+        s_tot[d] = (unsigned short)tot[j];
+        s_base[d] = first[j] - start;
+        start += tot[j];
+      }
+    }
+    __syncthreads();  // s_loc, s_start, s_tot, s_base
+    unsigned* row = status + (long long)tile * sbins;
+    if (sub == 0 && own < sbins)  // the tile's counts (tile 0's: a prefix)
+      store_status(row + own, (tile == 0 ? kPrefix : 0u) |
+                                  (s_tot[own] + 1u));
+    // this block's keys to their slots of the sorted tile, in the blocks
+    // that hold them: a digit's keys of this block go to consecutive slots
+    for (int s = threadIdx.x; s < n_mine; s += kThreads) {
+      const int2 q = s_loc[s];
+      const int slot = s + s_start[(q.x >> shift) & mask];
+      cluster.map_shared_rank(s_buf, slot >> kBlockShift)
+          [slot & (kBlockKeys - 1)] = q;
+    }
+    {
+      const unsigned before =
+          look_back(status, tile, sbins, own, own < sbins);
+      if (sub == 0 && tile > 0 && own < sbins)
+        store_status(row + own, kPrefix | (before + s_tot[own] + 1u));
+      const int gbase = s_base[own] + (int)before;
+#pragma unroll
+      for (int q = sub; q < kCluster; q += kLookLanes)
+        cluster.map_shared_rank(s_gbase, q)[own] = gbase;
+    }
+    // the next tile's ticket, taken as this one ends: tiles start in
+    // ticket order, so an earlier tile's counts are out when a later one
+    // looks back
+    if (r == 0 && threadIdx.x == 0) s_ticket[turn] = atomicAdd(ticket, 1);
+    cluster.sync();  // the sorted tile, the digits' global positions and
+                     // the next ticket
+    const int next = *cluster.map_shared_rank(&s_ticket[turn], 0);
+    if (next < tiles)  // its keys in flight while this tile is written
+      load_tile<First>(kv, keys, pairs,
+                       (long long)next * kTileKeys +
+                           (long long)r * kBlockKeys +
+                           (long long)w * kWarpKeys,
+                       m, n_keys);
+    // this block's slots of the sorted tile, in order: a digit's run is the
+    // tile's, written to consecutive positions
+    const long long n_tile = min((long long)kTileKeys, m - tbase);
+    const int n_here =
+        (int)max(0LL, min((long long)kBlockKeys, n_tile - (long long)r *
+                                                            kBlockKeys));
+    const int slot0 = r * kBlockKeys;
+    for (int s = threadIdx.x; s < n_here; s += kThreads) {
+      const int2 q = s_buf[s];
+      const long long pos =
+          (long long)s_gbase[(q.x >> shift) & mask] + slot0 + s;
+      if (Last) {
+        keys_out[pos] = q.x;
+        perm[pos] = q.y;
+      } else {
+        pairs_out[pos] = q;
+      }
+    }
+    tile = next;
+  }
+  cluster.sync();  // no block leaves while another may read its memory
+}
+
+// How many clusters of pass_kernel<First, Last> stay resident on the card
+// at once (each takes tiles until none is left), asked once; a CUDA error
+// as its negative.
+template <bool First, bool Last>
+inline int resident_clusters() {
+  static const int n = [] {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster * 1024);
+    cfg.blockDim = dim3(kThreads);
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kCluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int c = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&c, pass_kernel<First, Last>, &cfg);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    return c > 0 ? c : -static_cast<int>(cudaErrorInvalidConfiguration);
+  }();
+  return n;
+}
+
+// One pass: as many clusters as stay resident, at most one a tile.
+template <bool First, bool Last>
+inline int launch_pass(const int* keys, const int2* in, long long m,
+                       int n_keys, int shift, int dbits, int sbins,
+                       long long tiles, const int* hist, unsigned* status,
+                       int* ticket, int2* out, int* keys_out, int* perm,
+                       cudaStream_t st) {
+  const int resident = resident_clusters<First, Last>();
+  if (resident < 0) return -resident;
+  const long long clusters = min(tiles, (long long)resident);
+  pass_kernel<First, Last><<<(unsigned)(clusters * kCluster), kThreads, 0,
+                             st>>>(keys, in, m, n_keys, shift, dbits, sbins,
+                                   tiles, hist, status, ticket, out,
+                                   keys_out, perm);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // keys [m] i32 -> keys_out [m] i32 (sorted, outside [0, n_keys) as
 // n_keys) and perm [m] i32 (input index of each entry), stable. scratch:
 // scratch_words(m, n_keys) int32 words, 8-byte aligned. keys may not
-// alias the outputs. Returns cudaGetLastError() after the launches.
+// alias the outputs. Returns the first CUDA error of the memset and the
+// launches, else cudaGetLastError().
 inline int sort(const int* keys, long long m, int n_keys, int* keys_out,
                 int* perm, int* scratch, cudaStream_t st) {
-  if (m < 0 || m >= (1LL << 31) || n_keys <= 0)
+  if (m < 0 || m >= (1LL << 31) - 1 || n_keys <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0) return static_cast<int>(cudaGetLastError());
   const Plan p = plan(m, n_keys);
-  int2* buf[2] = {reinterpret_cast<int2*>(scratch),
-                  reinterpret_cast<int2*>(scratch) + m};
-  int* counts = scratch + 4 * m;
-  int* offsets = counts + (long long)kBins * p.blocks;
-  int* totals = offsets + (long long)kBins * p.blocks;
-  const int2* in = nullptr;  // the first pass reads keys
+  const int sbins = 1 << p.digit_bits;
+  const long long zeroed = zeroed_words(p);
+  unsigned* status = reinterpret_cast<unsigned*>(scratch);
+  int* tickets = scratch + (zeroed - kControlWords);
+  int* hist = tickets + kMaxPasses;
+  int2* buf[2] = {reinterpret_cast<int2*>(scratch + zeroed),
+                  reinterpret_cast<int2*>(scratch + zeroed) + m};
+  cudaError_t err = cudaMemsetAsync(scratch, 0, zeroed * sizeof(int), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long hblocks =
+      max(1LL, min((m + kHistKeys - 1) / kHistKeys, (long long)kHistBlocks));
+  histogram_kernel<<<(unsigned)hblocks, kHistThreads, 0, st>>>(
+      keys, m, n_keys, p.passes, p.digit_bits, hist);
+  const int2* in = nullptr;
   for (int pass = 0; pass < p.passes; ++pass) {
     const int shift = pass * p.digit_bits;
     const int dbits = min(p.digit_bits, p.bits - shift);
-    int2* out = buf[pass & 1];
-    histogram_kernel<<<(unsigned)p.blocks, kThreads, 0, st>>>(
-        keys, in, m, n_keys, shift, dbits, counts);
-    scan_kernel<<<1u << dbits, kScanThreads, 0, st>>>(counts, p.blocks,
-                                                      offsets, totals);
-    scatter_kernel<<<(unsigned)p.blocks, kThreads, 0, st>>>(
-        keys, in, m, n_keys, shift, dbits, offsets, totals, p.blocks, out);
+    const bool first = pass == 0, last = pass == p.passes - 1;
+    int2* out = last ? nullptr : buf[pass & 1];
+    unsigned* st_pass = status + (long long)pass * p.tiles * sbins;
+    const int* h = hist + pass * kBins;
+    int* tk = tickets + pass;
+    const int rc =
+        first && last
+            ? launch_pass<true, true>(keys, in, m, n_keys, shift, dbits,
+                                      sbins, p.tiles, h, st_pass, tk, out,
+                                      keys_out, perm, st)
+        : first ? launch_pass<true, false>(keys, in, m, n_keys, shift, dbits,
+                                           sbins, p.tiles, h, st_pass, tk,
+                                           out, keys_out, perm, st)
+        : last ? launch_pass<false, true>(keys, in, m, n_keys, shift, dbits,
+                                          sbins, p.tiles, h, st_pass, tk,
+                                          out, keys_out, perm, st)
+               : launch_pass<false, false>(keys, in, m, n_keys, shift, dbits,
+                                           sbins, p.tiles, h, st_pass, tk,
+                                           out, keys_out, perm, st);
+    if (rc != 0) return rc;
     in = out;
   }
-  const long long grid = min((m + kThreads - 1) / kThreads, 132LL * 16);
-  split_kernel<<<(unsigned)grid, kThreads, 0, st>>>(in, m, keys_out, perm);
   return static_cast<int>(cudaGetLastError());
 }
 

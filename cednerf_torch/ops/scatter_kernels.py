@@ -53,7 +53,9 @@ REDUCE_TILE = 256   # sorted entries a reduce tile, here and in
 NARROW_WIDTH = 16   # K3's rows up to this width: the narrow kernel
 NARROW_TILE = 1024  # and its tiles (kNarrow, csrc/scatter_add_rows.cu)
 SORT_BLOCK_KEYS = 2048   # keys a sort block (kBlockKeys, csrc/key_sort.cuh)
-SORT_DIGIT_BITS = 8      # the widest digit a pass sorts (kMaxDigitBits)
+SORT_CLUSTER_BLOCKS = 8  # blocks a cluster, which ranks a tile (kCluster)
+SORT_TILE_KEYS = SORT_CLUSTER_BLOCKS * SORT_BLOCK_KEYS   # kTileKeys
+SORT_DIGIT_BITS = 9      # the widest digit a pass sorts (kMaxDigitBits)
 
 
 def reset_counts():
@@ -97,34 +99,42 @@ def sort_plan(n_keys: int):
 def key_sort_plain(keys: torch.Tensor, n_keys: int):
     """Plain key_sort, pass by pass as csrc/key_sort.cuh runs it: keys [M]
     int32 -> (sorted keys [M] int32, perm [M] int32). A key outside
-    [0, n_keys) takes the drop value n_keys. Each pass: the digit of
-    every key; each block's (SORT_BLOCK_KEYS consecutive keys) digit
-    counts, digit-major; their exclusive scan (a block's first position
-    for a digit); a key's rank among its block's earlier keys of its
-    digit; the key and its index written to first position + rank. The
-    result is the stable sort's permutation, torch.sort(stable=True)'s."""
+    [0, n_keys) takes the drop value n_keys. First the histogram: every
+    pass's digit totals from one read of the keys, and from them each
+    digit's first position. Then each pass over tiles of SORT_TILE_KEYS
+    consecutive keys (a cluster's): each tile's digit counts; their
+    exclusive scan over the tiles, digit by digit (the look-back: a
+    digit's keys in the earlier tiles); a key's rank among its tile's keys
+    of its digit (the kernel's blocks of the cluster and their warps rank
+    it; here a stable argsort within the tile); the key and its index
+    written to first position + earlier tiles' count + rank. The result
+    is the stable sort's permutation, torch.sort(stable=True)'s."""
     if keys.is_cuda:
         plain_cuda_calls["key_sort"] += 1
     k = keys.reshape(-1).long()
     k = torch.where((k >= 0) & (k < n_keys), k, n_keys)
     m = k.numel()
     v = torch.arange(m, device=k.device)
-    bits, passes, dbits = sort_plan(n_keys)
-    blocks = -(-m // SORT_BLOCK_KEYS)
-    block = torch.arange(m, device=k.device) // SORT_BLOCK_KEYS
+    _, passes, dbits = sort_plan(n_keys)
+    bins = 1 << dbits
+    first = []                                          # the histogram
     for p in range(passes):
-        shift = p * dbits
-        bins = 1 << min(dbits, bits - shift)
-        digit = (k >> shift) & (bins - 1)
-        group = digit * blocks + block                  # digit-major
-        count = torch.bincount(group, minlength=bins * blocks)
-        first = torch.cumsum(count, 0) - count          # exclusive scan
+        total = torch.bincount((k >> (p * dbits)) & (bins - 1),
+                               minlength=bins)
+        first.append(torch.cumsum(total, 0) - total)
+    tiles = -(-m // SORT_TILE_KEYS)
+    tile = torch.arange(m, device=k.device) // SORT_TILE_KEYS
+    slot = torch.arange(m, device=k.device)
+    for p in range(passes):
+        digit = (k >> (p * dbits)) & (bins - 1)
+        group = tile * bins + digit                     # tile-major
+        count = torch.bincount(group, minlength=tiles * bins)
+        earlier = (count.view(tiles, bins).cumsum(0)
+                   - count.view(tiles, bins)).view(-1)  # the look-back
+        order = torch.argsort(group, stable=True)       # rank in a tile
         rank = torch.empty_like(k)
-        for b in range(blocks):                         # rank in a block
-            s = slice(b * SORT_BLOCK_KEYS, (b + 1) * SORT_BLOCK_KEYS)
-            hot = torch.nn.functional.one_hot(digit[s], bins)
-            rank[s] = (hot.cumsum(0) - hot).gather(1, digit[s, None])[:, 0]
-        pos = first[group] + rank
+        rank[order] = slot - (torch.cumsum(count, 0) - count)[group[order]]
+        pos = first[p][digit] + earlier[group] + rank
         k = torch.empty_like(k).index_put_((pos,), k)
         v = torch.empty_like(v).index_put_((pos,), v)
     return k.to(torch.int32), v.to(torch.int32)
@@ -143,7 +153,7 @@ def key_sort(keys: torch.Tensor, n_keys: int, lib=None):
             or not keys.is_contiguous()):
         raise ValueError("key_sort: keys must be contiguous int32 [M]")
     m = keys.numel()
-    if m >= 2 ** 31 or not 0 < n_keys < 2 ** 31:
+    if m >= 2 ** 31 - 1 or not 0 < n_keys < 2 ** 31:
         raise ValueError(f"key_sort: {m} keys, n_keys {n_keys}")
     lib = lib or _LIB
     cdll = lib.get()

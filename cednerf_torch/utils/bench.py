@@ -3,10 +3,10 @@ profile_training.py: the card's name, CUDA-event timing, the viewer's
 default orbit camera, an occupancy grid filled for a field, hash tables
 drawn at a scale that the MLPs feel, the train step's flags (3D and 4D
 encoder), a profiler table of device time by kernel and a call's device
-time from it, the host syncs a call makes, the kernel wrappers' launch
-counts, and two sample sets for the encoder kernels (ray-major samples of
-one camera, and points on every intra-brick cell and cell boundary of each
-level)."""
+time from it with the calls the profiler kept, the host syncs a call
+makes, the kernel wrappers' launch counts, and two sample sets for the
+encoder kernels (ray-major samples of one camera, and points on every
+intra-brick cell and cell boundary of each level)."""
 
 import math
 import subprocess
@@ -125,40 +125,80 @@ def load_uniform_tables(fields, seed: int, bound: float):
                 t.copy_(torch.from_numpy(draws[name]))
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def _device_rows(events):
+    """The key_averages() rows of device work: CUDA kernels, copies and
+    memsets with device time. Operator rows (aten::...) repeat their
+    kernels' time and are left out, and so are annotations on the device
+    timeline (named "Optimizer.step#Adam.step" and the like), which span
+    kernels already counted."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _dev_us(e) > 0 and "#" not in e.key]
+
+
 def device_time_by_kernel(prof):
     """(rows, total ms) from a torch.profiler run: one row (name, calls,
-    device ms) per CUDA kernel, largest first. Operator rows (aten::...)
-    repeat their kernels' time and are left out, and so are annotations on
-    the device timeline (named "Optimizer.step#Adam.step" and the like),
-    which span kernels already counted."""
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    rows = sorted(((e.key, e.count, dev_us(e) / 1e3)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and dev_us(e) > 0 and "#" not in e.key),
+    device ms) per CUDA kernel (and copy), largest first."""
+    rows = sorted(((e.key, e.count, _dev_us(e) / 1e3)
+                   for e in _device_rows(prof.key_averages())),
                   key=lambda r: -r[2])
     return rows, sum(r[2] for r in rows)
 
 
-def device_ms(fn, reps: int):
-    """(device ms per call, the rows of device_time_by_kernel) of `reps`
-    calls of fn under torch.profiler, after one warm-up: the sum of the
-    kernels (and copies) the calls ran on the card, without the host time
-    between them that CUDA events over back-to-back calls also count."""
+def calls_seen(window, warm) -> float:
+    """How many calls of a function the profiler kept in a window: the
+    device records (kernel, copy and memset calls) among the window's
+    key_averages() rows over those of one call of it alone (the warm-up's
+    rows). A window of reps calls that kept every record reads reps; one
+    where the profiler dropped records reads less."""
+    one = sum(e.count for e in _device_rows(warm))
+    if one == 0:
+        return 0.0
+    return sum(e.count for e in _device_rows(window)) / one
+
+
+# windows device_ms(need_all=True) profiles before it gives up on one that
+# kept every call
+_DEVICE_MS_TRIES = 3
+
+
+def device_ms(fn, reps: int, need_all: bool = False):
+    """(device ms per call, the rows of device_time_by_kernel, calls seen)
+    of `reps` calls of fn under torch.profiler, after one warm-up call
+    profiled alone: the sum of the kernels (and copies) the calls ran on
+    the card, without the host time between them that CUDA events over
+    back-to-back calls also count. `calls seen` is calls_seen of the window
+    against the warm-up: below reps, the profiler dropped records and the
+    time reads low. need_all: profile the warm-up and the window again, up
+    to _DEVICE_MS_TRIES times in all, until the window keeps every call,
+    and raise if none did (for a fn that launches the same kernels on every
+    call)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for _ in range(_DEVICE_MS_TRIES if need_all else 1):
         torch.cuda.synchronize()
+        with profile(activities=acts) as warm:
+            fn()
+            torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = calls_seen(prof.key_averages(), warm.key_averages())
+        if seen >= reps:
+            break
+    if need_all and seen < reps:
+        raise RuntimeError(f"device_ms: the profiler kept {seen:.3f} of "
+                           f"{reps} calls in each of {_DEVICE_MS_TRIES} "
+                           "windows")
     rows, total = device_time_by_kernel(prof)
-    return total / reps, rows
+    return total / reps, rows, seen
 
 
 def sync_calls(fn):

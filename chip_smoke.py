@@ -61,9 +61,15 @@ Phases, each of which must pass (nothing is caught and carried on):
   8b. the key-width sort (key_sort, from both libraries that export it)
      bit-exact against torch.sort(stable=True), sorted keys and
      permutation, on K6's 2,097,152 keys of a train step (uniform, and all
-     samples in one level-0 brick), the tri-plane's 25.2M texel keys, a
-     ragged 100,003 with keys out of range and 2,097,152 equal keys; timed
-     beside torch.sort;
+     samples in one level-0 brick), the hash4d hashed level's 4.2M corner
+     keys, the tri-plane's 25.2M texel keys, a ragged 100,003 with keys
+     out of range and 2,097,152 equal keys; timed beside torch.sort, by
+     events and by profiler device time (a window that kept every call),
+     with each of its kernels' device time and the kernels a sort
+     launches; one sort dispatched under set_sync_debug_mode("error"). It
+     runs in a new process of this script (--sort_phase), as does phase
+     18's kernel part (--repro_kernels): late in a run the profiler keeps
+     too few device records for a reading;
   9. hash4d reference step: phase 6 for the 4D field (its backward on K3
      on the card, on the plain version on the CPU);
  10. hash4d training: Trainer.run_step on the full-width 4D field for
@@ -181,7 +187,9 @@ Phases, each of which must pass (nothing is caught and carried on):
      timed beside its bound and torch.nonzero; a full-width Trainer chunk
      with compact_blocks 2 (blocked K4 once a step, counted); two ranks
      sharing the card over gloo (subprocesses of this script, --dp_rank):
-     bit-equal to each other and at phase 6's limits against that chunk; a
+     bit-equal to each other and at phase 6's limits against that chunk,
+     and run a second time from the same seed: each rank's parameters,
+     occupancy grid, Adam state and chunk_log bit-equal to its first run; a
      one-rank NCCL mesh's Trainer against the mesh-free one (bit for
      bit), its chunk free of host syncs; a render_image(mesh=...) frame; a
      PropTrainer(mesh=...) chunk (bit for bit against the mesh-free one);
@@ -197,7 +205,8 @@ Phases, each of which must pass (nothing is caught and carried on):
      timed beside their bounds (the function's own bytes; `algo_bound_ms`
      adds this design's own traffic: the keys, the sort's passes, the
      sorted keys and index); the ordered reduce and its carry pass alone,
-     the sort (key_sort and torch.sort), and
+     the sort (key_sort and torch.sort), and the ordered reduce's library
+     yardstick (torch.segment_reduce over the sorted corner terms), and
      the strict-order chain (one tile) on the one-brick input's level 0;
      two Trainers from one seed at full width: the 3D path (-te -ta -f
      -ae -df -d on BallCloudScene, 32 run_step steps then 16-step chunks
@@ -223,6 +232,10 @@ run's PSNR and per-chunk log to --lego_out (lego_runs);
 twice each: per seed the PSNRs, whether its runs agree bit for bit (exit
 3 if one does not) and whether it collapsed (exit 2), with the first chunk
 out of band of a seed that did.
+`python3 chip_smoke.py --sort_ab DIR [--sort_ab DIR2 ...]` runs only
+phase 8b's key sets, this tree's key_sort and the one built from each
+checkout DIR (the parent commit unpacked by `git archive` into `.ab/`,
+say) in turns, each held to torch.sort's permutation (sort_ab_main).
 
 Prints one JSON line per check, then the `kernels` line, then as its last
 line {"ok": true, "device": {...}}.
@@ -919,9 +932,9 @@ def compact_kernel_phase(budget, seed):
                     lambda: ck.compact_select_rayfold(valid, budget), 3)
                 flat = valid.reshape(-1)
                 rec["library_ms"] = cuda_ms(lambda: torch.nonzero(flat), 20)
-                rec["device_ms"], k4_rows = device_ms(
+                rec["device_ms"], k4_rows, rec["calls_seen"] = device_ms(
                     lambda: ck.compact_select_kernel(valid, budget), 20)
-                rec["library_device_ms"], lib_rows = device_ms(
+                rec["library_device_ms"], lib_rows, _ = device_ms(
                     lambda: torch.nonzero(flat), 20)
                 rec["device_kernels"] = [r[:2] for r in k4_rows]
                 rec["library_device_kernels"] = [r[:2] for r in lib_rows]
@@ -953,46 +966,45 @@ def _as_rows(keys, terms, n_keys):
             n_keys // 64)
 
 
+def _sort_bytes(m, n_keys):
+    """The bytes key_sort moves on m keys (csrc/key_sort.cuh): the
+    histogram reads the keys (4 B a key); the first pass reads them and
+    writes (key, index) pairs, a pass between reads and writes pairs, the
+    last reads pairs and writes the sorted keys and perm: 16 B a key a pass
+    with the histogram's read (one pass: the keys read twice, keys and perm
+    written); the status words, 4 B a tile a digit a pass, zeroed,
+    published twice and read once."""
+    from cednerf_torch.ops import scatter_kernels as sk
+    _, passes, dbits = sk.sort_plan(n_keys)
+    tiles = -(-m // sk.SORT_TILE_KEYS)
+    return 16 * m * passes + 16 * passes * tiles * (1 << dbits)
+
+
 def _ordered_bytes(m, n_keys, keys_written=True):
     """This design's own traffic in an ordered reduce of m keys, beyond the
     function's bytes: the keys the first kernel writes (keys_written; K3's
-    are its input), the sort (csrc/key_sort.cuh: a pass's histogram and
-    scatter each read the keys, 4 B a key in the first pass and 8 B of
-    (key, index) pairs after it, and the scatter writes the pairs; the
-    block counts and offsets written and read; the split reads the pairs
-    and writes keys and index) and the sorted keys and index the reduce
-    reads."""
-    from cednerf_torch.ops import scatter_kernels as sk
-    _, passes, _ = sk.sort_plan(n_keys)
-    bins = 1 << sk.SORT_DIGIT_BITS
-    blocks = -(-m // sk.SORT_BLOCK_KEYS)
-    sort_b = (m * (16 + 24 * (passes - 1) + 16)
-              + bins * blocks * 16 * passes)
-    return (4 * m if keys_written else 0) + sort_b + 8 * m
+    are its input), the sort (_sort_bytes) and the sorted keys and index
+    the reduce reads."""
+    return (4 * m if keys_written else 0) + _sort_bytes(m, n_keys) + 8 * m
 
 
-def scatter_kernel_phase(cfg, seed):
-    """K3 against its plain version. The corner entries of level 0 and of
-    the last hashed level come from one backward of the full-width 4D
-    field's encoder at the train step's N (positions and times uniform, a
-    bf16 cotangent with one row in eight zero, as unused budget slots
-    carry): the wrapper is wrapped for that one call to keep what it is
-    handed. The hashed level also in the [2N, 64F] update-row form the 4D
-    levels handed K3 before (_as_rows: the same sums, 8x the bytes). Then
-    a ragged M = 100,003 of random rows of 256 lanes into the hashed
-    level's table, and the tri-plane encoder's texel gradient (W = F = 4
-    columns, K3's narrow rows) from one backward of the full-width encoder
-    at the same N. Each timed beside its bound, its plain version and
-    index_add_, with float atomics (`library_ms`) and under
-    torch.use_deterministic_algorithms(True) (`library_det_ms`, the
-    library form that gives the same bits on every run). Returns
-    ({case: record}, (the texel keys, their count) for key_sort_phase)."""
+def _k3_inputs(cfg, seed, gen):
+    """K3's inputs on the train paths, as its wrapper is handed them: the
+    corner entries of level 0 and of the last hashed level from one
+    backward of the full-width 4D field's encoder at the train step's N
+    (positions and times uniform, a bf16 cotangent with one row in eight
+    zero, as unused budget slots carry; the wrapper is wrapped for that one
+    call to keep what it is handed), and the tri-plane encoder's texel
+    gradient (W = F = 4 columns, K3's narrow rows) from one backward of the
+    full-width encoder at the same N, drawn from `gen`. Returns (the 4D
+    field's brick spec, [(label, n_rows, rows, upd)] for "level 0",
+    "hashed level" and "tri-plane texels")."""
     import torch
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags
     from cednerf_torch.ops import scatter_kernels as sk
     from cednerf_torch.ops.triplane import TriPlaneSpec, triplane_encode
-    from cednerf_torch.utils.bench import HASH4D_FLAGS, cuda_ms
+    from cednerf_torch.utils.bench import HASH4D_FLAGS
 
     field = build_field(cfg, ModelFlags(**HASH4D_FLAGS), device="cuda",
                         seed=seed)
@@ -1000,7 +1012,6 @@ def scatter_kernel_phase(cfg, seed):
                          n_features=cfg.hash_n_features)
     spec = field.hash_encoder.bspec
     n = cfg.sample_budget
-    gen = torch.Generator(device="cuda").manual_seed(seed)
     xn = torch.rand((n, 3), device="cuda", generator=gen)
     t = torch.rand((n, 1), device="cuda", generator=gen)
     g = torch.randn((n, spec.output_dim), device="cuda",
@@ -1030,7 +1041,34 @@ def scatter_kernel_phase(cfg, seed):
     finally:
         sk.scatter_add_rows = real
     del field, planes
-    cases = [(label, n_rows) + kept[n_rows] for label, n_rows in cases]
+    return spec, [(label, n_rows) + kept[n_rows] for label, n_rows in cases]
+
+
+def _sort_key_sets(cases):
+    """key_sort_phase's key sets from K3's cases (_k3_inputs): the hashed
+    level's corner keys and the tri-plane's texel keys, {name: (keys,
+    n_keys)}."""
+    return {"hash4d corner keys": (cases[1][2], cases[1][1]),
+            "tri-plane texels": (cases[-1][2], cases[-1][1])}
+
+
+def scatter_kernel_phase(cfg, seed):
+    """K3 against its plain version, on the cases of _k3_inputs. The hashed
+    level also in the [2N, 64F] update-row form the 4D levels handed K3
+    before (_as_rows: the same sums, 8x the bytes). Then a ragged M =
+    100,003 of random rows of 256 lanes into the hashed level's table.
+    Each timed beside its bound, its plain version and index_add_, with
+    float atomics (`library_ms`) and under
+    torch.use_deterministic_algorithms(True) (`library_det_ms`, the
+    library form that gives the same bits on every run). Returns
+    ({case: record}, _sort_key_sets of the cases, for key_sort_phase)."""
+    import torch
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.utils.bench import cuda_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    spec, cases = _k3_inputs(cfg, seed, gen)
+    real = sk.scatter_add_rows
     rows_f, upd_f, n_f = _as_rows(cases[1][2], cases[1][3], cases[1][1])
     cases.insert(2, ("hashed level, row form", n_f, rows_f, upd_f))
     m = 100_003
@@ -1091,10 +1129,10 @@ def scatter_kernel_phase(cfg, seed):
         del want
     for rec in recs.values():
         del rec["_got"]
-    tri_keys = (cases[-1][2], cases[-1][1])
-    del kept, cases, rows_f, upd_f
+    sort_keys = _sort_key_sets(cases)
+    del cases, rows_f, upd_f
     torch.cuda.empty_cache()
-    return recs, tri_keys
+    return recs, sort_keys
 
 
 def torch_key_sort(keys, n_keys, lib=None):
@@ -1107,17 +1145,41 @@ def torch_key_sort(keys, n_keys, lib=None):
     return s, p.to(torch.int32)
 
 
-def key_sort_phase(spec, seed, n, tri_keys):
+def _sort_reading(keys, n_keys, lib):
+    """One library's key_sort on one key set: CUDA events over 20 calls,
+    profiler device time over 5 (bench.device_ms, a window that kept every
+    call), each of its kernels' calls and device ms a sort, and the
+    kernels and device operations a sort launches."""
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.utils.bench import cuda_ms, device_ms
+
+    dev, rows, seen = device_ms(lambda: sk.key_sort(keys, n_keys, lib), 5,
+                                need_all=True)
+    return {"ms": cuda_ms(lambda: sk.key_sort(keys, n_keys, lib), 20),
+            "device_ms": dev, "device_calls_seen": seen,
+            "device_by_kernel": [[r[0], r[1] / 5, r[2] / 5] for r in rows],
+            "kernels_a_sort": sum(r[1] for r in rows
+                                  if "keysort::" in r[0]) / 5,
+            "device_ops_a_sort": sum(r[1] for r in rows) / 5}
+
+
+def key_sort_phase(spec, seed, n, sort_keys, others=()):
     """Phase 8b: the key-width sort (key_sort, csrc/key_sort.cuh, as each
     of its two libraries exports it) against torch.sort(stable=True), the
     sorted keys and the permutation bit for bit, on K6's keys of one train
     step (N samples x L levels of the full-width field, drawn as phase 3
     draws them, INT_MAX where a cotangent row is zero), on the same with
-    every sample in one level-0 brick, on the tri-plane's texel keys
-    (phase 8), on a ragged 100,003 keys with some outside the table and on
-    2,097,152 equal keys; each timed with CUDA events and by profiler
-    device time beside torch.sort of the same keys (`library_ms`). Returns
-    {case: record}."""
+    every sample in one level-0 brick, on the hash4d hashed level's corner
+    keys and the tri-plane's texel keys (phase 8's, `sort_keys`), on a
+    ragged 100,003 keys with some outside the table and on 2,097,152 equal
+    keys; each read by _sort_reading (events, device time, each kernel's
+    device time, the kernels a sort launches), beside torch.sort of the
+    same keys (`library_ms`). One sort is dispatched under
+    torch.cuda.set_sync_debug_mode("error"): it reads nothing back to the
+    host. `others`, [(name, KernelLibrary)] of other checkouts' key_sort
+    (sort_ab_main): each is held to torch.sort too and read in turns with
+    this tree's (the others, this, this, the others in reverse) under
+    "turns". Returns {case: record}."""
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops import scatter_kernels as sk
@@ -1139,20 +1201,29 @@ def key_sort_phase(spec, seed, n, tri_keys):
         "k6 one brick": (_k6_keys(_level_rows(_one_brick_x(
             n, gen, spec.level_scales()[0]), spec), g, level_rows,
             F).reshape(-1), n_table),
-        "tri-plane texels": tri_keys,
+        **sort_keys,
         "ragged": (ragged, n_table),
         "equal": (torch.full((n * L,), 17, dtype=torch.int32,
                              device="cuda"), n_table)}
+    keys, n_keys = cases["k6 uniform"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sk.key_sort(keys, n_keys)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
     out = {}
     for label, (keys, n_keys) in cases.items():
         m = keys.numel()
         want = torch_key_sort(keys, n_keys)
         equal = {}
-        for lib in (sk._LIB, ek._BWD):
+        for name, lib in [(sk._LIB.stem, sk._LIB), (ek._BWD.stem, ek._BWD),
+                          *others]:
             got = sk.key_sort(keys, n_keys, lib)
             torch.cuda.synchronize()
-            equal[lib.stem] = bool(torch.equal(got[0], want[0])
-                                   and torch.equal(got[1], want[1]))
+            equal[name] = bool(torch.equal(got[0], want[0])
+                               and torch.equal(got[1], want[1]))
         if not all(equal.values()):
             raise AssertionError(f"key_sort {label}: not torch.sort's "
                                  f"permutation: {equal}")
@@ -1160,29 +1231,150 @@ def key_sort_phase(spec, seed, n, tri_keys):
         # the function's bytes: the keys read once, the sorted keys and the
         # permutation written once; no arithmetic beyond the compares
         t_bytes = m * 12 / HBM_BYTES_PER_S * 1e3
-        dev, rows = device_ms(lambda: sk.key_sort(keys, n_keys), 5)
-        lib_dev, _ = device_ms(lambda: torch.sort(keys, stable=True), 5)
+        lib_dev, _, lib_seen = device_ms(
+            lambda: torch.sort(keys, stable=True), 5)
         rec = {"name": "key_sort", "case": label, "m": m, "n_keys": n_keys,
                "bits": bits, "passes": passes, "digit_bits": dbits,
                "bit_exact": equal, "max_abs_err": 0,
-               "ms": cuda_ms(lambda: sk.key_sort(keys, n_keys), 20),
-               "device_ms": dev,
-               "device_by_kernel": [list(r) for r in rows[:4]],
+               **_sort_reading(keys, n_keys, sk._LIB),
                "library_ms": cuda_ms(lambda: torch.sort(keys, stable=True),
                                      20),
                "library_device_ms": lib_dev,
+               "library_calls_seen": lib_seen,
                "bound_ms": t_bytes, "bound_by": "bytes",
-               "algo_bound_ms": (_ordered_bytes(m, n_keys, False) - 8 * m)
-               / HBM_BYTES_PER_S * 1e3}
+               "algo_bound_ms": _sort_bytes(m, n_keys) / HBM_BYTES_PER_S
+               * 1e3}
         if label == "k6 uniform":
             rec["plain_ms"] = cuda_ms(
                 lambda: sk.key_sort_plain(keys, n_keys), 1)
+        if others:
+            this = [("this", sk._LIB)]
+            rec["turns"] = [
+                dict(tree=name, turn=i, **_sort_reading(keys, n_keys, lib))
+                for i, (name, lib) in enumerate(
+                    [*others, *this, *this, *others[::-1]])]
         log(json.dumps({"kernel_check": rec}))
         out[label] = rec
         del want
     del cases
     torch.cuda.empty_cache()
     return out
+
+
+def _fresh_process_phase(flag, seed, inputs=None):
+    """A phase run by a new process of this script (`flag`, its own main),
+    for its profiler readings: in a process that has run the earlier
+    phases the profiler keeps too few device records (bench.device_ms
+    refuses such a window), in a new one it keeps them all. `inputs`, {name:
+    (tensor, int)}, go to the child through a file; its log lines go to
+    this output; it writes its result as JSON, which this returns."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_phase_")
+    try:
+        if inputs is not None:
+            torch.save({k: (t.cpu(), n) for k, (t, n) in inputs.items()},
+                       os.path.join(work, "inputs.pt"))
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), flag, work,
+             "--seed", str(seed)], timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"{flag} exited {proc.returncode}")
+        with open(os.path.join(work, "out.json")) as fh:
+            return json.load(fh)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def sort_phase_main(work, seed):
+    """Phase 8b (key_sort_phase) in its own process (_fresh_process_phase):
+    the hash4d and tri-plane keys from work/inputs.pt, the result to
+    work/out.json."""
+    import torch
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.utils.bench import TRAIN_FLAGS
+
+    cfg = dnerf_config()
+    spec = build_field(cfg, ModelFlags(**TRAIN_FLAGS), device="cuda",
+                       seed=seed).hash_encoder.bspec
+    keys = torch.load(os.path.join(work, "inputs.pt"))
+    out = key_sort_phase(spec, seed, cfg.sample_budget,
+                         {k: (t.cuda(), n) for k, (t, n) in keys.items()})
+    with open(os.path.join(work, "out.json"), "w") as fh:
+        json.dump(out, fh, default=str)
+
+
+def _other_sort_library(root):
+    """The key_sort library (scatter_add_rows.cu) built from the sources of
+    the checkout at `root` by that checkout's build module."""
+    import importlib.util
+
+    from cednerf_torch.ops import scatter_kernels as sk
+
+    path = os.path.join(root, "cednerf_torch", "ops", "cuda_build.py")
+    spec = importlib.util.spec_from_file_location(
+        f"cuda_build_{abs(hash(os.path.abspath(root)))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.KernelLibrary("scatter_add_rows", sk.bind_key_sort)
+
+
+def sort_ab_main(roots, seed):
+    """Phase 8b's key sets (key_sort_phase; the hash4d and tri-plane keys
+    from _k3_inputs) sorted by this tree's key_sort and by the one built
+    from each checkout in `roots` (for example the parent commit unpacked
+    by `git archive` into a git-ignored directory), in turns on one card;
+    every library held to torch.sort's permutation bit for bit. Prints the
+    card, a kernel_check line a key set, then {"ok": true}."""
+    import torch
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.ops.cuda_build import build_all
+    from cednerf_torch.utils.bench import TRAIN_FLAGS, card_name
+
+    log(card_name())
+    build_all()
+    others = [(os.path.basename(os.path.normpath(r)), _other_sort_library(r))
+              for r in roots]
+    for _, lib in others:
+        lib.get()
+    cfg = dnerf_config()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    _, cases = _k3_inputs(cfg, seed, gen)
+    sort_keys = _sort_key_sets(cases)
+    del cases
+    spec = build_field(cfg, ModelFlags(**TRAIN_FLAGS), device="cuda",
+                       seed=seed).hash_encoder.bspec
+    torch.cuda.empty_cache()
+    key_sort_phase(spec, seed, cfg.sample_budget, sort_keys, others)
+    print(json.dumps({"ok": True}))
+
+
+def repro_kernels_main(work, seed):
+    """Phase 18's kernel part (repro_kernel_phase) in its own process
+    (_fresh_process_phase), on the 3D, cell-layout and hash4d fields'
+    specs; the result to work/out.json."""
+    import torch
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.utils.bench import HASH4D_FLAGS, TRAIN_FLAGS
+
+    cfg = dnerf_config()
+    specs = [build_field(c, ModelFlags(**fl), device="cuda",
+                         seed=seed).hash_encoder.bspec
+             for c, fl in ((cfg, TRAIN_FLAGS),
+                           (dataclasses.replace(cfg, row_layout="cell",
+                                                fine_table_rows=65536),
+                            TRAIN_FLAGS), (cfg, HASH4D_FLAGS))]
+    torch.cuda.empty_cache()
+    out = repro_kernel_phase(*specs, seed, cfg.sample_budget)
+    with open(os.path.join(work, "out.json"), "w") as fh:
+        json.dump(out, fh, default=str)
 
 
 # the steady-state steps of the reference step phase (hash3d), each as
@@ -2102,8 +2294,9 @@ def hypernerf_phase(seed, steps=HYPER_STEPS, k=HYPER_K):
     # occupancy update of step 336, the two profiled steps none (profiling
     # a whole chunk's ~60,000 launches took ~40 s of host time)
     t0 = time.perf_counter()
-    dev_ms, rows = device_ms(trainer.run_step, 2)      # per call
+    dev_ms, rows, seen = device_ms(trainer.run_step, 2)      # per call
     out["train"]["device_ms_per_step"] = dev_ms
+    out["train"]["device_calls_seen"] = seen
     out["train"]["device_top"] = [(n[:60], c / 2, ms / 2)
                                   for n, c, ms in rows[:8]]
     secs["device_ms"] = time.perf_counter() - t0
@@ -2506,8 +2699,9 @@ def train_real_phase(seed, scanned_steady_ms):
                           cfg, flags, ds, seed=42, device="cuda",
                           device_sampler=ds.device_sampler("cuda"))
         trainer.resume(ckpt)
-        dev_ms, rows = device_ms(trainer.run_step, 2)
+        dev_ms, rows, seen = device_ms(trainer.run_step, 2)
         out["train"]["device_ms_per_step"] = dev_ms
+        out["train"]["device_calls_seen"] = seen
         out["train"]["device_top"] = [(n[:60], c / 2, ms / 2)
                                       for n, c, ms in rows[:6]]
         del trainer, ds
@@ -3073,8 +3267,8 @@ def _cell_step_readings(trainer, spec):
     from cednerf_torch.utils.bench import device_ms
 
     k = trainer.steps_per_call
-    dev, rows = device_ms(trainer.run_chunk, 1)
-    out = {"device_ms_per_step": dev / k,
+    dev, rows, seen = device_ms(trainer.run_chunk, 1)
+    out = {"device_ms_per_step": dev / k, "device_calls_seen": seen,
            "kernels_per_step": sum(calls for _, calls, _ in rows) / k,
            "k6c_device_ms_per_step": sum(
                ms for name, _, ms in rows if "encode_bwd_kernel" in name) / k,
@@ -3549,11 +3743,12 @@ def _prop_run(label, trainer, steps, sync_check=False):
     loop = make_prop_train_loop(trainer.field, trainer.props, trainer.cfg,
                                 trainer.flags, trainer.pcfg, trainer.n_rays,
                                 trainer.device_sampler[1], k)
-    dev, rows = device_ms(lambda: loop(trainer.state,
-                                       trainer.device_sampler[0],
-                                       trainer.generator, trainer.step), 1)
+    dev, rows, seen = device_ms(lambda: loop(trainer.state,
+                                             trainer.device_sampler[0],
+                                             trainer.generator,
+                                             trainer.step), 1)
     ms = [r["ms"] / r["steps"] for r in recs]
-    out.update(device_ms_per_step=dev / k,
+    out.update(device_ms_per_step=dev / k, device_calls_seen=seen,
                profile_s=time.perf_counter() - t0,
                device_top=[(n[:60], c / k, t / k) for n, c, t in rows[:8]],
                steps=trainer.step, chunks=chunks,
@@ -3956,9 +4151,9 @@ def blocked_compact_phase(budget, seed):
                     lambda: ck.compact_select(valid, bud, nbk), 3)
                 view = valid.reshape(nbk, -1)
                 rec["library_ms"] = cuda_ms(lambda: torch.nonzero(view), 20)
-                rec["device_ms"], rows_k = device_ms(
+                rec["device_ms"], rows_k, rec["calls_seen"] = device_ms(
                     lambda: ck.compact_select_kernel(valid, bud, nbk), 20)
-                rec["library_device_ms"], _ = device_ms(
+                rec["library_device_ms"], _, _ = device_ms(
                     lambda: torch.nonzero(view), 20)
                 rec["one_block_ms"] = cuda_ms(
                     lambda: ck.compact_select_kernel(valid, bud), 20)
@@ -4034,15 +4229,16 @@ def dp_rank_main(rank, work_dir, seed):
                 "grads": {n: p.grad.cpu()
                           for n, p in tr.field.named_parameters()},
                 "occs": tr.state.occ.occs.cpu(),
-                "binaries": tr.state.occ.binaries.cpu()},
+                "binaries": tr.state.occ.binaries.cpu(),
+                "state": {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in _snapshot(tr, m).items()}},
                os.path.join(work_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
 
 
-def _two_ranks(seed, ref_field, ref_metrics):
-    """Two rank processes on this card (dp_rank_main), then: their
-    parameters, occupancy grids and metrics bit-equal, and the pair
-    against the one-process compact_blocks=2 chunk at phase 6's limits."""
+def _rank_pair(seed):
+    """The two rank processes of dp_rank_main on this card, from `seed`:
+    what each saved."""
     import subprocess
     import tempfile
 
@@ -4050,7 +4246,6 @@ def _two_ranks(seed, ref_field, ref_metrics):
 
     work = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     here = os.path.abspath(__file__)
-    t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, here, "--dp_rank", str(rank), "--dp_dir", work,
          "--seed", str(seed)], stdout=subprocess.PIPE,
@@ -4066,8 +4261,21 @@ def _two_ranks(seed, ref_field, ref_metrics):
         if p.returncode != 0:
             raise AssertionError(f"dp rank exited {p.returncode}:\n"
                                  f"{o[-4000:]}")
-    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
-             for r in range(2)]
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def _two_ranks(seed, ref_field, ref_metrics):
+    """Two rank processes on this card (dp_rank_main), then: their
+    parameters, occupancy grids and metrics bit-equal, and the pair
+    against the one-process compact_blocks=2 chunk at phase 6's limits;
+    then the pair once more from the same seed, each rank bit-equal to its
+    first run in parameters, occupancy grid, Adam state and chunk_log
+    (_snapshot)."""
+    import torch
+
+    t0 = time.perf_counter()
+    ranks = _rank_pair(seed)
     r0, r1 = ranks
     same = (all(torch.equal(v, r1["params"][k])
                 for k, v in r0["params"].items())
@@ -4089,6 +4297,17 @@ def _two_ranks(seed, ref_field, ref_metrics):
     if any(v for x in ranks for v in x["plain"].values()):
         raise AssertionError(f"dp ranks: plain versions on CUDA "
                              f"{[x['plain'] for x in ranks]}")
+    t1 = time.perf_counter()
+    again = _rank_pair(seed)
+    diff = {r: _state_diff(ranks[r]["state"], again[r]["state"])
+            for r in range(2)}
+    rec.update(second_run_s=time.perf_counter() - t1,
+               second_run_bit_equal=not any(diff.values()),
+               second_run_names=len(ranks[0]["state"]))
+    log(f"phase 17: the gloo pair's second run: {rec['second_run_s']:.1f} s")
+    if any(diff.values()):
+        raise AssertionError(f"two gloo ranks, two runs of one seed: "
+                             f"differ in {diff}")
     return rec
 
 
@@ -4197,9 +4416,10 @@ def dp_phase(seed):
             t0 = time.perf_counter()
             tr.run_chunk()
             host = (time.perf_counter() - t0) * 1e3 / DP_K
-            dev, _ = device_ms(tr.dispatch_chunk, 1)
+            dev, _, seen = device_ms(tr.dispatch_chunk, 1)
             timing[tag] = {"host_ms_per_step": host,
-                           "device_ms_per_step": dev / DP_K}
+                           "device_ms_per_step": dev / DP_K,
+                           "device_calls_seen": seen}
         reset_counts()
         syncs = _sync_checked_chunk(mesh_tr)
         launches, plain = all_counts()
@@ -4369,6 +4589,37 @@ def _k6_keys(rows, g, level_rows, F):
                            torch.int32).contiguous()
 
 
+def _segment_sum_inputs(keys, x, g, scales, nbs, F, n_table):
+    """The ordered reduce's function as one library call takes it:
+    (terms [E, F] f32, lengths [n_table * 64] int64) for
+    torch.segment_reduce(terms, "sum", lengths=...) -> [n_table * 64, F],
+    the table gradient [n_table, 64F]. Each (sample, level) of K6's keys
+    [L, N] gives its cell's 8 corner terms w * g (w = wx * wy * wz, the
+    corner dx*16 + dy*4 + dz of the brick row), keyed key * 64 + corner and
+    sorted stably; dropped keys left out."""
+    import torch
+    from cednerf_torch.ops.encode_kernels import cell_geom
+    L, n = keys.shape
+    d = torch.arange(8, device=x.device)
+    bits = torch.stack([(d >> 2) & 1, (d >> 1) & 1, d & 1], dim=1)
+    ck, terms = [], []
+    for lvl in range(L):
+        _, _, intra, frac = cell_geom(x, scales[lvl], nbs[lvl])
+        w3 = torch.where(bits[None] == 1, frac[:, None, :],
+                         1.0 - frac[:, None, :])              # [N, 8, 3]
+        w = w3[..., 0] * w3[..., 1] * w3[..., 2]
+        corner = ((intra[:, None, :] + bits[None]) *
+                  torch.tensor([16, 4, 1], device=x.device)).sum(-1)
+        k = keys[lvl].long()
+        ok = k < n_table
+        ck.append((k[ok, None] * 64 + corner[ok]).reshape(-1))
+        terms.append((w[ok, :, None] * g[ok, lvl * F:(lvl + 1) * F]
+                      .float()[:, None, :]).reshape(-1, F))
+    sk_, order = torch.sort(torch.cat(ck), stable=True)
+    lengths = torch.bincount(sk_, minlength=n_table * 64)
+    return torch.cat(terms)[order].contiguous(), lengths
+
+
 def _carry_bytes(keys, tile, width, n_keys):
     """The carry pass's bytes on these sorted keys: the head partial of
     each tile edge that a run crosses and the tail partial of each run's
@@ -4529,7 +4780,7 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                         cell_offs),
                     "scatter_add_rows": lambda: sk.scatter_add_rows_plain(
                         rows4, upd4, n_rows4)}[name], 3)
-                dev, krows = device_ms(call, 5)
+                dev, krows, _ = device_ms(call, 5, need_all=True)
                 rec["device_ms"] = dev
                 rec["device_by_kernel"] = [list(r) for r in krows[:8]]
             if name == "scatter_add_rows":
@@ -4580,8 +4831,8 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                    keys, x, g, scales, nbs, F, d_t), 20)}
         if red["err_frac"] > BWD_TABLE_FRAC:
             raise AssertionError(f"table_reduce {label}: {red}")
-        dev, krows = device_ms(lambda: ek.table_reduce(
-            keys, x, g, scales, nbs, F, d_t), 5)
+        dev, krows, _ = device_ms(lambda: ek.table_reduce(
+            keys, x, g, scales, nbs, F, d_t), 5, need_all=True)
         red["device_by_kernel"] = [list(r) for r in krows[:8]]
         for kname, key in (("table_reduce_kernel", "reduce_device_ms"),
                            ("carry_kernel", "carry_device_ms"),
@@ -4590,6 +4841,19 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
         red["plain_ms"] = cuda_ms(lambda: ek.table_reduce_plain(
             keys, x, g, scales, nbs, F, d_t), 3) if label == "uniform" \
             else None
+        # the library call for the same sums: segment_reduce over the
+        # sorted corner terms (their build and sort not timed)
+        terms, lengths = _segment_sum_inputs(keys, x, g, scales, nbs, F,
+                                             n_table)
+        lib_t = torch.segment_reduce(terms, "sum", lengths=lengths,
+                                     unsafe=True).view(n_table, 64 * F)
+        red["library_err_frac"] = _frac_err(lib_t, want_t)
+        if red["library_err_frac"] > BWD_TABLE_FRAC:
+            raise AssertionError(f"segment_reduce {label}: error "
+                                 f"{red['library_err_frac']}")
+        red["library_ms"] = cuda_ms(lambda: torch.segment_reduce(
+            terms, "sum", lengths=lengths, unsafe=True), 20)
+        del terms, lengths, lib_t
         valid = int((flat != torch.iinfo(torch.int32).max).sum())
         # the sorted keys and indices read, x and g read, d_table written
         red_b = (flat.numel() * 12 + n * 12 + g.numel() * 2
@@ -4952,20 +5216,10 @@ def repro_phase(seed, lego_ref=None):
     phase 14's run `lego_ref` (its chunks and eval_psnrs), or with no
     phase 14 run, twice at once."""
     import torch
-    from cednerf_torch.engine.cli import build_field
-    from cednerf_torch.engine.config import ModelFlags, dnerf_config
-    from cednerf_torch.utils.bench import HASH4D_FLAGS, TRAIN_FLAGS
 
     t_phase = time.perf_counter()
-    cfg = dnerf_config()
-    specs = [build_field(c, ModelFlags(**fl), device="cuda",
-                         seed=seed).hash_encoder.bspec
-             for c, fl in ((cfg, TRAIN_FLAGS),
-                           (dataclasses.replace(cfg, row_layout="cell",
-                                                fine_table_rows=65536),
-                            TRAIN_FLAGS), (cfg, HASH4D_FLAGS))]
     torch.cuda.empty_cache()
-    out = {"kernels": repro_kernel_phase(*specs, seed, cfg.sample_budget)}
+    out = {"kernels": _fresh_process_phase("--repro_kernels", seed)}
     out["train"] = repro_train_phase(seed)
     lego_path = os.path.join("results", "repro_lego.json")
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
@@ -5209,6 +5463,17 @@ def main(argv=None):
     ap.add_argument("--audit", action="store_true",
                     help="run phase 18's determinism audit (audit_main; "
                          "started by phase 18 itself)")
+    ap.add_argument("--sort_phase", default="",
+                    help="run phase 8b in this directory (sort_phase_main; "
+                         "started by the whole run)")
+    ap.add_argument("--repro_kernels", default="",
+                    help="run phase 18's kernel part in this directory "
+                         "(repro_kernels_main; started by phase 18)")
+    ap.add_argument("--sort_ab", action="append", default=[],
+                    metavar="DIR",
+                    help="only time phase 8b's sorts against the key_sort "
+                         "of the checkout at DIR, in turns (sort_ab_main; "
+                         "repeatable)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5224,6 +5489,15 @@ def main(argv=None):
         return 0
     if args.audit:
         return audit_main(args.seed)
+    if args.sort_phase:
+        sort_phase_main(args.sort_phase, args.seed)
+        return 0
+    if args.repro_kernels:
+        repro_kernels_main(args.repro_kernels, args.seed)
+        return 0
+    if args.sort_ab:
+        sort_ab_main(args.sort_ab, args.seed)
+        return 0
     if args.lego_runs or args.lego_seeds:
         from cednerf_torch.ops.cuda_build import build_all
         from cednerf_torch.utils.bench import card_name
@@ -5306,7 +5580,7 @@ def main(argv=None):
     log(json.dumps({"scanned_training": scanned}))
     log(f"scanned training: {time.perf_counter() - t0:.1f} s")
 
-    k3, tri_keys = scatter_kernel_phase(cfg, args.seed)
+    k3, sort_keys = scatter_kernel_phase(cfg, args.seed)
     k3_keys = ("m", "w", "n_rows", "tile", "max_abs_err", "err_frac", "ms",
                "plain_ms", "library_ms", "library_det_ms", "bound_ms",
                "algo_bound_ms")
@@ -5316,10 +5590,12 @@ def main(argv=None):
                           ("row_form", "hashed level, row form"),
                           ("ragged", "ragged random rows"),
                           ("triplane", "tri-plane texels"))})
-    sorts = key_sort_phase(spec3d, args.seed, cfg.sample_budget, tri_keys)
-    del tri_keys
+    torch.cuda.empty_cache()
+    sorts = _fresh_process_phase("--sort_phase", args.seed, sort_keys)
+    del sort_keys
     kern["key_sort"] = dict(sorts["k6 uniform"], by_case={
         case: {k: r[k] for k in ("m", "n_keys", "passes", "ms", "device_ms",
+                                 "kernels_a_sort",
                                  "library_ms", "library_device_ms",
                                  "bound_ms", "algo_bound_ms")}
         for case, r in sorts.items()})
@@ -5365,11 +5641,11 @@ def main(argv=None):
             for inp in ("uniform", "ray_major", "one_brick")}
     red = rk["table_reduce/uniform"]
     kern["table_reduce"] = dict(
-        red, ms=red["reduce_device_ms"], library_ms=None,
+        red, ms=red["reduce_device_ms"],
         by_input={inp: {k: rk[f"table_reduce/{inp}"].get(k) for k in (
             "reduce_device_ms", "carry_device_ms", "sort_device_ms",
             "sort_ms", "torch_sort_ms", "ms_with_sort", "bound_ms",
-            "strict_chain_ms", "two_level_ms")}
+            "library_ms", "strict_chain_ms", "two_level_ms")}
             for inp in ("uniform", "ray_major", "one_brick")})
     for name in ("table_carry", "scatter_carry"):
         # timed where the carry has work: all samples in one level-0 brick

@@ -505,14 +505,19 @@ def _torch_sort(keys, n_keys, lib=None):
     (0, 5, "random"), (1, 1, "random"), (100003, 82976, "random"),
     (4097, 300, "equal"), (70001, 3145728, "sorted"),
     (262145, 2 ** 24, "random"), (5000, 2 ** 31 - 1, "random"),
-    (300000, 1000, "dropped")])
+    (300000, 1000, "dropped"), (16385, 82976, "random"),
+    (1000, 82976, "random"), (20000, 1, "random"),
+    (40000, 2 ** 31 - 1, "random"), (49157, 1000, "all dropped"),
+    (600001, 4194304, "random")])
 @pytest.mark.parametrize("lib", ["scatter_add_rows", "brick_encode_bwd"])
 def test_key_sort_matches_torch_sort(m, n_keys, case, lib):
     """The key-width sort from either library that exports it: the sorted
     keys and the permutation equal torch.sort(stable=True)'s bit for bit
     (out-of-range keys mapped to n_keys first): random keys with negative
     ones, keys >= n_keys and INT_MAX among them, all-equal, sorted keys,
-    1 to 31 key bits, M 0, 1 and not a multiple of a sort block."""
+    1 to 31 key bits, M 0, 1, below one block, one past a tile (a
+    cluster's keys) and not a multiple of a sort block, every key dropped
+    over several tiles."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     gen = torch.Generator(device="cuda").manual_seed(m)
@@ -525,6 +530,8 @@ def test_key_sort_matches_torch_sort(m, n_keys, case, lib):
         keys = torch.sort(keys)[0]
     elif case == "dropped":
         keys[::3] = 2 ** 31 - 1
+    elif case == "all dropped":
+        keys = torch.where(keys % 2 == 0, 2 ** 31 - 1, -1 - keys.abs())
     library = {"scatter_add_rows": sk._LIB, "brick_encode_bwd": ek._BWD}[lib]
     sk.reset_counts()
     got = sk.key_sort(keys, n_keys, library)

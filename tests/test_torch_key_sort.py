@@ -1,14 +1,15 @@
 """The stable key-width sort in front of the ordered reduce, and the 4D
 brick levels' corner entries that K3 now takes.
 
-  * key_sort_plain (csrc/key_sort.cuh pass by pass: per-block digit
-    counts, their digit-major scan, ranks within a block) gives
-    torch.sort(stable=True)'s permutation and sorted keys bit for bit,
-    with keys outside [0, n_keys) mapped to the drop value n_keys: M from
-    0 to a few thousand (not a multiple of any block), 1-31 key bits,
-    equal, sorted and reversed keys, negative keys, keys >= n_keys and
-    INT_MAX; its plan (bits, passes, digit bits); the wrapper on CPU
-    tensors is the plain version;
+  * key_sort_plain (csrc/key_sort.cuh pass by pass: every pass's digit
+    totals from one read, per-tile digit counts, their scan over the tiles
+    digit by digit, ranks within a tile) gives torch.sort(stable=True)'s
+    permutation and sorted keys bit for bit, with keys outside [0, n_keys)
+    mapped to the drop value n_keys: M from 0 to a few thousand (not a
+    multiple of any block), several tiles, one past a tile and below one
+    block, 1-31 key bits, equal, sorted and reversed keys, negative keys,
+    keys >= n_keys and INT_MAX; its plan (bits, passes, digit bits); the
+    wrapper on CPU tensors is the plain version;
   * the 4D brick level's corner entries ([2N*8, F] at key keyframe row *
     64 + corner) sum to the same table gradient as the [2N, 64F] update
     rows they replace, through K3's plain version, bit for bit (adding
@@ -54,12 +55,13 @@ def _check(keys, n_keys):
 
 
 @pytest.mark.parametrize("n_keys,plan", [
-    (1, (1, 1, 1)), (2, (2, 1, 2)), (255, (8, 1, 8)), (256, (9, 2, 5)),
-    (82_976, (17, 3, 6)), (3_145_728, (22, 3, 8)), (4_194_304, (23, 3, 8)),
-    (2 ** 24, (25, 4, 7)), (INT_MAX, (31, 4, 8))])
+    (1, (1, 1, 1)), (2, (2, 1, 2)), (255, (8, 1, 8)), (256, (9, 1, 9)),
+    (82_976, (17, 2, 9)), (3_145_728, (22, 3, 8)), (4_194_304, (23, 3, 8)),
+    (2 ** 24, (25, 3, 9)), (INT_MAX, (31, 4, 8))])
 def test_sort_plan(n_keys, plan):
-    """bits = bit_length(n_keys) (the drop value n_keys included), 8-bit
-    passes at most, the digit split evenly over them."""
+    """bits = bit_length(n_keys) (the drop value n_keys included), 9-bit
+    passes at most, the digit split evenly over them: K6's 17-bit keys in
+    2 passes, the tri-plane's and hash4d's 22-23 bits in 3 of 8."""
     assert sk.sort_plan(n_keys) == plan
 
 
@@ -82,13 +84,17 @@ def test_key_sort_plain_matches_torch_sort(m, bits, seed, out_frac):
 
 @pytest.mark.parametrize("case", ["all equal", "sorted", "reversed",
                                   "all dropped", "three blocks",
-                                  "one key", "block edge"])
+                                  "one key", "block edge", "tile edge",
+                                  "below one block", "31 bits",
+                                  "one bit past a tile"])
 def test_key_sort_plain_special_keys(case):
-    """All-equal keys (one run through every block), already sorted and
-    reversed keys, every key dropped, M over several sort blocks and not a
-    multiple of one, n_keys = 1, and M one past a block."""
+    """All-equal keys (one run through every tile), already sorted and
+    reversed keys, every key dropped, M over several sort tiles and not a
+    multiple of one, n_keys = 1, M one past a block, M one past a tile
+    (a cluster's keys), M below one block, 31-bit keys over several tiles,
+    and 1-bit keys one past a tile."""
     rng = np.random.default_rng(5)
-    n_keys, m = 1000, 2 * sk.SORT_BLOCK_KEYS + 77
+    n_keys, m = 1000, 2 * sk.SORT_TILE_KEYS + 77
     keys = {
         "all equal": np.full(m, 17),
         "sorted": np.sort(rng.integers(0, n_keys, m)),
@@ -97,8 +103,13 @@ def test_key_sort_plain_special_keys(case):
         "three blocks": rng.integers(-2, n_keys + 2, m),
         "one key": rng.integers(-1, 2, m),
         "block edge": rng.integers(0, 3, sk.SORT_BLOCK_KEYS + 1),
+        "tile edge": rng.integers(-1, n_keys + 1, sk.SORT_TILE_KEYS + 1),
+        "below one block": rng.integers(0, n_keys, sk.SORT_BLOCK_KEYS - 5),
+        "31 bits": rng.integers(-5, INT_MAX, m),
+        "one bit past a tile": rng.integers(-1, 2, sk.SORT_TILE_KEYS + 1),
     }[case]
-    _check(keys, 1 if case == "one key" else n_keys)
+    _check(keys, {"one key": 1, "one bit past a tile": 1,
+                  "31 bits": INT_MAX}.get(case, n_keys))
 
 
 def test_key_sort_on_cpu_is_the_plain_version():
