@@ -58,13 +58,14 @@
 //     (offset_l + r) or, for K6c's cell levels, the cell row (see below), or
 //     INT_MAX when its cotangent is all zero (an unused budget slot: its
 //     loads are skipped and its terms dropped).
-//   * the table gradient, in table_reduce_kernel<F> and the carry pass of
-//     csrc/ordered_reduce.cuh: the keys sorted stably (csrc/key_sort.cuh,
-//     exported below as key_sort: int32 keys and index), each
-//     key's terms w_c * g are formed again from x and g and summed in sorted
-//     order (ascending sample order within a key), each output row stored
-//     once by one warp (the destinations are zero there). No float
-//     atomics.
+//   * the table gradient, in table_reduce_kernel<F>, the ordered reduce of
+//     csrc/ordered_reduce.cuh with its carry folded in: the keys sorted
+//     stably (csrc/key_sort.cuh, exported below as key_sort: int32 keys
+//     and index), each key's terms w_c * g formed again from x and g and
+//     summed in sorted order (ascending sample order within a key), each
+//     output row stored once. The reduce writes every row of the table
+//     gradient, zeros where no key lands, so the wrapper does not fill it.
+//     No float atomics.
 //
 // K6 and K2 are one kernel, encode_bwd_kernel<F, Rows>, templated on where
 // the brick row of a (sample, level) lies: row r of level l in the flat
@@ -77,29 +78,31 @@
 // of its cell through the read-only path (zline.cuh, as K5 and K1: 128 B at
 // F = 4, not 8 separate corners).
 //
-// The reduce. One warp walks a tile of `tile` sorted entries, 32 at a time:
-// each lane first takes one entry (its sample's x and g, its level's
-// geometry, its 8 corner weights), leaves them in shared memory, then the
-// warp adds the 32 entries in order, one lane a (corner, feature): at F = 4
-// the 8 x 4 lanes of an entry are the warp. The run's row of 64F lanes is
-// held in shared memory (1 KB at F = 4); only the current run's row, not a
-// level's gradient (level 0's alone is 216 x 256 x 4 B = 221 KB, a whole
-// SM's shared memory). A __syncwarp after each entry orders the adds of
-// two lanes to one corner.
+// The reduce. One warp walks a tile of `tile` sorted entries, 32 at a
+// time: each lane takes one entry (its sample's x and g, its level's
+// geometry) and the warp adds the 32 entries in order, the terms routed to
+// their lanes by shuffles and summed in registers (see the note above
+// table_reduce_kernel). Its earlier form kept the run's row in
+// shared memory, one lane a (corner, feature) and a __syncwarp after each
+// entry, loaded each batch's keys, perm, x and g before adding it and found
+// the level by a 64-bit division: 0.183 device-ms on K6's 2.1 M uniform
+// entries (L8 F4, N = 262,144) against its 0.041-ms byte bound, then a
+// carry launch of 0.053, and the wrapper's zero fill of the table gradient
+// before it, 0.027 (88,968 rows x 1 KB at the bench encoder). This form,
+// its carry and the fill folded in: 0.191 device-ms, and K6 0.390 ms by
+// events against the earlier form's 0.463 (an NVIDIA H100 80GB HBM3 at
+// 700 W, chip_smoke.py --sort_ab in turns with the earlier form). It is
+// bound by instruction issue, not bytes: an entry costs each lane 6
+// shuffles and an 8-way predicated add, integer instructions first.
 //
 // What bounds the backward: its needed bytes. x, g, rows and the table (or
 // K2's gathered rows) read, d_table and d_x written once: 0.050 ms at N =
 // 262,144, L8 F4 and 3.35 TB/s. This design adds the sort's keys (4 B a
 // term written by the d_x kernel, 4 + 4 B of sorted key and index written
-// by the sort and read by the reduce): 0.068 ms with them. On an H100
-// 80GB HBM3 at 700 W (chip_smoke.py phases 3 and 18) K6 took 0.53 ms on
-// uniform samples with torch.sort (0.165 of it, four 8-bit passes and a
-// 64-bit index), this file's d_x kernel ~0.09 and reduce ~0.11 device-ms,
-// the carry pass ~0.04. A form that added the terms with 16.8M float4 atomics
-// took 0.448 ms there (bound by the atomics in the L2) and gave other bits
-// on every run. The reduce stores a finished row: with a read-modify-write
-// there it read 0.220 device-ms, with the store 0.110-0.148 (phase 18 of
-// separate runs): the load sat on each warp's serial path.
+// by the sort and read by the reduce): 0.068 ms with them. A form that
+// added the terms with 16.8M float4 atomics took 0.448 ms there (bound by
+// the atomics in the L2, an NVIDIA H100 80GB HBM3 at 700 W) and gave other
+// bits on every run.
 //
 // What bounds K2 beyond K6: its rows are read once and never by another
 // thread, so the z-lines come from HBM, not from a table mostly held in the
@@ -191,11 +194,12 @@ enum class Rows { kTable, kGathered };
 // 8F-lane row (8 consecutive corners, one 128-byte line at F = 4). Levels
 // with lv.cell[l] < 0 keep K6's brick target in the same launch. d_cell is
 // a buffer that the wrapper keeps resident and all zero between calls:
-// the reduce adds into it and fold_cells (below), which rounds and folds
-// the cell rows as JAX's expansion transpose does, writes the zeros back
-// as it reads them, so no call fills the 113 MB (2 x 16,384 rows x 27 x
-// 128 B at the bench encoder's cell levels) and the brick table gradient
-// is filled only on the brick levels.
+// the reduce stores a key's row into it and fold_cells (below), which
+// rounds and folds the cell rows as JAX's expansion transpose does, writes
+// the zeros back as it reads them, so no call fills the 113 MB (2 x 16,384
+// rows x 27 x 128 B at the bench encoder's cell levels). The table
+// gradient is not filled either: the reduce writes the brick levels' rows
+// (zeros where no key lands) and fold_cells the cell levels'.
 //
 // The d_x kernel: x [N, 3] f32, g [N, L*F] bf16, rows [L, N] i32
 // (level-local), src the table or the gathered rows (bf16) -> d_x [N, 3]
@@ -294,13 +298,158 @@ __global__ void __launch_bounds__(kBwdSamples * kMaxLevels)
 
 // The table-gradient reduce of K6, K6c and K2 (see the notes at the top and
 // in csrc/ordered_reduce.cuh). keys [E] i32 sorted, perm [E] i32: entry p
-// is (sample i, level l) with perm[p] = l*N + i. Destination: d.a the flat
-// table gradient [n_table, 64F], d.b the cell rows [*, 8F] (K6c), each
-// zero where a key lands (a key's row is stored); part [2, tiles, 64F] the
-// tiles' partial rows for the carry pass. A term is w_c * g[f] in f32 (w_c = wx * (wy * wz), the plain
-// version's order), or at a cell key the JAX cell levels' bf16 form
-// bf16(bf16(bf16(wx * wy) * wz) * g[f]) of the bf16 axis weights.
+// is (sample i, level l) with perm[p] = l*N + i, and l follows from the key
+// (level l's keys lie in its rows, a cell level's in its cell rows: a few
+// compares against lv, no division). Destination: d.a the flat table
+// gradient [n_table, 64F], d.b the cell rows [*, 8F] (K6c), each key's row
+// stored; c.part [2, tiles, 64F] the crossing runs' partial rows. A term is
+// w_c * g[f] in f32 (w_c = wx * (wy * wz), the plain version's order), or
+// at a cell key the JAX cell levels' bf16 form bf16(bf16(bf16(wx * wy) *
+// wz) * g[f]) of the bf16 axis weights.
+//
+// One warp a tile of `tile` sorted entries, walked in batches of 32. Lane
+// q loads entry q of a batch (its key and perm from a ring of kStage
+// batches that cp.async keeps in flight, copied by the lane that reads
+// them, so no barrier publishes them; then x and g, issued a batch ahead
+// of the adds), finds its geometry and hands it to the warp by shuffles:
+// an info word (each lane's corner slot, the intra-cell bits, valid, cell
+// and new-run flags), the three fractions and g. The run's row is held in
+// registers: lane p*F + f owns the 8 corners of parity p = (x&1, y&1, z&1)
+// at feature f (acc[s], s = (x>>1, y>>1, z>>1)); an entry's 8 corners have
+// the 8 parities, so each term lane adds one term an entry, into its own
+// register, in sorted order. A cell row's 8F lanes are lane d*F + f, acc[0].
+// No shared-memory read-modify-write and no barrier between two entries.
+//
+// Every row of d.a inside sp's spans is written once: a key's row by its
+// run (or by the folded carry), every other row with zeros. The gap after
+// key k up to the next key k2 belongs to the tile where k's run ends; it
+// writes the gap's rows that lie in the kZeroChunk-row chunks of k and of
+// k2. A chunk that holds no key is written by a zero warp (the warps after
+// the tiles': one a chunk, which finds that it holds no key by one search
+// of the keys), so a wide gap (samples in one brick leave most of the table
+// untouched) is spread over many warps.
 constexpr int kReduceWarps = 4;
+constexpr int kStage = 8;        // batches of keys and perm in flight a warp
+constexpr int kZeroChunk = 128;  // rows of d.a a zero warp takes
+constexpr unsigned kInfoValid = 1u << 27, kInfoCell = 1u << 28,
+                   kInfoNewRun = 1u << 29;
+// The info bits 3p + 2 - a of the parities p whose bit on axis a
+// (p >> (2 - a) & 1) is v.
+__host__ __device__ constexpr unsigned slot_bits(int a, int v) {
+  unsigned m = 0;
+  for (int p = 0; p < 8; ++p)
+    if (((p >> (2 - a)) & 1) == v) m |= 1u << (3 * p + 2 - a);
+  return m;
+}
+
+// Rows [lo, hi) of d.a that the reduce writes (the brick levels'; K6c's
+// cell levels' rows are fold_cells'), n spans.
+struct Spans {
+  int n;
+  long long lo[kMaxLevels], hi[kMaxLevels];
+};
+
+__device__ __forceinline__ void cp_async4(int* smem, const int* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_stage() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStage - 1) : "memory");
+}
+
+// Zeros into rows [a, b) of d.a within the spans, by one warp.
+__device__ __forceinline__ void zero_rows(const ordered::Dest& d,
+                                          const Spans& sp, long long a,
+                                          long long b, int lane) {
+  for (int s = 0; s < sp.n; ++s) {
+    const long long lo = max(a, sp.lo[s]), hi = min(b, sp.hi[s]);
+    if (lo >= hi) continue;
+    float4* p = reinterpret_cast<float4*>(d.a + lo * d.w_a);
+    const long long n4 = (hi - lo) * d.w_a / 4;
+    for (long long u = lane; u < n4; u += 32)
+      p[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+// The gap after key k (0 <= k < n_a) up to k2 (the next key, or anything
+// >= n_a when no row of d.a follows): its rows in k's chunk and, when k2 is
+// a row of d.a, in k2's.
+__device__ __forceinline__ void zero_gap(const ordered::Dest& d,
+                                         const Spans& sp, long long k,
+                                         long long k2, int lane) {
+  const long long hi = min(k2, d.n_a);
+  const long long ce = (k / kZeroChunk + 1) * kZeroChunk;
+  zero_rows(d, sp, k + 1, min(ce, hi), lane);
+  if (k2 < d.n_a) zero_rows(d, sp, max(k2 / kZeroChunk * kZeroChunk, ce), k2,
+                            lane);
+}
+
+// The first p in [0, n) with keys[p] >= v (n if none), by the warp: each
+// round its 32 lanes probe 32 points of the range, so ~log32(n) rounds.
+__device__ __forceinline__ long long warp_lower_bound(const int* keys,
+                                                      long long n,
+                                                      long long v, int lane) {
+  long long lo = 0, hi = n;  // the answer lies in [lo, hi]
+  while (hi > lo) {
+    const long long len = hi - lo;
+    const bool below = __ldg(keys + lo + len * lane / 32) < v;
+    const int c = __popc(__ballot_sync(ordered::kFull, below));
+    if (c == 0) {
+      hi = lo;
+    } else {
+      const long long a = lo + len * (c - 1) / 32;
+      hi = c < 32 ? lo + len * c / 32 : hi;
+      lo = a + 1;
+    }
+  }
+  return lo;
+}
+
+// Zero warp z: rows [z*C, (z+1)*C) of d.a, zeroed if no key lands in them.
+__device__ __forceinline__ void zero_chunk(const int* keys, long long n_entries,
+                                           const ordered::Dest& d,
+                                           const Spans& sp, long long z,
+                                           int lane) {
+  const long long lo = z * kZeroChunk, hi = min(lo + kZeroChunk, d.n_a);
+  const long long p = warp_lower_bound(keys, n_entries, lo, lane);
+  if (p < n_entries && __ldg(keys + p) < hi) return;
+  zero_rows(d, sp, lo, hi, lane);
+}
+
+// The level of a valid key: the last level whose first row (flat table)
+// or first cell row (past n_table) it reaches.
+__device__ __forceinline__ int level_of(const Levels& lv, int n_levels, int k,
+                                        long long n_table) {
+  int l = 0;
+  if (k < n_table) {
+#pragma unroll
+    for (int m = 1; m < kMaxLevels; ++m)
+      if (m < n_levels && k >= lv.offset[m]) l = m;
+  } else {
+    const long long kc = k - n_table;
+#pragma unroll
+    for (int m = 0; m < kMaxLevels; ++m)
+      if (m < n_levels && lv.cell[m] >= 0 && kc >= lv.cell[m]) l = m;
+  }
+  return l;
+}
+
+// One entry as its lane loads it: key, level, x and g's F bf16 values.
+template <int F>
+struct Entry {
+  int key;
+  bool live;  // a key of the destination, inside the tile: loads issued
+  int l;
+  float x[3];
+  unsigned gw[(F + 1) / 2];
+};
 
 template <int F>
 __global__ void __launch_bounds__(kReduceWarps * 32)
@@ -310,99 +459,199 @@ __global__ void __launch_bounds__(kReduceWarps * 32)
                         const float* __restrict__ x,
                         const __nv_bfloat16* __restrict__ g, Levels lv,
                         int n_levels, long long n, ordered::Dest d,
-                        float* __restrict__ part, long long tiles) {
+                        ordered::Carry c, long long tiles, Spans sp,
+                        long long zero_chunks) {
   constexpr int W = 64 * F;
-  __shared__ float s_acc[kReduceWarps][W];
-  __shared__ float s_w[kReduceWarps][32][8];
-  __shared__ float s_g[kReduceWarps][32][F];
-  __shared__ int s_key[kReduceWarps][32];
-  __shared__ int s_base[kReduceWarps][32];
+  constexpr int kG = (F + 1) / 2;
+  __shared__ int s_key[kReduceWarps][kStage][32];
+  __shared__ int s_perm[kReduceWarps][kStage][32];
+  __shared__ ordered::Runs s_runs[kReduceWarps];
   const int wp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long t = (long long)blockIdx.x * kReduceWarps + wp;
-  if (t >= tiles) return;  // a whole warp; the kernel has no block barrier
+  if (t >= tiles) {  // a whole warp; the kernel has no block barrier
+    if (t - tiles < zero_chunks) zero_chunk(keys, n_entries, d, sp,
+                                            t - tiles, lane);
+    return;
+  }
   const ordered::Tile tl = ordered::tile_of(keys, n_entries, t, tile);
-  float* acc = s_acc[wp];
-  for (int c = lane; c < W; c += 32) acc[c] = 0.0f;
-  // lane = corner c * F + f of an entry's 8 corners (lanes >= 8F idle)
-  const int cc = lane / F, ff = lane - (lane / F) * F;
-  const bool term_lane = lane < 8 * F;
+  {  // the tile's crossing runs, their keys' loads in flight together; kept
+     // in shared memory (not registers) until the fold
+    const ordered::Runs runs =
+        ordered::crossing_runs(keys, tl, t, tile, tiles, d);
+    if (lane == 0) s_runs[wp] = runs;
+  }
+  const int batches = (int)((tl.e - tl.s + 31) / 32);
+  // batch b's key and perm of this lane into ring slot b % kStage
+  auto stage = [&](int b) {
+    const long long p = tl.s + (long long)b * 32 + lane;
+    if (b < batches && p < tl.e) {
+      cp_async4(&s_key[wp][b % kStage][lane], keys + p);
+      cp_async4(&s_perm[wp][b % kStage][lane], perm + p);
+    }
+    cp_async_commit();
+  };
+  for (int b = 0; b < kStage; ++b) stage(b);
+  // batch b's entry of this lane, its loads issued; the slot refilled
+  auto load = [&](int b) {
+    Entry<F> e;
+    const long long p = tl.s + (long long)b * 32 + lane;
+    cp_async_wait_stage();
+    e.key = p < tl.e ? s_key[wp][b % kStage][lane] : kNoKey;
+    const int j = s_perm[wp][b % kStage][lane];
+    e.live = p < tl.e && d.valid(e.key);
+    e.l = 0;
+    if (e.live) {
+      e.l = level_of(lv, n_levels, e.key, d.n_a);
+      const long long i = j - (long long)e.l * n;
+      e.live = i >= 0 && i < n;  // a key outside its level's rows: dropped
+      if (e.live) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) e.x[a] = __ldg(x + i * 3 + a);
+        const __nv_bfloat16* gp = g + i * (n_levels * F) + e.l * F;
+        if constexpr (F == 4) {
+          const uint2 q = __ldg(reinterpret_cast<const uint2*>(gp));
+          e.gw[0] = q.x;
+          e.gw[kG - 1] = q.y;
+        } else if constexpr (F == 2) {
+          e.gw[0] = __ldg(reinterpret_cast<const unsigned*>(gp));
+        } else {
+          e.gw[0] = __ldg(reinterpret_cast<const unsigned short*>(gp));
+        }
+      }
+    }
+    stage(b + kStage);  // after the slot's values were used
+    return e;
+  };
+  const bool term = F == 4 || lane < 8 * F;  // lanes with a term an entry
+  const int par = lane / F, ff = lane - (lane / F) * F;  // parity, feature
+  // g's bf16 of feature ff (byte pair ff & 1 of its word) into the high
+  // half, zeros below; the parity's bits where the info word keeps an
+  // entry's intra-cell bits
+  const unsigned g_perm = (ff & 1) ? 0x3244u : 0x1044u;
+  const unsigned par_bits = (unsigned)(par & 7) << 24;
+  float acc[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) acc[s] = 0.0f;
   int cur = __ldg(keys + tl.s);
   long long run_a = tl.s;
-  // the run [a, b) of key k stored to its row or left as a partial (every
-  // add before a flush is behind a __syncwarp)
-  auto flush = [&](int k, long long a, long long b) {
+  if (t == 0 && sp.n > 0 && cur < d.n_a)  // the rows before the first key
+    zero_rows(d, sp, cur / kZeroChunk * kZeroChunk, cur, lane);
+  // the run [a, b) of key k stored to its row or left as a partial, then
+  // the gap after it when it ends here (next: the key after it)
+  auto flush = [&](int k, long long a, long long b, long long next) {
     if (d.valid(k)) {
       const int target = ordered::run_target(tl, a, b, k);
       float* dst = target == 0 ? d.row(k)
-                               : part + ((target - 1) * tiles + t) * W;
-      const int w = d.width(k);
-      for (int c = lane; c < w; c += 32) {
-        dst[c] = acc[c];
-        acc[c] = 0.0f;
+                               : c.part + ((target - 1) * tiles + t) * W;
+      if (term) {
+        if (k >= d.n_a) {
+          dst[lane] = acc[0];
+        } else {
+#pragma unroll
+          for (int s = 0; s < 8; ++s) {
+            const int corner = ((s >> 2) * 2 + (par >> 2)) * 16 +
+                               (((s >> 1) & 1) * 2 + ((par >> 1) & 1)) * 4 +
+                               (s & 1) * 2 + (par & 1);
+            dst[corner * F + ff] = acc[s];
+          }
+        }
       }
     }
-    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < 8; ++s) acc[s] = 0.0f;
+    const bool ends = b < tl.e || !(tl.has_next && tl.next == k);
+    if (sp.n > 0 && ends && k < d.n_a && next > k + 1)
+      zero_gap(d, sp, k, next, lane);
   };
-  for (long long p0 = tl.s; p0 < tl.e; p0 += 32) {
-    const long long p = p0 + lane;
-    if (p < tl.e) {
-      const int k = __ldg(keys + p);
-      s_key[wp][lane] = k;
-      if (d.valid(k)) {
-        const long long j = __ldg(perm + p);
-        const int l = (int)(j / n);
-        const long long i = j - (long long)l * n;
-        int ia[3];
-        float w[3][2], ok[3];
+  Entry<F> e = load(0);
+  int prev_last = cur;
+  for (int b = 0; b < batches; ++b) {
+    Entry<F> nx = e;
+    if (b + 1 < batches) nx = load(b + 1);  // the next batch's loads fly
+    const long long p0 = tl.s + (long long)b * 32;
+    const int cnt = (int)min((long long)32, tl.e - p0);
+    // this lane's entry for the warp: geometry, slots, flags
+    unsigned info = 0;
+    float fr[3] = {0.0f, 0.0f, 0.0f};
+    if (e.live) {
+      int ia[3];
+      float om, ok;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        axis_geom(e.x[a], lv.scale[e.l], lv.nb[e.l], ia[a], fr[a], om, ok);
+      info = kInfoValid;
+      if (e.key >= d.n_a) {
+        info |= kInfoCell;
+      } else {
+        // parity p's corner on axis a is bit (ia + (p_a ^ (ia & 1))) >> 1
+        // of its slot: 0 for ia 0, 1 for ia 2, 1 - p_a for ia 1 (at bit
+        // 3p + 2 - a of the info word)
 #pragma unroll
         for (int a = 0; a < 3; ++a)
-          axis_geom(__ldg(x + i * 3 + a), lv.scale[l], lv.nb[l], ia[a],
-                    w[a][1], w[a][0], ok[a]);
-        const bool cell = k >= d.n_a;
-        float wb[3][2];
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          wb[a][1] = bf16r(w[a][1]);
-          wb[a][0] = bf16r(1.0f - wb[a][1]);
-        }
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int kx = c >> 2, ky = (c >> 1) & 1, kz = c & 1;
-          s_w[wp][lane][c] =
-              cell ? bf16r(bf16r(wb[0][kx] * wb[1][ky]) * wb[2][kz])
-                   : w[0][kx] * (w[1][ky] * w[2][kz]);
-        }
-#pragma unroll
-        for (int f = 0; f < F; ++f)
-          s_g[wp][lane][f] =
-              __bfloat162float(g[i * (n_levels * F) + l * F + f]);
-        s_base[wp][lane] = cell ? -1 : ia[0] * 16 + ia[1] * 4 + ia[2];
+          info |= ia[a] == 2 ? slot_bits(a, 0) | slot_bits(a, 1)
+                             : (ia[a] == 1 ? slot_bits(a, 0) : 0u);
+        info |= (unsigned)((ia[0] & 1) * 4 + (ia[1] & 1) * 2 + (ia[2] & 1))
+                << 24;
       }
     }
-    __syncwarp();
-    const int cnt = (int)min((long long)32, tl.e - p0);
+    int prev = __shfl_up_sync(ordered::kFull, e.key, 1);
+    if (lane == 0) prev = prev_last;
+    if (lane < cnt && e.key != prev) info |= kInfoNewRun;
+    prev_last = __shfl_sync(ordered::kFull, e.key, 31);
     for (int q = 0; q < cnt; ++q) {
-      const int k = s_key[wp][q];
-      if (k != cur) {
-        flush(cur, run_a, p0 + q);
-        cur = k;
-        run_a = p0 + q;
+      const unsigned inf = __shfl_sync(ordered::kFull, info, q);
+      float f3[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        f3[a] = __shfl_sync(ordered::kFull, fr[a], q);
+      unsigned gq[kG];
+#pragma unroll
+      for (int u = 0; u < kG; ++u)
+        gq[u] = __shfl_sync(ordered::kFull, e.gw[u], q);
+      // g[ff] of the entry: its bf16 moved to the high half of a float
+      const float gv = __uint_as_float(__byte_perm(
+          F == 4 && ff >= 2 ? gq[kG - 1] : gq[0], 0u, g_perm));
+      // this lane's corner of the entry relative to its cell, bit 26 - a
+      // for axis a
+      const unsigned rc = inf ^ par_bits;
+      if ((inf & (kInfoNewRun | kInfoValid | kInfoCell)) != kInfoValid) {
+        if (inf & kInfoNewRun) {
+          const int k = __shfl_sync(ordered::kFull, e.key, q);
+          flush(cur, run_a, p0 + q, k);
+          cur = k;
+          run_a = p0 + q;
+        }
+        if (term && (inf & kInfoCell)) {
+          float wb[3];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            const float b1 = bf16r(f3[a]);
+            wb[a] = rc & (1u << (26 - a)) ? b1 : bf16r(1.0f - b1);
+          }
+          acc[0] = __fadd_rn(acc[0], bf16r(__fmul_rn(
+              bf16r(bf16r(wb[0] * wb[1]) * wb[2]), gv)));
+          continue;
+        }
+        if (!(inf & kInfoValid)) continue;
       }
-      if (term_lane && d.valid(k)) {
-        const int base = s_base[wp][q];
-        float v = __fmul_rn(s_w[wp][q][cc], s_g[wp][q][ff]);
-        int pos = lane;  // a cell row: lane d*F + f
-        if (base >= 0)
-          pos = (base + (cc >> 2) * 16 + ((cc >> 1) & 1) * 4 + (cc & 1)) * F +
-                ff;
-        else
-          v = bf16r(v);
-        acc[pos] = __fadd_rn(acc[pos], v);
+      if (term) {  // a brick key's term into this lane's slot of it
+        float w[3];
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          w[a] = rc & (1u << (26 - a)) ? f3[a] : __fsub_rn(1.0f, f3[a]);
+        const float v = __fmul_rn(w[0] * (w[1] * w[2]), gv);
+        const int slot = (int)(inf >> (3 * par)) & 7;
+#pragma unroll
+        for (int s = 0; s < 8; ++s)
+          if (slot == s) acc[s] = __fadd_rn(acc[s], v);
       }
-      __syncwarp();
     }
+    e = nx;
   }
-  flush(cur, run_a, tl.e);
+  flush(cur, run_a, tl.e, tl.has_next ? (long long)tl.next : d.n_a);
+  __syncwarp();  // lane 0's s_runs[wp] seen by every lane
+  const ordered::Runs runs = s_runs[wp];
+  ordered::fold_carry<2 * F, true>(runs, tiles, d, c, 0, lane, 32);
 }
 
 // K7. The same sums as K2, but the table-gradient terms are not added into a
@@ -752,45 +1001,68 @@ int brick_fused_encode_bwd_cell(const float* x, const void* g,
                                         cell_rows);
 }
 
-// The table-gradient reduce of K6, K6c and K2: keys [E] i32 sorted stably
-// and perm [E] i32 (key_sort's indices into the [L, N] keys), x [N, 3] f32
-// and g [N, L*F] bf16 as given to the first part -> d_table [n_table, 64F]
-// f32 and d_cell [n_cell, 8F] f32 (n_cell 0: none), zero on entry where a
-// key lands (each key's row is stored once); part
-// [2, ceil(E / tile), 64F] f32 scratch, whose partial rows
-// brick_table_carry then adds. Returns cudaGetLastError().
+// The table-gradient reduce of K6, K6c and K2, its carry folded in: keys
+// [E] i32 sorted stably and perm [E] i32 (key_sort's indices into the
+// [L, N] keys, each level's keys in its rows, level_rows [L], or its cell
+// rows, cell_rows [L] i64 as K6c's, NULL for none), x [N, 3] f32 and g
+// [N, L*F] bf16 as given to the first part -> d_table [n_table, 64F] f32,
+// every row written (a key's sum, zeros elsewhere; with cell_rows, the
+// cell levels' rows are left to fold_cells) and d_cell [n_cell, 8F] f32
+// (n_cell 0: none), zero on entry where a key lands (its row is stored);
+// part [2, ceil(E / tile), 64F] f32 scratch for the crossing runs' partial
+// rows, count >= ceil(E / tile) int32 arrival counters, zero on entry and
+// on return. Returns cudaGetLastError().
 int brick_table_reduce(const int* keys, const int* perm,
                        long long n_entries, int tile, const float* x,
                        const void* g, int n_levels, long long n, int n_feat,
                        const float* scales, const int* nbs,
+                       const int* level_rows, const long long* cell_rows,
                        float* d_table, long long n_table, float* d_cell,
-                       long long n_cell, float* part, void* stream) {
+                       long long n_cell, float* part, int* count,
+                       void* stream) {
   Levels lv;
   if (n <= 0 || tile <= 0 || n_entries != n * n_levels ||
-      !bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, nullptr, nullptr))
+      !bwd_args_ok(lv, n, n_levels, n_feat, scales, nbs, level_rows,
+                   cell_rows) ||
+      lv.offset[n_levels - 1] + lv.rows[n_levels - 1] != n_table)
     return static_cast<int>(cudaErrorInvalidValue);
+  Spans sp;
+  sp.n = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    if (lv.cell[l] >= 0 || lv.rows[l] <= 0) continue;
+    if (sp.n > 0 && sp.hi[sp.n - 1] == lv.offset[l]) {
+      sp.hi[sp.n - 1] += lv.rows[l];
+    } else {
+      sp.lo[sp.n] = lv.offset[l];
+      sp.hi[sp.n] = lv.offset[l] + lv.rows[l];
+      ++sp.n;
+    }
+  }
   const long long tiles = (n_entries + tile - 1) / tile;
-  const unsigned int grid =
-      (unsigned int)((tiles + kReduceWarps - 1) / kReduceWarps);
+  const long long zero_chunks =
+      sp.n > 0 ? (n_table + kZeroChunk - 1) / kZeroChunk : 0;
+  const unsigned int grid = (unsigned int)(
+      (tiles + zero_chunks + kReduceWarps - 1) / kReduceWarps);
   const ordered::Dest d = table_dest(d_table, n_table, d_cell, n_cell,
                                      n_feat);
+  const ordered::Carry c{part, 64 * n_feat, count, 1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
   switch (n_feat) {
     case 1:
       table_reduce_kernel<1><<<grid, kReduceWarps * 32, 0, st>>>(
-          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, part,
-          tiles);
+          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, c, tiles,
+          sp, zero_chunks);
       break;
     case 2:
       table_reduce_kernel<2><<<grid, kReduceWarps * 32, 0, st>>>(
-          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, part,
-          tiles);
+          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, c, tiles,
+          sp, zero_chunks);
       break;
     default:
       table_reduce_kernel<4><<<grid, kReduceWarps * 32, 0, st>>>(
-          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, part,
-          tiles);
+          keys, perm, n_entries, tile, x, gb, lv, n_levels, n, d, c, tiles,
+          sp, zero_chunks);
       break;
   }
   return static_cast<int>(cudaGetLastError());
@@ -808,22 +1080,6 @@ int key_sort(const int* keys, long long m, int n_keys, int* keys_out,
 
 long long key_sort_scratch_words(long long m, int n_keys) {
   return keysort::scratch_words(m, n_keys);
-}
-
-// The carry pass after brick_table_reduce, on the same keys, part and
-// destinations. Returns cudaGetLastError().
-int brick_table_carry(const int* keys, long long n_entries, int tile,
-                      const float* part, float* d_table, long long n_table,
-                      float* d_cell, long long n_cell, int n_feat,
-                      void* stream) {
-  if (n_entries <= 0 || tile <= 0 ||
-      !(n_feat == 1 || n_feat == 2 || n_feat == 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return ordered::launch_carry(keys, n_entries, tile, part,
-                               (n_entries + tile - 1) / tile, 64 * n_feat,
-                               table_dest(d_table, n_table, d_cell, n_cell,
-                                          n_feat),
-                               static_cast<cudaStream_t>(stream));
 }
 
 // fold_cells. n_levels cell levels; level k has brick_rows[k] rows, its

@@ -24,7 +24,9 @@
 // each run of one output row in sorted order (ascending i) in registers,
 // then stores it over the zeroed output row (or, when the caller adds into
 // its own buffer, adds it with plain read-modify-writes), or leaves a
-// partial for the carry pass. Any M, any W, any n_rows.
+// partial row of a run that crosses a tile edge, which the carry folded
+// into the same launch adds in tile order (ordered::fold_carry: whoever
+// arrives last at the run's counter). Any M, any W, any n_rows.
 //
 // Columns. At f32 with W % 4 == 0 and 16-byte aligned rows, a lane holds 4
 // consecutive lanes of the row (one 16-byte load an update row, 512 B a
@@ -46,8 +48,8 @@
 // index of kNarrowDepth entries together (neither waits for the other),
 // then their kNarrowDepth terms, all in flight at once; the wrapper gives
 // narrow rows tiles of NARROW_TILE entries (ops/scatter_kernels.py), which
-// cuts the carry pass's work (a run that crosses a tile edge) where texel
-// runs are long, with a tile's serial chain still short beside its loads.
+// cuts the carry's work (a run that crosses a tile edge) where texel runs
+// are long, with a tile's serial chain still short beside its loads.
 //
 // What bounds it on this card: the bytes. Every lane of upd is read once,
 // the row indices read, the table written once (read and written where
@@ -57,7 +59,9 @@
 // (csrc/key_sort.cuh) and the sorted keys and index read (8 B an entry).
 // Its earlier forms: float4 corners with atomics (0.265 ms there on an
 // H100 80GB HBM3 at 700 W, in an order that changed from run to run), then
-// torch.sort with a 64-bit index (0.373 ms).
+// torch.sort with a 64-bit index (0.373 ms), then a separate carry launch
+// (0.501 ms by events on 4.2 M corner entries, 0.491 with the carry folded
+// in; chip_smoke.py --sort_ab, the same card).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,24 +114,27 @@ struct Vec<1> {
 
 // keys [E] i32 sorted stably, perm [E] i32 (input row of each entry), upd
 // [M, w] (T), d.a = out [n_rows, w] f32 (d.add: added into, else zeroed
-// and stored over), part [2, tiles, w]
-// f32 scratch. A warp takes tile t = task / chunks and the V*32 columns of
-// chunk task % chunks.
+// and stored over), carry.part [2, tiles, w] f32 scratch and carry.count the
+// arrival counters, `chunks` a tile. A warp takes tile t = task / chunks
+// and the V*32 columns of chunk task % chunks, and folds the carry of its
+// chunk's columns.
 template <typename T, int V>
 __global__ void __launch_bounds__(kWarps * 32)
     rows_reduce_kernel(const int* __restrict__ keys,
                        const int* __restrict__ perm,
                        long long n_entries, int tile,
                        const T* __restrict__ upd, int w, ordered::Dest d,
-                       float* __restrict__ part, long long tiles,
-                       int chunks) {
+                       ordered::Carry carry, long long tiles, int chunks) {
   const int lane = threadIdx.x & 31;
   const long long task = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (task >= tiles * chunks) return;  // a whole warp; no block barrier
   const long long t = task / chunks;
-  const int col = (int)(task - t * chunks) * 32 * V + lane * V;
+  const int chunk = (int)(task - t * chunks);
+  const int col = chunk * 32 * V + lane * V;
   const bool live = col < w;
   const ordered::Tile tl = ordered::tile_of(keys, n_entries, t, tile);
+  const ordered::Runs runs =
+      ordered::crossing_runs(keys, tl, t, tile, tiles, d);
   float acc[V];
 #pragma unroll
   for (int u = 0; u < V; ++u) acc[u] = 0.0f;
@@ -142,7 +149,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         else if (target == 0)
           Vec<V>::store(d.row(k) + col, acc);
         else
-          Vec<V>::store(part + ((target - 1) * tiles + t) * w + col, acc);
+          Vec<V>::store(carry.part + ((target - 1) * tiles + t) * w + col, acc);
       }
     }
 #pragma unroll
@@ -185,6 +192,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
   flush(cur, run_a, tl.e);
+  ordered::fold_carry<V, true>(runs, tiles, d, carry, chunk, col, 1);
 }
 
 __device__ __forceinline__ float load1(const float* p) { return __ldcs(p); }
@@ -197,7 +205,8 @@ __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
 // and reads that tile's keys and indices itself, so the tiles of a warp
 // go their own ways and nothing is shuffled. Per kNarrowDepth entries the
 // keys and indices are loaded first, together (as int4 where `vec`), then
-// the terms of the valid ones, then added in order.
+// the terms of the valid ones, then added in order. Each thread folds the
+// carry of its own column (carry.count: w counters a tile).
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     rows_reduce_narrow_kernel(const int* __restrict__ keys,
@@ -205,13 +214,15 @@ __global__ void __launch_bounds__(kWarps * 32)
                               long long n_entries, int tile,
                               const T* __restrict__ upd, int w,
                               int lanes_log2, ordered::Dest d,
-                              float* __restrict__ part, long long tiles,
+                              ordered::Carry carry, long long tiles,
                               bool vec) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long t = gid >> lanes_log2;
   const int col = (int)(gid & ((1 << lanes_log2) - 1));
   if (t >= tiles || col >= w) return;
   const ordered::Tile tl = ordered::tile_of(keys, n_entries, t, tile);
+  const ordered::Runs runs =
+      ordered::crossing_runs(keys, tl, t, tile, tiles, d);
   float acc = 0.0f;
   int cur = __ldg(keys + tl.s);
   long long run_a = tl.s;
@@ -222,7 +233,7 @@ __global__ void __launch_bounds__(kWarps * 32)
         float* dst = d.row(k) + col;
         *dst = d.add ? __fadd_rn(*dst, acc) : acc;
       } else {
-        part[((target - 1) * tiles + t) * w + col] = acc;
+        carry.part[((target - 1) * tiles + t) * w + col] = acc;
       }
     }
     acc = 0.0f;
@@ -262,12 +273,13 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
   flush(cur, run_a, tl.e);
+  ordered::fold_carry<1, false>(runs, tiles, d, carry, col, col, 1);
 }
 
 template <typename T>
 void launch_narrow(const int* keys, const int* perm, long long m,
                    int tile, const void* upd, int w, const ordered::Dest& d,
-                   float* part, cudaStream_t st) {
+                   float* part, int* count, cudaStream_t st) {
   const long long tiles = (m + tile - 1) / tile;
   int lanes_log2 = 0;
   while ((1 << lanes_log2) < w) ++lanes_log2;
@@ -280,20 +292,20 @@ void launch_narrow(const int* keys, const int* perm, long long m,
       <<<(unsigned)((threads + kWarps * 32 - 1) / (kWarps * 32)),
          kWarps * 32, 0, st>>>(keys, perm, m, tile,
                                static_cast<const T*>(upd), w, lanes_log2, d,
-                               part, tiles, vec);
+                               ordered::Carry{part, w, count, w}, tiles, vec);
 }
 
 template <typename T, int V>
 void launch_reduce(const int* keys, const int* perm, long long m,
                    int tile, const void* upd, int w, const ordered::Dest& d,
-                   float* part, cudaStream_t st) {
+                   float* part, int* count, cudaStream_t st) {
   const long long tiles = (m + tile - 1) / tile;
   const int chunks = (w + 32 * V - 1) / (32 * V);
   const long long tasks = tiles * chunks;
   rows_reduce_kernel<T, V>
       <<<(unsigned)((tasks + kWarps - 1) / kWarps), kWarps * 32, 0, st>>>(
-          keys, perm, m, tile, static_cast<const T*>(upd), w, d, part, tiles,
-          chunks);
+          keys, perm, m, tile, static_cast<const T*>(upd), w, d,
+          ordered::Carry{part, w, count, chunks}, tiles, chunks);
 }
 
 }  // namespace
@@ -307,12 +319,15 @@ const char* cednerf_error_string(int code) {
 // keys [m] i32: the row indices sorted stably (key_sort); perm [m] i32:
 // the sort's indices (entry p is update row perm[p]); upd [m, w]
 // (upd_bf16: bf16, else f32), out [n_rows, w] f32, part
-// [2, ceil(m / tile), w] f32 scratch for scatter_rows_carry. Zeroes out
-// (unless add: then out keeps what it holds), then adds each row's run.
-// Returns cudaGetLastError() after the launches (0 on success).
+// [2, ceil(m / tile), w] f32 scratch for the crossing runs' partial rows,
+// count scatter_carry_counts(m, w, tile) int32 arrival counters, zero on
+// entry and on return. Zeroes out (unless add: then out keeps what it
+// holds), then adds each row's run, the carry folded in. Returns
+// cudaGetLastError() after the launches (0 on success).
 int scatter_add_rows(const int* keys, const int* perm, const void* upd,
                      long long m, int w, int n_rows, float* out, int upd_bf16,
-                     int add, int tile, float* part, void* stream) {
+                     int add, int tile, float* part, int* count,
+                     void* stream) {
   if (m < 0 || w <= 0 || n_rows <= 0 || tile <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -328,15 +343,17 @@ int scatter_add_rows(const int* keys, const int* perm, const void* upd,
                    reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(part) % 16 == 0;
   if (w <= kNarrow && upd_bf16)
-    launch_narrow<__nv_bfloat16>(keys, perm, m, tile, upd, w, d, part, st);
+    launch_narrow<__nv_bfloat16>(keys, perm, m, tile, upd, w, d, part, count,
+                                 st);
   else if (w <= kNarrow)
-    launch_narrow<float>(keys, perm, m, tile, upd, w, d, part, st);
+    launch_narrow<float>(keys, perm, m, tile, upd, w, d, part, count, st);
   else if (vec)
-    launch_reduce<float, 4>(keys, perm, m, tile, upd, w, d, part, st);
+    launch_reduce<float, 4>(keys, perm, m, tile, upd, w, d, part, count, st);
   else if (upd_bf16)
-    launch_reduce<__nv_bfloat16, 1>(keys, perm, m, tile, upd, w, d, part, st);
+    launch_reduce<__nv_bfloat16, 1>(keys, perm, m, tile, upd, w, d, part,
+                                    count, st);
   else
-    launch_reduce<float, 1>(keys, perm, m, tile, upd, w, d, part, st);
+    launch_reduce<float, 1>(keys, perm, m, tile, upd, w, d, part, count, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -354,18 +371,12 @@ long long key_sort_scratch_words(long long m, int n_keys) {
   return keysort::scratch_words(m, n_keys);
 }
 
-// The carry pass after scatter_add_rows, on the same keys, part, out and
-// add.
-int scatter_rows_carry(const int* keys, long long m, int tile,
-                       const float* part, int w, float* out, int n_rows,
-                       int add, void* stream) {
-  if (m < 0 || w <= 0 || n_rows <= 0 || tile <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (m == 0) return static_cast<int>(cudaGetLastError());
-  return ordered::launch_carry(keys, m, tile, part, (m + tile - 1) / tile, w,
-                               ordered::Dest{out, n_rows, w, nullptr, 0, 0,
-                                             add != 0},
-                               static_cast<cudaStream_t>(stream));
+// The arrival counters scatter_add_rows needs: ceil(m / tile) tiles times
+// the column groups that arrive apart (w for narrow rows, a warp's 32
+// columns at most otherwise).
+long long scatter_carry_counts(long long m, int w, int tile) {
+  const long long tiles = (m + tile - 1) / tile;
+  return tiles * (w <= kNarrow ? w : (w + 31) / 32);
 }
 
 }  // extern "C"

@@ -15,9 +15,11 @@ their plain versions.
   * `table_reduce` — the table gradient of K6, K6c and K2 summed in a fixed
     order, so that a backward gives the same bits on every run as the
     TPU's does: the keys sorted stably (scatter_kernels.key_sort, the
-    kernel of csrc/key_sort.cuh, from this library), the terms summed by
-    key in sorted order by the reduce kernel, the partial rows of keys
-    that cross a tile edge by its carry pass (csrc/ordered_reduce.cuh). It
+    kernel of csrc/key_sort.cuh, from this library), then one launch of
+    the reduce kernel: the terms summed by key in sorted order, the partial
+    rows of keys that cross a tile edge added in tile order by the carry
+    folded into it (csrc/ordered_reduce.cuh), every row of the table
+    gradient written (zeros where no key lands), so nobody fills it. It
     replaces no TPU kernel: on the TPU the backward kernels sum in one
     order by walking the sample tiles on one core.
   * `fused_encode_bwd_cell` (K6c) — K6 for the cell row layouts: the levels
@@ -65,7 +67,7 @@ import numpy as np
 import torch
 
 from .cuda_build import KernelLibrary
-from .scatter_kernels import (REDUCE_TILE, bind_key_sort, carry_plain,
+from .scatter_kernels import (REDUCE_TILE, bind_key_sort, carry_counts,
                               key_sort, ordered_reduce_plain)
 
 BRICK_CELLS = 3          # cells per brick edge
@@ -78,7 +80,7 @@ KERNEL_FEATURES = (1, 2, 4)
 
 _NAMES = ("interp_fwd", "fused_encode_fwd", "fused_encode_bwd",
           "fused_encode_bwd_cell", "fold_cells", "interp_bwd_fused",
-          "interp_bwd", "table_reduce", "table_carry")
+          "interp_bwd", "table_reduce")
 launches = dict.fromkeys(_NAMES, 0)
 plain_cuda_calls = dict.fromkeys(_NAMES, 0)
 
@@ -113,12 +115,9 @@ def _bind_bwd(lib):
         _P, _P, _P, _P, _I32, _I64, _I32, _P, _P, _P, _P, _I64, _P, _P, _P]
     lib.brick_fused_encode_bwd_cell.restype = _I32
     lib.brick_table_reduce.argtypes = [_P, _P, _I64, _I32, _P, _P, _I32,
-                                       _I64, _I32, _P, _P, _P, _I64, _P,
-                                       _I64, _P, _P]
+                                       _I64, _I32, _P, _P, _P, _P, _P,
+                                       _I64, _P, _I64, _P, _P, _P]
     lib.brick_table_reduce.restype = _I32
-    lib.brick_table_carry.argtypes = [_P, _I64, _I32, _P, _P, _I64, _P,
-                                      _I64, _I32, _P]
-    lib.brick_table_carry.restype = _I32
     lib.brick_fold_cells.argtypes = [_P, _P, _I32, _P, _P, _P, _I32, _I32,
                                      _I32, _P]
     lib.brick_fold_cells.restype = _I32
@@ -361,24 +360,45 @@ def fused_encode_bwd_cell_plain(x, g, rows, table, scales: Sequence[float],
     return d_table, d_cell, d_x
 
 
+def _brick_spans(level_rows, cell_rows):
+    """[(first row, end row)] of d_table that table_reduce writes: the brick
+    levels' (cell_rows None or < 0), adjacent levels merged."""
+    spans, off = [], 0
+    for lvl, r in enumerate(level_rows):
+        if cell_rows is None or cell_rows[lvl] < 0:
+            if spans and spans[-1][1] == off:
+                spans[-1] = (spans[-1][0], off + int(r))
+            else:
+                spans.append((off, off + int(r)))
+        off += int(r)
+    return spans
+
+
 def table_reduce_plain(keys, x, g, scales: Sequence[float],
-                       nbs: Sequence[int], n_feat: int, d_table,
-                       d_cell=None):
+                       nbs: Sequence[int], level_rows: Sequence[int],
+                       n_feat: int, d_table, d_cell=None, cell_rows=None):
     """Plain table_reduce: keys [L, N] (as K6's first part writes them) ->
     each (sample, level)'s table-gradient terms summed into row keys[l, i]
-    of d_table [n_table, 64F] f32 (w * g, _bwd_rows' update row) or, for a
+    of d_table [sum R_l, 64F] f32 (w * g, _bwd_rows' update row) or, for a
     key >= n_table, row keys[l, i] - n_table of d_cell [*, 8F] f32 (the
     bf16-formed cell terms, cell_updates); other keys dropped. Each row's
     terms are summed in stable sorted order (ordered_reduce_plain): one
     level's keys never meet another's, so that is ascending sample order.
-    As the kernel does, the sum is stored over each row a key lands on;
-    the other rows keep what they hold. Returns (d_table, d_cell)."""
+    As the kernel does, every row of d_table is written, the sum where a
+    key lands and zero elsewhere, except the rows of the levels that
+    cell_rows [L] puts on the cell target (cell_rows[l] >= 0: fold_cells
+    writes them); d_cell's rows are stored where a key lands and keep what
+    they hold elsewhere. Returns (d_table, d_cell)."""
     if x.is_cuda:
         plain_cuda_calls["table_reduce"] += 1
-    n = x.shape[0]
-    keys = keys.reshape(len(scales), n).long()
-    n_table = d_table.shape[0]
-    for lvl in range(len(scales)):
+    n, L, n_table = x.shape[0], len(scales), d_table.shape[0]
+    if sum(level_rows) != n_table or len(level_rows) != L:
+        raise ValueError(f"table_reduce: levels of {list(level_rows)} rows "
+                         f"against a table gradient of {n_table}")
+    keys = keys.reshape(L, n).long()
+    for lo, hi in _brick_spans(level_rows, cell_rows):
+        d_table[lo:hi] = 0.0
+    for lvl in range(L):
         gl = g[:, lvl * n_feat:(lvl + 1) * n_feat]
         ws, _, _ = _axis_lane_weights(x, scales[lvl], nbs[lvl], n_feat)
         upd = (ws[0] * (ws[1] * ws[2])) * gl.float().repeat(
@@ -590,70 +610,60 @@ def _check_bwd_inputs(name, x, g, rows, src, src_shape, L, n_feat):
         raise ValueError(f"{name}: inputs on different devices")
 
 
-def _table_carry(keys, part, tile: int, n_feat: int, d_table, d_cell=None):
-    """table_reduce's carry pass alone (its second launch; the tests and
-    chip_smoke.py call it alone, and on CPU tensors for its plain version's
-    bits): keys [E] int32 sorted, part
-    [2, ceil(E / tile), 64F] f32 the reduce kernel's partial rows (heads,
-    then tails); each key whose run crosses a tile edge gets its row of
-    d_table [n_table, 64F] (or, past n_table, of d_cell [*, 8F]) stored
-    from them (carry_plain's sums in tile order). Returns (d_table,
-    d_cell)."""
-    n_table = d_table.shape[0]
-    n_cell = 0 if d_cell is None else d_cell.shape[0]
-    if not keys.is_cuda:
-        chained, sums = carry_plain(keys, part, tile, n_table + n_cell)
-        t = chained < n_table
-        d_table[chained[t]] = sums[t]
-        if d_cell is not None:
-            d_cell[chained[~t] - n_table] = sums[~t][:, :CELL_CORNERS * n_feat]
-        return d_table, d_cell
-    lib = _BWD.get()
-    rc = lib.brick_table_carry(
-        keys.data_ptr(), keys.numel(), tile, part.data_ptr(),
-        d_table.data_ptr(), n_table,
-        None if d_cell is None else d_cell.data_ptr(), n_cell, n_feat,
-        torch.cuda.current_stream(keys.device).cuda_stream)
-    _BWD.check(rc, "table_carry")
-    launches["table_carry"] += 1
-    return d_table, d_cell
-
-
 def table_reduce(keys, x, g, scales: Sequence[float], nbs: Sequence[int],
-                 n_feat: int, d_table, d_cell=None):
+                 level_rows: Sequence[int], n_feat: int, d_table,
+                 d_cell=None, cell_rows=None):
     """The table gradient of K6, K6c and K2 from the keys [L, N] int32 that
-    their first kernel wrote (offset_l + r; n_table + a cell row; INT_MAX
-    for a zero cotangent), x [N, 3] f32 and g [N, L*F] bf16: each
-    (sample, level)'s terms summed into d_table [n_table, 64F] f32 or
-    d_cell [*, 8F] f32 (table_reduce_plain), which must be zero where a
-    key lands (on CUDA each key's row is stored, not added); returns
-    (d_table, d_cell).
+    their first kernel wrote (offset_l + r within level l's level_rows[l]
+    rows; n_table + a cell row within level l's cell rows from
+    cell_rows[l]; INT_MAX for a zero cotangent), x [N, 3] f32 and g
+    [N, L*F] bf16: each (sample, level)'s terms summed into d_table
+    [sum R_l, 64F] f32 or d_cell [*, 8F] f32 (table_reduce_plain). Every
+    row of d_table is written, zero where no key lands (the rows of the
+    levels cell_rows puts on the cell target excepted), so it needs no
+    fill; d_cell must be zero where a key lands (on CUDA a key's row is
+    stored, not added). Returns (d_table, d_cell).
 
     On CUDA the sum takes one order on every run: key_sort of the keys
     (a stable radix sort over the bits n_table + n_cell needs, an int32
-    index; K6's INT_MAX keys sort last), then the reduce kernel (a warp a
-    tile of REDUCE_TILE sorted entries, each run of a key summed in sorted
-    order) and its carry pass (the partials of keys that cross a tile
-    edge, in tile order); no atomics."""
-    return _table_reduce(keys, x, g, scales, nbs, n_feat, d_table, d_cell)
+    index; K6's INT_MAX keys sort last), then one launch of the reduce
+    kernel: a warp a tile of REDUCE_TILE sorted entries, each run of a key
+    summed in sorted order, the partial rows of a key that crosses a tile
+    edge added in tile order by whoever arrives last at its counter
+    (scatter_kernels.carry_counts), warps after the tiles' writing the
+    zeros of rows that no key reaches; no float atomics."""
+    return _table_reduce(keys, x, g, scales, nbs, level_rows, n_feat,
+                         d_table, d_cell, cell_rows)
 
 
-def _table_reduce(keys, x, g, scales, nbs, n_feat: int, d_table,
-                  d_cell=None, tile: int = REDUCE_TILE, part=None):
-    """table_reduce; `tile` changes only where the sums split in two
-    levels; `part`, a [2, ceil(L*N / tile), 64F] f32 buffer, keeps the
-    reduce kernel's partial rows (for _table_carry alone)."""
+def _table_reduce(keys, x, g, scales, nbs, level_rows, n_feat: int,
+                  d_table, d_cell=None, cell_rows=None,
+                  tile: int = REDUCE_TILE, part=None):
+    """table_reduce; `tile` changes only where the kernel's sums split in
+    two levels (a CPU tensor takes the plain version's strict order);
+    `part`, a [2, ceil(L*N / tile), 64F] f32 buffer, keeps the reduce
+    kernel's partial rows (the tests hold the folded carry to carry_plain
+    of them)."""
     if not x.is_cuda:
-        return table_reduce_plain(keys, x, g, scales, nbs, n_feat, d_table,
-                                  d_cell)
+        return table_reduce_plain(keys, x, g, scales, nbs, level_rows,
+                                  n_feat, d_table, d_cell, cell_rows)
     n, L = x.shape[0], len(scales)
     for name, t, w in (("d_table", d_table, CORNERS_PER_BRICK * n_feat),
                        ("d_cell", d_cell, CELL_CORNERS * n_feat)):
         if t is not None and (t.dtype != torch.float32 or t.dim() != 2
                               or t.shape[1] != w or not t.is_contiguous()
+                              or t.data_ptr() % 16
                               or t.device != x.device):
-            raise ValueError(f"table_reduce: {name} must be contiguous "
-                             f"float32 [*, {w}] on {x.device}")
+            raise ValueError(f"table_reduce: {name} must be contiguous, "
+                             f"16-byte aligned float32 [*, {w}] on "
+                             f"{x.device}")
+    if len(level_rows) != L or sum(level_rows) != d_table.shape[0]:
+        raise ValueError(f"table_reduce: levels of {list(level_rows)} rows "
+                         f"against a table gradient of {d_table.shape[0]}")
+    if (cell_rows is None) != (d_cell is None) or (
+            cell_rows is not None and len(cell_rows) != L):
+        raise ValueError("table_reduce: d_cell and one cell row offset a "
+                         "level go together")
     if (keys.dtype != torch.int32 or keys.numel() != L * n
             or not keys.is_contiguous() or keys.device != x.device):
         raise ValueError(f"table_reduce: keys must be contiguous int32 "
@@ -664,40 +674,50 @@ def _table_reduce(keys, x, g, scales, nbs, n_feat: int, d_table,
         raise ValueError("table_reduce: x must be contiguous float32 [N, 3] "
                          "and g contiguous bfloat16 [N, L*F]")
     if n == 0:
+        for lo, hi in _brick_spans(level_rows, cell_rows):
+            d_table[lo:hi] = 0.0
         return d_table, d_cell
     if tile < 1:
         raise ValueError(f"table_reduce: tile {tile}")
     n_cell = 0 if d_cell is None else d_cell.shape[0]
     skeys, perm = key_sort(keys.reshape(-1), d_table.shape[0] + n_cell, _BWD)
     e = L * n
-    shape = (2, -(-e // tile), CORNERS_PER_BRICK * n_feat)
+    tiles = -(-e // tile)
+    shape = (2, tiles, CORNERS_PER_BRICK * n_feat)
     if part is None:
         part = torch.empty(shape, dtype=torch.float32, device=x.device)
     elif (tuple(part.shape) != shape or part.dtype != torch.float32
           or not part.is_contiguous() or part.device != x.device):
         raise ValueError(f"table_reduce: part must be contiguous float32 "
                          f"{shape} on {x.device}")
-    cell_ptr = None if d_cell is None else d_cell.data_ptr()
+    count = carry_counts(x.device, tiles)
     lib = _BWD.get()
-    sc, nb, _ = _level_arrays(scales, nbs)
+    sc, nb, lr = _level_arrays(scales, nbs, level_rows)
+    cr = None if cell_rows is None else (ctypes.c_longlong * L)(
+        *[int(c) for c in cell_rows])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.brick_table_reduce(
         skeys.data_ptr(), perm.data_ptr(), e, tile, x.data_ptr(),
-        g.data_ptr(), L, n, n_feat, sc, nb, d_table.data_ptr(),
-        d_table.shape[0], cell_ptr, n_cell, part.data_ptr(), stream)
+        g.data_ptr(), L, n, n_feat, sc, nb, lr, cr, d_table.data_ptr(),
+        d_table.shape[0], None if d_cell is None else d_cell.data_ptr(),
+        n_cell, part.data_ptr(), count.data_ptr(), stream)
+    if rc:
+        count.zero_()
     _BWD.check(rc, "table_reduce")
     launches["table_reduce"] += 1
-    return _table_carry(skeys, part, tile, n_feat, d_table, d_cell)
+    return d_table, d_cell
 
 
 def _launch_bwd(fn, name, x, g, rows, src, scales, nbs, level_rows, n_feat):
-    """K6's or K2's first kernel (d_x and the keys), then table_reduce."""
+    """K6's or K2's first kernel (d_x and the keys), then table_reduce,
+    which writes every row of the table gradient (allocated, not
+    filled)."""
     n, L = x.shape[0], len(scales)
-    d_table = torch.zeros((sum(level_rows), CORNERS_PER_BRICK * n_feat),
+    d_table = torch.empty((sum(level_rows), CORNERS_PER_BRICK * n_feat),
                           dtype=torch.float32, device=x.device)
     d_x = torch.empty((n, 3), dtype=torch.float32, device=x.device)
     if n == 0:
-        return d_table, d_x
+        return d_table.zero_(), d_x
     keys = torch.empty((L, n), dtype=torch.int32, device=x.device)
     lib = _BWD.get()
     sc, nb, lr = _level_arrays(scales, nbs, level_rows)
@@ -708,7 +728,7 @@ def _launch_bwd(fn, name, x, g, rows, src, scales, nbs, level_rows, n_feat):
                           stream)
     _BWD.check(rc, name)
     launches[name] += 1
-    table_reduce(keys, x, g, scales, nbs, n_feat, d_table)
+    table_reduce(keys, x, g, scales, nbs, level_rows, n_feat, d_table)
     return d_table, d_x
 
 
@@ -788,15 +808,18 @@ def _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows):
 def _launch_k6c(x, g, rows, table, scales, nbs, level_rows, n_feat,
                 cell_rows, d_table, d_cell, d_x):
     """K6c into buffers the caller supplies: d_table [sum R_l, 64F] f32
-    (the brick levels' rows), d_cell [sum 27 R_l over the cell levels, 8F]
-    f32 (row cell_rows[l] + r*27 + cell, lane (dx*4 + dy*2 + dz)*F + f),
-    each zero where a key lands, since table_reduce stores each key's row
-    over it; d_x [N, 3] f32 (written): its first kernel, then
+    (the brick levels' rows written, zeros where no key lands; the cell
+    levels' rows left as they are), d_cell [sum 27 R_l over the cell
+    levels, 8F] f32 (row cell_rows[l] + r*27 + cell, lane (dx*4 + dy*2 +
+    dz)*F + f), zero where a key lands, since table_reduce stores each
+    key's row over it; d_x [N, 3] f32 (written): its first kernel, then
     table_reduce. CUDA tensors only; d_cell is zeroed if a launch
     fails."""
     _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows)
     L, n = len(level_rows), x.shape[0]
     if n == 0:
+        for lo, hi in _brick_spans(level_rows, cell_rows):
+            d_table[lo:hi] = 0.0
         return
     keys = torch.empty((L, n), dtype=torch.int32, device=x.device)
     lib = _BWD.get()
@@ -810,7 +833,8 @@ def _launch_k6c(x, g, rows, table, scales, nbs, level_rows, n_feat,
             d_x.data_ptr(), stream)
         _BWD.check(rc, "fused_encode_bwd_cell")
         launches["fused_encode_bwd_cell"] += 1
-        table_reduce(keys, x, g, scales, nbs, n_feat, d_table, d_cell)
+        table_reduce(keys, x, g, scales, nbs, level_rows, n_feat, d_table,
+                     d_cell, cell_rows)
     except BaseException:
         d_cell.zero_()
         raise
@@ -884,8 +908,8 @@ def fused_encode_bwd_cell(x, g, rows, table, scales: Sequence[float],
     cell levels' folded values in the compute dtype; d_x [N, 3] f32).
     On CUDA the cell rows go into the resident buffer of (device, cell
     levels' rows, F), which the fold leaves all zero again (and which is
-    zeroed if either step raises); d_table is filled only over the brick
-    levels' rows, the fold writes the others."""
+    zeroed if either step raises); d_table is not filled: the reduce
+    writes the brick levels' rows, the fold the others."""
     if not x.is_cuda:
         d_table, d_cell, d_x = fused_encode_bwd_cell_plain(
             x, g, rows, table, scales, nbs, level_rows, n_feat, cell_rows,
@@ -895,14 +919,8 @@ def fused_encode_bwd_cell(x, g, rows, table, scales: Sequence[float],
     if compute_dtype != torch.bfloat16:
         raise ValueError("fused_encode_bwd_cell: the kernel forms bf16 terms")
     spans = _check_k6c(x, g, rows, table, level_rows, n_feat, cell_rows)
-    total = sum(level_rows)
-    d_table = torch.empty((total, CORNERS_PER_BRICK * n_feat),
+    d_table = torch.empty((sum(level_rows), CORNERS_PER_BRICK * n_feat),
                           dtype=torch.float32, device=x.device)
-    t = 0      # each run of adjacent brick levels' rows: the reduce adds
-    for t0, _, r in spans + [(total, 0, 0)]:
-        if t0 > t:
-            d_table[t:t0].zero_()
-        t = t0 + r
     d_cell = cell_buffer(x.device, [r for _, _, r in spans], n_feat)
     d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
     _launch_k6c(x, g, rows, table, scales, nbs, level_rows, n_feat,

@@ -27,8 +27,9 @@ first use (ops/cuda_build.py). It sums in a fixed order, so that a
 backward gives the same bits on every run as the TPU's does: the row
 indices sorted stably (key_sort), each output row's update rows added
 in sorted order (ascending i) by the reduce kernel, the partial rows of a
-row whose run crosses a tile edge by its carry pass
-(csrc/ordered_reduce.cuh); rows outside [0, n_rows) dropped; no atomics.
+row whose run crosses a tile edge in tile order by the carry folded into
+it (csrc/ordered_reduce.cuh: whoever arrives last at the run's counter in
+`carry_counts`); rows outside [0, n_rows) dropped; no float atomics.
 Rows of at most NARROW_WIDTH lanes (the model paths' rows) are summed in
 tiles of NARROW_TILE sorted entries, wider ones in tiles of REDUCE_TILE.
 The tri-plane encoder's backward (ops/triplane.py) sends its texel
@@ -36,8 +37,7 @@ gradient through it too. The sum is f32 whatever the caller's accumulator
 dtype; a bf16 accumulator is one rounding of the finished sum, done by
 the caller. A CPU tensor takes the plain version, a CUDA tensor the
 kernel; nothing falls back. `launches` / `plain_cuda_calls` count as in
-ops/encode_kernels.py (`scatter_carry` the carry pass, `key_sort` each
-sort, K3's and table_reduce's).
+ops/encode_kernels.py (`key_sort` each sort, K3's and table_reduce's).
 """
 
 import ctypes
@@ -46,7 +46,7 @@ import torch
 
 from .cuda_build import KernelLibrary
 
-launches = {"scatter_add_rows": 0, "scatter_carry": 0, "key_sort": 0}
+launches = {"scatter_add_rows": 0, "key_sort": 0}
 plain_cuda_calls = {"scatter_add_rows": 0, "key_sort": 0}
 REDUCE_TILE = 256   # sorted entries a reduce tile, here and in
                     # ops/encode_kernels.py's table_reduce
@@ -68,10 +68,10 @@ def _bind(lib):
     p = ctypes.c_void_p
     i32, i64 = ctypes.c_int, ctypes.c_longlong
     lib.scatter_add_rows.argtypes = [p, p, p, i64, i32, i32, p, i32, i32,
-                                     i32, p, p]
+                                     i32, p, p, p]
     lib.scatter_add_rows.restype = i32
-    lib.scatter_rows_carry.argtypes = [p, i64, i32, p, i32, p, i32, i32, p]
-    lib.scatter_rows_carry.restype = i32
+    lib.scatter_carry_counts.argtypes = [i64, i32, i32]
+    lib.scatter_carry_counts.restype = i64
     bind_key_sort(lib)
 
 
@@ -85,6 +85,28 @@ def bind_key_sort(lib):
 
 
 _LIB = KernelLibrary("scatter_add_rows", _bind)
+
+# The ordered reduces' arrival counters (csrc/ordered_reduce.cuh
+# fold_carry), one int32 buffer per (device, stream), all zero between
+# calls: the last arriver at a crossing run's counter puts it back to 0,
+# so no call fills it. A call that needs more counters than the buffer
+# holds replaces it by a larger zeroed one; make it (a call at the largest
+# size) before a CUDA graph capture. Calls on one stream run one after
+# another, which keeps the zeros between them.
+_CARRY_COUNTS = {}
+
+
+def carry_counts(device, n: int) -> torch.Tensor:
+    """The resident arrival counters of (device, its current stream): int32,
+    at least n of them (a power of two), all zero."""
+    dev = torch.device(device)
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _CARRY_COUNTS.get(key)
+    if buf is None or buf.numel() < n:
+        size = 1 << max(int(n) - 1, 0).bit_length()
+        buf = _CARRY_COUNTS[key] = torch.zeros(size, dtype=torch.int32,
+                                               device=dev)
+    return buf
 
 
 def sort_plan(n_keys: int):
@@ -206,13 +228,13 @@ def scatter_add_rows_plain(rows: torch.Tensor, upd: torch.Tensor,
 
 def carry_plain(keys: torch.Tensor, part: torch.Tensor, tile: int,
                 n_keys: int):
-    """Plain carry pass (csrc/ordered_reduce.cuh carry_kernel) over the
-    reduce's partial rows part [2, tiles, W] (heads, then tails) of the
-    sorted keys [E]: (the keys in [0, n_keys) whose run crosses a tile
-    edge, [K] int64; their sums [K, W] f32), each the tail partial of the
-    run's first tile plus the head partials of the later tiles it covers,
-    added in tile order (ordered_reduce_plain: on the CPU the kernel's
-    order and bits)."""
+    """Plain carry (csrc/ordered_reduce.cuh fold_carry, folded into the
+    reduce kernels) over the reduce's partial rows part [2, tiles, W]
+    (heads, then tails) of the sorted keys [E]: (the keys in [0, n_keys)
+    whose run crosses a tile edge, [K] int64; their sums [K, W] f32), each
+    the tail partial of the run's first tile plus the head partials of the
+    later tiles it covers, added in tile order (ordered_reduce_plain: on
+    the CPU the kernel's order and bits)."""
     k = keys.reshape(-1).long()
     tiles = part.shape[1]
     s = torch.arange(tiles, device=k.device) * tile
@@ -231,40 +253,6 @@ def carry_plain(keys: torch.Tensor, part: torch.Tensor, tile: int,
     rkeys = torch.cat([last[t_idx], first[h_idx]])[order]
     chained = torch.unique(rkeys)
     return chained, ordered_reduce_plain(rkeys, rows, n_keys)[chained]
-
-
-def _scatter_carry(keys: torch.Tensor, part: torch.Tensor, tile: int,
-                   out: torch.Tensor, add: bool) -> torch.Tensor:
-    """K3's carry pass alone (the wrapper's second launch; the tests and
-    chip_smoke.py call it alone, and on CPU tensors for its plain
-    version's bits): the rows of `out` [n_rows, W] f32 whose run
-    of the sorted row indices `keys` crosses a tile edge get their sums
-    from the reduce's partial rows part [2, tiles, W] (carry_plain),
-    stored (added with `add`). Returns out."""
-    n_rows, w = out.shape
-    if not keys.is_cuda:
-        chained, sums = carry_plain(keys, part, tile, n_rows)
-        if add:
-            out[chained] += sums
-        else:
-            out[chained] = sums
-        return out
-    if (keys.dtype != torch.int32 or part.dtype != torch.float32
-            or out.dtype != torch.float32 or part.shape[2] != w
-            or part.shape[1] != -(-keys.numel() // tile)
-            or not all(t.is_contiguous() and t.device == keys.device
-                       for t in (keys, part, out))):
-        raise ValueError("_scatter_carry: keys int32 [M] sorted, part f32 "
-                         "[2, ceil(M / tile), W] and out f32 [n_rows, W], "
-                         "contiguous, on one device")
-    lib = _LIB.get()
-    rc = lib.scatter_rows_carry(
-        keys.data_ptr(), keys.numel(), tile, part.data_ptr(), w,
-        out.data_ptr(), n_rows, int(add),
-        torch.cuda.current_stream(keys.device).cuda_stream)
-    _LIB.check(rc, "scatter_carry")
-    launches["scatter_carry"] += 1
-    return out
 
 
 def scatter_add_rows(rows: torch.Tensor, upd: torch.Tensor,
@@ -290,9 +278,10 @@ def reduce_tile(w: int) -> int:
 def _scatter_add_rows(rows, upd, n_rows: int, out=None, part=None,
                       tile=None):
     """scatter_add_rows; `tile` (reduce_tile(W) by default) changes only
-    where the sums split in two levels; `part`, a [2, ceil(M / tile), W]
-    f32 buffer, keeps the reduce's partial rows (for _scatter_carry
-    alone)."""
+    where the kernel's sums split in two levels (a CPU tensor takes the
+    plain version's strict order); `part`, a [2, ceil(M / tile), W] f32
+    buffer, keeps the reduce's partial rows (the tests hold the folded
+    carry to carry_plain of them)."""
     if out is not None and (out.dtype != torch.float32
                             or tuple(out.shape) != (n_rows, upd.shape[1])
                             or not out.is_contiguous()
@@ -331,11 +320,14 @@ def _scatter_add_rows(rows, upd, n_rows: int, out=None, part=None,
         raise ValueError(f"scatter_add_rows: part must be contiguous "
                          f"float32 {shape} on {upd.device}")
     lib = _LIB.get()
+    count = carry_counts(upd.device, lib.scatter_carry_counts(m, w, tile))
     stream = torch.cuda.current_stream(upd.device).cuda_stream
     rc = lib.scatter_add_rows(keys.data_ptr(), perm.data_ptr(),
                               upd.data_ptr(), m, w, n_rows, out.data_ptr(),
                               int(upd.dtype == torch.bfloat16), int(add),
-                              tile, part.data_ptr(), stream)
+                              tile, part.data_ptr(), count.data_ptr(), stream)
+    if rc:
+        count.zero_()
     _LIB.check(rc, "scatter_add_rows")
     launches["scatter_add_rows"] += 1
-    return _scatter_carry(keys, part, tile, out, add)
+    return out

@@ -204,8 +204,9 @@ Phases, each of which must pass (nothing is caught and carried on):
      within phases 3, 8 and 15's limits against their plain versions,
      timed beside their bounds (the function's own bytes; `algo_bound_ms`
      adds this design's own traffic: the keys, the sort's passes, the
-     sorted keys and index); the ordered reduce and its carry pass alone,
-     the sort (key_sort and torch.sort), and the ordered reduce's library
+     sorted keys and index); the ordered reduce (its carry folded in, its
+     rows of crossing runs held to carry_plain) and the sort, each alone
+     (key_sort and torch.sort), and the ordered reduce's library
      yardstick (torch.segment_reduce over the sorted corner terms), and
      the strict-order chain (one tile) on the one-brick input's level 0;
      two Trainers from one seed at full width: the 3D path (-te -ta -f
@@ -483,7 +484,7 @@ def cell_kernel_phase(spec4, seed):
     and K1 (on the rows gathered at those points) in both output dtypes.
     Then K6 on 262,144 samples that all lie in one
     level-0 brick, tables of +-8 (every term of level 0 on one row: one
-    key across ~1,000 reduce tiles, through the carry pass), timed."""
+    key across ~1,000 reduce tiles, through the folded carry), timed."""
     import numpy as np
     import torch
     from cednerf_torch.ops import encode_kernels as ek
@@ -1309,28 +1310,127 @@ def sort_phase_main(work, seed):
         json.dump(out, fh, default=str)
 
 
-def _other_sort_library(root):
-    """The key_sort library (scatter_add_rows.cu) built from the sources of
-    the checkout at `root` by that checkout's build module."""
+def _other_ops(root):
+    """(ops/encode_kernels, ops/scatter_kernels) of the checkout at `root`
+    (for example the parent commit unpacked by `git archive` into a
+    git-ignored directory), imported as a package of its own name: its own
+    wrappers, launch counters and resident buffers, its libraries built by
+    its own build module from its own sources into its own _build."""
+    import importlib
     import importlib.util
 
-    from cednerf_torch.ops import scatter_kernels as sk
+    pkg = os.path.join(os.path.abspath(root), "cednerf_torch")
+    name = f"ab_{abs(hash(pkg))}_cednerf_torch"
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return (importlib.import_module(f"{name}.ops.encode_kernels"),
+            importlib.import_module(f"{name}.ops.scatter_kernels"))
 
-    path = os.path.join(root, "cednerf_torch", "ops", "cuda_build.py")
-    spec = importlib.util.spec_from_file_location(
-        f"cuda_build_{abs(hash(os.path.abspath(root)))}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.KernelLibrary("scatter_add_rows", sk.bind_key_sort)
+
+def _repro_specs(seed):
+    """Phase 18's specs: the 3D, cell-layout and hash4d fields' brick
+    grids."""
+    from cednerf_torch.engine.cli import build_field
+    from cednerf_torch.engine.config import ModelFlags, dnerf_config
+    from cednerf_torch.utils.bench import HASH4D_FLAGS, TRAIN_FLAGS
+
+    cfg = dnerf_config()
+    return [build_field(c, ModelFlags(**fl), device="cuda",
+                        seed=seed).hash_encoder.bspec
+            for c, fl in ((cfg, TRAIN_FLAGS),
+                          (dataclasses.replace(cfg, row_layout="cell",
+                                               fine_table_rows=65536),
+                           TRAIN_FLAGS), (cfg, HASH4D_FLAGS))]
+
+
+def _reduce_call(ek, ctx, c, keys):
+    """table_reduce of the module ek on K6's keys of case c, into a table
+    gradient of its own that starts zero."""
+    import torch
+
+    d_t = torch.zeros((ctx["n_table"], 64 * ctx["F"]), device="cuda")
+    return lambda: ek.table_reduce(keys, c["x"], c["g"], ctx["scales"],
+                                   ctx["nbs"], ctx["level_rows"], ctx["F"],
+                                   d_t)
+
+
+def reduce_ab_phase(others, seed):
+    """Phase 18's kernels K6, K6c, K2 and K3 and its reduce path (the sort
+    and the reduce with its carry, on K6's keys) on its three inputs, by
+    this tree's wrappers and by each other checkout's (others: [(name,
+    (encode_kernels, scatter_kernels))], _other_ops): every output held
+    bit-equal to this tree's, CUDA-event ms in turns (the others, this,
+    this, the others in reverse) and each tree's profiler device ms by
+    kernel. A reduce_ab line a (kernel, input); returns them."""
+    import torch
+    from cednerf_torch.engine.config import dnerf_config
+    from cednerf_torch.ops import encode_kernels as ek
+    from cednerf_torch.ops import scatter_kernels as sk
+    from cednerf_torch.utils.bench import cuda_ms, device_ms
+
+    trees = [("this", (ek, sk)), *others]
+    turns = [*others, trees[0], trees[0], *others[::-1]]
+    ctx = _repro_setup(*_repro_specs(seed), seed,
+                       dnerf_config().sample_budget)
+    torch.cuda.empty_cache()
+    recs = []
+    for label, x in ctx["inputs"].items():
+        case = _repro_case(ctx, x)
+        keys = _k6_keys(case["rows"], case["g"], ctx["level_rows"],
+                        ctx["F"])
+        calls = {}
+        for name, (e, s_) in trees:
+            calls[name] = _repro_calls(e, s_, ctx, case)
+            calls[name]["table_reduce"] = _reduce_call(e, ctx, case, keys)
+        for kernel in calls["this"]:
+            ref = [t.clone() for t in calls["this"][kernel]()
+                   if t is not None]
+            equal = {}
+            for name, _ in others:
+                got = [t for t in calls[name][kernel]() if t is not None]
+                equal[name] = len(got) == len(ref) and all(
+                    _same_bits(a, b) for a, b in zip(ref, got))
+            torch.cuda.synchronize()
+            del ref
+            if not all(equal.values()):
+                raise AssertionError(f"reduce_ab {kernel} {label}: other "
+                                     f"bits than this tree's: {equal}")
+            rec = {"kernel": kernel, "input": label, "bit_equal": equal,
+                   "turns": [{"tree": name, "ms": cuda_ms(
+                       calls[name][kernel], 20)} for name, _ in turns],
+                   "device": {}}
+            for name, _ in trees:
+                try:
+                    dev, krows, _ = device_ms(calls[name][kernel], 5,
+                                              need_all=True)
+                except RuntimeError as err:   # the profiler dropped calls
+                    rec["device"][name] = {"not_measured": str(err)}
+                    continue
+                rec["device"][name] = {
+                    "device_ms": dev,
+                    "kernels_a_call": sum(r[1] for r in krows) / 5,
+                    "by_kernel": [[r[0][:60], r[1] / 5, r[2] / 5]
+                                  for r in krows[:8]]}
+            log(json.dumps({"reduce_ab": rec}))
+            recs.append(rec)
+        del calls, case, keys
+        torch.cuda.empty_cache()
+    return recs
 
 
 def sort_ab_main(roots, seed):
-    """Phase 8b's key sets (key_sort_phase; the hash4d and tri-plane keys
-    from _k3_inputs) sorted by this tree's key_sort and by the one built
-    from each checkout in `roots` (for example the parent commit unpacked
-    by `git archive` into a git-ignored directory), in turns on one card;
-    every library held to torch.sort's permutation bit for bit. Prints the
-    card, a kernel_check line a key set, then {"ok": true}."""
+    """This tree's key sort and ordered reduces against each checkout's in
+    `roots`, in turns on one card: phase 18's kernels and reduce path
+    (reduce_ab_phase), then phase 8b's key sets (key_sort_phase; the
+    hash4d and tri-plane keys from _k3_inputs) sorted by this tree's
+    key_sort and by each checkout's, every library held to torch.sort's
+    permutation bit for bit. Prints the card, a reduce_ab line a (kernel,
+    input), a kernel_check line a key set, then {"ok": true}."""
     import torch
     from cednerf_torch.engine.cli import build_field
     from cednerf_torch.engine.config import ModelFlags, dnerf_config
@@ -1339,10 +1439,12 @@ def sort_ab_main(roots, seed):
 
     log(card_name())
     build_all()
-    others = [(os.path.basename(os.path.normpath(r)), _other_sort_library(r))
+    others = [(os.path.basename(os.path.normpath(r)), _other_ops(r))
               for r in roots]
-    for _, lib in others:
-        lib.get()
+    for _, (e, s_) in others:
+        e._BWD.get()
+        s_._LIB.get()
+    reduce_ab_phase(others, seed)
     cfg = dnerf_config()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     _, cases = _k3_inputs(cfg, seed, gen)
@@ -1351,7 +1453,9 @@ def sort_ab_main(roots, seed):
     spec = build_field(cfg, ModelFlags(**TRAIN_FLAGS), device="cuda",
                        seed=seed).hash_encoder.bspec
     torch.cuda.empty_cache()
-    key_sort_phase(spec, seed, cfg.sample_budget, sort_keys, others)
+    key_sort_phase(spec, seed, cfg.sample_budget, sort_keys,
+                   [(name, s_._LIB) for name, (_, s_) in others])
+    log(card_name())
     print(json.dumps({"ok": True}))
 
 
@@ -1360,19 +1464,11 @@ def repro_kernels_main(work, seed):
     (_fresh_process_phase), on the 3D, cell-layout and hash4d fields'
     specs; the result to work/out.json."""
     import torch
-    from cednerf_torch.engine.cli import build_field
-    from cednerf_torch.engine.config import ModelFlags, dnerf_config
-    from cednerf_torch.utils.bench import HASH4D_FLAGS, TRAIN_FLAGS
+    from cednerf_torch.engine.config import dnerf_config
 
-    cfg = dnerf_config()
-    specs = [build_field(c, ModelFlags(**fl), device="cuda",
-                         seed=seed).hash_encoder.bspec
-             for c, fl in ((cfg, TRAIN_FLAGS),
-                           (dataclasses.replace(cfg, row_layout="cell",
-                                                fine_table_rows=65536),
-                            TRAIN_FLAGS), (cfg, HASH4D_FLAGS))]
+    specs = _repro_specs(seed)
     torch.cuda.empty_cache()
-    out = repro_kernel_phase(*specs, seed, cfg.sample_budget)
+    out = repro_kernel_phase(*specs, seed, dnerf_config().sample_budget)
     with open(os.path.join(work, "out.json"), "w") as fh:
         json.dump(out, fh, default=str)
 
@@ -1678,10 +1774,10 @@ def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
     fold_cells as often: one launch for every cell level) `encoders` times
     a step (the brick encoders a step runs: 2 with the hash-grid motion
     warp, 0 for the tri-plane and per-corner encoders), each with one
-    table-gradient reduce and carry pass, K4 k4_per_step times, K3 (and
-    its carry pass) k3_per_step times (the tri-plane's texel gradient), the
-    sort once for each reduce, K5 `encoders` times a step and as often per
-    occupancy probe, nothing else, no plain version on CUDA."""
+    table-gradient reduce (its carry folded in), K4 k4_per_step times, K3
+    k3_per_step times (the tri-plane's texel gradient), the sort once for
+    each reduce, K5 `encoders` times a step and as often per occupancy
+    probe, nothing else, no plain version on CUDA."""
     if any(plain.values()):
         raise AssertionError(f"{label}: plain versions ran on CUDA: {plain}")
     no_probe_kernels(label, counts)
@@ -1692,9 +1788,8 @@ def _check_step_launches(label, counts, plain, cfg, recs, k4_per_step=1,
             "fused_encode_bwd": 0, "fused_encode_bwd_cell": 0,
             "fold_cells": 0, "compact_select": k4_per_step * steps,
             "interp_fwd": 0, "interp_bwd_fused": 0,
-            "table_reduce": encoders * steps, "table_carry": encoders * steps,
+            "table_reduce": encoders * steps,
             "scatter_add_rows": k3_per_step * steps,
-            "scatter_carry": k3_per_step * steps,
             "key_sort": (encoders + k3_per_step) * steps}
     want[bwd] = encoders * steps
     if bwd == "fused_encode_bwd_cell":
@@ -3730,10 +3825,9 @@ def _prop_run(label, trainer, steps, sync_check=False):
         raise AssertionError(f"{label}: plain versions on CUDA {plain}")
     others = {k: v for k, v in counts.items()
               if v and k not in ("fused_encode_fwd", "fused_encode_bwd",
-                                 "table_reduce", "table_carry", "key_sort")}
+                                 "table_reduce", "key_sort")}
     if (counts["fused_encode_bwd"] != n_mods * steps
             or counts["table_reduce"] != n_mods * steps
-            or counts["table_carry"] != n_mods * steps
             or counts["key_sort"] != n_mods * steps
             or counts["fused_encode_fwd"] < n_mods * steps or others):
         raise AssertionError(f"{label}: launches {counts} over {steps} "
@@ -4621,7 +4715,7 @@ def _segment_sum_inputs(keys, x, g, scales, nbs, F, n_table):
 
 
 def _carry_bytes(keys, tile, width, n_keys):
-    """The carry pass's bytes on these sorted keys: the head partial of
+    """The carry's bytes on these sorted keys: the head partial of
     each tile edge that a run crosses and the tail partial of each run's
     first tile read (width f32 each), each such run's output row read and
     written once."""
@@ -4636,81 +4730,129 @@ def _carry_bytes(keys, tile, width, n_keys):
     return (int(crossing.sum()) + 3 * runs) * width * 4
 
 
+def _repro_setup(spec, cell_spec, spec4, seed, n):
+    """Phase 18's shared inputs (repro_kernel_phase): the 3D, cell-layout
+    and hash4d specs' geometry, bf16 tables of +-REF_TABLE_BOUND, K3's
+    level of the 4D field, and the three position sets (uniform,
+    ray-major, all samples in one level-0 brick) at n samples, drawn from
+    one generator; _repro_case draws the rest of an input from it."""
+    import numpy as np
+    import torch
+
+    lay = spec.level_layout()
+    ctx = dict(scales=spec.level_scales(), nbs=[l["n_bricks_axis"]
+                                                 for l in lay],
+               level_rows=[l["rows"] for l in lay], L=spec.n_levels,
+               F=spec.n_features, spec=spec, cell_spec=cell_spec,
+               spec4=spec4, n=n)
+    F = ctx["F"]
+    ctx["n_table"] = n_table = sum(ctx["level_rows"])
+    ctx["gen"] = gen = torch.Generator(device="cuda").manual_seed(seed)
+    ctx["table"] = ((torch.rand((n_table, 64 * F), device="cuda",
+                                generator=gen) * 2 - 1)
+                    * REF_TABLE_BOUND).to(torch.bfloat16)
+    ctx["offs"] = np.cumsum([0] + ctx["level_rows"])
+    ctx["cell_offs"] = cell_offs = _cell_offsets(cell_spec)
+    c_lay = cell_spec.level_layout()
+    ctx["c_scales"] = cell_spec.level_scales()
+    ctx["c_nbs"] = [l["n_bricks_axis"] for l in c_lay]
+    ctx["c_rows"] = c_rows = [l["rows"] for l in c_lay]
+    ctx["c_table"] = ((torch.rand((sum(c_rows), 64 * F), device="cuda",
+                                  generator=gen) * 2 - 1) * REF_TABLE_BOUND
+                      ).to(torch.bfloat16)
+    ctx["n_cell"] = 27 * sum(r for r, c in zip(c_rows, cell_offs) if c >= 0)
+    lay4 = spec4.level_layout()
+    ctx["k4"] = spec4.keyframes
+    # K3 on the 4D field's first hashed level (65,536 keyframe rows), in
+    # the corner entries the 4D brick levels hand it (key = keyframe row *
+    # 64 + corner, F lanes each)
+    ctx["l4"] = l4 = next(i for i, l in enumerate(lay4) if l["hashed"])
+    ctx["n_rows4"] = lay4[l4]["rows"] * ctx["k4"] * 64
+    ctx["inputs"] = {
+        "uniform": _draw_x(n, gen, None),
+        "ray_major": _ray_major_x(n // 64, seed),
+        "one_brick": _one_brick_x(n, gen, ctx["scales"][0])}
+    return ctx
+
+
+def _repro_case(ctx, x):
+    """One input of phase 18 at positions x: the cotangent g (every 8th
+    sample zero), the rows of the three specs, K2's gathered rows and K3's
+    corner entries, drawn from ctx's generator."""
+    import torch
+
+    n, L, F, gen = ctx["n"], ctx["L"], ctx["F"], ctx["gen"]
+    offs, table, k4 = ctx["offs"], ctx["table"], ctx["k4"]
+    g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
+         ).to(torch.bfloat16)
+    g[::8] = 0
+    rows = _level_rows(x, ctx["spec"])
+    feats = torch.stack([table[offs[l]:offs[l + 1]].index_select(
+        0, rows[l].long()) for l in range(L)]).contiguous()
+    crow = _level_rows(x, ctx["cell_spec"])
+    r4 = _level_rows(x, ctx["spec4"])[ctx["l4"]].long()
+    lo = r4 * k4 + torch.randint(0, k4 - 1, (n,), device="cuda",
+                                 generator=gen)
+    bits = torch.tensor([[j >> 2, (j >> 1) & 1, j & 1] for j in range(8)],
+                        device="cuda")
+    intra = torch.randint(0, 3, (n, 1, 3), device="cuda", generator=gen)
+    corner = ((intra + bits) * torch.tensor([16, 4, 1],
+                                            device="cuda")).sum(-1)
+    key4 = lo[:, None] * 64 + corner
+    rows4 = torch.cat([key4, key4 + 64]).reshape(-1).to(
+        torch.int32).contiguous()
+    upd4 = torch.randn((16 * n, F), device="cuda", generator=gen)
+    return dict(x=x, g=g, rows=rows, feats=feats, crow=crow, rows4=rows4,
+                upd4=upd4)
+
+
+def _repro_calls(ek, sk, ctx, c):
+    """Phase 18's four kernels on case c through the wrappers of the
+    modules ek (ops/encode_kernels) and sk (ops/scatter_kernels): {name:
+    call}, each call's outputs a tuple."""
+    import torch
+
+    x, g, rows, F = c["x"], c["g"], c["rows"], ctx["F"]
+    scales, nbs, level_rows = ctx["scales"], ctx["nbs"], ctx["level_rows"]
+    return {
+        "fused_encode_bwd": lambda: ek.fused_encode_bwd(
+            x, g, rows, ctx["table"], scales, nbs, level_rows, F),
+        "interp_bwd_fused": lambda: ek.interp_bwd_fused(
+            x, g, c["feats"], rows, scales, nbs, level_rows, F),
+        "fused_encode_bwd_cell": lambda: ek.fused_encode_bwd_cell(
+            x, g, c["crow"], ctx["c_table"], ctx["c_scales"], ctx["c_nbs"],
+            ctx["c_rows"], F, ctx["cell_offs"], torch.bfloat16, False),
+        "scatter_add_rows": lambda: (sk.scatter_add_rows(
+            c["rows4"], c["upd4"], ctx["n_rows4"]),)}
+
+
 def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
     """K6, K6c, K2 and K3 launched REPRO_LAUNCHES times on the same inputs
     (uniform, ray-major, all samples in one level-0 brick) at the train
     step's N: bit-equal, within the limits of phases 3, 8 and 15 against
     their plain versions, timed with CUDA events beside their bounds (the
     function's own bytes, and `algo_bound_ms` with the sort's added); the
-    reduce, its carry pass and the sort alone; the strict-order chain (one
+    reduce with its folded carry and the sort, alone and together; the
+    folded carry's rows against carry_plain; the strict-order chain (one
     tile) on level 0 of the one-brick input."""
-    import numpy as np
     import torch
     from cednerf_torch.ops import encode_kernels as ek
     from cednerf_torch.ops import scatter_kernels as sk
     from cednerf_torch.utils.bench import cuda_ms, device_ms
 
-    lay = spec.level_layout()
-    scales = spec.level_scales()
-    nbs = [l["n_bricks_axis"] for l in lay]
-    level_rows = [l["rows"] for l in lay]
-    L, F = spec.n_levels, spec.n_features
-    n_table = sum(level_rows)
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    table = ((torch.rand((n_table, 64 * F), device="cuda", generator=gen)
-              * 2 - 1) * REF_TABLE_BOUND).to(torch.bfloat16)
-    offs = np.cumsum([0] + level_rows)
-    cell_offs = _cell_offsets(cell_spec)
-    c_lay = cell_spec.level_layout()
-    c_scales = cell_spec.level_scales()
-    c_nbs = [l["n_bricks_axis"] for l in c_lay]
-    c_rows = [l["rows"] for l in c_lay]
-    c_table = ((torch.rand((sum(c_rows), 64 * F), device="cuda",
-                           generator=gen) * 2 - 1) * REF_TABLE_BOUND
-               ).to(torch.bfloat16)
-    n_cell = 27 * sum(r for r, c in zip(c_rows, cell_offs) if c >= 0)
-    lay4 = spec4.level_layout()
-    k4 = spec4.keyframes
-    # K3 on the 4D field's first hashed level (65,536 keyframe rows), in
-    # the corner entries the 4D brick levels hand it (key = keyframe row *
-    # 64 + corner, F lanes each)
-    l4 = next(i for i, l in enumerate(lay4) if l["hashed"])
-    n_rows4 = lay4[l4]["rows"] * k4 * 64
-    bits = torch.tensor([[j >> 2, (j >> 1) & 1, j & 1] for j in range(8)],
-                        device="cuda")
-    inputs = {
-        "uniform": _draw_x(n, gen, None),
-        "ray_major": _ray_major_x(n // 64, seed),
-        "one_brick": _one_brick_x(n, gen, scales[0])}
+    ctx = _repro_setup(spec, cell_spec, spec4, seed, n)
+    scales, nbs, level_rows = ctx["scales"], ctx["nbs"], ctx["level_rows"]
+    L, F, n_table, table = ctx["L"], ctx["F"], ctx["n_table"], ctx["table"]
+    offs, cell_offs, n_cell = ctx["offs"], ctx["cell_offs"], ctx["n_cell"]
+    c_scales, c_nbs, c_rows = ctx["c_scales"], ctx["c_nbs"], ctx["c_rows"]
+    c_table, n_rows4 = ctx["c_table"], ctx["n_rows4"]
     out = {}
-    for label, x in inputs.items():
-        g = (torch.randn((n, L * F), device="cuda", generator=gen) * 1e-3
-             ).to(torch.bfloat16)
-        g[::8] = 0
-        rows = _level_rows(x, spec)
-        feats = torch.stack([table[offs[l]:offs[l + 1]].index_select(
-            0, rows[l].long()) for l in range(L)]).contiguous()
-        crow = _level_rows(x, cell_spec)
-        r4 = _level_rows(x, spec4)[l4].long()
-        lo = r4 * k4 + torch.randint(0, k4 - 1, (n,), device="cuda",
-                                     generator=gen)
-        intra = torch.randint(0, 3, (n, 1, 3), device="cuda", generator=gen)
-        corner = ((intra + bits) * torch.tensor([16, 4, 1],
-                                                device="cuda")).sum(-1)
-        key4 = lo[:, None] * 64 + corner
-        rows4 = torch.cat([key4, key4 + 64]).reshape(-1).to(
-            torch.int32).contiguous()
-        upd4 = torch.randn((16 * n, F), device="cuda", generator=gen)
-        calls = {
-            "fused_encode_bwd": lambda: ek.fused_encode_bwd(
-                x, g, rows, table, scales, nbs, level_rows, F),
-            "interp_bwd_fused": lambda: ek.interp_bwd_fused(
-                x, g, feats, rows, scales, nbs, level_rows, F),
-            "fused_encode_bwd_cell": lambda: ek.fused_encode_bwd_cell(
-                x, g, crow, c_table, c_scales, c_nbs, c_rows, F, cell_offs,
-                torch.bfloat16, False),
-            "scatter_add_rows": lambda: (sk.scatter_add_rows(
-                rows4, upd4, n_rows4),)}
+    for label, x in ctx["inputs"].items():
+        case = _repro_case(ctx, x)
+        g, rows, feats, crow = case["g"], case["rows"], case["feats"], \
+            case["crow"]
+        rows4, upd4 = case["rows4"], case["upd4"]
+        calls = _repro_calls(ek, sk, ctx, case)
         want_k6 = ek.fused_encode_bwd_plain(x, g, rows, table, scales, nbs,
                                             level_rows, F)
         for name, call in calls.items():
@@ -4809,16 +4951,23 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
             out[f"{name}/{label}"] = rec
             log(json.dumps({"repro_kernel": rec}))
             del runs
-        # the sort, the reduce with its carry pass, and each alone, on K6's
-        # keys of this input
+        # the sort and the reduce (its carry folded in), together and each
+        # alone, on K6's keys of this input
         keys = _k6_keys(rows, g, level_rows, F)
         flat = keys.reshape(-1)
-        d_t = torch.zeros((n_table, 64 * F), device="cuda")
+        d_t = torch.full((n_table, 64 * F), float("nan"), device="cuda")
         sk_ = sk.key_sort(flat, n_table, ek._BWD)[0]
-        want_t = ek.table_reduce_plain(keys, x, g, scales, nbs, F,
-                                       torch.zeros_like(d_t))[0]
-        got_t = ek.table_reduce(keys, x, g, scales, nbs, F, d_t.zero_())[0]
+        want_t = ek.table_reduce_plain(keys, x, g, scales, nbs, level_rows,
+                                       F, torch.zeros_like(d_t))[0]
+        # into a NaN-filled table gradient: every row written
+        got_t = ek.table_reduce(keys, x, g, scales, nbs, level_rows, F,
+                                d_t)[0]
         torch.cuda.synchronize()
+
+        def reduce_call():
+            return ek.table_reduce(keys, x, g, scales, nbs, level_rows, F,
+                                   d_t)
+
         red = {"name": "table_reduce", "input": label, "n": n,
                "max_abs_err": (got_t - want_t).abs().max().item(),
                "err_frac": max(_frac_err(got_t[offs[l]:offs[l + 1]],
@@ -4827,20 +4976,18 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                "sort_ms": cuda_ms(lambda: sk.key_sort(flat, n_table), 20),
                "torch_sort_ms": cuda_ms(lambda: torch.sort(flat, stable=True),
                                         20),
-               "ms_with_sort": cuda_ms(lambda: ek.table_reduce(
-                   keys, x, g, scales, nbs, F, d_t), 20)}
-        if red["err_frac"] > BWD_TABLE_FRAC:
+               "ms_with_sort": cuda_ms(reduce_call, 20)}
+        if not red["err_frac"] <= BWD_TABLE_FRAC:
             raise AssertionError(f"table_reduce {label}: {red}")
-        dev, krows, _ = device_ms(lambda: ek.table_reduce(
-            keys, x, g, scales, nbs, F, d_t), 5, need_all=True)
+        dev, krows, _ = device_ms(reduce_call, 5, need_all=True)
         red["device_by_kernel"] = [list(r) for r in krows[:8]]
+        red["kernels_a_call"] = sum(r[1] for r in krows) / 5
         for kname, key in (("table_reduce_kernel", "reduce_device_ms"),
-                           ("carry_kernel", "carry_device_ms"),
                            ("keysort::", "sort_device_ms")):
             red[key] = sum(r[2] for r in krows if kname in r[0]) / 5
         red["plain_ms"] = cuda_ms(lambda: ek.table_reduce_plain(
-            keys, x, g, scales, nbs, F, d_t), 3) if label == "uniform" \
-            else None
+            keys, x, g, scales, nbs, level_rows, F, d_t), 3) \
+            if label == "uniform" else None
         # the library call for the same sums: segment_reduce over the
         # sorted corner terms (their build and sort not timed)
         terms, lengths = _segment_sum_inputs(keys, x, g, scales, nbs, F,
@@ -4855,45 +5002,44 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
             terms, "sum", lengths=lengths, unsafe=True), 20)
         del terms, lengths, lib_t
         valid = int((flat != torch.iinfo(torch.int32).max).sum())
-        # the sorted keys and indices read, x and g read, d_table written
-        red_b = (flat.numel() * 12 + n * 12 + g.numel() * 2
+        # the sorted int32 keys and int32 indices read (8 B an entry), x
+        # and g read, every row of d_table written once
+        red_b = (flat.numel() * 8 + n * 12 + g.numel() * 2
                  + n_table * 64 * F * 4)
         red["bound_ms"] = max(red_b / HBM_BYTES_PER_S,
                               valid * 8 * F * 2 / F32_FLOPS) * 1e3
         red["bound_by"] = ("bytes" if red_b / HBM_BYTES_PER_S
                            >= valid * 8 * F * 2 / F32_FLOPS else "operations")
-        # the carry passes alone on the partial rows a reduce left, against
-        # their plain version on CPU copies (bit for bit) and on the card
+        # the carry folded into the reduces: the rows of crossing runs
+        # against carry_plain of the partial rows the same launch left, on
+        # CPU copies (bit for bit), and carry_plain's time on the card; the
+        # fold has no launch of its own to time
         tile, tile3 = sk.REDUCE_TILE, sk.reduce_tile(F)
         part = torch.empty((2, -(-flat.numel() // tile), 64 * F),
                            device="cuda")
-        ek._table_reduce(keys, x, g, scales, nbs, F, d_t.zero_(), part=part)
+        got_c = ek._table_reduce(keys, x, g, scales, nbs, level_rows, F,
+                                 d_t, part=part)[0]
         p3 = torch.empty((2, -(-rows4.numel() // tile3), F), device="cuda")
-        sk._scatter_add_rows(rows4, upd4, n_rows4, part=p3)
+        got_3 = sk._scatter_add_rows(rows4, upd4, n_rows4, part=p3)
         k3 = sk.key_sort(rows4, n_rows4)[0]
-        for cname, got, want, plain, cb in (
-                ("table_carry",
-                 lambda: ek._table_carry(sk_, part, tile, F,
-                                         torch.zeros_like(d_t))[0],
-                 lambda: ek._table_carry(sk_.cpu(), part.cpu(), tile, F,
-                                         torch.zeros(d_t.shape))[0],
-                 lambda: sk.carry_plain(sk_, part, tile, n_table),
-                 _carry_bytes(sk_, tile, 64 * F, n_table)),
-                ("scatter_carry",
-                 lambda: sk._scatter_carry(
-                     k3, p3, tile3, torch.zeros((n_rows4, F),
-                                                device="cuda"), False),
-                 lambda: sk._scatter_carry(
-                     k3.cpu(), p3.cpu(), tile3, torch.zeros((n_rows4, F)),
-                     False),
-                 lambda: sk.carry_plain(k3, p3, tile3, n_rows4),
-                 _carry_bytes(k3, tile3, F, n_rows4))):
-            g_, w_ = got(), want()
-            torch.cuda.synchronize()
+        for cname, got, keys_c, part_c, tile_c, n_c, width in (
+                ("table_carry", got_c, sk_, part, tile, n_table, 64 * F),
+                ("scatter_carry", got_3, k3, p3, tile3, n_rows4, F)):
+            chained, want_c = sk.carry_plain(keys_c.cpu(), part_c.cpu(),
+                                             tile_c, n_c)
+            got_rows = got.cpu()[chained]
+            cb = _carry_bytes(keys_c, tile_c, width, n_c)
             crec = {"name": cname, "input": label,
-                    "bit_equal_to_plain_on_cpu": torch.equal(g_.cpu(), w_),
-                    "max_abs_err": (g_.cpu() - w_).abs().max().item(),
-                    "ms": cuda_ms(got, 20), "plain_ms": cuda_ms(plain, 3),
+                    "folded_into": ("table_reduce" if cname == "table_carry"
+                                    else "scatter_add_rows"),
+                    "crossing_rows": len(chained),
+                    "bit_equal_to_plain_on_cpu": torch.equal(got_rows,
+                                                             want_c),
+                    "max_abs_err": (got_rows - want_c).abs().max().item()
+                    if len(chained) else 0.0,
+                    "ms": None,
+                    "plain_ms": cuda_ms(lambda: sk.carry_plain(
+                        keys_c, part_c, tile_c, n_c), 3),
                     "bound_ms": cb / HBM_BYTES_PER_S * 1e3,
                     "bound_by": "bytes", "carry_bytes": cb}
             if not crec["bit_equal_to_plain_on_cpu"]:
@@ -4901,16 +5047,19 @@ def repro_kernel_phase(spec, cell_spec, spec4, seed, n):
                                      f"version's bits: {crec}")
             out[f"{cname}/{label}"] = crec
             log(json.dumps({"repro_kernel": crec}))
-        del part, p3, k3
+        if any(bool(c.any()) for c in sk._CARRY_COUNTS.values()):
+            raise AssertionError(f"{label}: arrival counters left nonzero")
+        del part, p3, k3, got_c, got_3
         if label == "one_brick":
             # strict sorted order: level 0's one key in one warp's chain
             k0 = keys[:1].contiguous()
             g0 = g[:, :F].contiguous()
-            d0 = torch.zeros((level_rows[0], 64 * F), device="cuda")
+            d0 = torch.empty((level_rows[0], 64 * F), device="cuda")
             for tile, key in ((k0.numel(), "strict_chain_ms"),
                               (sk.REDUCE_TILE, "two_level_ms")):
                 red[key] = cuda_ms(lambda: ek._table_reduce(
-                    k0, x, g0, scales[:1], nbs[:1], F, d0, tile=tile), 5)
+                    k0, x, g0, scales[:1], nbs[:1], level_rows[:1], F, d0,
+                    tile=tile), 5)
         out[f"table_reduce/{label}"] = red
         log(json.dumps({"repro_kernel": red}))
         del feats, want_k6, upd4, want_t, got_t, d_t
@@ -5471,9 +5620,9 @@ def main(argv=None):
                          "(repro_kernels_main; started by phase 18)")
     ap.add_argument("--sort_ab", action="append", default=[],
                     metavar="DIR",
-                    help="only time phase 8b's sorts against the key_sort "
-                         "of the checkout at DIR, in turns (sort_ab_main; "
-                         "repeatable)")
+                    help="only hold phase 18's reduces and phase 8b's "
+                         "sorts to the checkout at DIR's and time both in "
+                         "turns (sort_ab_main; repeatable)")
     args = ap.parse_args(argv)
 
     import torch
@@ -5643,15 +5792,20 @@ def main(argv=None):
     kern["table_reduce"] = dict(
         red, ms=red["reduce_device_ms"],
         by_input={inp: {k: rk[f"table_reduce/{inp}"].get(k) for k in (
-            "reduce_device_ms", "carry_device_ms", "sort_device_ms",
+            "reduce_device_ms", "sort_device_ms", "kernels_a_call",
             "sort_ms", "torch_sort_ms", "ms_with_sort", "bound_ms",
             "library_ms", "strict_chain_ms", "two_level_ms")}
             for inp in ("uniform", "ray_major", "one_brick")})
     for name in ("table_carry", "scatter_carry"):
-        # timed where the carry has work: all samples in one level-0 brick
-        kern[name] = dict(rk[f"{name}/one_brick"], library_ms=None,
+        # folded into the reduce kernels: no launch and no time of its
+        # own; its rows held to carry_plain where it has the most work (all
+        # samples in one level-0 brick)
+        rec = rk[f"{name}/one_brick"]
+        kern[name] = dict(rec, library_ms=None,
+                          status=f"folded into {rec['folded_into']}",
                           by_input={inp: {k: rk[f"{name}/{inp}"][k] for k in (
-                              "ms", "plain_ms", "bound_ms")}
+                              "crossing_rows", "max_abs_err", "plain_ms",
+                              "bound_ms")}
                               for inp in ("uniform", "ray_major",
                                           "one_brick")})
 
@@ -5680,8 +5834,9 @@ def main(argv=None):
         "compact_select_blocks": "cednerf_tpu/engine/renderer.py:55",
         "scatter_add_rows": "cednerf_tpu/ops/pallas_scatter.py:87",
         # the table-gradient sums that the TPU backward kernels take in
-        # one order (one core walks the sample tiles); here a sort, the
-        # ordered reduce and its carry pass
+        # one order (one core walks the sample tiles); here a sort and the
+        # ordered reduce with its carry folded in (the carries' entries
+        # stay, with no launch of their own)
         "table_reduce": "cednerf_tpu/ops/pallas_fused.py:244",
         "table_carry": "cednerf_tpu/ops/pallas_fused.py:244",
         "scatter_carry": "cednerf_tpu/ops/pallas_scatter.py:87",
@@ -5763,9 +5918,10 @@ def main(argv=None):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
         line[-1].update({k: r[k] for k in (
-            "sector_bound_ms", "algo_bound_ms", "ray_major_ms", "device_ms",
-            "library_device_ms", "library_det_ms", "repro", "by_input",
-            "by_case", "level_0", "row_form", "ragged", "triplane")
+            "status", "sector_bound_ms", "algo_bound_ms", "ray_major_ms",
+            "device_ms", "library_device_ms", "library_det_ms", "repro",
+            "by_input", "by_case", "level_0", "row_form", "ragged",
+            "triplane")
             if k in r})
         if name == "compact_select_blocks":
             line[-1]["by_blocks"] = {

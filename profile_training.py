@@ -144,7 +144,7 @@ def main(argv=None):
     rows, device_ms = device_time_by_kernel(prof)
     ours = [r for r in rows if any(k in r[0] for k in (
         "fused_encode", "interp_fwd", "encode_bwd", "compact_select",
-        "table_reduce", "carry_kernel", "rows_reduce", "scatter_rows",
+        "table_reduce", "rows_reduce", "scatter_rows",
         "fold_cells", "keysort"))]
     cpu_ops = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CPU),

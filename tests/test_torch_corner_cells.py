@@ -213,7 +213,7 @@ def test_k6_match_groups(order):
                        torch.iinfo(torch.int32).max).to(torch.int32)
     want = ek.fused_encode_bwd_plain(x, g, rows, table.to(torch.bfloat16),
                                      scales, nbs, level_rows, 4)[0]
-    got = ek.table_reduce(keys, x, g, scales, nbs, 4,
+    got = ek.table_reduce(keys, x, g, scales, nbs, level_rows, 4,
                           torch.zeros_like(want))[0]
     assert torch.equal(got, want)
     runs = torch.unique_consecutive(torch.sort(keys.reshape(-1),

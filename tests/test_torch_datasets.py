@@ -18,6 +18,7 @@ ulps (2.4e-7 at 1.0), the limit against the jitted sampler.
 import json
 import os
 import struct
+import time
 import zlib
 
 import imageio.v2 as imageio
@@ -62,6 +63,30 @@ def _one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_native_libraries():
+    """The JAX package's two native libraries (libweights.so,
+    libraysampler.so), loaded before any test here compares against them.
+    That package builds each in place with g++, straight to the final
+    path, and caches a failed load as False for the rest of the process:
+    a load that meets another worker's build of the same file (the
+    suite's native tests) would leave its native calls on numpy. So a
+    failed load is cleared and tried again, once a second, up to 60 times
+    (a build takes seconds); a library that never loads fails the tests
+    here."""
+    for name, load, cache in (
+            ("libweights.so", j_native._load_weights_library, "_WLIB"),
+            ("libraysampler.so", j_native._load_library, "_LIB")):
+        for _ in range(60):
+            if load():
+                break
+            setattr(j_native, cache, None)
+            time.sleep(1.0)
+        else:
+            pytest.fail(f"the JAX package's {name} did not load in 60 "
+                        "tries")
 
 
 # ---------------------------------------------------------------- PNG

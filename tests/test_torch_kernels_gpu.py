@@ -456,7 +456,7 @@ def test_backward_bits_repeat(kernel, points):
     """K6, K6c (with its fold), K2 and K3 launched three times on the same
     inputs give the same bits: uniform samples, ray-major ones (runs of one
     key inside a tile) and all samples in one level-0 brick (one key
-    across hundreds of tiles, through the carry pass)."""
+    across hundreds of tiles, through the folded carry)."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
         7, 4, 20000, 8, points)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -585,8 +585,11 @@ def test_reduce_bits_same_with_either_sort(kernel, points, monkeypatch):
 def test_table_reduce_in_one_tile_equals_plain_on_cpu(points, cell):
     """With one tile the reduce sums each key in strict sorted order, as
     the plain version does on the CPU (index_add_ in index order): the same
-    bits, brick and cell targets; with the default tile it holds the
-    carry pass's two levels to 1e-5 of the largest entry."""
+    bits, brick and cell targets, over a NaN-filled table gradient (every
+    brick level's row written, zeros where no key lands; the cell level's
+    rows left as they were); with the default tile it holds the folded
+    carry's two levels to 1e-5 of the largest entry, and has the plain
+    version's bits on every key whose entries lie in one tile."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
         8, 4, 4099, 3, points)
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -596,37 +599,53 @@ def test_table_reduce_in_one_tile_equals_plain_on_cpu(points, cell):
     offs = np.cumsum([0] + level_rows)
     n_table = int(offs[-1])
     keys = (rows.long() + torch.tensor(offs[:-1], device="cuda")[:, None])
-    n_cell = 0
+    n_cell, cell_rows = 0, None
     if cell:        # the last level on the cell target
         cidx = ek.cell_index(x, scales[-1], nbs[-1])
         keys[-1] = n_table + rows[-1].long() * 27 + cidx
-        n_cell = 27 * level_rows[-1]
+        n_cell, cell_rows = 27 * level_rows[-1], [-1, -1, 0]
     zero = (g.float().view(-1, 3, 4) == 0).all(-1).t()
     keys = torch.where(zero, torch.iinfo(torch.int32).max,
                        keys).to(torch.int32).contiguous()
+    brick = slice(0, int(offs[-2]) if cell else n_table)
 
     def buffers(device):
-        return (torch.zeros((n_table, 256), device=device),
+        return (torch.full((n_table, 256), float("nan"), device=device),
                 torch.zeros((n_cell, 32), device=device) if cell else None)
 
-    want = ek.table_reduce(keys.cpu(), x.cpu(), g.cpu(), scales, nbs, 4,
-                           *buffers("cpu"))
-    one = ek._table_reduce(keys, x, g, scales, nbs, 4, *buffers("cuda"),
-                           tile=keys.numel())
-    tiled = ek.table_reduce(keys, x, g, scales, nbs, 4, *buffers("cuda"))
+    def reduce(device, tile=sk.REDUCE_TILE):
+        return ek._table_reduce(keys.to(device), x.to(device), g.to(device),
+                                scales, nbs, level_rows, 4,
+                                *buffers(device), cell_rows, tile=tile)
+
+    want = reduce("cpu")
+    one = reduce("cuda", keys.numel())
+    tiled = reduce("cuda")
     torch.cuda.synchronize()
-    for a, b, c in zip(one, want, tiled):
+    assert not want[0][brick].isnan().any()
+    # the keys whose sorted entries lie in one tile of REDUCE_TILE
+    k = sk.key_sort_plain(keys.cpu().reshape(-1), n_table + n_cell)[0].long()
+    t = torch.arange(k.numel()) // sk.REDUCE_TILE
+    span = [torch.zeros(n_table + n_cell + 1, dtype=torch.long)
+            .scatter_reduce(0, k, t, op, include_self=False)
+            for op in ("amin", "amax")]
+    single = (span[0] == span[1])[:-1]
+    assert not single.all()
+    for a, b, c, s in zip(one, want, tiled,
+                          (single[:n_table], single[n_table:])):
         if b is not None:
-            assert torch.equal(a.cpu(), b)
-            _close_to_scale(c.cpu(), b)
+            assert torch.equal(_bits(a.cpu()), _bits(b))
+            assert torch.equal(_bits(c.cpu()[s]), _bits(b[s]))
+            _close_to_scale(c.cpu()[brick] if c.shape[1] == 256 else c.cpu(),
+                            b[brick] if b.shape[1] == 256 else b)
 
 
 @pytest.mark.parametrize("points", [None, "one brick"])
 def test_carry_kernels_equal_plain_on_cpu(points):
-    """The carry passes alone (_table_carry, _scatter_carry) on the partial
-    rows that a reduce left: every row they write equal bit for bit to
-    carry_plain's on CPU copies of the same sorted keys and partials (both
-    add the partials in tile order)."""
+    """The carry folded into the reduces (table_reduce's, K3's): every row
+    whose run crosses a tile edge equal bit for bit to carry_plain's sum,
+    on CPU copies, of the partial rows that the same launch left (both add
+    the partials in tile order); the counters all zero again after it."""
     x, table, rows, feats, scales, nbs, level_rows = _cuda_inputs(
         9, 4, 20000, 8, points)
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -636,27 +655,25 @@ def test_carry_kernels_equal_plain_on_cpu(points):
     keys = (rows.long() + offs[:, None]).to(torch.int32).contiguous()
     tile, n_table = sk.REDUCE_TILE, sum(level_rows)
     part = torch.empty((2, -(-keys.numel() // tile), 256), device="cuda")
-    ek._table_reduce(keys, x, g, scales, nbs, 4,
-                     torch.zeros((n_table, 256), device="cuda"), part=part)
+    got = ek._table_reduce(keys, x, g, scales, nbs, level_rows, 4,
+                           torch.empty((n_table, 256), device="cuda"),
+                           part=part)[0]
     skeys = sk.key_sort(keys.reshape(-1), n_table, ek._BWD)[0]
-    got = ek._table_carry(skeys, part, tile, 4,
-                          torch.zeros((n_table, 256), device="cuda"))[0]
-    want = ek._table_carry(skeys.cpu(), part.cpu(), tile, 4,
-                           torch.zeros((n_table, 256)))[0]
+    chained, want = sk.carry_plain(skeys.cpu(), part.cpu(), tile, n_table)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want) and bool(want.any())
+    assert len(chained) and bool(want.any())
+    assert torch.equal(got.cpu()[chained], want)
     upd = torch.randn((2 * x.shape[0], 256), device="cuda", generator=gen)
     rows3 = torch.cat([rows[0], rows[0] + 1]).contiguous()
     n3 = level_rows[0] + 1
     part3 = torch.empty((2, -(-rows3.numel() // tile), 256), device="cuda")
-    sk._scatter_add_rows(rows3, upd, n3, part=part3)
+    got3 = sk._scatter_add_rows(rows3, upd, n3, part=part3)
     k3 = sk.key_sort(rows3, n3)[0]
-    got3 = sk._scatter_carry(k3, part3, tile,
-                             torch.zeros((n3, 256), device="cuda"), False)
-    want3 = sk._scatter_carry(k3.cpu(), part3.cpu(), tile,
-                              torch.zeros((n3, 256)), False)
+    chained3, want3 = sk.carry_plain(k3.cpu(), part3.cpu(), tile, n3)
     torch.cuda.synchronize()
-    assert torch.equal(got3.cpu(), want3) and bool(want3.any())
+    assert len(chained3) and bool(want3.any())
+    assert torch.equal(got3.cpu()[chained3], want3)
+    assert not any(bool(c.any()) for c in sk._CARRY_COUNTS.values())
 
 
 @pytest.mark.parametrize("r,m,budget,p", [

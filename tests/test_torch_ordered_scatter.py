@@ -4,7 +4,11 @@
     as table_reduce_plain and scatter_add_rows_plain run it): the K6 layout
     (L3 F4, dense and hashed levels), the K6c cell layout and K3's 4D
     keyframe rows, against JAX's `_scatter_rows` (impl "xla") and the
-    Pallas `scatter_add_rows` in interpret mode;
+    Pallas `scatter_add_rows` in interpret mode; table_reduce_plain given a
+    NaN-filled table gradient (the kernel's is allocated, not filled)
+    writes every brick level's row, zero where no key lands;
+  * the kernels' two levels: carry_plain (the folded carry's reference)
+    adds a run across tile edges as its per-tile sums in tile order;
   * with many samples in one row, the plain ordered reduce equal bit for
     bit to CPU index_add_ (which adds in index order: the sorted order);
   * the exclusive row scan (exclusive_cumsum of a 1-D tensor, through
@@ -91,8 +95,12 @@ def test_k6_layout_reduce_matches_jax():
     zero = (g.float().view(N, len(scales), 4) == 0).all(-1).t()    # [L, N]
     keys = torch.where(zero, torch.iinfo(torch.int32).max,
                        rows + torch.tensor(offs[:-1])[:, None]).to(torch.int32)
-    d_table = torch.zeros((offs[-1], 256), dtype=torch.float32)
-    ek.table_reduce(keys, x, g, scales, nbs, 4, d_table)
+    d_table = torch.full((offs[-1], 256), float("nan"))
+    ek.table_reduce(keys, x, g, scales, nbs, level_rows, 4, d_table)
+    hit = torch.zeros(offs[-1], dtype=torch.bool)
+    hit[keys[keys < offs[-1]].long()] = True
+    assert hit.any() and not hit.all()
+    assert not d_table.isnan().any() and d_table[~hit].eq(0).all()
     for lvl in range(len(scales)):
         upd, _ = ek._bwd_rows(torch.zeros(N, 256), x,
                               g[:, lvl * 4:(lvl + 1) * 4], scales[lvl],
@@ -125,9 +133,14 @@ def test_k6c_cell_layout_reduce_matches_jax():
         else:
             keys.append(rows[lvl].long() + int(offs[lvl]))
     keys = torch.stack(keys).to(torch.int32)
-    d_table = torch.zeros((n_table, 256), dtype=torch.float32)
+    d_table = torch.full((n_table, 256), float("nan"))
     d_cell = torch.zeros((off, 32), dtype=torch.float32)
-    ek.table_reduce(keys, x, g, scales, nbs, 4, d_table, d_cell)
+    ek.table_reduce(keys, x, g, scales, nbs, level_rows, 4, d_table, d_cell,
+                    cell_rows)
+    # the brick level's rows all written; the cell levels' left to the fold
+    brick = torch.repeat_interleave(torch.tensor([c < 0 for c in cell_rows]),
+                                    torch.tensor(level_rows))
+    assert not d_table[brick].isnan().any() and d_table[~brick].isnan().all()
     for lvl in range(len(scales)):
         gl = g[:, lvl * 4:(lvl + 1) * 4]
         if cell_rows[lvl] < 0:
@@ -234,9 +247,83 @@ def test_carry_plain_adds_crossing_runs_in_tile_order():
             want = want + part[0, u]
         assert torch.equal(got, want)
         _close_to_scale(got.numpy(), whole[key].numpy())
-    out = torch.zeros((n_keys - 1, 8))
-    assert sk._scatter_carry(keys, part, tile, out, add=False) is out
-    assert out[[0, 4]].eq(0).all() and torch.equal(out[1:4], sums)
+
+
+def _sorted_terms(keys, terms, n_keys):
+    """keys [E] and terms [E, W] in key_sort's order (keys outside
+    [0, n_keys) as n_keys, last)."""
+    k, perm = sk.key_sort_plain(keys.reshape(-1), n_keys)
+    return k, terms[perm.long()]
+
+
+def _tile_order_sums(keys, terms, tile, n_keys):
+    """The folded carry's order stated directly on sorted keys [E] and
+    their terms [E, W]: for each key in [0, n_keys) whose entries lie in
+    more than one tile of `tile`, its entries in each tile added in sorted
+    order from 0, and those sums added in tile order. {key: row}."""
+    k = keys.long()
+    sums = {}
+    for key in torch.unique(k[(k >= 0) & (k < n_keys)]).tolist():
+        idx = torch.nonzero(k == key)[:, 0]
+        tiles = idx // tile
+        if tiles[0] == tiles[-1]:
+            continue
+        row = None
+        for t in torch.unique(tiles).tolist():
+            acc = torch.zeros(terms.shape[1])
+            for i in idx[tiles == t].tolist():
+                acc = acc + terms[i]
+            row = acc if row is None else row + acc
+        sums[key] = row
+    return sums
+
+
+@pytest.mark.parametrize("kind,tile", [("k3", 64), ("k3", 1000),
+                                       ("k6", 256), ("k6", 97)])
+def test_folded_carry_order_equals_carry_plain(kind, tile):
+    """carry_plain, which the reduce kernels' folded carry is held to bit
+    for bit on the card (test_torch_kernels_gpu.py), adds a crossing run
+    in the two-level order: over the tiles' partial rows it gives exactly
+    the keys whose entries lie in more than one tile, each its entries'
+    sorted-order sum within each tile added in tile order, bit for bit;
+    with the other keys' strict sums that table stays within 1e-6 of the
+    strict order's largest entry. K3's rows (many entries in two hot rows,
+    keys out of range dropped) and K6's table gradient (written whole over
+    a NaN-filled buffer, INT_MAX keys dropped)."""
+    rng = np.random.default_rng(tile)
+    if kind == "k3":
+        n_keys, m = 300, 6000
+        keys = np.where(rng.random(m) < 0.4, rng.integers(0, 2, m),
+                        rng.integers(-2, n_keys + 2, m)).astype(np.int32)
+        keys = torch.from_numpy(keys)
+        terms = torch.from_numpy(rng.normal(size=(m, 8)).astype(np.float32))
+        strict = sk.scatter_add_rows_plain(keys, terms, n_keys)
+    else:
+        spec, x, g, rows, scales, nbs, level_rows = _inputs(tile)
+        offs = np.cumsum([0] + level_rows)
+        n_keys = int(offs[-1])
+        zero = (g.float().view(N, len(scales), 4) == 0).all(-1).t()
+        keys = torch.where(zero, torch.iinfo(torch.int32).max,
+                           rows + torch.tensor(offs[:-1])[:, None]).to(
+                               torch.int32)
+        strict = ek.table_reduce(keys, x, g, scales, nbs, level_rows, 4,
+                                 torch.full((n_keys, 256), float("nan")))[0]
+        assert not strict.isnan().any()
+        terms = torch.cat([ek._bwd_rows(torch.zeros(N, 256), x,
+                                        g[:, lvl * 4:(lvl + 1) * 4],
+                                        scales[lvl], nbs[lvl], 4)[0]
+                           for lvl in range(len(scales))])
+    sk_keys, sk_terms = _sorted_terms(keys, terms, n_keys)
+    part = _tile_partials(sk_keys, sk_terms, tile, n_keys)
+    chained, sums = sk.carry_plain(sk_keys, part, tile, n_keys)
+    want = _tile_order_sums(sk_keys, sk_terms, tile, n_keys)
+    assert len(chained) > 0
+    assert chained.tolist() == sorted(want)
+    for key, row in zip(chained.tolist(), sums):
+        assert torch.equal(row, want[key])
+    folded = strict.clone()
+    folded[chained] = sums
+    _close_to_scale(folded.numpy(), strict.numpy())
 
 
 @pytest.mark.parametrize("n", [2, 1000, 1024, 3001, 70000])
